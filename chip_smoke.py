@@ -27,6 +27,31 @@ the first phase that fails:
    eight closed-loop client threads: every future resolves with the right
    shape, a sample matches a direct forward (1e-5), and the kernel
    launches 53 times per device call during the run.
+6. xent   — the fused cross-entropy forward and backward kernels (K1) at
+   [128, 1000] and [128, 7], label smoothing 0 and 0.1, against their
+   plain versions (rtol 1e-5 / atol 1e-6: float32 row sums in another
+   order), plus a class-weighted, masked case with an out-of-range label;
+   timed beside the plain versions, the bound and one ``F.cross_entropy``
+   call (forward for K1f, forward + backward for K1b).
+7. optim  — the fused LARS and LAMB update kernels (K2) over the whole
+   ResNet-50 + head parameter list (167 leaves, flax-default init, so the
+   zero BN biases take the trust = 1 branch), against their plain versions
+   (rtol 1e-5 / atol 1e-7: the trust-ratio norms are summed in another
+   order); timed beside the plain versions and the bound (no single
+   PyTorch call computes a LARS or LAMB update).
+8. train  — ``Trainer`` on a synthetic 224x224 ImageFolder written by
+   ``tpuic_torch.data.synthetic``: ResNet-50, float32, batch 128, LARS lr
+   4.8 / wd 1e-4 / 5 warmup epochs of a 90-epoch schedule, label smoothing
+   0.1, no class weights, fused loss and fused optimizer, for 12 steps, then
+   one val pass through the conv+BN+ReLU kernel.  Every launch count is set
+   to 0 before the run and read after it: K1 forward and backward launch
+   once per step, K2 LARS once per step, K3 53 times per val forward.
+   Then 3 steps at a constant lr of 0.48 from one initial state on the
+   same 3 batches, once through the kernels and once through the plain
+   loss and plain LARS, TF32 off and cuDNN deterministic: the per-step
+   losses agree within rtol 1e-3.  Last, a 3-step LAMB run at
+   batch 32 through the Trainer, counted the same way, puts K2 LAMB on the
+   path.
 
 The second-to-last lines are the per-kernel JSON summary and the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -35,10 +60,14 @@ name and power limit; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import gc
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -52,6 +81,14 @@ F32_TOL = 1e-4
 BF16_TOL = 1e-2
 MODEL_TOL = 1e-3
 SERVE_TOL = 1e-5
+XENT_RTOL, XENT_ATOL = 1e-5, 1e-6
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-7
+TRAIN_LOSS_RTOL = 1e-3
+COMPARE_LR = 0.48
+TRAIN_BATCH = 128
+TRAIN_STEPS = 12
+TRAIN_CLASSES = 8
+LAMB_BATCH = 32
 
 # Published dense peaks by card variant (NVIDIA data sheets): float32
 # outside the tensor cores, and HBM bandwidth.  The name nvidia-smi reports
@@ -146,6 +183,18 @@ def work(xs, ws, stride, padding, dtype_bytes=4):
     return flops, nbytes
 
 
+def bound(ops: float, nbytes: float, peak_flops: float, hbm: float):
+    """``(bound_ms, bound_by)``: the larger of operations over the float32
+    peak and bytes over the HBM bandwidth."""
+    t_ops, t_bytes = ops / peak_flops * 1e3, nbytes / hbm * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def max_err(got, want) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
 def library_call(x, w_folded_cl, bias, stride, padding, relu):
     """One cuDNN call computing conv + folded BN (+ ReLU) on channels_last
     data: the yardstick.  The s2d stem's (2, 1) padding runs as a
@@ -212,13 +261,12 @@ def phase_kernel(device_name: str, gen: torch.Generator):
         ms_kernel = time_ms(kernel)
         ms_plain = time_ms(plain)
         flops, nbytes = work(xs, ws, stride, padding)
-        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / hbm * 1e3
+        bound_ms, bound_by = bound(flops, nbytes, peak_flops, hbm)
         row = {"x": list(xs), "w": list(ws), "stride": stride,
                "padding": padding, "relu": relu, "per_forward": per_fwd,
                "max_abs_err": err, "library_max_abs_err": lib_err,
                "ms": ms_kernel, "plain_ms": ms_plain, "library_ms": ms_lib,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bound_ms": bound_ms, "bound_by": bound_by,
                "flops": flops, "bytes": nbytes}
         row["share_of_bound"] = row["bound_ms"] / ms_kernel
         rows.append(row)
@@ -248,9 +296,9 @@ def phase_kernel(device_name: str, gen: torch.Generator):
         **{k: sum(r[k] * r["per_forward"] for r in fwd)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }
-    ops = sum(r["flops"] * r["per_forward"] for r in fwd) / peak_flops
-    byt = sum(r["bytes"] * r["per_forward"] for r in fwd) / hbm
-    summary["bound_by"] = "operations" if ops >= byt else "bytes"
+    summary["bound_by"] = bound(
+        sum(r["flops"] * r["per_forward"] for r in fwd),
+        sum(r["bytes"] * r["per_forward"] for r in fwd), peak_flops, hbm)[1]
     log("kernel", "kernels " + json.dumps(
         [{"name": "conv_bn_relu", "max_abs_err": max_err,
           "bf16_max_abs_err": bf16_err, "status": "ok"}]))
@@ -372,6 +420,393 @@ def phase_serve(model, n_requests: int, seed: int, smi: str):
     return launches, snap
 
 
+def phase_xent(device_name: str, gen: torch.Generator):
+    """K1 forward and backward against their plain versions, then timed.
+    Returns the (K1f, K1b) summaries at the train path's shape, [128,
+    1000] with smoothing 0.1 and no class weights."""
+    from tpuic_torch.kernels import cross_entropy as K1
+    _, peak_flops, hbm = peaks(device_name)
+    # A class-weighted, masked batch with one out-of-range label (w = 0).
+    b, c = 37, 1000
+    x = (3.0 * torch.randn((b, c), generator=gen)).cuda()
+    y = torch.randint(0, c, (b,), generator=gen, dtype=torch.int32)
+    y[0] = c
+    y = y.cuda()
+    cw = (0.5 + torch.rand(c, generator=gen)).cuda()
+    mask = (torch.rand(b, generator=gen) > 0.2).float().cuda()
+    scale = torch.tensor(0.37, device="cuda")
+    for ls in (0.0, 0.1):
+        got = [*K1.cross_entropy_fwd(x, y, cw, mask, ls),
+               K1.cross_entropy_bwd(x, y, cw, mask, scale, ls)]
+        torch.cuda.synchronize()
+        want = [*K1.cross_entropy_fwd_plain(x, y, cw, mask, ls),
+                K1.cross_entropy_bwd_plain(x, y, cw, mask, scale, ls)]
+        if not all(torch.allclose(g, w, rtol=XENT_RTOL, atol=XENT_ATOL)
+                   for g, w in zip(got, want)) or float(got[1][0]) != 0.0:
+            fail("xent", f"weighted, masked [{b}, {c}] smoothing {ls}: max "
+                         f"abs err {max_err(got, want)}")
+    rows, main = [], {}
+    for b, c in ((TRAIN_BATCH, 1000), (TRAIN_BATCH, 7)):
+        for ls in (0.0, 0.1):
+            # The train path's inputs: no class weights, nothing masked.
+            x = (3.0 * torch.randn((b, c), generator=gen)).cuda()
+            y = torch.randint(0, c, (b,), generator=gen,
+                              dtype=torch.int32).cuda()
+            yl = y.long()
+            cw = torch.ones(c, device="cuda")
+            mask = torch.ones(b, device="cuda")
+            scale = torch.tensor(1.0 / b, device="cuda")
+            fwd = (x, y, cw, mask)
+            got = [*K1.cross_entropy_fwd(*fwd, ls),
+                   K1.cross_entropy_bwd(*fwd, scale, ls)]
+            torch.cuda.synchronize()
+            want = [*K1.cross_entropy_fwd_plain(*fwd, ls),
+                    K1.cross_entropy_bwd_plain(*fwd, scale, ls)]
+            err_f, err_b = max_err(got[:2], want[:2]), max_err(got[2:],
+                                                               want[2:])
+            if not all(torch.allclose(g, w, rtol=XENT_RTOL, atol=XENT_ATOL)
+                       for g, w in zip(got, want)):
+                fail("xent", f"[{b}, {c}] smoothing {ls}: max abs err "
+                             f"fwd {err_f} bwd {err_b}")
+            # One library call each: with all-one weights and smoothing,
+            # F.cross_entropy's smoothed sum is the same function (its
+            # smoothing differs from tpuic's only with class weights).
+            kw = (dict(label_smoothing=ls) if ls
+                  else dict(weight=cw))
+            xr = x.clone().requires_grad_(True)
+
+            def lib_fwd():
+                return F.cross_entropy(x, yl, reduction="sum", **kw)
+
+            def lib_fwd_bwd():
+                return torch.autograd.grad(
+                    F.cross_entropy(xr, yl, reduction="sum", **kw), xr)
+
+            ms = {"fwd": time_ms(lambda: K1.cross_entropy_fwd(*fwd, ls),
+                                 iters=200),
+                  "fwd_plain": time_ms(
+                      lambda: K1.cross_entropy_fwd_plain(*fwd, ls),
+                      iters=200),
+                  "fwd_lib": time_ms(lib_fwd, iters=200),
+                  "bwd": time_ms(lambda: K1.cross_entropy_bwd(*fwd, scale,
+                                                              ls),
+                                 iters=200),
+                  "bwd_plain": time_ms(
+                      lambda: K1.cross_entropy_bwd_plain(*fwd, scale, ls),
+                      iters=200),
+                  "bwd_lib": time_ms(lib_fwd_bwd, iters=200)}
+            # Bytes: each input read once, each output written once.  Ops
+            # per logit: max, subtract + exp, sum (+ sum of x when
+            # smoothing) forward; those plus exp, divide, subtract target
+            # and scale backward.
+            n = b * c
+            fb = bound(n * (5 if ls else 4), 4 * (n + 3 * b + c + 2 * b),
+                       peak_flops, hbm)
+            bb = bound(n * 9, 4 * (2 * n + 2 * b + c + 1), peak_flops, hbm)
+            row = {"b": b, "c": c, "label_smoothing": ls,
+                   "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b,
+                   **ms, "fwd_bound_ms": fb[0], "bwd_bound_ms": bb[0]}
+            rows.append(row)
+            log("xent", json.dumps(row))
+            if (b, c, ls) == (TRAIN_BATCH, 1000, 0.1):
+                main = {
+                    "cross_entropy_fwd": {
+                        "max_abs_err": err_f, "ms": ms["fwd"],
+                        "plain_ms": ms["fwd_plain"], "bound_ms": fb[0],
+                        "bound_by": fb[1], "library_ms": ms["fwd_lib"]},
+                    "cross_entropy_bwd": {
+                        "max_abs_err": err_b, "ms": ms["bwd"],
+                        "plain_ms": ms["bwd_plain"], "bound_ms": bb[0],
+                        "bound_by": bb[1], "library_ms": ms["bwd_lib"]}}
+    return main, rows
+
+
+def phase_optim(device_name: str, seed: int):
+    """K2 LARS and LAMB over the ResNet-50 + head parameter list against
+    their plain versions, then timed.  Returns their summaries."""
+    from tpuic_torch.checkpoint import init_params
+    from tpuic_torch.kernels import optimizer_update as K2
+    from tpuic_torch.models import create_model
+    _, peak_flops, hbm = peaks(device_name)
+    model = init_params(create_model("resnet50", 1000, dtype="float32"),
+                        seed, device="cuda")
+    w = [p.detach() for p in model.parameters()]
+    cg = torch.Generator(device="cuda").manual_seed(seed)
+    g = [1e-3 * torch.randn(t.shape, generator=cg, device="cuda") for t in w]
+    m = [1e-3 * torch.randn(t.shape, generator=cg, device="cuda") for t in w]
+    v = [1e-6 * torch.rand(t.shape, generator=cg, device="cuda") for t in w]
+    n = sum(t.numel() for t in w)
+    zero = sum(1 for t in w if not bool(t.any()))
+    # lr at step 1 of the recipe's warmup (4.8 over 5 epochs of 12 steps).
+    lr = torch.tensor(4.8 / 60, device="cuda")
+    count = torch.tensor(3, dtype=torch.int32, device="cuda")
+    finite = torch.tensor(True, device="cuda")
+    lars_kw = dict(weight_decay=1e-4, trust_coefficient=0.001, momentum=0.9)
+    lamb_kw = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=1e-4)
+    out = {}
+    for kind in ("lars", "lamb"):
+        table = K2.LeafTable()
+        if kind == "lars":
+            new_m = K2.lars_update_plain(w, g, m, lr, **lars_kw)
+            want = [*[a + b for a, b in zip(w, new_m)], *new_m]
+            got_w, got_m = ([t.clone() for t in ts] for ts in (w, m))
+            got_v = []
+
+            def kernel():
+                K2.lars_update(got_w, g, got_m, lr, finite, table=table,
+                               **lars_kw)
+
+            def plain():
+                return K2.lars_update_plain(w, g, m, lr, **lars_kw)
+            # g, w, m read; m', w' written.  Ops per element: u = g +
+            # wd*w, the two squares summed, the update and w + m'.
+            ops, nbytes = 10.0 * n, 4.0 * 5 * n
+        else:
+            upd, mus, nus = K2.lamb_update_plain(w, g, m, v, count, lr,
+                                                 **lamb_kw)
+            want = [*[a + b for a, b in zip(w, upd)], *mus, *nus]
+            got_w, got_m, got_v = ([t.clone() for t in ts]
+                                   for ts in (w, m, v))
+
+            def kernel():
+                K2.lamb_update(got_w, g, got_m, got_v, count, lr, finite,
+                               table=table, **lamb_kw)
+
+            def plain():
+                return K2.lamb_update_plain(w, g, m, v, count, lr, **lamb_kw)
+            # g, w, m, v read; m', v', w' written.  Ops per element: the
+            # two moments, debias, sqrt, divide, decay, the two squares
+            # summed, and the update.
+            ops, nbytes = 20.0 * n, 4.0 * 7 * n
+        kernel()
+        torch.cuda.synchronize()
+        got = [*got_w, *got_m, *got_v]
+        err = max_err(got, want)
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not torch.allclose(a, b, rtol=OPT_RTOL, atol=OPT_ATOL)]
+        if bad:
+            fail("optim", f"{kind}: {len(bad)} tensors beyond rtol "
+                          f"{OPT_RTOL} / atol {OPT_ATOL}, max abs err {err}")
+        ms = time_ms(kernel, iters=20)
+        plain_ms = time_ms(plain, iters=5, warmup=1)
+        bms, by = bound(ops, nbytes, peak_flops, hbm)
+        row = {"kind": kind, "leaves": len(w), "params": n,
+               "zero_norm_leaves": zero, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "gb_per_s": nbytes / ms / 1e6}
+        log("optim", json.dumps(row))
+        out[f"{kind}_update"] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bms,
+                                 "bound_by": by, "library_ms": None}
+    return out
+
+
+def _counters():
+    from tpuic_torch.kernels import (cross_entropy_bwd, cross_entropy_fwd,
+                                     fused_conv_bn_relu, lamb_update,
+                                     lars_update)
+    return {"cross_entropy_fwd": cross_entropy_fwd,
+            "cross_entropy_bwd": cross_entropy_bwd,
+            "lars_update": lars_update, "lamb_update": lamb_update,
+            "conv_bn_relu": fused_conv_bn_relu}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def train_config(root: str, seed: int):
+    """The repo's large-batch ResNet-50 recipe (recipes/README.md,
+    section 5) on one card, float32, with the fused loss and optimizer."""
+    from tpuic_torch.config import (Config, DataConfig, ModelConfig,
+                                    OptimConfig, RunConfig)
+    return Config(
+        data=DataConfig(data_dir=root, resize_size=IMAGE,
+                        batch_size=TRAIN_BATCH, num_workers=8,
+                        shuffle_seed=seed, native=False, pack=False),
+        model=ModelConfig(name="resnet50", num_classes=1000,
+                          dtype="float32", fused_conv_bn=True),
+        optim=OptimConfig(optimizer="lars", learning_rate=4.8,
+                          weight_decay=1e-4, warmup_epochs=5,
+                          label_smoothing=0.1, class_weights=(),
+                          fused_loss=True, fused_optimizer=True),
+        run=RunConfig(epochs=90, max_steps=TRAIN_STEPS, log_every_steps=4,
+                      seed=seed))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, no autotuning, inside the block:
+    the two arms of the comparison then differ only by the kernels."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def compare_plain(cfg, batches, seed: int):
+    """3 steps from one initial state on ``batches``, through the kernels
+    and through the plain loss + plain LARS, TF32 off: per-step loss and
+    gradient norm of each arm, and the step times."""
+    from tpuic_torch.checkpoint import init_params
+    from tpuic_torch.kernels import no_tf32
+    from tpuic_torch.models import create_model_from_config
+    from tpuic_torch.train.optimizer import make_optimizer, make_schedule
+    from tpuic_torch.train.state import create_train_state
+    from tpuic_torch.train.step import make_train_step
+    model = init_params(create_model_from_config(cfg.model), seed,
+                        device="cuda")
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    arms = {}
+    for arm, fused in (("kernels", True), ("plain", False)):
+        model.load_state_dict(init)
+        # A constant lr of a tenth of the peak, so every step moves the
+        # weights (the recipe's warmup starts at lr 0) and 3 steps stay in
+        # the tame early regime the warmup is there to give.
+        ocfg = dataclasses.replace(cfg.optim, learning_rate=COMPARE_LR,
+                                   warmup_epochs=0, milestones=(),
+                                   fused_loss=fused, fused_optimizer=fused)
+        state = create_train_state(model, make_optimizer(ocfg))
+        step = make_train_step(ocfg, cfg.model, lr_schedule=make_schedule(
+            ocfg, 1, 1), device="cuda")
+        metrics, times = [], []
+        with no_tf32(), deterministic_cudnn():
+            for batch in batches:
+                t0 = time.perf_counter()
+                state, mt = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(mt[k]) for k in ("loss",
+                                                          "grad_norm",
+                                                          "skipped")})
+        arms[arm] = {"metrics": metrics, "step_ms": times}
+    del model, state
+    return arms
+
+
+def phase_train(seed: int, smi: str):
+    """The training path through ``Trainer``, the kernel-vs-plain 3-step
+    comparison and the LAMB run; returns launch counts and the row."""
+    from tpuic_torch.data.synthetic import make_synthetic_imagefolder
+    from tpuic_torch.train.loop import Trainer
+    classes = tuple(f"class{i}" for i in range(TRAIN_CLASSES))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        t0 = time.perf_counter()
+        make_synthetic_imagefolder(
+            root, classes, per_class=TRAIN_BATCH * TRAIN_STEPS
+            // TRAIN_CLASSES, size=IMAGE, folds=("train",), seed=seed)
+        make_synthetic_imagefolder(
+            root, classes, per_class=2 * TRAIN_BATCH // TRAIN_CLASSES,
+            size=IMAGE, folds=("val",), seed=seed + 1)
+        log("train", f"synthetic ImageFolder {IMAGE}x{IMAGE}: "
+                     f"{TRAIN_BATCH * TRAIN_STEPS} train + "
+                     f"{2 * TRAIN_BATCH} val images in "
+                     f"{time.perf_counter() - t0:.3f} s")
+        cfg = train_config(root, seed)
+        trainer = Trainer(cfg, log=lambda msg: log("train", msg))
+        reset_counts()
+        trainer.fit()
+        stats = dict(trainer.stats)
+        trainer.val_epoch(0)
+        counts = read_counts()
+        steps = stats["steps"]
+        val_forwards = len(trainer.val_loader)
+        want = {"cross_entropy_fwd": steps, "cross_entropy_bwd": steps,
+                "lars_update": steps, "lamb_update": 0,
+                "conv_bn_relu": 53 * val_forwards}
+        if steps != TRAIN_STEPS or counts != want:
+            fail("train", f"{steps} steps, launches {counts}, expected "
+                          f"{TRAIN_STEPS} steps and {want}")
+        if not all(bool(torch.isfinite(p).all())
+                   for p in trainer.model.parameters()) or not all(
+                math.isfinite(v) for v in trainer.last_val.values()):
+            fail("train", f"non-finite state after {steps} steps: val "
+                          f"{trainer.last_val}")
+        drains = stats["drains"]
+        (s0, t_0), (s1, t_1) = drains[0], drains[-1]
+        step_ms = (t_1 - t_0) / (s1 - s0) * 1e3
+        row = {"model": "resnet50", "image": IMAGE, "batch": TRAIN_BATCH,
+               "dtype": "float32", "optimizer": "fused_lars",
+               "steps": steps, "wall_s": stats["wall_s"],
+               "step_ms": step_ms,
+               "step_ms_window": [s0, s1],
+               "images_per_s": TRAIN_BATCH / step_ms * 1e3,
+               "data_wait_s": stats["data_wait_s"],
+               "data_wait_share": stats["data_wait_s"] / stats["wall_s"],
+               "launches": counts,
+               "launches_per_step": {k: counts[k] / steps for k in
+                                     ("cross_entropy_fwd",
+                                      "cross_entropy_bwd", "lars_update")},
+               "val_forwards": val_forwards,
+               "conv_bn_relu_per_val_forward": counts["conv_bn_relu"]
+               / val_forwards,
+               "val": {k: trainer.last_val[k] for k in ("accuracy",
+                                                        "loss")},
+               "card": smi}
+        log("train", json.dumps(row))
+
+        it = trainer.train_loader.epoch(1)
+        batches = [{k: b[k] for k in ("image", "label", "mask")}
+                   for b, _ in zip(it, range(3))]
+        it.close()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        arms = compare_plain(cfg, batches, seed)
+        del batches
+        rel = [abs(k["loss"] - p["loss"]) / abs(p["loss"])
+               for k, p in zip(arms["kernels"]["metrics"],
+                               arms["plain"]["metrics"])]
+        cmp_row = {"steps": len(rel), "loss_rel_diff": rel,
+                   "loss_rtol": TRAIN_LOSS_RTOL, **arms}
+        log("train", "kernels vs plain, TF32 off: " + json.dumps(cmp_row))
+        if any(m["skipped"] or not math.isfinite(m["loss"])
+               for a in arms.values() for m in a["metrics"]):
+            fail("train", "a comparison step was skipped or not finite")
+        if max(rel) > TRAIN_LOSS_RTOL:
+            fail("train", f"kernel and plain losses differ by {max(rel)} "
+                          f"> rtol {TRAIN_LOSS_RTOL}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lcfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, batch_size=LAMB_BATCH),
+            optim=dataclasses.replace(cfg.optim, optimizer="lamb",
+                                      learning_rate=1e-2, warmup_epochs=0,
+                                      milestones=()),
+            run=dataclasses.replace(cfg.run, max_steps=3, log_every_steps=1))
+        lamb = Trainer(lcfg, log=lambda msg: log("train", msg))
+        reset_counts()
+        lamb.fit()
+        lamb_counts = read_counts()
+        lamb_want = {"cross_entropy_fwd": 3, "cross_entropy_bwd": 3,
+                     "lars_update": 0, "lamb_update": 3, "conv_bn_relu": 0}
+        if lamb_counts != lamb_want or not all(
+                bool(torch.isfinite(p).all())
+                for p in lamb.model.parameters()):
+            fail("train", f"LAMB run: launches {lamb_counts}, expected "
+                          f"{lamb_want}, or non-finite parameters")
+        log("train", "LAMB run: " + json.dumps({
+            "batch": LAMB_BATCH, "steps": lamb.stats["steps"],
+            "launches": lamb_counts, "wall_s": lamb.stats["wall_s"]}))
+        del lamb
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["compare"] = cmp_row
+    return counts, lamb_counts, row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=320)
@@ -403,12 +838,39 @@ def main(argv=None) -> int:
     model = phase_model(gen)
     launches, snap = phase_serve(model, args.requests, args.seed, smi)
     summary["launches"] = launches
+    summary["status"] = "ok"
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    xent, xent_rows = phase_xent(kind, gen)
+    optim = phase_optim(kind, args.seed)
+    counts, lamb_counts, train = phase_train(args.seed, smi)
+    csrc = "tpuic_torch/kernels/csrc/"
+    kernels = [summary]
+    for name, row, source, replaces, n in (
+            ("cross_entropy_fwd", xent["cross_entropy_fwd"],
+             csrc + "cross_entropy.cu", "tpuic/kernels/cross_entropy.py:50",
+             counts["cross_entropy_fwd"]),
+            ("cross_entropy_bwd", xent["cross_entropy_bwd"],
+             csrc + "cross_entropy.cu", "tpuic/kernels/cross_entropy.py:64",
+             counts["cross_entropy_bwd"]),
+            ("lars_update", optim["lars_update"],
+             csrc + "optimizer_update.cu",
+             "tpuic/kernels/optimizer_update.py:94", counts["lars_update"]),
+            ("lamb_update", optim["lamb_update"],
+             csrc + "optimizer_update.cu",
+             "tpuic/kernels/optimizer_update.py:146",
+             lamb_counts["lamb_update"])):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": n, **row,
+                        "status": "ok"})
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "kind": kind, "kernel": summary,
+            json.dump({"card": smi, "kind": kind, "kernels": kernels,
                        "shapes": rows, "bf16_max_abs_err": bf16_err,
-                       "serve": snap}, f, indent=1)
-    print(json.dumps({"kernels": [summary]}))
+                       "serve": snap, "xent": xent_rows, "train": train},
+                      f, indent=1)
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -233,7 +233,13 @@ def test_config_defaults_match_jax():
     for port_cls, jax_cls in ((port_config.ModelConfig,
                                jax_config.ModelConfig),
                               (port_config.DataConfig,
-                               jax_config.DataConfig)):
+                               jax_config.DataConfig),
+                              (port_config.OptimConfig,
+                               jax_config.OptimConfig),
+                              (port_config.RunConfig,
+                               jax_config.RunConfig),
+                              (port_config.MeshConfig,
+                               jax_config.MeshConfig)):
         jax_defaults = {f.name: f.default
                         for f in dataclasses.fields(jax_cls)}
         for f in dataclasses.fields(port_cls):

@@ -5,12 +5,17 @@ behaviour and names in PyTorch idiom, one slice at a time.  It imports
 ``torch`` and never ``jax`` or anything of ``tpuic``: what it needs from
 there it keeps as its own copy.
 
-- ``tpuic_torch.config``     — the ModelConfig/DataConfig fields the port reads
+- ``tpuic_torch.config``     — the configuration dataclasses
 - ``tpuic_torch.kernels``    — hand-written Hopper kernels, each beside its
-                               plain PyTorch version (fused conv+BN+ReLU)
+                               plain PyTorch version (fused conv+BN+ReLU,
+                               fused cross-entropy, fused LARS/LAMB)
 - ``tpuic_torch.models``     — the ResNet family + the MLP classifier head,
                                with the flax module names
-- ``tpuic_torch.checkpoint`` — carry a ``tpuic`` variables tree into a model
+- ``tpuic_torch.checkpoint`` — carry a ``tpuic`` variables tree or optimizer
+                               state into the port; initialisation
+- ``tpuic_torch.data``       — ImageFolder decode/augment and the Loader
+- ``tpuic_torch.train``      — loss, optimizers, schedules, steps, the
+                               Trainer and ``python -m tpuic_torch.train``
 - ``tpuic_torch.serve``      — the dynamic-batching inference engine
 
 Entry points that place tensors take ``device=None``, which means

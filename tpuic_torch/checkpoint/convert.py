@@ -18,11 +18,19 @@ BN stats ``mean``, ``var``         ``running_mean``/``_var``    as is
 The load is strict: every leaf is consumed and every parameter and
 running statistic of the model is written; a missing key, an extra key or
 a shape mismatch raises naming the path.  Reading the tree needs no JAX.
+
+``load_jax_opt_state(opt_state, params_order)`` carries a ``tpuic``
+optimizer state (numpy leaves) into the port's ``OptState``, by the same
+leaf mapping, so both packages can continue from one mid-training state.
+
+``init_params(model, seed)`` draws flax's default initialisation (what a
+``tpuic`` Trainer starts from) for training; ``init_synthetic`` draws
+weights and statistics for a serving smoke run.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -148,3 +156,101 @@ def init_synthetic(model: nn.Module, seed: int = 0,
                 m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
     _invalidate(model)
     return model
+
+
+def init_params(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
+    """flax's default initialisation, drawn from a CPU ``torch.Generator``
+    (the same numbers on any device), with the model placed on ``device``
+    (``None`` = the card): conv and dense weights from
+    ``lecun_normal`` (a normal truncated at two standard deviations,
+    variance 1/fan_in), biases 0, BN scale 1 and bias 0, running mean 0
+    and variance 1.  The distribution is flax's; the numbers are not a
+    ``tpuic`` init's."""
+    model.to(resolve_device(device))
+    g = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    _invalidate(model)
+    return model
+
+
+_MOMENTS = ("trace", "mu", "nu")
+
+
+def _collect_opt_state(node, path: str, counts: list, moments: dict) -> None:
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f in node._fields:
+            v, sub = getattr(node, f), f"{path}{f}"
+            if f == "count":
+                counts.append((sub, np.asarray(v)))
+            elif f in _MOMENTS:
+                if f in moments:
+                    raise KeyError(f"{sub}: a second '{f}' tree")
+                moments[f] = v
+            else:
+                _collect_opt_state(v, sub + "/", counts, moments)
+    elif isinstance(node, (tuple, list)):
+        for i, v in enumerate(node):
+            _collect_opt_state(v, f"{path}{i}/", counts, moments)
+    elif isinstance(node, Mapping):
+        for k, v in node.items():
+            _collect_opt_state(v, f"{path}{k}/", counts, moments)
+    elif node is not None:
+        raise KeyError(f"{path or '<root>'}: optimizer-state leaf the port "
+                       "does not carry")
+
+
+def load_jax_opt_state(opt_state, params_order: Sequence[str], device=None):
+    """A ``tpuic`` optimizer state -> the port's ``OptState`` on
+    ``device`` (``None`` = the card).
+
+    ``opt_state`` has numpy leaves (``jax.tree.map(np.asarray, ...)``):
+    ``FusedLarsState(count, trace)``, ``FusedLambState(count, mu, nu)`` or
+    an optax chain of ``ScaleByAdamState`` / ``TraceState`` /
+    ``ScaleByScheduleState`` / empty states (adam, adamw, sgd, lars, lamb,
+    with or without clipping).  ``params_order`` names the port
+    parameters in ``model.named_parameters()`` order; every moment tree
+    must map onto exactly those names.  Strict: a leaf the port does not
+    carry, counts that disagree, or a missing or extra parameter raise."""
+    from tpuic_torch.train.optimizer import OptState
+    dev = resolve_device(device)
+    counts: list = []
+    moments: dict = {}
+    _collect_opt_state(opt_state, "", counts, moments)
+    if not counts:
+        raise KeyError("optimizer state has no 'count'")
+    values = {int(c) for _, c in counts}
+    if len(values) != 1:
+        raise ValueError(f"optimizer-state counts disagree: {counts}")
+    order = list(params_order)
+    lists: Dict[str, List[torch.Tensor]] = {}
+    for name, tree in moments.items():
+        by_name = {}
+        for path, arr in _flatten(tree).items():
+            port = _port_name("params", path)
+            if port in by_name:
+                raise KeyError(f"{name}/{path}: '{port}' written twice")
+            by_name[port] = torch.tensor(np.ascontiguousarray(
+                _to_port_layout(arr)), dtype=torch.float32, device=dev)
+        if set(by_name) != set(order):
+            missing = sorted(set(order) - set(by_name))
+            extra = sorted(set(by_name) - set(order))
+            raise KeyError(f"'{name}' does not match the parameters: "
+                           f"missing {missing[:5]}, extra {extra[:5]}")
+        lists[name] = [by_name[n] for n in order]
+    count = torch.tensor(values.pop(), dtype=torch.int32, device=dev)
+    return OptState(count=count, **lists)

@@ -1,1 +1,2 @@
-"""Input data for the port (the serving slice needs the transforms only)."""
+"""Input data for the port: transforms, the ImageFolder dataset, the
+threaded ``Loader`` and synthetic trees."""

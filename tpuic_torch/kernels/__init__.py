@@ -2,8 +2,14 @@
 
 Sources live in ``csrc/`` and are built by ``nvcc`` at first use
 (``_build``).  A wrapper takes the plain version for a CPU tensor and
-launches its kernel, or raises, for a CUDA tensor.  Ported so far: the
-inference fused conv + folded-BN + ReLU (``tpuic/kernels/conv_bn_relu.py``).
+launches its kernel, or raises, for a CUDA tensor.  Ported so far:
+
+- K3, the inference fused conv + folded-BN + ReLU
+  (``tpuic/kernels/conv_bn_relu.py``): ``conv_bn_relu``;
+- K1, the fused weighted cross-entropy forward and backward
+  (``tpuic/kernels/cross_entropy.py``): ``cross_entropy``;
+- K2, the fused LARS and LAMB updates
+  (``tpuic/kernels/optimizer_update.py``): ``optimizer_update``.
 """
 
 from tpuic_torch.kernels.conv_bn_relu import (fold_bn,  # noqa: F401
@@ -11,3 +17,8 @@ from tpuic_torch.kernels.conv_bn_relu import (fold_bn,  # noqa: F401
                                               fused_conv_bn_relu,
                                               fused_conv_bn_relu_plain,
                                               no_tf32, pack_conv_bn)
+from tpuic_torch.kernels.cross_entropy import (  # noqa: F401
+    cross_entropy_bwd, cross_entropy_bwd_plain, cross_entropy_fwd,
+    cross_entropy_fwd_plain, fused_weighted_cross_entropy)
+from tpuic_torch.kernels.optimizer_update import (  # noqa: F401
+    lamb_update, lamb_update_plain, lars_update, lars_update_plain)

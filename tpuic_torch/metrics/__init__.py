@@ -1,3 +1,5 @@
 """Metrics primitives of the port."""
 
-from tpuic_torch.metrics.meters import LatencyMeter, quantiles  # noqa: F401
+from tpuic_torch.metrics.meters import (AverageMeter,  # noqa: F401
+                                        LatencyMeter, accuracy, quantiles,
+                                        topk_accuracy)

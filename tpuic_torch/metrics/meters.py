@@ -1,4 +1,9 @@
-"""Latency percentiles (copy of the ``tpuic/metrics/meters.py`` primitives).
+"""Meters (copy of the ``tpuic/metrics/meters.py`` primitives).
+
+``accuracy`` / ``topk_accuracy`` return per-sample 0/1 float32 tensors on
+the logits' device; ``AverageMeter`` is the reference's running average
+(utils.py:16-20); ``LatencyMeter`` and ``quantiles`` give latency
+percentiles.
 
 Pinned method: **nearest-rank** (R-1 / inverse-CDF) — a reported value
 is always an actually-observed sample, never an interpolation between
@@ -10,6 +15,8 @@ from __future__ import annotations
 import math
 from collections import deque
 from typing import Dict, Iterable, Sequence
+
+import torch
 
 
 def _rank(n: int, q: float) -> int:
@@ -52,3 +59,37 @@ class LatencyMeter:
         """{'p50': ms, ..., 'p999': ms} over the window; {} when empty."""
         return {k: round(1000.0 * v, 3)
                 for k, v in quantiles(self._win, qs).items()}
+
+
+class AverageMeter:
+    """Running average with the reference's update semantics (utils.py:16-20)."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+        self.avg = 0.0
+
+    def update(self, val: float, n: int = 1) -> None:
+        val = float(val)
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample 0/1 correctness [B] float32; reference utils.py:25-27."""
+    return (torch.argmax(logits, dim=-1) == labels.long()).float()
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                  k: int = 5) -> torch.Tensor:
+    """Per-sample 0/1 top-k membership [B] float32 (k clamped to the class
+    count)."""
+    k = min(k, logits.shape[-1])
+    idx = torch.topk(logits, k, dim=-1).indices
+    return (idx == labels.long()[:, None]).any(dim=-1).float()

@@ -8,7 +8,8 @@ its parameters in ``param_dtype`` and computes in ``dtype``.
 Convolutions and BN here take and return NCHW tensors; the ResNet keeps
 them in channels_last memory (an NCHW view of NHWC data), so the
 reference's NHWC layout never needs a copy.  BN takes flax's momentum
-convention (``0.9`` == torch's ``0.1``) and torch's default eps.
+convention (``0.9`` == torch's ``0.1``), torch's default eps, and flax's
+biased running-variance update in train mode.
 """
 
 from __future__ import annotations
@@ -52,18 +53,37 @@ class MLPHead(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` over an NCHW tensor, normalising in float32 and
-    returning the compute dtype."""
+    """BatchNorm over an NCHW tensor with flax's semantics, normalising in
+    float32 and returning the compute dtype.
+
+    Eval mode is ``nn.BatchNorm2d``'s: the running statistics.  Train mode
+    normalises with the batch mean and the *biased* batch variance over
+    (N, H, W) and updates the buffers as flax does,
+    ``ra = momentum * ra + (1 - momentum) * batch_stat``, with that same
+    biased variance (``nn.BatchNorm2d`` would put the unbiased one into
+    ``running_var``, n/(n-1) away from flax's)."""
 
     def __init__(self, features: int, *, momentum: float = 0.9,
                  eps: float = 1e-5, dtype=torch.float32,
                  param_dtype=torch.float32, device=None) -> None:
         super().__init__(features, eps=eps, momentum=1.0 - momentum,
                          dtype=param_dtype, device=resolve_device(device))
+        self.flax_momentum = momentum
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(self.compute_dtype)
+        x = x.float()
+        if not self.training:
+            return super().forward(x).to(self.compute_dtype)
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
+            + self.bias.view(1, -1, 1, 1)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y.to(self.compute_dtype)
 
 
 def batch_norm(features: int, *, momentum: float = 0.9, eps: float = 1e-5,
