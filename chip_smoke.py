@@ -52,6 +52,32 @@ the first phase that fails:
    losses agree within rtol 1e-3.  Last, a 3-step LAMB run at
    batch 32 through the Trainer, counted the same way, puts K2 LAMB on the
    path.
+9. attn   — the flash-attention kernels (K4: forward, dq, dk/dv) at the
+   ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64], on strided
+   q/k/v views of one qkv projection, against their plain versions
+   (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2), plus a
+   ``valid_len`` case (50 of 64 keys) and a fully masked case (o = 0, lse
+   = the sentinel, for sentinels 0 and -1e30); each timed beside its
+   plain version, one ``F.scaled_dot_product_attention`` call (forward;
+   forward + backward for the backward pair; timed only) and its bound.
+10. vit   — ``create_model("vit-b16", 1000, dtype="float32",
+   attention="flash")`` with seeded synthetic weights: its logits at batch
+   4 against the same weights under ``attention="dense"`` (TF32 off,
+   atol/rtol 1e-3), and exactly 12 K4 forward launches per forward.
+11. vit-serve — the engine serving that model as ``serve`` serves
+   ResNet-50, with TF32 off: 12 K4 forward launches per device call.
+12. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
+   the repo's ViT recipe (recipes/README.md, section 4: AdamW lr 3e-4, wd
+   0.05, 10 warmup epochs of 300, label smoothing 0.1, clipping at 1.0,
+   batch 64), ``attention="flash"`` and the fused loss, for 12 steps, then
+   one val pass.  Launches: K4 forward 12 per step and 12 per val forward,
+   dq and dk/dv 12 per step, K1 once per step.  Then 3 steps from one
+   state through the kernels and 3 through dense attention and the plain
+   loss, TF32 off: the per-step losses agree within rtol 1e-3.
+
+Every launch count is set to 0 just before a path runs and read just after
+it.  Cuts: float32, not bf16; no mixup, CutMix, random erasing, EMA or
+drop-path; one card.
 
 The second-to-last lines are the per-kernel JSON summary and the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -63,6 +89,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import subprocess
@@ -89,12 +116,23 @@ TRAIN_BATCH = 128
 TRAIN_STEPS = 12
 TRAIN_CLASSES = 8
 LAMB_BATCH = 32
+VIT_MODEL = "vit-b16"
+VIT_BATCH = 64
+VIT_LR = 3e-4
+VIT_COMPARE_LR = 3e-5
+VIT_LAYERS = 12
+ATTN_N, ATTN_H, ATTN_D = 197, 12, 64
+ATTN_BATCHES = (8, VIT_BATCH)
 
 # Published dense peaks by card variant (NVIDIA data sheets): float32
 # outside the tensor cores, and HBM bandwidth.  The name nvidia-smi reports
 # picks the row; "H100 80GB HBM3" is the SXM part.
 PEAKS = (("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
          ("H200", 67.0e12, 4.8e12), ("H100", 67.0e12, 3.35e12))
+# Dense TF32 tensor-core peaks of the same parts: the bound a tensor-core
+# attention kernel would aim at.
+TF32_PEAKS = (("H100 PCIe", 378e12), ("H100 NVL", 417.5e12),
+              ("H200", 495e12), ("H100", 495e12))
 
 
 def log(phase: str, msg: str) -> None:
@@ -120,6 +158,10 @@ def peaks(name: str):
         if key in name:
             return key, flops, bw
     fail("device", f"no published peak for {name!r}")
+
+
+def tf32_peak(name: str) -> float:
+    return next(p for key, p in TF32_PEAKS if key in name)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -347,18 +389,23 @@ def phase_model(gen: torch.Generator):
     return model
 
 
-def phase_serve(model, n_requests: int, seed: int, smi: str):
-    from tpuic_torch.kernels import fused_conv_bn_relu
+def phase_serve(model, n_requests: int, seed: int, smi: str,
+                tag: str = "serve", counter: str = "conv_bn_relu",
+                per_call: int = 0):
+    """Serve ``model`` to eight closed-loop clients; ``counter``'s kernel
+    must launch ``per_call`` times per device call (default: the 53 of a
+    fused ResNet-50 forward) and no other kernel may launch."""
     from tpuic_torch.serve import InferenceEngine, make_forward
+    per_call = per_call or len(resnet50_launches(1))
     rng = np.random.default_rng(seed)
     pool = rng.integers(0, 256, (64, IMAGE, IMAGE, 3), dtype=np.uint8)
     eng = InferenceEngine(model, None, image_size=IMAGE,
                           input_dtype=np.uint8, normalize=True,
                           buckets=(1, 8, 32))
     warm = eng.warmup()
-    log("serve", f"warmup (s per bucket): {json.dumps(warm)}")
+    log(tag, f"warmup (s per bucket): {json.dumps(warm)}")
     eng.stats.reset()
-    fused_conv_bn_relu.launches = 0
+    reset_counts()
     results, errors, lock = [], [], threading.Lock()
     n_clients = 8
 
@@ -384,34 +431,38 @@ def phase_serve(model, n_requests: int, seed: int, smi: str):
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    launches = fused_conv_bn_relu.launches
+    counts = read_counts()
+    launches = counts[counter]
     eng.close()
     snap = eng.stats.snapshot()
     if errors or any(t.is_alive() for t in threads):
-        fail("serve", f"client errors: {errors[:3]}")
+        fail(tag, f"client errors: {errors[:3]}")
     for lo, n, (probs, order) in results:
         if probs.shape != (n, 1000) or order.shape != (n, 1000) \
                 or not np.isfinite(probs).all():
-            fail("serve", f"request of {n}: probs {probs.shape}, order "
-                          f"{order.shape}")
+            fail(tag, f"request of {n}: probs {probs.shape}, order "
+                      f"{order.shape}")
     direct = make_forward(model, normalize=True)
     worst = 0.0
     for lo, n, (probs, order) in results[::max(1, len(results) // 12)]:
         want_p, want_o = direct(torch.from_numpy(pool[lo:lo + n]).cuda())
         worst = max(worst, float(np.abs(probs - want_p.cpu().numpy()).max()))
         if not np.array_equal(order[:, 0], want_o[:, 0].cpu().numpy()):
-            fail("serve", f"top-1 differs from a direct forward at {lo}:{n}")
+            fail(tag, f"top-1 differs from a direct forward at {lo}:{n}")
     if worst > SERVE_TOL:
-        fail("serve", f"probs differ from a direct forward by {worst} > "
-                      f"{SERVE_TOL}")
-    per_call = len(resnet50_launches(1))
-    if launches == 0 or launches != per_call * snap["device_calls"]:
-        fail("serve", f"{launches} kernel launches for "
-                      f"{snap['device_calls']} device calls")
-    log("serve", json.dumps({
+        fail(tag, f"probs differ from a direct forward by {worst} > "
+                  f"{SERVE_TOL}")
+    others = {k: v for k, v in counts.items() if k != counter and v}
+    if launches == 0 or launches != per_call * snap["device_calls"] \
+            or others:
+        fail(tag, f"{launches} {counter} launches for "
+                  f"{snap['device_calls']} device calls (expected "
+                  f"{per_call} each), other kernels {others}")
+    log(tag, json.dumps({
         "requests": len(results), "images": snap["images"],
         "wall_s": wall, "device_calls": snap["device_calls"],
-        "kernel_launches": launches, "latency_ms": snap["latency_ms"],
+        "kernel": counter, "kernel_launches": launches,
+        "latency_ms": snap["latency_ms"],
         "throughput_images_per_sec": snap["throughput_images_per_sec"],
         "images_per_s_wall": snap["images"] / wall,
         "pad_efficiency": snap["pad_efficiency"],
@@ -603,12 +654,24 @@ def phase_optim(device_name: str, seed: int):
 
 def _counters():
     from tpuic_torch.kernels import (cross_entropy_bwd, cross_entropy_fwd,
-                                     fused_conv_bn_relu, lamb_update,
-                                     lars_update)
+                                     flash_attention_bwd_dkv,
+                                     flash_attention_bwd_dq,
+                                     flash_attention_fwd, fused_conv_bn_relu,
+                                     lamb_update, lars_update)
     return {"cross_entropy_fwd": cross_entropy_fwd,
             "cross_entropy_bwd": cross_entropy_bwd,
             "lars_update": lars_update, "lamb_update": lamb_update,
-            "conv_bn_relu": fused_conv_bn_relu}
+            "conv_bn_relu": fused_conv_bn_relu,
+            "flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+
+
+def expect(**launches) -> dict:
+    """Every counter at 0 except the ones named."""
+    out = {k: 0 for k in _counters()}
+    out.update(launches)
+    return out
 
 
 def reset_counts() -> None:
@@ -655,26 +718,28 @@ def deterministic_cudnn():
          torch.backends.cudnn.benchmark) = saved
 
 
-def compare_plain(cfg, batches, seed: int):
+def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None):
     """3 steps from one initial state on ``batches``, through the kernels
-    and through the plain loss + plain LARS, TF32 off: per-step loss and
-    gradient norm of each arm, and the step times."""
+    and through the plain versions (the plain loss, the plain optimizer
+    and ``plain_model``, default ``cfg.model``), TF32 off: per-step loss
+    and gradient norm of each arm, and the step times."""
     from tpuic_torch.checkpoint import init_params
     from tpuic_torch.kernels import no_tf32
     from tpuic_torch.models import create_model_from_config
     from tpuic_torch.train.optimizer import make_optimizer, make_schedule
     from tpuic_torch.train.state import create_train_state
     from tpuic_torch.train.step import make_train_step
-    model = init_params(create_model_from_config(cfg.model), seed,
-                        device="cuda")
-    init = {k: t.clone() for k, t in model.state_dict().items()}
     arms = {}
-    for arm, fused in (("kernels", True), ("plain", False)):
-        model.load_state_dict(init)
+    for arm, mcfg, fused in (("kernels", cfg.model, True),
+                             ("plain", plain_model or cfg.model, False)):
+        # Both arms start from the same numbers: init_params draws them
+        # from a CPU generator seeded alike.
+        model = init_params(create_model_from_config(
+            mcfg, image_size=cfg.data.resize_size), seed, device="cuda")
         # A constant lr of a tenth of the peak, so every step moves the
         # weights (the recipe's warmup starts at lr 0) and 3 steps stay in
         # the tame early regime the warmup is there to give.
-        ocfg = dataclasses.replace(cfg.optim, learning_rate=COMPARE_LR,
+        ocfg = dataclasses.replace(cfg.optim, learning_rate=lr,
                                    warmup_epochs=0, milestones=(),
                                    fused_loss=fused, fused_optimizer=fused)
         state = create_train_state(model, make_optimizer(ocfg))
@@ -691,120 +756,381 @@ def compare_plain(cfg, batches, seed: int):
                                                           "grad_norm",
                                                           "skipped")})
         arms[arm] = {"metrics": metrics, "step_ms": times}
-    del model, state
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
     return arms
 
 
-def phase_train(seed: int, smi: str):
-    """The training path through ``Trainer``, the kernel-vs-plain 3-step
-    comparison and the LAMB run; returns launch counts and the row."""
+def write_folder(root: str, seed: int) -> None:
+    """The synthetic 224x224 ImageFolder both training phases read."""
     from tpuic_torch.data.synthetic import make_synthetic_imagefolder
-    from tpuic_torch.train.loop import Trainer
     classes = tuple(f"class{i}" for i in range(TRAIN_CLASSES))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        t0 = time.perf_counter()
-        make_synthetic_imagefolder(
-            root, classes, per_class=TRAIN_BATCH * TRAIN_STEPS
-            // TRAIN_CLASSES, size=IMAGE, folds=("train",), seed=seed)
-        make_synthetic_imagefolder(
-            root, classes, per_class=2 * TRAIN_BATCH // TRAIN_CLASSES,
-            size=IMAGE, folds=("val",), seed=seed + 1)
-        log("train", f"synthetic ImageFolder {IMAGE}x{IMAGE}: "
-                     f"{TRAIN_BATCH * TRAIN_STEPS} train + "
-                     f"{2 * TRAIN_BATCH} val images in "
-                     f"{time.perf_counter() - t0:.3f} s")
-        cfg = train_config(root, seed)
-        trainer = Trainer(cfg, log=lambda msg: log("train", msg))
-        reset_counts()
-        trainer.fit()
-        stats = dict(trainer.stats)
-        trainer.val_epoch(0)
-        counts = read_counts()
-        steps = stats["steps"]
-        val_forwards = len(trainer.val_loader)
-        want = {"cross_entropy_fwd": steps, "cross_entropy_bwd": steps,
-                "lars_update": steps, "lamb_update": 0,
-                "conv_bn_relu": 53 * val_forwards}
-        if steps != TRAIN_STEPS or counts != want:
-            fail("train", f"{steps} steps, launches {counts}, expected "
-                          f"{TRAIN_STEPS} steps and {want}")
-        if not all(bool(torch.isfinite(p).all())
-                   for p in trainer.model.parameters()) or not all(
-                math.isfinite(v) for v in trainer.last_val.values()):
-            fail("train", f"non-finite state after {steps} steps: val "
-                          f"{trainer.last_val}")
-        drains = stats["drains"]
-        (s0, t_0), (s1, t_1) = drains[0], drains[-1]
-        step_ms = (t_1 - t_0) / (s1 - s0) * 1e3
-        row = {"model": "resnet50", "image": IMAGE, "batch": TRAIN_BATCH,
-               "dtype": "float32", "optimizer": "fused_lars",
-               "steps": steps, "wall_s": stats["wall_s"],
-               "step_ms": step_ms,
-               "step_ms_window": [s0, s1],
-               "images_per_s": TRAIN_BATCH / step_ms * 1e3,
-               "data_wait_s": stats["data_wait_s"],
-               "data_wait_share": stats["data_wait_s"] / stats["wall_s"],
-               "launches": counts,
-               "launches_per_step": {k: counts[k] / steps for k in
-                                     ("cross_entropy_fwd",
-                                      "cross_entropy_bwd", "lars_update")},
-               "val_forwards": val_forwards,
-               "conv_bn_relu_per_val_forward": counts["conv_bn_relu"]
-               / val_forwards,
-               "val": {k: trainer.last_val[k] for k in ("accuracy",
-                                                        "loss")},
-               "card": smi}
-        log("train", json.dumps(row))
+    t0 = time.perf_counter()
+    make_synthetic_imagefolder(
+        root, classes, per_class=TRAIN_BATCH * TRAIN_STEPS
+        // TRAIN_CLASSES, size=IMAGE, folds=("train",), seed=seed)
+    make_synthetic_imagefolder(
+        root, classes, per_class=2 * TRAIN_BATCH // TRAIN_CLASSES,
+        size=IMAGE, folds=("val",), seed=seed + 1)
+    log("train", f"synthetic ImageFolder {IMAGE}x{IMAGE}: "
+                 f"{TRAIN_BATCH * TRAIN_STEPS} train + "
+                 f"{2 * TRAIN_BATCH} val images in "
+                 f"{time.perf_counter() - t0:.3f} s")
 
-        it = trainer.train_loader.epoch(1)
-        batches = [{k: b[k] for k in ("image", "label", "mask")}
-                   for b, _ in zip(it, range(3))]
-        it.close()
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-        arms = compare_plain(cfg, batches, seed)
-        del batches
-        rel = [abs(k["loss"] - p["loss"]) / abs(p["loss"])
-               for k, p in zip(arms["kernels"]["metrics"],
-                               arms["plain"]["metrics"])]
-        cmp_row = {"steps": len(rel), "loss_rel_diff": rel,
-                   "loss_rtol": TRAIN_LOSS_RTOL, **arms}
-        log("train", "kernels vs plain, TF32 off: " + json.dumps(cmp_row))
-        if any(m["skipped"] or not math.isfinite(m["loss"])
-               for a in arms.values() for m in a["metrics"]):
-            fail("train", "a comparison step was skipped or not finite")
-        if max(rel) > TRAIN_LOSS_RTOL:
-            fail("train", f"kernel and plain losses differ by {max(rel)} "
-                          f"> rtol {TRAIN_LOSS_RTOL}")
-        gc.collect()
-        torch.cuda.empty_cache()
 
-        lcfg = dataclasses.replace(
-            cfg, data=dataclasses.replace(cfg.data, batch_size=LAMB_BATCH),
-            optim=dataclasses.replace(cfg.optim, optimizer="lamb",
-                                      learning_rate=1e-2, warmup_epochs=0,
-                                      milestones=()),
-            run=dataclasses.replace(cfg.run, max_steps=3, log_every_steps=1))
-        lamb = Trainer(lcfg, log=lambda msg: log("train", msg))
-        reset_counts()
-        lamb.fit()
-        lamb_counts = read_counts()
-        lamb_want = {"cross_entropy_fwd": 3, "cross_entropy_bwd": 3,
-                     "lars_update": 0, "lamb_update": 3, "conv_bn_relu": 0}
-        if lamb_counts != lamb_want or not all(
-                bool(torch.isfinite(p).all())
-                for p in lamb.model.parameters()):
-            fail("train", f"LAMB run: launches {lamb_counts}, expected "
-                          f"{lamb_want}, or non-finite parameters")
-        log("train", "LAMB run: " + json.dumps({
-            "batch": LAMB_BATCH, "steps": lamb.stats["steps"],
-            "launches": lamb_counts, "wall_s": lamb.stats["wall_s"]}))
-        del lamb
+def train_row(trainer, stats: dict, counts: dict, batch: int,
+              smi: str) -> dict:
+    """Step time, images/s and data-wait share of ``trainer``'s epoch: the
+    step time between the first and last deferred metric read."""
+    drains = stats["drains"]
+    (s0, t_0), (s1, t_1) = drains[0], drains[-1]
+    step_ms = (t_1 - t_0) / (s1 - s0) * 1e3
+    return {"model": trainer.mcfg.name, "image": IMAGE, "batch": batch,
+            "dtype": "float32", "optimizer": trainer.state.tx.kind,
+            "steps": stats["steps"], "wall_s": stats["wall_s"],
+            "step_ms": step_ms, "step_ms_window": [s0, s1],
+            "images_per_s": batch / step_ms * 1e3,
+            "data_wait_s": stats["data_wait_s"],
+            "data_wait_share": stats["data_wait_s"] / stats["wall_s"],
+            "launches": counts,
+            "val_forwards": len(trainer.val_loader),
+            "val": {k: trainer.last_val[k] for k in ("accuracy", "loss")},
+            "card": smi}
+
+
+def check_compare(tag: str, arms: dict) -> dict:
+    rel = [abs(k["loss"] - p["loss"]) / abs(p["loss"])
+           for k, p in zip(arms["kernels"]["metrics"],
+                           arms["plain"]["metrics"])]
+    row = {"steps": len(rel), "loss_rel_diff": rel,
+           "loss_rtol": TRAIN_LOSS_RTOL, **arms}
+    log(tag, "kernels vs plain, TF32 off: " + json.dumps(row))
+    if any(m["skipped"] or not math.isfinite(m["loss"])
+           for a in arms.values() for m in a["metrics"]):
+        fail(tag, "a comparison step was skipped or not finite")
+    if max(rel) > TRAIN_LOSS_RTOL:
+        fail(tag, f"kernel and plain losses differ by {max(rel)} > rtol "
+                  f"{TRAIN_LOSS_RTOL}")
+    return row
+
+
+def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
-    row["compare"] = cmp_row
+
+
+def first_batches(trainer, k: int = 3) -> list:
+    """The first ``k`` batches of the trainer's epoch 1, on the card."""
+    it = trainer.train_loader.epoch(1)
+    batches = [{n: b[n] for n in ("image", "label", "mask")}
+               for b, _ in zip(it, range(k))]
+    it.close()
+    return batches
+
+
+def phase_train(root: str, seed: int, smi: str):
+    """The training path through ``Trainer``, the kernel-vs-plain 3-step
+    comparison and the LAMB run; returns launch counts and the row."""
+    from tpuic_torch.train.loop import Trainer
+    cfg = train_config(root, seed)
+    trainer = Trainer(cfg, log=lambda msg: log("train", msg))
+    reset_counts()
+    trainer.fit()
+    stats = dict(trainer.stats)
+    trainer.val_epoch(0)
+    counts = read_counts()
+    steps = stats["steps"]
+    val_forwards = len(trainer.val_loader)
+    want = expect(cross_entropy_fwd=steps, cross_entropy_bwd=steps,
+                  lars_update=steps, conv_bn_relu=53 * val_forwards)
+    if steps != TRAIN_STEPS or counts != want:
+        fail("train", f"{steps} steps, launches {counts}, expected "
+                      f"{TRAIN_STEPS} steps and {want}")
+    if not all(bool(torch.isfinite(p).all())
+               for p in trainer.model.parameters()) or not all(
+            math.isfinite(v) for v in trainer.last_val.values()):
+        fail("train", f"non-finite state after {steps} steps: val "
+                      f"{trainer.last_val}")
+    row = train_row(trainer, stats, counts, TRAIN_BATCH, smi)
+    log("train", json.dumps(row))
+    batches = first_batches(trainer)
+    del trainer
+    free()
+    row["compare"] = check_compare("train", compare_plain(cfg, batches, seed,
+                                                          COMPARE_LR))
+    del batches
+    free()
+
+    lcfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=LAMB_BATCH),
+        optim=dataclasses.replace(cfg.optim, optimizer="lamb",
+                                  learning_rate=1e-2, warmup_epochs=0,
+                                  milestones=()),
+        run=dataclasses.replace(cfg.run, max_steps=3, log_every_steps=1))
+    lamb = Trainer(lcfg, log=lambda msg: log("train", msg))
+    reset_counts()
+    lamb.fit()
+    lamb_counts = read_counts()
+    lamb_want = expect(cross_entropy_fwd=3, cross_entropy_bwd=3,
+                       lamb_update=3)
+    if lamb_counts != lamb_want or not all(
+            bool(torch.isfinite(p).all()) for p in lamb.model.parameters()):
+        fail("train", f"LAMB run: launches {lamb_counts}, expected "
+                      f"{lamb_want}, or non-finite parameters")
+    log("train", "LAMB run: " + json.dumps({
+        "batch": LAMB_BATCH, "steps": lamb.stats["steps"],
+        "launches": lamb_counts, "wall_s": lamb.stats["wall_s"]}))
+    del lamb
+    free()
     return counts, lamb_counts, row
+
+
+K4 = ("flash_attention_fwd", "flash_attention_bwd_dq",
+      "flash_attention_bwd_dkv")
+
+
+def attn_work(b: int, n: int = ATTN_N, h: int = ATTN_H, d: int = ATTN_D,
+              itemsize: int = 4) -> dict:
+    """(FLOPs, bytes) of each K4 kernel at [b, n, h, d]: the reference's
+    CostEstimate FLOPs (4*B*H*N^2*D forward, 5*B*H*N^2*D per backward
+    kernel, flash_attention.py:336, :465, :493) at the unpadded N; each
+    input read once and each output written once (q/k/v/o/do/dq/dk/dv
+    [B, N, H, D], lse and delta float32 [B, H, N])."""
+    t = b * n * h * d * itemsize
+    r = b * h * n * 4
+    nnd = b * h * n * n * d
+    return {"flash_attention_fwd": (4.0 * nnd, 3 * t + t + r),
+            "flash_attention_bwd_dq": (5.0 * nnd, 5 * t + r + t + r),
+            "flash_attention_bwd_dkv": (5.0 * nnd, 4 * t + 2 * r + 2 * t)}
+
+
+def phase_attn(device_name: str, gen: torch.Generator):
+    """K4 against its plain versions at the ViT-B/16 shapes and the masked
+    cases, then timed.  Returns the summaries at [64, 197, 12, 64]."""
+    from tpuic_torch.kernels import no_tf32
+    FA = importlib.import_module("tpuic_torch.kernels.flash_attention")
+    _, peak_flops, hbm = peaks(device_name)
+    tc_peak = tf32_peak(device_name)
+
+    def inputs(b, n, dtype=torch.float32):
+        # q/k/v as the ViT makes them: strided views of one projection.
+        qkv = torch.randn((b, n, 3 * ATTN_H * ATTN_D), generator=gen)
+        q, k, v = (t.view(b, n, ATTN_H, ATTN_D)
+                   for t in qkv.cuda().to(dtype).split(ATTN_H * ATTN_D, -1))
+        do = torch.randn((b, n, ATTN_H, ATTN_D), generator=gen)
+        return q, k, v, do.cuda().to(dtype)
+
+    def check(label, q, k, v, do, tol, sentinel=0.0, **mask):
+        o, lse = FA.flash_attention_fwd(q, k, v, masked_sentinel=sentinel,
+                                        **mask)
+        dq, delta = FA.flash_attention_bwd_dq(q, k, v, o, lse, do, **mask)
+        dk, dv = FA.flash_attention_bwd_dkv(q, k, v, lse, delta, do, **mask)
+        torch.cuda.synchronize()
+        want_o, want_lse = FA.flash_attention_fwd_plain(
+            q, k, v, masked_sentinel=sentinel, **mask)
+        wdq, wdk, wdv = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     **mask)
+        pairs = {"flash_attention_fwd": ((o, lse), (want_o, want_lse)),
+                 "flash_attention_bwd_dq": ((dq,), (wdq,)),
+                 "flash_attention_bwd_dkv": ((dk, dv), (wdk, wdv))}
+        errs = {name: max_err([t.float() for t in got],
+                              [t.float() for t in want])
+                for name, (got, want) in pairs.items()}
+        bad = [name for name, (got, want) in pairs.items()
+               if not all(torch.allclose(a.float(), b.float(), rtol=tol,
+                                         atol=tol)
+                          for a, b in zip(got, want))]
+        if bad:
+            fail("attn", f"{label}: {bad} beyond atol/rtol {tol}; max abs "
+                         f"err {errs}")
+        log("attn", f"{label}: max abs err {json.dumps(errs)} (atol/rtol "
+                    f"{tol})")
+        return errs, (o, lse, delta)
+
+    rows, main = [], {}
+    with no_tf32():
+        for b in ATTN_BATCHES:
+            q, k, v, do = inputs(b, ATTN_N)
+            errs, (o, lse, delta) = check(f"float32 [{b}, {ATTN_N}, "
+                                          f"{ATTN_H}, {ATTN_D}]", q, k, v,
+                                          do, F32_TOL)
+            ms = {"flash_attention_fwd": time_ms(
+                      lambda: FA.flash_attention_fwd(q, k, v)),
+                  "flash_attention_bwd_dq": time_ms(
+                      lambda: FA.flash_attention_bwd_dq(q, k, v, o, lse,
+                                                        do)),
+                  "flash_attention_bwd_dkv": time_ms(
+                      lambda: FA.flash_attention_bwd_dkv(q, k, v, lse,
+                                                         delta, do))}
+            # The plain backward computes dq, dk and dv in one function:
+            # its time stands beside each backward kernel.
+            plain = {"fwd": time_ms(
+                         lambda: FA.flash_attention_fwd_plain(q, k, v),
+                         iters=10),
+                     "bwd": time_ms(
+                         lambda: FA.flash_attention_bwd_plain(q, k, v, o,
+                                                              lse, do),
+                         iters=10)}
+            # One SDPA call on [B, H, N, D] views of the same tensors:
+            # timed only, never called by the port.
+            qh, kh, vh, gh = (t.transpose(1, 2) for t in (q, k, v, do))
+            qr, kr, vr = (t.detach().requires_grad_(True)
+                          for t in (qh, kh, vh))
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qr, kr, vr)
+                return torch.autograd.grad(out, (qr, kr, vr), gh)
+
+            sdpa = {"fwd": time_ms(
+                        lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+                    "fwd_bwd": time_ms(sdpa_fwd_bwd)}
+            row = {"shape": [b, ATTN_N, ATTN_H, ATTN_D], "dtype": "float32",
+                   "max_abs_err": errs, "ms": ms, "plain_ms": plain,
+                   "sdpa_ms": sdpa, "bound_ms": {}, "bound_by": {},
+                   "tf32_bound_ms": {}, "share_of_bound": {}}
+            for name, (ops, nbytes) in attn_work(b).items():
+                bms, by = bound(ops, nbytes, peak_flops, hbm)
+                row["bound_ms"][name], row["bound_by"][name] = bms, by
+                row["tf32_bound_ms"][name] = bound(ops, nbytes, tc_peak,
+                                                   hbm)[0]
+                row["share_of_bound"][name] = bms / ms[name]
+            rows.append(row)
+            log("attn", json.dumps(row))
+            if b == VIT_BATCH:
+                for name in K4:
+                    fwd = name == "flash_attention_fwd"
+                    main[name] = {
+                        "max_abs_err": errs[name], "ms": ms[name],
+                        "plain_ms": plain["fwd" if fwd else "bwd"],
+                        "bound_ms": row["bound_ms"][name],
+                        "bound_by": row["bound_by"][name],
+                        "library_ms": sdpa["fwd" if fwd else "fwd_bwd"]}
+            del q, k, v, do, o, lse, delta, qh, kh, vh, gh, qr, kr, vr
+            free()
+        check(f"bfloat16 [8, {ATTN_N}, {ATTN_H}, {ATTN_D}]",
+              *inputs(8, ATTN_N, torch.bfloat16), BF16_TOL)
+        q, k, v, do = inputs(4, 64)
+        check("valid_len 50 of 64", q, k, v, do, F32_TOL, valid_len=50)
+        check("valid 50 of 64 (device count)", q, k, v, do, F32_TOL,
+              valid=torch.tensor([50], dtype=torch.int32, device="cuda"))
+        none = torch.zeros(1, dtype=torch.int32, device="cuda")
+        for sentinel in (0.0, FA.NEG_INF):
+            _, (o, lse, _) = check(f"fully masked, sentinel {sentinel}", q,
+                                   k, v, do, F32_TOL, sentinel=sentinel,
+                                   valid=none)
+            if not (bool((o == 0).all()) and bool((lse == sentinel).all())):
+                fail("attn", f"fully masked rows: o max {o.abs().max()}, "
+                             f"lse {lse.unique().tolist()[:4]}, expected 0 "
+                             f"and {sentinel}")
+    return main, rows
+
+
+def phase_vit(gen: torch.Generator, seed: int):
+    """ViT-B/16 through K4 against the same weights under dense attention;
+    returns the flash model for serving."""
+    from tpuic_torch.checkpoint import init_synthetic
+    from tpuic_torch.kernels import no_tf32
+    from tpuic_torch.models import create_model
+    model = init_synthetic(create_model(VIT_MODEL, 1000, dtype="float32",
+                                        attention="flash",
+                                        image_size=IMAGE), seed=seed)
+    dense = create_model(VIT_MODEL, 1000, dtype="float32",
+                         attention="dense", image_size=IMAGE)
+    dense.load_state_dict(model.state_dict())
+    model.eval()
+    dense.eval()
+    x = torch.randn((4, IMAGE, IMAGE, 3), generator=gen).cuda()
+    with torch.inference_mode():
+        model(x)
+        with no_tf32():
+            reset_counts()
+            flash = model(x)
+            counts = read_counts()
+            ref = dense(x)
+        flash_ms = time_ms(lambda: model(x), iters=10)
+        dense_ms = time_ms(lambda: dense(x), iters=10)
+    if counts != expect(flash_attention_fwd=VIT_LAYERS):
+        fail("vit", f"launches per forward {counts}, expected "
+                    f"{VIT_LAYERS} flash_attention_fwd")
+    if not (torch.isfinite(flash).all() and flash.shape == (4, 1000)):
+        fail("vit", f"logits {tuple(flash.shape)} not finite")
+    err = float((flash - ref).abs().max())
+    if not torch.allclose(flash, ref, rtol=MODEL_TOL, atol=MODEL_TOL):
+        fail("vit", f"flash vs dense logits: max abs err {err} beyond "
+                    f"atol/rtol {MODEL_TOL}")
+    log("vit", json.dumps({
+        "model": VIT_MODEL, "classes": 1000, "image": IMAGE, "batch": 4,
+        "dtype": "float32", "params": sum(p.numel()
+                                          for p in model.parameters()),
+        "launches_per_forward": counts["flash_attention_fwd"],
+        "max_abs_err_vs_dense": err,
+        "logit_abs_max": float(ref.abs().max()),
+        "top1_agree": bool((flash.argmax(-1) == ref.argmax(-1)).all()),
+        "flash_forward_ms": flash_ms, "dense_forward_ms": dense_ms}))
+    del dense
+    free()
+    return model
+
+
+def vit_train_config(root: str, seed: int):
+    """The repo's ViT-B/16 recipe (recipes/README.md, section 4) on one
+    card, float32, through the flash kernels and the fused loss, without
+    the regularisers the port does not have yet (mixup, CutMix, random
+    erasing, drop-path, EMA)."""
+    from tpuic_torch.config import (Config, DataConfig, ModelConfig,
+                                    OptimConfig, RunConfig)
+    return Config(
+        data=DataConfig(data_dir=root, resize_size=IMAGE,
+                        batch_size=VIT_BATCH, num_workers=8,
+                        shuffle_seed=seed, native=False, pack=False),
+        model=ModelConfig(name=VIT_MODEL, num_classes=1000, dtype="float32",
+                          attention="flash"),
+        optim=OptimConfig(optimizer="adam", learning_rate=VIT_LR,
+                          weight_decay=0.05, warmup_epochs=10,
+                          milestones=(), label_smoothing=0.1,
+                          grad_clip_norm=1.0, class_weights=(),
+                          fused_loss=True),
+        run=RunConfig(epochs=300, max_steps=TRAIN_STEPS, log_every_steps=4,
+                      seed=seed))
+
+
+def phase_vit_train(root: str, seed: int, smi: str):
+    """ViT-B/16 training through ``Trainer`` and the 3-step comparison of
+    the kernels with dense attention and the plain loss."""
+    from tpuic_torch.train.loop import Trainer
+    cfg = vit_train_config(root, seed)
+    trainer = Trainer(cfg, log=lambda msg: log("vit-train", msg))
+    reset_counts()
+    trainer.fit()
+    stats = dict(trainer.stats)
+    trainer.val_epoch(0)
+    counts = read_counts()
+    steps = stats["steps"]
+    val_forwards = len(trainer.val_loader)
+    want = expect(flash_attention_fwd=VIT_LAYERS * (steps + val_forwards),
+                  flash_attention_bwd_dq=VIT_LAYERS * steps,
+                  flash_attention_bwd_dkv=VIT_LAYERS * steps,
+                  cross_entropy_fwd=steps, cross_entropy_bwd=steps)
+    if steps != TRAIN_STEPS or counts != want:
+        fail("vit-train", f"{steps} steps, launches {counts}, expected "
+                          f"{TRAIN_STEPS} steps and {want}")
+    if not all(bool(torch.isfinite(p).all())
+               for p in trainer.model.parameters()) or not all(
+            math.isfinite(v) for v in trainer.last_val.values()):
+        fail("vit-train", f"non-finite state after {steps} steps: val "
+                          f"{trainer.last_val}")
+    row = train_row(trainer, stats, counts, VIT_BATCH, smi)
+    log("vit-train", json.dumps(row))
+    batches = first_batches(trainer)
+    del trainer
+    free()
+    row["compare"] = check_compare("vit-train", compare_plain(
+        cfg, batches, seed, VIT_COMPARE_LR,
+        plain_model=dataclasses.replace(cfg.model, attention="dense")))
+    del batches
+    free()
+    return counts, row
 
 
 def main(argv=None) -> int:
@@ -833,6 +1159,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
 
+    from tpuic_torch.kernels import no_tf32
     gen = torch.Generator().manual_seed(args.seed)
     summary, rows, bf16_err = phase_kernel(kind, gen)
     model = phase_model(gen)
@@ -844,7 +1171,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     xent, xent_rows = phase_xent(kind, gen)
     optim = phase_optim(kind, args.seed)
-    counts, lamb_counts, train = phase_train(args.seed, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        write_folder(root, args.seed)
+        counts, lamb_counts, train = phase_train(root, args.seed, smi)
+        attn, attn_rows = phase_attn(kind, gen)
+        vit = phase_vit(gen, args.seed)
+        # TF32 off, as the ViT's matmuls already are: cuDNN would run the
+        # patch convolution in TF32 with algorithms that differ by batch
+        # size, 5e-5 apart in the probabilities the phase holds to 1e-5.
+        with no_tf32():
+            _, vit_snap = phase_serve(vit, args.requests, args.seed, smi,
+                                      tag="vit-serve",
+                                      counter="flash_attention_fwd",
+                                      per_call=VIT_LAYERS)
+        del vit
+        free()
+        vit_counts, vit_train = phase_vit_train(root, args.seed, smi)
     csrc = "tpuic_torch/kernels/csrc/"
     kernels = [summary]
     for name, row, source, replaces, n in (
@@ -860,7 +1202,10 @@ def main(argv=None) -> int:
             ("lamb_update", optim["lamb_update"],
              csrc + "optimizer_update.cu",
              "tpuic/kernels/optimizer_update.py:146",
-             lamb_counts["lamb_update"])):
+             lamb_counts["lamb_update"]),
+            *((name, attn[name], csrc + "flash_attention.cu",
+               f"tpuic/kernels/flash_attention.py:{line}", vit_counts[name])
+              for name, line in zip(K4, (154, 346, 373)))):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n, **row,
                         "status": "ok"})
@@ -868,7 +1213,9 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
                        "shapes": rows, "bf16_max_abs_err": bf16_err,
-                       "serve": snap, "xent": xent_rows, "train": train},
+                       "serve": snap, "xent": xent_rows, "train": train,
+                       "attn": attn_rows, "vit_serve": vit_snap,
+                       "vit_train": vit_train},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

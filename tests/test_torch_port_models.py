@@ -211,11 +211,13 @@ def test_load_jax_variables_is_strict():
 def test_registry_covers_the_jax_zoo():
     ported = set(port_models.available_models())
     assert ported == {"resnet18", "resnet34", "resnet50", "resnet101",
-                      "resnet152", "resnet18-cifar", "resnet50-s2d"}
+                      "resnet152", "resnet18-cifar", "resnet50-s2d",
+                      "vit-b16", "vit-l16", "vit-b32", "vit-l32", "vit-s16",
+                      "vit-tiny"}
     assert set(jax_models.available_models()) == \
         ported | set(port_models.NOT_YET_PORTED)
     with pytest.raises(ValueError, match="not yet ported"):
-        port_models.create_model("vit-b16", 10, device="cpu")
+        port_models.create_model("vit-s16-moe", 10, device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         port_models.create_model("resnet9000", 10, device="cpu")
 
@@ -244,6 +246,7 @@ def test_config_defaults_match_jax():
                         for f in dataclasses.fields(jax_cls)}
         for f in dataclasses.fields(port_cls):
             assert f.default == jax_defaults[f.name], f.name
+    assert port_config.ATTENTION_IMPLS == jax_models.ATTENTION_IMPLS
     cfg = port_config.ModelConfig(name="resnet18-cifar", num_classes=3,
                                   dtype="float32", fused_conv_bn=True)
     pm = port_models.create_model_from_config(cfg, device="cpu")

@@ -8,9 +8,10 @@ there it keeps as its own copy.
 - ``tpuic_torch.config``     — the configuration dataclasses
 - ``tpuic_torch.kernels``    — hand-written Hopper kernels, each beside its
                                plain PyTorch version (fused conv+BN+ReLU,
-                               fused cross-entropy, fused LARS/LAMB)
-- ``tpuic_torch.models``     — the ResNet family + the MLP classifier head,
-                               with the flax module names
+                               fused cross-entropy, fused LARS/LAMB, flash
+                               attention)
+- ``tpuic_torch.models``     — the ResNet and ViT families + the MLP
+                               classifier head, with the flax module names
 - ``tpuic_torch.checkpoint`` — carry a ``tpuic`` variables tree or optimizer
                                state into the port; initialisation
 - ``tpuic_torch.data``       — ImageFolder decode/augment and the Loader

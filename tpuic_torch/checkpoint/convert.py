@@ -10,9 +10,10 @@ flax leaf                          port tensor                  mapping
 =================================  ===========================  ===========
 conv ``kernel`` [kh,kw,Cin,Cout]   ``Conv2d.weight``            HWIO->OIHW
 Dense ``kernel`` [in, out]         ``Linear.weight``            transpose
-``bias`` of a Dense                ``Linear.bias``              as is
-BN ``scale``, ``bias``             ``weight``, ``bias``         as is
+``bias`` of a Dense or a conv      ``.bias``                    as is
+BN, LayerNorm ``scale``, ``bias``  ``weight``, ``bias``         as is
 BN stats ``mean``, ``var``         ``running_mean``/``_var``    as is
+ViT ``cls``, ``pos_embed``         ``ViT.cls``, ``.pos_embed``  as is
 =================================  ===========================  ===========
 
 The load is strict: every leaf is consumed and every parameter and
@@ -37,19 +38,25 @@ import torch
 from torch import nn
 
 from tpuic_torch.device import resolve_device
+from tpuic_torch.models.layers import LayerNorm
+from tpuic_torch.models.vit import ViT
 
-_PARAM_LEAF = {"scale": "weight", "bias": "bias"}
+_PARAM_LEAF = {"scale": "weight", "bias": "bias", "cls": "cls",
+               "pos_embed": "pos_embed"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """``{path: array}``; a leaf boxed with partitioning metadata (flax's
+    ``Partitioned``, as the ViT's Dense kernels are) is read through its
+    ``value``."""
     out = {}
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, Mapping):
             out.update(_flatten(v, path))
         else:
-            out[path] = np.asarray(v)
+            out[path] = np.asarray(getattr(v, "value", v))
     return out
 
 
@@ -130,8 +137,9 @@ def init_synthetic(model: nn.Module, seed: int = 0,
     placed on ``device`` (``None`` = the card).  Convs and linears get
     fan-in scaled normals; BN gets statistics near the identity, with the
     last BN of each residual branch scaled down so activations stay
-    bounded through deep stacks.  It does not reproduce the numbers of a
-    ``tpuic`` init."""
+    bounded through deep stacks; LayerNorm gets a scale near 1 and a small
+    bias; the ViT's ``cls`` and ``pos_embed`` get normals of std 0.02.  It
+    does not reproduce the numbers of a ``tpuic`` init."""
     model.to(resolve_device(device))
     g = torch.Generator().manual_seed(int(seed))
 
@@ -154,6 +162,12 @@ def init_synthetic(model: nn.Module, seed: int = 0,
                 m.bias.copy_(draw(c, 0.05))
                 m.running_mean.copy_(draw(c, 0.05))
                 m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
+            elif isinstance(m, LayerNorm):
+                m.weight.copy_(draw(m.features, 0.05, 1.0))
+                m.bias.copy_(draw(m.features, 0.05))
+            elif isinstance(m, ViT):
+                m.cls.copy_(draw(m.cls.shape, 0.02))
+                m.pos_embed.copy_(draw(m.pos_embed.shape, 0.02))
     _invalidate(model)
     return model
 
@@ -163,14 +177,22 @@ def init_params(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
     (the same numbers on any device), with the model placed on ``device``
     (``None`` = the card): conv and dense weights from
     ``lecun_normal`` (a normal truncated at two standard deviations,
-    variance 1/fan_in), biases 0, BN scale 1 and bias 0, running mean 0
-    and variance 1.  The distribution is flax's; the numbers are not a
-    ``tpuic`` init's."""
+    variance 1/fan_in), except the ViT's Dense layers (marked
+    ``kernel_init = "xavier_uniform"``), which flax draws from
+    ``xavier_uniform``; biases 0, BN and LayerNorm scale 1 and bias 0,
+    running mean 0 and variance 1; the ViT's ``cls`` 0 and ``pos_embed``
+    from a normal of std 0.02.  The distribution is flax's; the numbers
+    are not a ``tpuic`` init's."""
     model.to(resolve_device(device))
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if getattr(m, "kernel_init", None) == "xavier_uniform":
+                w = torch.empty(m.weight.shape)
+                nn.init.xavier_uniform_(w, generator=g)
+                m.weight.copy_(w)
+                m.bias.zero_()
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
                 w = torch.empty(m.weight.shape)
@@ -184,6 +206,13 @@ def init_params(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, ViT):
+                m.cls.zero_()
+                m.pos_embed.copy_(torch.randn(m.pos_embed.shape,
+                                              generator=g) * 0.02)
     _invalidate(model)
     return model
 

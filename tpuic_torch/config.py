@@ -13,6 +13,11 @@ import dataclasses
 from typing import Sequence
 
 
+#: ``tpuic``'s attention implementations (tpuic/models/vit.py).
+ATTENTION_IMPLS = ("dense", "flash", "ring", "ring-flash", "ulysses",
+                   "ulysses-flash")
+
+
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Input-pipeline settings (reference dp/loader.py + train.py:110-118)."""
@@ -70,8 +75,10 @@ class ModelConfig:
     # BatchNorm momentum/eps matching torch defaults the reference inherits.
     bn_momentum: float = 0.9  # flax convention: ema = m*ema + (1-m)*batch
     bn_eps: float = 1e-5
-    # Rematerialization: not ported; the Trainer refuses True.
+    # Rematerialization: not ported; the Trainer refuses True, so
+    # remat_policy is carried for the config's shape only.
     remat: bool = False
+    remat_policy: str = "dots"
     # Inception aux-logits loss weight (reference train.py:52).
     aux_loss_weight: float = 0.4
     # Inference-only fused conv+BN+ReLU kernel for the ResNet family
@@ -79,6 +86,13 @@ class ModelConfig:
     # eval-mode forward is one kernel launch with BN folded into its
     # epilogue.  Parameter structure is unchanged; training ignores it.
     fused_conv_bn: bool = False
+    # Attention implementation of the ViT family, one of ATTENTION_IMPLS:
+    # 'dense' (matmul + f32 softmax in plain torch ops) or 'flash' (the K4
+    # kernels, tpuic_torch/kernels/flash_attention.py); the ViT refuses
+    # the sequence-parallel rest, which are not ported.  CNNs ignore it.
+    attention: str = "dense"
+    # Stochastic depth of the ViT family: not ported; the ViT refuses > 0.
+    drop_path: float = 0.0
     # Training compute-dtype policy ('' | 'bf16' | 'f32'): only '' and
     # 'f32' are ported.
     compute_dtype: str = ""

@@ -9,7 +9,9 @@ launches its kernel, or raises, for a CUDA tensor.  Ported so far:
 - K1, the fused weighted cross-entropy forward and backward
   (``tpuic/kernels/cross_entropy.py``): ``cross_entropy``;
 - K2, the fused LARS and LAMB updates
-  (``tpuic/kernels/optimizer_update.py``): ``optimizer_update``.
+  (``tpuic/kernels/optimizer_update.py``): ``optimizer_update``;
+- K4, flash attention, forward and the dq and dk/dv backward
+  (``tpuic/kernels/flash_attention.py``): ``flash_attention``.
 """
 
 from tpuic_torch.kernels.conv_bn_relu import (fold_bn,  # noqa: F401
@@ -20,5 +22,9 @@ from tpuic_torch.kernels.conv_bn_relu import (fold_bn,  # noqa: F401
 from tpuic_torch.kernels.cross_entropy import (  # noqa: F401
     cross_entropy_bwd, cross_entropy_bwd_plain, cross_entropy_fwd,
     cross_entropy_fwd_plain, fused_weighted_cross_entropy)
+from tpuic_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
 from tpuic_torch.kernels.optimizer_update import (  # noqa: F401
     lamb_update, lamb_update_plain, lars_update, lars_update_plain)

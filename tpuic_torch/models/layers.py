@@ -9,7 +9,8 @@ Convolutions and BN here take and return NCHW tensors; the ResNet keeps
 them in channels_last memory (an NCHW view of NHWC data), so the
 reference's NHWC layout never needs a copy.  BN takes flax's momentum
 convention (``0.9`` == torch's ``0.1``), torch's default eps, and flax's
-biased running-variance update in train mode.
+biased running-variance update in train mode.  ``LayerNorm`` (the ViT's)
+takes flax's eps 1e-6 and normalises in float32.
 """
 
 from __future__ import annotations
@@ -92,6 +93,29 @@ def batch_norm(features: int, *, momentum: float = 0.9, eps: float = 1e-5,
     """BatchNorm with torch-default hyperparameters (flax momentum 0.9)."""
     return BatchNorm(features, momentum=momentum, eps=eps, dtype=dtype,
                      param_dtype=param_dtype, device=device)
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm`` over the last dim: eps 1e-6 (flax's default,
+    not torch's 1e-5), ``weight``/``bias`` for flax's ``scale``/``bias``,
+    normalising in float32 and returning the compute dtype."""
+
+    def __init__(self, features: int, *, eps: float = 1e-6,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.features, self.eps = int(features), float(eps)
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, dtype=param_dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=param_dtype,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (self.features,), self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.compute_dtype)
 
 
 class Conv(nn.Conv2d):

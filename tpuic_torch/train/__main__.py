@@ -12,6 +12,16 @@ supports explicitly, e.g.::
       --lr 4.8 --weight-decay 1e-4 --warmup-epochs 5 --epochs 90 \\
       --label-smoothing 0.1 --no-class-weights --milestones \\
       --fused-loss --fused-optimizer --dtype float32 --no-pack --no-native
+
+ViT-B/16 through the flash-attention kernels (recipes/README.md, section
+4, without mixup, CutMix, random erasing, drop-path and EMA, which are not
+ported)::
+
+  python -m tpuic_torch.train --datadir /data/imagenet --model vit-b16 \\
+      --attention flash --resize 224 --batchsize 64 --epochs 300 \\
+      --optimizer adam --lr 3e-4 --weight-decay 0.05 --warmup-epochs 10 \\
+      --label-smoothing 0.1 --clip-grad-norm 1.0 --no-class-weights \\
+      --fused-loss --dtype float32 --no-pack --no-native
 """
 
 from __future__ import annotations
@@ -19,8 +29,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from tpuic_torch.config import (Config, DataConfig, MeshConfig, ModelConfig,
-                                OptimConfig, RunConfig)
+from tpuic_torch.config import (ATTENTION_IMPLS, Config, DataConfig,
+                                MeshConfig, ModelConfig, OptimConfig,
+                                RunConfig)
 
 # train.py flags whose features are not ported: (flag, argparse kwargs).
 _NOT_PORTED = (
@@ -30,7 +41,6 @@ _NOT_PORTED = (
     ("--collect-misclassified", dict(action="store_true")),
     ("--per-class-metrics", dict(action="store_true")),
     ("--no-async-checkpoint", dict(action="store_true")),
-    ("--attention", dict(default="dense")),
     ("--remat-policy", dict(default="dots")),
     ("--drop-path", dict(type=float, default=0.0)),
     ("--bn-bf16-stats", dict(action="store_true")),
@@ -99,6 +109,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--label-smoothing", type=float, default=0.0)
     p.add_argument("--ema-decay", type=float, default=0.0)
     p.add_argument("--freeze-backbone", action="store_true")
+    p.add_argument("--attention", default="dense",
+                   choices=list(ATTENTION_IMPLS),
+                   help="attention of ViT backbones: 'dense' or 'flash' (the "
+                        "K4 kernels); the sequence-parallel impls are not "
+                        "yet ported")
     p.add_argument("--fused-loss", action="store_true",
                    help="the fused weighted-CE kernel K1 "
                         "(tpuic_torch/kernels/cross_entropy.py)")
@@ -158,6 +173,7 @@ def config_from_args(args: argparse.Namespace,
                         native=not args.no_native),
         model=ModelConfig(name=args.model, num_classes=args.num_classes,
                           dtype=args.dtype, remat=args.remat,
+                          attention=args.attention,
                           compute_dtype=args.compute_dtype),
         optim=OptimConfig(optimizer=args.optimizer, learning_rate=args.lr,
                           milestones=tuple(args.milestones), gamma=args.gamma,

@@ -22,10 +22,16 @@ per epoch and returns the best val accuracy.
   (step, host time) at which each deferred read returned: the device had
   finished that step then.
 
+The model is built for ``data.resize_size`` images (the ViT's position
+embedding depends on it) with ``model.attention``: a ViT trains through
+the K4 flash-attention kernels with ``attention="flash"``.
+
 Not ported, and refused with ``NotImplementedError`` naming the field:
 mixup, CutMix, random erasing, EMA, ``freeze_backbone``, gradient
 accumulation, loss scaling, bf16 compute, ``remat``, the packed loader
 (``pack``), the native decode core (``native``) and mesh axes above 1.
+The ViT itself refuses drop-path and the sequence-parallel attention
+impls the same way.
 Checkpointing, rollback, elastic membership, telemetry and profiling are
 later items.
 """
@@ -124,7 +130,8 @@ class Trainer:
                                                for x in w)))
         self.cfg, self.mcfg = cfg, mcfg
         self.model = init_params(
-            create_model_from_config(mcfg, device=self.device),
+            create_model_from_config(mcfg, device=self.device,
+                                     image_size=d.resize_size),
             cfg.run.seed, device=self.device)
         steps = max(1, self.train_loader.steps_per_epoch())
         self.schedule = make_schedule(cfg.optim, steps, cfg.run.epochs,
