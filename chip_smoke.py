@@ -55,11 +55,19 @@ the first phase that fails:
 9. attn   — the flash-attention kernels (K4: forward, dq, dk/dv) at the
    ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64], on strided
    q/k/v views of one qkv projection, against their plain versions
-   (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2), plus a
-   ``valid_len`` case (50 of 64 keys) and a fully masked case (o = 0, lse
-   = the sentinel, for sentinels 0 and -1e30); each timed beside its
-   plain version, one ``F.scaled_dot_product_attention`` call (forward;
-   forward + backward for the backward pair; timed only) and its bound.
+   (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2); in float32 the
+   backward again with TF32 allowed, which must give the same bits (it is
+   3xTF32 whatever the flag says), and the plain backward in single-pass
+   TF32, which must fall outside the 1e-4 tolerance (so the check tells
+   TF32 from 3xTF32); plus a ``valid_len`` case (50 of 64 keys) and a
+   fully masked case (o = 0, lse = the sentinel, for sentinels 0 and
+   -1e30).  Each kernel is timed beside its plain version and one
+   ``F.scaled_dot_product_attention`` call (timed only): the forward
+   beside K4f; SDPA's backward alone (from one forward outside the timed
+   calls) and its forward + backward beside the sum of dq and dk/dv, as
+   no one call computes either alone.  The bound is at the rate of the
+   products each kernel issues: the forward's float32 FMAs, the
+   backward's 3xTF32 or bf16 MMAs (its float32 CUDA-core bound beside it).
 10. vit   — ``create_model("vit-b16", 1000, dtype="float32",
    attention="flash")`` with seeded synthetic weights: its logits at batch
    4 against the same weights under ``attention="dense"`` (TF32 off,
@@ -129,10 +137,12 @@ ATTN_BATCHES = (8, VIT_BATCH)
 # picks the row; "H100 80GB HBM3" is the SXM part.
 PEAKS = (("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
          ("H200", 67.0e12, 4.8e12), ("H100", 67.0e12, 3.35e12))
-# Dense TF32 tensor-core peaks of the same parts: the bound a tensor-core
-# attention kernel would aim at.
+# Dense TF32 and bf16 tensor-core peaks of the same parts: the rates of
+# the backward flash kernels' 3xTF32 and bf16 MMAs.
 TF32_PEAKS = (("H100 PCIe", 378e12), ("H100 NVL", 417.5e12),
               ("H200", 495e12), ("H100", 495e12))
+BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
+              ("H200", 989e12), ("H100", 989e12))
 
 
 def log(phase: str, msg: str) -> None:
@@ -162,6 +172,10 @@ def peaks(name: str):
 
 def tf32_peak(name: str) -> float:
     return next(p for key, p in TF32_PEAKS if key in name)
+
+
+def bf16_peak(name: str) -> float:
+    return next(p for key, p in BF16_PEAKS if key in name)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -226,8 +240,8 @@ def work(xs, ws, stride, padding, dtype_bytes=4):
 
 
 def bound(ops: float, nbytes: float, peak_flops: float, hbm: float):
-    """``(bound_ms, bound_by)``: the larger of operations over the float32
-    peak and bytes over the HBM bandwidth."""
+    """``(bound_ms, bound_by)``: the larger of operations over
+    ``peak_flops`` and bytes over the HBM bandwidth."""
     t_ops, t_bytes = ops / peak_flops * 1e3, nbytes / hbm * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -905,13 +919,30 @@ def attn_work(b: int, n: int = ATTN_N, h: int = ATTN_H, d: int = ATTN_D,
             "flash_attention_bwd_dkv": (5.0 * nnd, 4 * t + 2 * r + 2 * t)}
 
 
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 allowed in cuBLAS matmuls and cuDNN convolutions in the block;
+    restores both flags on exit."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
 def phase_attn(device_name: str, gen: torch.Generator):
     """K4 against its plain versions at the ViT-B/16 shapes and the masked
-    cases, then timed.  Returns the summaries at [64, 197, 12, 64]."""
+    cases, then timed.  Returns the summaries at [64, 197, 12, 64] float32
+    and every row."""
     from tpuic_torch.kernels import no_tf32
     FA = importlib.import_module("tpuic_torch.kernels.flash_attention")
     _, peak_flops, hbm = peaks(device_name)
-    tc_peak = tf32_peak(device_name)
+    tc_peak = {torch.float32: tf32_peak(device_name) / 3,  # 3xTF32
+               torch.bfloat16: bf16_peak(device_name)}
 
     def inputs(b, n, dtype=torch.float32):
         # q/k/v as the ViT makes them: strided views of one projection.
@@ -931,8 +962,9 @@ def phase_attn(device_name: str, gen: torch.Generator):
             q, k, v, masked_sentinel=sentinel, **mask)
         wdq, wdk, wdv = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                      **mask)
+        want_delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
         pairs = {"flash_attention_fwd": ((o, lse), (want_o, want_lse)),
-                 "flash_attention_bwd_dq": ((dq,), (wdq,)),
+                 "flash_attention_bwd_dq": ((dq, delta), (wdq, want_delta)),
                  "flash_attention_bwd_dkv": ((dk, dv), (wdk, wdv))}
         errs = {name: max_err([t.float() for t in got],
                               [t.float() for t in want])
@@ -946,79 +978,141 @@ def phase_attn(device_name: str, gen: torch.Generator):
                          f"err {errs}")
         log("attn", f"{label}: max abs err {json.dumps(errs)} (atol/rtol "
                     f"{tol})")
-        return errs, (o, lse, delta)
+        return errs, (o, lse, delta), (dq, dk, dv)
+
+    def tf32_checks(label, q, k, v, o, lse, do, grads):
+        """The float32 backward is 3xTF32 whatever the TF32 flags say: the
+        same bits with TF32 allowed.  And the tolerance tells 3xTF32 from
+        one TF32 pass: the plain backward with its products in TF32 must
+        fall outside it.  Returns that control's max abs error."""
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        with tf32_on():
+            dq, delta = FA.flash_attention_bwd_dq(q, k, v, o, lse, do)
+            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+            single = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), grads)):
+            fail("attn", f"{label}: dq/dk/dv differ between allow_tf32 "
+                         "False and True")
+        err = max_err(single, want)
+        if all(torch.allclose(a, b, rtol=F32_TOL, atol=F32_TOL)
+               for a, b in zip(single, want)):
+            fail("attn", f"{label}: the plain backward in single-pass TF32 "
+                         f"is within atol/rtol {F32_TOL} of float32 (max "
+                         f"abs err {err}), so the check cannot tell it from "
+                         "3xTF32")
+        log("attn", f"{label}: dq, dk, dv bitwise equal under allow_tf32 "
+                    f"False and True; the plain backward in TF32 is {err} "
+                    f"off, outside atol/rtol {F32_TOL}")
+        return err
 
     rows, main = [], {}
     with no_tf32():
-        for b in ATTN_BATCHES:
-            q, k, v, do = inputs(b, ATTN_N)
-            errs, (o, lse, delta) = check(f"float32 [{b}, {ATTN_N}, "
-                                          f"{ATTN_H}, {ATTN_D}]", q, k, v,
-                                          do, F32_TOL)
-            ms = {"flash_attention_fwd": time_ms(
-                      lambda: FA.flash_attention_fwd(q, k, v)),
-                  "flash_attention_bwd_dq": time_ms(
-                      lambda: FA.flash_attention_bwd_dq(q, k, v, o, lse,
-                                                        do)),
-                  "flash_attention_bwd_dkv": time_ms(
-                      lambda: FA.flash_attention_bwd_dkv(q, k, v, lse,
-                                                         delta, do))}
-            # The plain backward computes dq, dk and dv in one function:
-            # its time stands beside each backward kernel.
-            plain = {"fwd": time_ms(
-                         lambda: FA.flash_attention_fwd_plain(q, k, v),
-                         iters=10),
-                     "bwd": time_ms(
-                         lambda: FA.flash_attention_bwd_plain(q, k, v, o,
-                                                              lse, do),
-                         iters=10)}
-            # One SDPA call on [B, H, N, D] views of the same tensors:
-            # timed only, never called by the port.
-            qh, kh, vh, gh = (t.transpose(1, 2) for t in (q, k, v, do))
-            qr, kr, vr = (t.detach().requires_grad_(True)
-                          for t in (qh, kh, vh))
-
-            def sdpa_fwd_bwd():
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            dname = str(dtype).replace("torch.", "")
+            for b in ATTN_BATCHES:
+                label = f"{dname} [{b}, {ATTN_N}, {ATTN_H}, {ATTN_D}]"
+                q, k, v, do = inputs(b, ATTN_N, dtype)
+                errs, (o, lse, delta), grads = check(label, q, k, v, do, tol)
+                tf32_err = (tf32_checks(label, q, k, v, o, lse, do, grads)
+                            if dtype == torch.float32 else None)
+                del grads
+                ms = {"flash_attention_fwd": time_ms(
+                          lambda: FA.flash_attention_fwd(q, k, v)),
+                      "flash_attention_bwd_dq": time_ms(
+                          lambda: FA.flash_attention_bwd_dq(q, k, v, o, lse,
+                                                            do)),
+                      "flash_attention_bwd_dkv": time_ms(
+                          lambda: FA.flash_attention_bwd_dkv(q, k, v, lse,
+                                                             delta, do))}
+                # The plain backward computes dq, dk and dv in one
+                # function: its time stands beside each backward kernel.
+                plain = {"fwd": time_ms(
+                             lambda: FA.flash_attention_fwd_plain(q, k, v),
+                             iters=10),
+                         "bwd": time_ms(
+                             lambda: FA.flash_attention_bwd_plain(
+                                 q, k, v, o, lse, do),
+                             iters=10)}
+                # SDPA on [B, H, N, D] views of the same tensors, timed
+                # only, never called by the port: the forward; the backward
+                # alone (one forward outside the timed calls, then
+                # autograd.grad with the graph kept); forward + backward.
+                qh, kh, vh, gh = (t.transpose(1, 2) for t in (q, k, v, do))
+                qr, kr, vr = (t.detach().requires_grad_(True)
+                              for t in (qh, kh, vh))
                 out = F.scaled_dot_product_attention(qr, kr, vr)
-                return torch.autograd.grad(out, (qr, kr, vr), gh)
 
-            sdpa = {"fwd": time_ms(
-                        lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-                    "fwd_bwd": time_ms(sdpa_fwd_bwd)}
-            row = {"shape": [b, ATTN_N, ATTN_H, ATTN_D], "dtype": "float32",
-                   "max_abs_err": errs, "ms": ms, "plain_ms": plain,
-                   "sdpa_ms": sdpa, "bound_ms": {}, "bound_by": {},
-                   "tf32_bound_ms": {}, "share_of_bound": {}}
-            for name, (ops, nbytes) in attn_work(b).items():
-                bms, by = bound(ops, nbytes, peak_flops, hbm)
-                row["bound_ms"][name], row["bound_by"][name] = bms, by
-                row["tf32_bound_ms"][name] = bound(ops, nbytes, tc_peak,
-                                                   hbm)[0]
-                row["share_of_bound"][name] = bms / ms[name]
-            rows.append(row)
-            log("attn", json.dumps(row))
-            if b == VIT_BATCH:
-                for name in K4:
-                    fwd = name == "flash_attention_fwd"
-                    main[name] = {
-                        "max_abs_err": errs[name], "ms": ms[name],
-                        "plain_ms": plain["fwd" if fwd else "bwd"],
-                        "bound_ms": row["bound_ms"][name],
-                        "bound_by": row["bound_by"][name],
-                        "library_ms": sdpa["fwd" if fwd else "fwd_bwd"]}
-            del q, k, v, do, o, lse, delta, qh, kh, vh, gh, qr, kr, vr
-            free()
-        check(f"bfloat16 [8, {ATTN_N}, {ATTN_H}, {ATTN_D}]",
-              *inputs(8, ATTN_N, torch.bfloat16), BF16_TOL)
+                def sdpa_fwd_bwd():
+                    y = F.scaled_dot_product_attention(qr, kr, vr)
+                    return torch.autograd.grad(y, (qr, kr, vr), gh)
+
+                sdpa = {"fwd": time_ms(
+                            lambda: F.scaled_dot_product_attention(qh, kh,
+                                                                   vh)),
+                        "bwd": time_ms(lambda: torch.autograd.grad(
+                            out, (qr, kr, vr), gh, retain_graph=True)),
+                        "fwd_bwd": time_ms(sdpa_fwd_bwd)}
+                row = {"shape": [b, ATTN_N, ATTN_H, ATTN_D], "dtype": dname,
+                       "max_abs_err": errs, "tf32_plain_max_abs_err": tf32_err,
+                       "ms": ms, "plain_ms": plain, "sdpa_ms": sdpa,
+                       "bound_ms": {}, "bound_by": {},
+                       "fp32_core_bound_ms": {}, "fp32_core_bound_by": {},
+                       "share_of_bound": {},
+                       "bwd_sum_ms": ms["flash_attention_bwd_dq"]
+                       + ms["flash_attention_bwd_dkv"]}
+                row["bwd_sum_over_sdpa_bwd"] = row["bwd_sum_ms"] / sdpa["bwd"]
+                for name, (ops, nbytes) in attn_work(
+                        b, itemsize=dtype.itemsize).items():
+                    core = bound(ops, nbytes, peak_flops, hbm)
+                    # The bound at the rate of the products the kernel
+                    # issues: the forward's FMAs on the CUDA cores; the
+                    # backward's 3xTF32 (float32) or bf16 tensor-core MMAs.
+                    # The float32 CUDA-core bound is kept beside it.
+                    bms, by = (core if name == "flash_attention_fwd" else
+                               bound(ops, nbytes, tc_peak[dtype], hbm))
+                    row["bound_ms"][name], row["bound_by"][name] = bms, by
+                    (row["fp32_core_bound_ms"][name],
+                     row["fp32_core_bound_by"][name]) = core
+                    row["share_of_bound"][name] = bms / ms[name]
+                rows.append(row)
+                log("attn", json.dumps(row))
+                if b == VIT_BATCH and dtype == torch.float32:
+                    for name in K4:
+                        fwd = name == "flash_attention_fwd"
+                        main[name] = {
+                            "max_abs_err": errs[name], "ms": ms[name],
+                            "plain_ms": plain["fwd" if fwd else "bwd"],
+                            "bound_ms": row["bound_ms"][name],
+                            "bound_by": row["bound_by"][name],
+                            "library_ms": sdpa["fwd"] if fwd else None}
+                        if not fwd:
+                            # No one PyTorch call computes dq alone or
+                            # dk/dv alone: SDPA's backward (dq, dk and dv)
+                            # stands beside the pair's sum.
+                            main[name].update(
+                                fp32_core_bound_ms=row["fp32_core_bound_ms"][
+                                    name],
+                                fp32_core_bound_by=row["fp32_core_bound_by"][
+                                    name],
+                                sdpa_bwd_ms=sdpa["bwd"],
+                                sdpa_fwd_bwd_ms=sdpa["fwd_bwd"],
+                                bwd_sum_ms=row["bwd_sum_ms"],
+                                bwd_sum_over_sdpa_bwd=row[
+                                    "bwd_sum_over_sdpa_bwd"])
+                del q, k, v, do, o, lse, delta, qh, kh, vh, gh, qr, kr, vr
+                del out
+                free()
         q, k, v, do = inputs(4, 64)
         check("valid_len 50 of 64", q, k, v, do, F32_TOL, valid_len=50)
         check("valid 50 of 64 (device count)", q, k, v, do, F32_TOL,
               valid=torch.tensor([50], dtype=torch.int32, device="cuda"))
         none = torch.zeros(1, dtype=torch.int32, device="cuda")
         for sentinel in (0.0, FA.NEG_INF):
-            _, (o, lse, _) = check(f"fully masked, sentinel {sentinel}", q,
-                                   k, v, do, F32_TOL, sentinel=sentinel,
-                                   valid=none)
+            _, (o, lse, _), _ = check(f"fully masked, sentinel {sentinel}",
+                                      q, k, v, do, F32_TOL,
+                                      sentinel=sentinel, valid=none)
             if not (bool((o == 0).all()) and bool((lse == sentinel).all())):
                 fail("attn", f"fully masked rows: o max {o.abs().max()}, "
                              f"lse {lse.unique().tolist()[:4]}, expected 0 "
@@ -1156,7 +1250,9 @@ def main(argv=None) -> int:
     log("build", f"{json.dumps(built)} in {time.perf_counter() - t0:.3f} s")
     for name in _build.sources():
         for line in _build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("entry function", "Function "
+                                           "properties", "registers",
+                                           "spill")):
                 log("build", f"{name}: {line.strip()}")
 
     from tpuic_torch.kernels import no_tf32

@@ -211,12 +211,18 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("n,h,d,valid", [(70, 4, 64, None), (17, 4, 16, None),
                                          (64, 2, 32, 50), (33, 1, 128, None),
-                                         (20, 2, 64, 0)])
+                                         (20, 2, 64, 0), (197, 12, 64, None),
+                                         (520, 2, 64, None), (1, 2, 64, None),
+                                         (197, 2, 128, 150)])
 def test_cuda_kernels_match_plain(dtype, tol, n, h, d, valid):
     """K4 forward, dq and dk/dv against their plain versions on the card,
     on strided q/k/v views of one projection, TF32 off.  float32 at
-    atol/rtol 1e-4 (sums in another order); bfloat16 at 1e-2 (the outputs
-    round to bf16 on both sides)."""
+    atol/rtol 1e-4 (the backward's 3xTF32 products and sums in another
+    order); bfloat16 at 1e-2 (the outputs round to bf16 on both sides, and
+    the backward rounds p and ds to bf16 as the reference does).  The
+    shapes: ViT-B/16's heads at N = 197 (a ragged last tile); N = 520,
+    which passes through the backward's two-stage copy ring nine times;
+    N = 1; D = 128, whose backward splits its columns over two blocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(n * d)
@@ -250,3 +256,78 @@ def test_cuda_kernels_match_plain(dtype, tol, n, h, d, valid):
     # Determinism: no atomics, so a second run gives the same bits.
     again = FA.flash_attention_bwd(q, k, v, o, lse, do, valid=vt)
     assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+
+
+def _views(n, h, d, dtype, seed, offset=0):
+    """q, k, v as [2, n, h, d] views of one projection, and do; ``offset``
+    elements into the buffer (to misalign the rows)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn((2 * n * 3 * h * d + offset,), generator=g,
+                      device="cuda").to(dtype)
+    qkv = buf[offset:].view(2, n, 3 * h * d)
+    q, k, v = (t.view(2, n, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn((2, n, h, d), generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+def test_cuda_backward_bits_ignore_allow_tf32():
+    """The float32 backward is 3xTF32 whatever torch's TF32 flags say: the
+    same bits with ``allow_tf32`` off and on, at the ViT-B/16 head shape.
+    The control: the plain backward with its products in single-pass TF32
+    falls outside the 1e-4 tolerance the kernels are held to, so that
+    tolerance tells TF32 from 3xTF32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    q, k, v, do = _views(197, 12, 64, torch.float32, 5)
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    runs, plain = [], []
+    try:
+        for on in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = on
+            torch.backends.cudnn.allow_tf32 = on
+            runs.append(FA.flash_attention_bwd(q, k, v, o, lse, do))
+            plain.append(FA.flash_attention_bwd_plain(q, k, v, o, lse, do))
+            torch.cuda.synchronize()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+               for a, b in zip(runs[0], plain[0]))
+    assert not all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                   for a, b in zip(plain[1], plain[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_takes_misaligned_rows(dtype):
+    """Rows that do not start on 16 bytes (a view one element into its
+    buffer) go through a contiguous copy: the same gradients as aligned
+    copies of the same values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    q, k, v, do = _views(37, 2, 32, dtype, 9, offset=1)
+    assert q.data_ptr() % 16 != 0
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    want = FA.flash_attention_bwd(*(t.contiguous() for t in (q, k, v)), o,
+                                  lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_row_aligned_copies_only_misaligned_rows():
+    """The backward wrappers' guard: aligned strided views (the ViT's q/k/v
+    of one projection) pass as they are; a view whose rows start off a
+    16-byte boundary becomes a contiguous, aligned copy."""
+    qkv = torch.zeros((2, 19, 3 * 64), dtype=torch.float32)
+    view = qkv.split(64, dim=-1)[1].view(2, 19, 4, 16)
+    assert FA._row_aligned(view) is view
+    off = torch.zeros(2 * 19 * 64 + 1)[1:].view(2, 19, 4, 16)
+    odd = torch.zeros((2, 19, 4, 18))[..., :16]
+    for t in (off, odd):
+        got = FA._row_aligned(t)
+        assert got is not t and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, t)

@@ -23,26 +23,74 @@
 // owned per q tile and dk/dv per k tile (the reference grids, :457 and :484),
 // so no atomics are needed and two runs give the same bits.
 //
-// Design (simple first): one 128-thread block per (b*h, 64-row tile).  The
-// block's own tile and the tiles it loops over are staged in shared memory
-// as float32 (bf16 inputs are widened on load), 64 x 64 score tiles are
-// computed on the CUDA cores with float32 accumulation, and each thread owns
-// a 4 x 8 piece of the score tile (rows tr + 16i, columns tc + 8j) and a
-// 4 x D/8 piece of its accumulators.  Row reductions of the online softmax
-// are shuffles across the 8 lanes that share a row.  Shared-memory rows are
-// padded (D + 1, 64 + 8 floats) so that the lanes of a warp hit distinct
-// banks.
+// Forward design (simple first): one 128-thread block per (b*h, 64-row
+// tile).  The block's own tile and the tiles it loops over are staged in
+// shared memory as float32 (bf16 inputs are widened on load), 64 x 64 score
+// tiles are computed on the CUDA cores with float32 accumulation, and each
+// thread owns a 4 x 8 piece of the score tile (rows tr + 16i, columns tc +
+// 8j) and a 4 x D/8 piece of its accumulators.  Row reductions of the
+// online softmax are shuffles across the 8 lanes that share a row.
+// Shared-memory rows are padded (D + 1, 64 + 8 floats) so that the lanes of
+// a warp hit distinct banks.  What bounds it on an H100: operations.  At
+// ViT-B/16's [64, 197, 12, 64] it needs 4*B*H*N^2*D = 7.6 GFLOP (0.114 ms
+// at the 67 TFLOP/s float32 peak) against 19 MB of traffic (0.006 ms at
+// 3.35 TB/s); it pads N to whole 64-row tiles (197 -> 256, 1.7x the work),
+// feeds each FMA from shared memory, and does not use the tensor cores.
 //
-// What bounds it on an H100: operations.  At ViT-B/16's [64, 197, 12, 64]
-// the forward needs 4*B*H*N^2*D = 7.6 GFLOP (0.114 ms at the 67 TFLOP/s
-// float32 peak) against 19 MB of traffic (0.006 ms at 3.35 TB/s).  This
-// version pads N to whole 64-row tiles (197 -> 256, 1.7x the work), feeds
-// each FMA from shared memory, and does not use the tensor cores; a TF32 or
-// bf16 wgmma version with TMA-fed tiles is the next step.
+// Backward design: tensor cores through mma.sync (mma_frag.cuh holds the
+// fragment helpers).  One 128-thread block per (b*h, 64-row tile, column
+// half): each warp owns 16 rows of the block's tile (query rows in dq, key
+// rows in dk/dv) and loops over the other axis in 32-row stages of a
+// two-stage cp.async ring.  Per stage a warp does S = Q K^T and dP = dO
+// V^T (dq) or S^T = K Q^T and dP^T = V dO^T (dk/dv) as "scores" products
+// over D, forms p = exp(scale*s - lse) with keys at or past valid at
+// -1e30 before the exp, and ds = p (dp - delta) in registers, then accumulates dQ += dS K, or dV += P^T dO and dK
+// += dS^T Q, with P and dS fed from the score fragments' registers.
+//   - float32: 3xTF32.  Every operand is split on load into hi = rna(a)
+//     and lo = rna(a - hi), rounded to TF32 as cvt.rna.tf32.f32 rounds but
+//     with an integer add and mask (the conversion instruction issues at a
+//     sixteenth of the integer rate), and each m16n8k8 step issues lo*hi,
+//     hi*lo, then hi*hi (lo*lo dropped): float32 accuracy, whatever
+//     torch's allow_tf32 says (the kernel reads no flag).
+//   - bfloat16: m16n8k16 bf16 MMAs; p and ds round to bf16 before the
+//     second product, as the reference casts them (_f32_for).
+//   - The rows the block loops over (K, V in dq; Q, dO, lse, delta in
+//     dk/dv) come in 32 at a time through 16-byte cp.async.cg (4-byte for
+//     lse/delta) into a two-stage ring: stage i+1 loads while stage i
+//     multiplies.  68 KB of shared memory a block at D = 64 in float32,
+//     so three blocks share an SM.  Rows
+//     past N are zero-filled by the src-size operand, so nothing past the
+//     sequence is read.  q/k/v/o/do must be 16-byte aligned with strides
+//     that keep every row so (the wrapper copies a tensor that is not).
+//   - Shared tiles are rows of 32-bit words with a row stride of D words +
+//     16 bytes (4 mod 8 words): whole 16-byte chunks for cp.async and
+//     ldmatrix, fragment reads and ldmatrix phases free of bank conflicts
+//     by construction (ncu does not run where these kernels were measured,
+//     so it is not checked), and every fragment address a base plus a
+//     constant, which an XOR swizzle does not give (mma_frag.cuh).
+//   - Padding: a warp whose 16 rows lie wholly past N skips its MMAs, and
+//     the inner loop stops at the last 8-row (tf32) or 16-row (bf16) group
+//     that holds a row below N: at N = 197 the inner extent is 200, not 256.
+//     Full stages run a copy of the stage's code with the group count a
+//     constant, with no branch between the MMAs; only the ragged last
+//     stage checks each group.
+//   - Registers: D = 128 splits the output columns over two blocks
+//     (grid.z), each redoing S and dP, so that no thread holds more than 64
+//     accumulators and 32 score values, and ptxas spills nothing.
+// What bounds the backward on an H100: at [64, 197, 12, 64] float32 each
+// kernel needs 5*B*H*N^2*D = 9.54 GFLOP, in 3xTF32 3 x 9.54 G over the 495
+// TFLOP/s TF32 peak = 0.058 ms (0.075 ms with the 200/197 and 64-row tile
+// padding), and moves six [B, N, H, D] tensors, 232 MB, in 0.069 ms at
+// 3.35 TB/s: the two bounds are close, bytes slightly ahead.  In practice
+// the instruction issue rate bounds it: the hi/lo splits are about half of
+// the instructions a stage issues.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mma_frag.cuh"
 
 namespace {
 
@@ -229,253 +277,353 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdParams p) {
   }
 }
 
+// The backward loops over the other axis in stages of SUB rows, through a
+// two-stage cp.async ring: small stages keep a block's shared memory at 68
+// KB (three blocks an SM at D = 64 in float32) and the score fragments of
+// a stage at 2 x 16 registers.
+constexpr int SUB = 32;
+constexpr float LOG2E = 1.4426950408889634f;  // p = 2^((s - lse) log2 e)
+
+// The backward's shared tiles: rows of KW 32-bit words (D floats or D
+// bf16), row stride RS = KW + 4 (mma_frag.cuh says why).  A block
+// writes DO output columns; D = 128 takes two blocks (grid.z).
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(BwdParams p) {
-  constexpr int LD = D + 1, DC = D / 8;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + BM * LD;   // do
-  float* Ks = Gs + BM * LD;
-  float* Vs = Ks + BM * LD;
-  float* Ds = Vs + BM * LD;   // ds tile
-  float* dls = Ds + BM * LDP; // delta of the tile's rows
+struct BwdTile {
+  static constexpr int KW = D * static_cast<int>(sizeof(T)) / 4;
+  static constexpr int RS = KW + 4;
+  static constexpr int OWN = BM * RS;     // words of the block's own tile
+  static constexpr int STAGE = SUB * RS;  // words of a ring stage
+  static constexpr int DO = D < 64 ? D : 64;
+  static constexpr int NO = DO / 8;   // 8-column output tiles a warp
+  static constexpr int NT = SUB / 8;  // 8-row groups of a stage
+  // Blocks an SM should hold: three up to D = 64 (68 KB of shared memory
+  // or less each; ptxas keeps to 168 registers a thread for it), one at D
+  // = 128 (132 KB in float32).
+  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 1;
+};
+
+// The 8-row groups of the stage at r0 that the products run over: up to
+// the last one holding a row below n, rounded up to the MMA's contraction
+// step (8 rows in tf32, 16 in bf16).  Rows past n are zero-filled.
+template <typename T>
+__device__ __forceinline__ int groups(int r0, int n) {
+  constexpr int step = sizeof(T) == 4 ? 8 : 16;
+  const int rows = min(SUB, n - r0);
+  return (rows + step - 1) / step * (step / 8);
+}
+
+// s = A1 . B1^T and dp = A2 . B2^T for the warp's 16 rows (a0) against the
+// stage's first 8*nt rows.
+template <typename T, int D>
+__device__ __forceinline__ void scores(float (&s)[SUB / 8][4],
+                                       const uint32_t* A1, const uint32_t* B1,
+                                       float (&dp)[SUB / 8][4],
+                                       const uint32_t* A2, const uint32_t* B2,
+                                       int a0, int nt) {
+  using L = BwdTile<T, D>;
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  if constexpr (sizeof(T) == 4)
+    frag::scores_tf32<L::KW, L::RS, L::NT>(s, A1, B1, dp, A2, B2, a0, nt);
+  else
+    frag::scores_bf16<L::KW, L::RS, L::NT>(s, A1, B1, dp, A2, B2, a0, nt);
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(
+    float (&out)[BwdTile<T, D>::NO][4], const float (&P)[SUB / 8][4],
+    const uint32_t* Xs, int col0, int nt) {
+  using L = BwdTile<T, D>;
+  if constexpr (sizeof(T) == 4)
+    frag::accumulate_tf32<L::RS, L::NT, L::NO>(out, P, Xs, col0, nt);
+  else
+    frag::accumulate_bf16<L::RS, L::NT, L::NO>(out, P, Xs, col0, nt);
+}
+
+// The dot product of two 16-byte pieces of rows, in float32.
+__device__ __forceinline__ float dot16(const float* a, const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(a);
+  const float4 y = *reinterpret_cast<const float4*>(b);
+  return fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, x.w * y.w)));
+}
+__device__ __forceinline__ float dot16(const __nv_bfloat16* a,
+                                       const __nv_bfloat16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 w = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    sum = fmaf(u.x, w.x, fmaf(u.y, w.y, sum));
+  }
+  return sum;
+}
+
+// ROWS rows from r0 of one (b, h) slice into a tile, by cp.async.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_async(uint32_t* dst, const T* base,
+                                           long long sn, int r0, int N) {
+  frag::load_tile_async<T, D, BwdTile<T, D>::RS, ROWS, THREADS>(dst, base, sn,
+                                                                r0, N);
+}
+
+// One dq stage: keys k0 .. k0 + SUB.  FULL (every group below N) passes the
+// group count as a constant, so the products compile to straight-line code.
+template <typename T, int D, bool FULL>
+__device__ __forceinline__ void dq_stage(
+    float (&acc)[BwdTile<T, D>::NO][4], const uint32_t* Qs,
+    const uint32_t* Gs, const uint32_t* Kt, const uint32_t* Vt, int r0,
+    int k0, int nt_part, int vl, float scale, const float (&lse_r)[2],
+    const float (&dl_r)[2], int col0) {
+  using L = BwdTile<T, D>;
+  const int nt = FULL ? L::NT : nt_part, t = threadIdx.x & 3;
+  float s[L::NT][4], dp[L::NT][4];
+  scores<T, D>(s, Qs, Kt, dp, Gs, Vt, r0, nt);
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1);
+      const float sv = key < vl ? scale * s[j][e] : NEG;
+      const float pij = exp2f((sv - lse_r[e >> 1]) * LOG2E);
+      s[j][e] = pij * (dp[j][e] - dl_r[e >> 1]);  // ds
+    }
+  accumulate<T, D>(acc, s, Kt, col0, nt);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, BwdTile<T, D>::MIN_BLOCKS)
+    flash_bwd_dq_kernel(BwdParams p) {
+  using L = BwdTile<T, D>;
+  extern __shared__ __align__(16) uint32_t bsm[];
+  uint32_t* Qs = bsm;
+  uint32_t* Gs = Qs + L::OWN;      // do
+  uint32_t* Ks = Gs + L::OWN;      // two stages
+  uint32_t* Vs = Ks + 2 * L::STAGE;  // two stages
+  float* dls = reinterpret_cast<float*>(Vs + 2 * L::STAGE);
   const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
-  const int q0 = blockIdx.y * BM, N = p.N;
-  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  const int q0 = blockIdx.y * BM, col0 = blockIdx.z * L::DO, N = p.N;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int r0 = 16 * (threadIdx.x >> 5);  // the warp's rows of the tile
   const int vl = valid_keys(p.valid, p.valid_len, N);
   const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const T* k = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
   const T* v = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
   const T* o = static_cast<const T*>(p.o) + b * p.so.b + h * p.so.h;
-  const T* g = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
-  load_tile<T, D>(Qs, q, p.sq.n, q0, N);
-  load_tile<T, D>(Gs, g, p.sdo.n, q0, N);
-  __syncthreads();
+  const T* gr = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  load_async<T, D, BM>(Qs, q, p.sq.n, q0, N);
+  load_async<T, D, BM>(Gs, gr, p.sdo.n, q0, N);
+  load_async<T, D, SUB>(Ks, k, p.sk.n, 0, N);
+  load_async<T, D, SUB>(Vs, v, p.sv.n, 0, N);
+  frag::cp_async_commit();
   {
-    // Prologue: delta = rowsum(do * o), two threads per row.
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const int row = q0 + r;
-    float sum = 0.f;
-    if (row < N) {
-      const T* orow = o + row * p.so.n;
-#pragma unroll 8
-      for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
-        sum = fmaf(Gs[r * LD + c], ld(orow + c), sum);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0) {
-      dls[r] = sum;
-      if (row < N) p.delta[(long long)bh * N + row] = sum;
+    // Prologue, while the copies fly: delta = rowsum(do * o) from 16-byte
+    // loads, the CPR lanes of a row adjacent, then a shuffle sum over them.
+    constexpr int CPR = D * static_cast<int>(sizeof(T)) / 16;
+    constexpr int EPC = 16 / static_cast<int>(sizeof(T));
+    for (int idx = threadIdx.x; idx < BM * CPR; idx += THREADS) {
+      const int r = idx / CPR, c = idx - r * CPR, row = q0 + r;
+      float sum = 0.f;
+      if (row < N)
+        sum = dot16(o + row * p.so.n + c * EPC, gr + row * p.sdo.n + c * EPC);
+#pragma unroll
+      for (int off = CPR / 2; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (c == 0) {
+        dls[r] = sum;
+        if (row < N && blockIdx.z == 0)
+          p.delta[(long long)bh * N + row] = sum;
+      }
     }
   }
   __syncthreads();
-  float lse_r[4], dl_r[4], acc[4][DC];
+  float lse_r[2], dl_r[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tr + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
     lse_r[i] = row < N ? p.lse[(long long)bh * N + row] : 0.f;
-    dl_r[i] = dls[tr + 16 * i];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    dl_r[i] = dls[r0 + g + 8 * i];
   }
-  for (int k0 = 0; k0 < N; k0 += BM) {
-    __syncthreads();
-    load_tile<T, D>(Ks, k, p.sk.n, k0, N);
-    load_tile<T, D>(Vs, v, p.sv.n, k0, N);
-    __syncthreads();
-    float s[4][8], dp[4][8];
+  float acc[L::NO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < L::NO; ++c)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[8], vv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(tr + 16 * i) * LD + d];
-        gv[i] = Gs[(tr + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        kv[j] = Ks[(tc + 8 * j) * LD + d];
-        vv[j] = Vs[(tc + 8 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  const bool active = q0 + r0 < N;
+  const int stages = (N + SUB - 1) / SUB;
+  for (int it = 0; it < stages; ++it) {
+    frag::cp_async_wait<0>();
+    __syncthreads();  // stage it has landed; stage it - 1 is consumed
+    if (it + 1 < stages) {
+      const int st = (it + 1) & 1;
+      load_async<T, D, SUB>(Ks + st * L::STAGE, k, p.sk.n, (it + 1) * SUB, N);
+      load_async<T, D, SUB>(Vs + st * L::STAGE, v, p.sv.n, (it + 1) * SUB, N);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float sv = k0 + tc + 8 * j < vl ? p.scale * s[i][j] : NEG;
-        const float pij = expf(sv - lse_r[i]);
-        Ds[(tr + 16 * i) * LDP + tc + 8 * j] = pij * (dp[i][j] - dl_r[i]);
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BM; ++j) {
-      float dsv[4], kv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ds[(tr + 16 * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = Ks[j * LD + tc + 8 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
-    }
+    frag::cp_async_commit();
+    if (!active) continue;
+    const int k0 = it * SUB, nt = groups<T>(k0, N);
+    const uint32_t* Kt = Ks + (it & 1) * L::STAGE;
+    const uint32_t* Vt = Vs + (it & 1) * L::STAGE;
+    if (nt == L::NT)
+      dq_stage<T, D, true>(acc, Qs, Gs, Kt, Vt, r0, k0, nt, vl, p.scale,
+                           lse_r, dl_r, col0);
+    else
+      dq_stage<T, D, false>(acc, Qs, Gs, Kt, Vt, r0, k0, nt, vl, p.scale,
+                            lse_r, dl_r, col0);
   }
+  if (!active) return;
+  const int t = lane & 3;
   T* dq = static_cast<T*>(p.dq) + (long long)b * N * p.H * D + h * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tr + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
     if (row >= N) continue;
-    T* drow = dq + (long long)row * p.H * D;
+    T* drow = dq + (long long)row * p.H * D + col0 + 2 * t;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) drow[tc + 8 * c] = cvt<T>(p.scale * acc[i][c]);
+    for (int c = 0; c < L::NO; ++c)
+      frag::store_pair(drow + 8 * c, p.scale * acc[c][2 * i],
+                       p.scale * acc[c][2 * i + 1]);
   }
 }
 
+// One dk/dv stage: queries of the stage tiles Qt/Gt (lse lt, delta dt).
+template <typename T, int D, bool FULL>
+__device__ __forceinline__ void dkv_stage(
+    float (&dk)[BwdTile<T, D>::NO][4], float (&dv)[BwdTile<T, D>::NO][4],
+    const uint32_t* Ks, const uint32_t* Vs, const uint32_t* Qt,
+    const uint32_t* Gt, const float* lt, const float* dt, int r0,
+    int nt_part, const bool (&key_ok)[2], float scale, int col0) {
+  using L = BwdTile<T, D>;
+  const int nt = FULL ? L::NT : nt_part, t = threadIdx.x & 3;
+  // Transposed scores: the warp's keys by the stage's queries.
+  float s[L::NT][4], dp[L::NT][4];
+  scores<T, D>(s, Ks, Qt, dp, Vs, Gt, r0, nt);
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1);
+      const float sv = key_ok[e >> 1] ? scale * s[j][e] : NEG;
+      const float pij = exp2f((sv - lt[c]) * LOG2E);
+      s[j][e] = pij;                        // p^T
+      dp[j][e] = pij * (dp[j][e] - dt[c]);  // ds^T
+    }
+  accumulate<T, D>(dv, s, Gt, col0, nt);
+  accumulate<T, D>(dk, dp, Qt, col0, nt);
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(BwdParams p) {
-  constexpr int LD = D + 1, DC = D / 8;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BM * LD;
-  float* Qs = Vs + BM * LD;
-  float* Gs = Qs + BM * LD;   // do
-  float* Pt = Gs + BM * LD;   // p^T tile: [key][query]
-  float* St = Pt + BM * LDP;  // ds^T tile
-  float* lses = St + BM * LDP;
-  float* dls = lses + BM;
+__global__ void __launch_bounds__(THREADS, BwdTile<T, D>::MIN_BLOCKS)
+    flash_bwd_dkv_kernel(BwdParams p) {
+  using L = BwdTile<T, D>;
+  extern __shared__ __align__(16) uint32_t bsm[];
+  uint32_t* Ks = bsm;
+  uint32_t* Vs = Ks + L::OWN;
+  uint32_t* Qs = Vs + L::OWN;        // two stages
+  uint32_t* Gs = Qs + 2 * L::STAGE;  // do, two stages
+  float* lses = reinterpret_cast<float*>(Gs + 2 * L::STAGE);  // two stages
+  float* dls = lses + 2 * SUB;                                // two stages
   const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
-  const int k0 = blockIdx.y * BM, N = p.N;
-  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  const int k0 = blockIdx.y * BM, col0 = blockIdx.z * L::DO, N = p.N;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int r0 = 16 * (threadIdx.x >> 5);  // the warp's keys of the tile
   const int vl = valid_keys(p.valid, p.valid_len, N);
   const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const T* k = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
   const T* v = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
-  const T* g = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
-  load_tile<T, D>(Ks, k, p.sk.n, k0, N);
-  load_tile<T, D>(Vs, v, p.sv.n, k0, N);
-  float dk[4][DC], dv[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-  for (int q0 = 0; q0 < N; q0 += BM) {
-    __syncthreads();
-    load_tile<T, D>(Qs, q, p.sq.n, q0, N);
-    load_tile<T, D>(Gs, g, p.sdo.n, q0, N);
-    for (int r = threadIdx.x; r < BM; r += THREADS) {
+  const T* gr = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  const float* lse = p.lse + (long long)bh * N;
+  const float* delta = p.delta + (long long)bh * N;
+  // Stage st <- queries q0 .. q0 + SUB: q, do, lse and delta, zero past N.
+  auto load_stage = [&](int st, int q0) {
+    load_async<T, D, SUB>(Qs + st * L::STAGE, q, p.sq.n, q0, N);
+    load_async<T, D, SUB>(Gs + st * L::STAGE, gr, p.sdo.n, q0, N);
+    for (int r = threadIdx.x; r < SUB; r += THREADS) {
       const int row = q0 + r;
-      lses[r] = row < N ? p.lse[(long long)bh * N + row] : 0.f;
-      dls[r] = row < N ? p.delta[(long long)bh * N + row] : 0.f;
+      const bool ok = row < N;
+      frag::cp_async4(frag::smem_addr(lses + st * SUB + r),
+                      lse + (ok ? row : 0), ok);
+      frag::cp_async4(frag::smem_addr(dls + st * SUB + r),
+                      delta + (ok ? row : 0), ok);
     }
-    __syncthreads();
-    // Score tile transposed: keys tr + 16i, queries tc + 8j.
-    float s[4][8], dp[4][8];
+  };
+  load_async<T, D, BM>(Ks, k, p.sk.n, k0, N);
+  load_async<T, D, BM>(Vs, v, p.sv.n, k0, N);
+  load_stage(0, 0);
+  frag::cp_async_commit();
+  bool key_ok[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i) key_ok[i] = k0 + r0 + g + 8 * i < vl;
+  float dk[L::NO][4], dv[L::NO][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[8], gv[8];
+  for (int c = 0; c < L::NO; ++c)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(tr + 16 * i) * LD + d];
-        vv[i] = Vs[(tr + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        qv[j] = Qs[(tc + 8 * j) * LD + d];
-        gv[j] = Gs[(tc + 8 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool key_ok = k0 + tr + 16 * i < vl;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tc + 8 * j;
-        const float sv = key_ok ? p.scale * s[i][j] : NEG;
-        const float pij = q0 + c < N ? expf(sv - lses[c]) : 0.f;
-        Pt[(tr + 16 * i) * LDP + c] = pij;
-        St[(tr + 16 * i) * LDP + c] = pij * (dp[i][j] - dls[c]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < BM; ++r) {
-      float pv[4], sv[4], qv[DC], gv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Pt[(tr + 16 * i) * LDP + r];
-        sv[i] = St[(tr + 16 * i) * LDP + r];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        qv[c] = Qs[r * LD + tc + 8 * c];
-        gv[c] = Gs[r * LD + tc + 8 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv[i][c] = fmaf(pv[i], gv[c], dv[i][c]);
-          dk[i][c] = fmaf(sv[i], qv[c], dk[i][c]);
-        }
-    }
+    for (int e = 0; e < 4; ++e) dk[c][e] = dv[c][e] = 0.f;
+  const bool active = k0 + r0 < N;
+  const int stages = (N + SUB - 1) / SUB;
+  for (int it = 0; it < stages; ++it) {
+    frag::cp_async_wait<0>();
+    __syncthreads();  // stage it has landed; stage it - 1 is consumed
+    if (it + 1 < stages) load_stage((it + 1) & 1, (it + 1) * SUB);
+    frag::cp_async_commit();
+    if (!active) continue;
+    const int st = it & 1, nt = groups<T>(it * SUB, N);
+    const uint32_t* Qt = Qs + st * L::STAGE;
+    const uint32_t* Gt = Gs + st * L::STAGE;
+    if (nt == L::NT)
+      dkv_stage<T, D, true>(dk, dv, Ks, Vs, Qt, Gt, lses + st * SUB,
+                            dls + st * SUB, r0, nt, key_ok, p.scale, col0);
+    else
+      dkv_stage<T, D, false>(dk, dv, Ks, Vs, Qt, Gt, lses + st * SUB,
+                             dls + st * SUB, r0, nt, key_ok, p.scale, col0);
   }
-  const long long off = (long long)b * N * p.H * D + h * D;
+  if (!active) return;
+  const int t = lane & 3;
+  const long long off = (long long)b * N * p.H * D + h * D + col0 + 2 * t;
   T* dkp = static_cast<T*>(p.dk) + off;
   T* dvp = static_cast<T*>(p.dv) + off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + tr + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + r0 + g + 8 * i;
     if (row >= N) continue;
     const long long r = (long long)row * p.H * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dkp[r + tc + 8 * c] = cvt<T>(p.scale * dk[i][c]);
-      dvp[r + tc + 8 * c] = cvt<T>(dv[i][c]);
+    for (int c = 0; c < L::NO; ++c) {
+      frag::store_pair(dkp + r + 8 * c, p.scale * dk[c][2 * i],
+                       p.scale * dk[c][2 * i + 1]);
+      frag::store_pair(dvp + r + 8 * c, dv[c][2 * i], dv[c][2 * i + 1]);
     }
   }
 }
 
 template <int D>
 constexpr size_t fwd_smem() { return sizeof(float) * (3 * BM * (D + 1) + BM * LDP); }
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * BM * (D + 1) + BM * LDP + BM);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * BM * (D + 1) + 2 * BM * LDP + 2 * BM);
+// Both backward kernels: two own tiles, two two-stage rings, and per-row
+// floats (delta of the own rows in dq; lse and delta, two stages, in
+// dk/dv).
+template <typename T, int D>
+constexpr size_t bwd_smem(int row_floats) {
+  using L = BwdTile<T, D>;
+  return sizeof(uint32_t) * (2 * L::OWN + 4 * L::STAGE) +
+         sizeof(float) * row_floats;
 }
 
-// Launch one instantiation on its grid: (b*h, row tiles), 128 threads, with
-// the dynamic shared memory it needs (above the 48 KB default from D = 64).
+// Launch one instantiation on its grid: (b*h, row tiles, column splits),
+// 128 threads, with the dynamic shared memory it needs (above the 48 KB
+// default for most instantiations).
 template <typename Kernel, typename Params>
-int launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream) {
+int launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream,
+           int splits = 1) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.B * p.H, (p.N + BM - 1) / BM);
+  const dim3 grid(p.B * p.H, (p.N + BM - 1) / BM, splits);
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -491,13 +639,25 @@ int fwd_dispatch(const FwdParams& p, int D, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, int D>
+int launch_dq(const BwdParams& p, cudaStream_t s) {
+  return launch(flash_bwd_dq_kernel<T, D>, bwd_smem<T, D>(BM), p, s,
+                D / BwdTile<T, D>::DO);
+}
+
+template <typename T, int D>
+int launch_dkv(const BwdParams& p, cudaStream_t s) {
+  return launch(flash_bwd_dkv_kernel<T, D>, bwd_smem<T, D>(4 * SUB), p, s,
+                D / BwdTile<T, D>::DO);
+}
+
 template <typename T>
 int dq_dispatch(const BwdParams& p, int D, cudaStream_t s) {
   switch (D) {
-    case 16: return launch(flash_bwd_dq_kernel<T, 16>, dq_smem<16>(), p, s);
-    case 32: return launch(flash_bwd_dq_kernel<T, 32>, dq_smem<32>(), p, s);
-    case 64: return launch(flash_bwd_dq_kernel<T, 64>, dq_smem<64>(), p, s);
-    case 128: return launch(flash_bwd_dq_kernel<T, 128>, dq_smem<128>(), p, s);
+    case 16: return launch_dq<T, 16>(p, s);
+    case 32: return launch_dq<T, 32>(p, s);
+    case 64: return launch_dq<T, 64>(p, s);
+    case 128: return launch_dq<T, 128>(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -505,11 +665,10 @@ int dq_dispatch(const BwdParams& p, int D, cudaStream_t s) {
 template <typename T>
 int dkv_dispatch(const BwdParams& p, int D, cudaStream_t s) {
   switch (D) {
-    case 16: return launch(flash_bwd_dkv_kernel<T, 16>, dkv_smem<16>(), p, s);
-    case 32: return launch(flash_bwd_dkv_kernel<T, 32>, dkv_smem<32>(), p, s);
-    case 64: return launch(flash_bwd_dkv_kernel<T, 64>, dkv_smem<64>(), p, s);
-    case 128:
-      return launch(flash_bwd_dkv_kernel<T, 128>, dkv_smem<128>(), p, s);
+    case 16: return launch_dkv<T, 16>(p, s);
+    case 32: return launch_dkv<T, 32>(p, s);
+    case 64: return launch_dkv<T, 64>(p, s);
+    case 128: return launch_dkv<T, 128>(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,6 +24,12 @@ Layout and numerics:
   the single-call path; the ring composition passes ``-1e30``.
 - ``delta = rowsum(do * o)`` is computed by the dq kernel's prologue and
   written out for the dk/dv kernel, which runs after it on the stream.
+- The backward kernels run on the tensor cores: float32 in 3xTF32, which
+  keeps float32 accuracy whatever ``torch.backends.cuda.matmul.allow_tf32``
+  says (they read no flag, and give the same bits either way); bfloat16
+  with ``p`` and ``ds`` rounded to bf16 before the second product, as the
+  reference does.  They copy rows 16 bytes at a time, so a tensor whose
+  rows are not 16-byte aligned goes in as a contiguous copy.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` (the reference's
 ``custom_vjp``): its forward saves ``(q, k, v, o, lse)``, all O(N*D), and
@@ -174,6 +180,19 @@ def _launch(fn, name, q, args) -> None:
                            f"for q {tuple(q.shape)} {q.dtype}")
 
 
+def _row_aligned(t):
+    """``t`` itself when every row it has starts on a 16-byte boundary (the
+    backward kernels copy rows into shared memory 16 bytes at a time),
+    else a contiguous copy.  The ViT's strided q/k/v views of one qkv
+    projection are aligned and go in as they are."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            st * size % 16 == 0
+            for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _valid_args(q, valid_len, valid):
     n = q.shape[1]
     return (None if valid is None else valid.data_ptr(),
@@ -217,6 +236,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *,
         raise ValueError(f"no dq kernel for device {q.device}")
     _check_cuda(q, (("k", k), ("v", v), ("o", o), ("do", do)), valid)
     _check_rows("lse", lse, q)
+    q, k, v, o, do = (_row_aligned(t) for t in (q, k, v, o, do))
     b, n, h, d = q.shape
     dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -242,6 +262,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *,
     _check_cuda(q, (("k", k), ("v", v), ("do", do)), valid)
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
+    q, k, v, do = (_row_aligned(t) for t in (q, k, v, do))
     b, n, h, d = q.shape
     dk = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
