@@ -10,12 +10,16 @@ ReLU.
 
 The kernel (``csrc/conv_bn_relu.cu``) is an implicit GEMM in CUDA C++ for
 ``sm_90a``: output pixels x output channels, reduced over the
-``kh*kw*Cin`` taps, gathered from NHWC with zero padding, on the CUDA
-cores.  What bounds it on an H100: in float32 the FLOPs against the
-card's float32 non-tensor peak (67 TFLOP/s on the SXM part), or, for the
-1x1 convs at 7x7, the weight's bytes against HBM bandwidth.  This first
-version is simple and right; ``wgmma``/TMA and a tensor-core bf16 path
-are later work (the source note says how).
+``kh*kw*Cin`` taps, gathered from NHWC with zero padding.  With float32
+weights it runs on the tensor cores in 3xTF32 (``mma.sync``, three TF32
+products a float32 product, so the result keeps float32 accuracy whatever
+``torch.backends.cudnn.allow_tf32`` says), fed by a ring of ``cp.async``
+stages, with a deterministic split-K for the shapes whose grid would not
+fill the card.  bf16 activations with float32 weights (what
+``create_model(dtype="bfloat16")`` builds) take the same kernel; bf16
+weights, on no path of the port, are widened to float32 before the launch
+(exactly).  :func:`plan` picks the tiling from the shape; the source's note
+says what bounds the kernel and what the design does about it.
 
 Public layout is the reference's: activations ``[B, H, W, Cin]`` NHWC,
 weights ``[kh, kw, Cin, Cout]`` HWIO, ``scale``/``bias`` float32
@@ -33,7 +37,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Sequence, Tuple, Union
+import functools
+from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -118,29 +123,141 @@ def fused_conv_bn_relu_plain(x, w, scale, bias, strides: Strides = 1,
     return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
+class Plan(NamedTuple):
+    """How the kernel runs one shape (:func:`plan`)."""
+    bm: int       # output pixels a block: 64 or 128 (64 output channels)
+    splits: int   # K slices (split-K), summed in slice order 0..splits-1
+    gather: int   # bytes an activation copy moves: 16, or one element
+    wgather: int  # bytes a weight copy moves: 16 or 4
+
+
+# An H100 has 132 SMs; a grid of fewer than two blocks an SM leaves the
+# card short of warps to hide latency with, so K is split until it has them.
+SMS = 132
+TARGET_BLOCKS = 2 * SMS
+BN = 64                  # output channels a block
+# The batch the slice count is chosen for, whatever the call's batch: the
+# order of a row's K sum must not depend on the batch it rides in (the
+# engine pads requests into buckets of 1, 8 and 32).
+NOMINAL_BATCH = 8
+BK = 32                  # K values a stage
+MAX_SPLITS = 16
+MIN_STAGES = 4           # a slice walks at least 4 stages (128 K values)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(x_shape, w_shape, strides: Strides = 1, padding: Padding = 0,
+         dtype=torch.float32) -> Plan:
+    """The kernel's tiling for x ``[B, H, W, Cin]`` (``dtype``) and float32
+    w ``[kh, kw, Cin, Cout]``.
+
+    Depends on everything but B: the block height, the split count and so
+    the order of every output's K sum are chosen at a nominal batch of 8,
+    so a row's bits are the same at any batch.  Blocks are 128 pixels
+    high where the grid at batch 8 still has three blocks an SM, else 64.
+    Split-K goes in until the grid at batch 8 has two blocks an SM, while
+    each slice keeps four stages.  The activation gather copies 16 bytes
+    (4 float32 or 8 bf16 channels of one tap) when Cin allows, else one
+    element; the weight tile 16 bytes when Cout % 4 == 0, else 4.  The
+    wrapper narrows either to one element for a tensor that is not
+    16-byte aligned."""
+    strides, padding = norm_strides(strides), norm_padding(padding)
+    _, h, w_in, cin = x_shape
+    kh, kw, _, cout = w_shape
+    (sh, sw), ((pt, pb), (pl, pr)) = strides, padding
+    ho = (h + pt + pb - kh) // sh + 1
+    wo = (w_in + pl + pr - kw) // sw + 1
+    size = dtype.itemsize
+    gather = 16 if cin % (16 // size) == 0 else size
+    wgather = 16 if cout % 4 == 0 else 4
+    m, n_tiles = NOMINAL_BATCH * ho * wo, _cdiv(cout, BN)
+    bm = 128 if _cdiv(m, 128) * n_tiles >= 3 * SMS else 64
+    tiles = _cdiv(m, bm) * n_tiles
+    stages = _cdiv(kh * kw * cin, BK)
+    splits = 1
+    while (tiles * splits < TARGET_BLOCKS and splits < MAX_SPLITS
+           and _cdiv(stages, splits + 1) >= MIN_STAGES):
+        splits += 1
+    splits = _cdiv(stages, _cdiv(stages, splits))  # no empty slice
+    return Plan(bm, splits, gather, wgather)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares ``tpuic_conv_bn_relu``'s C signature on a library built
+    from ``csrc/conv_bn_relu.cu``: seven pointers, the int32 dims array,
+    vec_x, vec_w and the stream."""
+    fn = lib.tpuic_conv_bn_relu
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     lib = getattr(_lib, "cdll", None)
     if lib is None:
         from tpuic_torch.kernels import _build
-        lib = _build.load("conv_bn_relu")
-        fn = lib.tpuic_conv_bn_relu
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib.cdll = lib
+        lib = _lib.cdll = bind(_build.load("conv_bn_relu"))
     return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_spec(x_shape, w_shape, strides, padding, relu, dtype):
+    """The shape-only work of a launch, once per distinct call (a serving
+    or eval loop makes the same few dozen): the plan, the output shape, the
+    kernel's integer arguments as an int32 array (kept alive here) and its
+    address, and the output tiles a split-K launch counts."""
+    b, h, w_in, cin = x_shape
+    kh, kw, _, cout = w_shape
+    (sh, sw), ((pt, pb), (pl, pr)) = strides, padding
+    ho = (h + pt + pb - kh) // sh + 1
+    wo = (w_in + pl + pr - kw) // sw + 1
+    if b * ho * wo >= 2 ** 31:
+        raise ValueError(f"input {tuple(x_shape)} is too large for the "
+                         "kernel's 32-bit pixel index")
+    pl_ = plan(x_shape, w_shape, strides, padding, dtype)
+    dims = (ctypes.c_int * 17)(b, h, w_in, cin, kh, kw, cout, ho, wo, sh,
+                               sw, pt, pl, int(bool(relu)),
+                               _DTYPE_CODE[dtype], pl_.bm, pl_.splits)
+    tiles = _cdiv(b * ho * wo, pl_.bm) * _cdiv(cout, BN)
+    return pl_, (b, ho, wo, cout), (dims, ctypes.addressof(dims)), tiles
+
+
+class _Scratch:
+    """Split-K scratch of one (device, stream): the partial tiles and one
+    int32 counter per output tile, grown as needed.  Launches in order on
+    one stream can share it: a launch reads its partials before it ends,
+    and the kernel leaves every counter it took at zero again."""
+
+    def __init__(self):
+        self.ws = self.counters = None
+
+    def get(self, device, floats: int, tiles: int):
+        if self.ws is None or self.ws.numel() < floats:
+            self.ws = torch.empty(floats, dtype=torch.float32, device=device)
+        if self.counters is None or self.counters.numel() < tiles:
+            self.counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                                        device=device)
+        return self.ws, self.counters
+
+
+_SCRATCH: Dict[Tuple[int, int], _Scratch] = {}
 
 
 def _check_cuda_args(x, w, scale, bias) -> None:
     cout = w.shape[3]
+    dev = x.get_device()
     for name, t in (("w", w), ("scale", scale), ("bias", bias)):
-        if t.device != x.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if x.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32/bfloat16 x and w, got "
                         f"{x.dtype} and {w.dtype}")
     for name, t in (("scale", scale), ("bias", bias)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (cout,):
+        if t.dtype != torch.float32 or t.shape != (cout,):
             raise ValueError(f"{name} must be float32 [{cout}], got "
                              f"{t.dtype} {tuple(t.shape)}")
     for name, t in (("x", x), ("w", w), ("scale", scale), ("bias", bias)):
@@ -155,34 +272,50 @@ def fused_conv_bn_relu(x, w, scale, bias, *, strides: Strides = 1,
     x: [B, H, W, Cin] NHWC; w: [kh, kw, Cin, Cout] HWIO; scale/bias:
     float32 [Cout] from :func:`fold_bn`.  ``relu=False`` stops before the
     activation (the residual-add case).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel on the current stream or
-    raises."""
+    version; a CUDA tensor launches the kernel on the current stream with
+    the tiling of :func:`plan`, or raises.  bf16 weights (on no path of
+    the port) are widened to float32 first: exact, the same function."""
     strides, padding = norm_strides(strides), norm_padding(padding)
-    ho, wo = _out_hw(x, w, strides, padding)
+    _out_hw(x, w, strides, padding)
     if x.device.type == "cpu":
         return fused_conv_bn_relu_plain(x, w, scale, bias, strides, padding,
                                         relu)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda_args(x, w, scale, bias)
-    b, h, w_in, cin = x.shape
-    kh, kw, _, cout = w.shape
-    if b * ho * wo >= 2 ** 31 or x.numel() >= 2 ** 31:
+    if w.dtype != torch.float32:
+        w = w.float()
+    if x.numel() >= 2 ** 31:
         raise ValueError(f"input {tuple(x.shape)} is too large for the "
                          "kernel's 32-bit pixel index")
-    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
-    (sh, sw), ((pt, _), (pl, _)) = strides, padding
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.tpuic_conv_bn_relu(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, h, w_in, cin, kh, kw, cout, ho, wo, sh, sw,
-            pt, pl, int(bool(relu)), _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[w.dtype], stream)
+    pl_, out_shape, (_, dims), tiles = _launch_spec(
+        tuple(x.shape), tuple(w.shape), strides, padding, bool(relu),
+        x.dtype)
+    xp, wp = x.data_ptr(), w.data_ptr()
+    # The 16-byte copies need 16-byte aligned tensors: a view that starts
+    # elsewhere is copied one element at a time.
+    vec_x = int(pl_.gather == 16 and xp % 16 == 0)
+    vec_w = int(pl_.wgather == 16 and wp % 16 == 0)
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    fn = _lib().tpuic_conv_bn_relu
+    dev = x.get_device()
+    # The launch goes to x's device; the context switch costs host time, so
+    # it is taken only when another device is current.
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        wsp = cp = None
+        if pl_.splits > 1:
+            # Per tile and slice, the block's partial tile: bm x 64 float32.
+            ws, counters = _SCRATCH.setdefault((dev, stream), _Scratch()).get(
+                x.device, tiles * pl_.splits * pl_.bm * BN, tiles)
+            wsp, cp = ws.data_ptr(), counters.data_ptr()
+        rc = fn(xp, wp, scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                wsp, cp, dims, vec_x, vec_w, stream)
     if rc != 0:
         raise RuntimeError(f"conv_bn_relu kernel launch failed: CUDA error "
-                           f"{rc} for x {tuple(x.shape)}, w {tuple(w.shape)}")
+                           f"{rc} for x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                           f"{pl_}")
     fused_conv_bn_relu.launches += 1
     return out
 

@@ -117,6 +117,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four 8x8 matrices of 32-bit words (16 bytes a row): thread (g, t) gets
+// word t of row g of matrix i in r[i].  Threads 8i..8i+7 give matrix i's
+// row addresses.  On a row-major float32 tile this is a whole tf32 A
+// fragment (rows r0 / r0 + 8, words k0 / k0 + 4), or the B fragments of
+// two n8 tiles of a tile stored n-major.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // Four 8x8 b16 matrices, transposed: thread (g, t) gets rows 2t, 2t+1 of
 // column g of matrix i in r[i].  Threads 8i..8i+7 give matrix i's rows.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
