@@ -32,7 +32,9 @@ the first phase that fails:
    fused_conv_bn=True)`` with seeded synthetic weights: its logits at
    batch 4 against the same weights through the unfused cuDNN branch (TF32
    off, atol/rtol 1e-3: float32 sums in another order through 53 layers),
-   and exactly 53 kernel launches per forward.
+   and exactly 53 kernel launches per forward.  Then the unfused branch
+   through the engine's ``make_forward`` under torch's default flags: a
+   row's probabilities at batch 1 and inside batch 32 agree within 1e-5.
 5. serve  — ``InferenceEngine`` (uint8 in, normalized in the forward,
    buckets 1/8/32) answering a few hundred requests of 1-8 images from
    eight closed-loop client threads: every future resolves with the right
@@ -48,8 +50,12 @@ the first phase that fails:
    ResNet-50 + head parameter list (167 leaves, flax-default init, so the
    zero BN biases take the trust = 1 branch), against their plain versions
    (rtol 1e-5 / atol 1e-7: the trust-ratio norms are summed in another
-   order); timed beside the plain versions and the bound (no single
-   PyTorch call computes a LARS or LAMB update).
+   order); timed per call from Python and on the card alone (the median
+   of 5 replays of a CUDA graph of 100 back-to-back updates, with the
+   replays' spread), beside the
+   plain versions and the bound (no single PyTorch call computes a LARS or
+   LAMB update).  LARS also through its earlier design
+   (``optimizer_update_bench``), held and timed the same way.
 8. train  — ``Trainer`` on a synthetic 224x224 ImageFolder written by
    ``tpuic_torch.data.synthetic``: ResNet-50, float32, batch 128, LARS lr
    4.8 / wd 1e-4 / 5 warmup epochs of a 90-epoch schedule, label smoothing
@@ -67,24 +73,26 @@ the first phase that fails:
    ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64], on strided
    q/k/v views of one qkv projection, against their plain versions
    (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2); in float32 the
-   backward again with TF32 allowed, which must give the same bits (it is
-   3xTF32 whatever the flag says), and the plain backward in single-pass
-   TF32, which must fall outside the 1e-4 tolerance (so the check tells
-   TF32 from 3xTF32); plus a ``valid_len`` case (50 of 64 keys) and a
+   forward and the backward again with TF32 allowed, which must give the
+   same bits (they are 3xTF32 whatever the flag says), and the plain
+   forward and backward in single-pass TF32, which must each fall outside
+   the 1e-4 tolerance (so the check tells TF32 from 3xTF32); plus a
+   ``valid_len`` case (50 of 64 keys) and a
    fully masked case (o = 0, lse = the sentinel, for sentinels 0 and
    -1e30).  Each kernel is timed beside its plain version and one
    ``F.scaled_dot_product_attention`` call (timed only): the forward
    beside K4f; SDPA's backward alone (from one forward outside the timed
    calls) and its forward + backward beside the sum of dq and dk/dv, as
-   no one call computes either alone.  The bound is at the rate of the
-   products each kernel issues: the forward's float32 FMAs, the
-   backward's 3xTF32 or bf16 MMAs (its float32 CUDA-core bound beside it).
+   no one call computes either alone; the forward and SDPA's also on the
+   card alone.  The bound is at the rate of the products each kernel
+   issues, 3xTF32 or bf16 MMAs (the float32 CUDA-core bound beside it).
 10. vit   — ``create_model("vit-b16", 1000, dtype="float32",
    attention="flash")`` with seeded synthetic weights: its logits at batch
    4 against the same weights under ``attention="dense"`` (TF32 off,
    atol/rtol 1e-3), and exactly 12 K4 forward launches per forward.
 11. vit-serve — the engine serving that model as ``serve`` serves
-   ResNet-50, with TF32 off: 12 K4 forward launches per device call.
+   ResNet-50, under torch's default flags: 12 K4 forward launches per
+   device call.
 12. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
    the repo's ViT recipe (recipes/README.md, section 4: AdamW lr 3e-4, wd
    0.05, 10 warmup epochs of 300, label smoothing 0.1, clipping at 1.0,
@@ -480,14 +488,55 @@ def phase_model(gen: torch.Generator):
         fail("model", f"fused vs unfused logits: max abs err {err} beyond "
                       f"atol/rtol {MODEL_TOL}")
     top1 = bool((fused.argmax(-1) == ref.argmax(-1)).all())
+    bucket = unfused_bucket_check(model)
     log("model", json.dumps({
         "model": "resnet50", "classes": 1000, "image": IMAGE, "batch": 4,
         "dtype": "float32", "launches_per_forward": per_forward,
         "max_abs_err_vs_unfused": err, "logit_abs_max":
         float(ref.abs().max()), "top1_agree": top1,
         "fused_forward_ms": fused_ms, "unfused_cudnn_forward_ms":
-        unfused_ms}))
+        unfused_ms, "unfused_batch1_vs_batch32": bucket}))
     return model
+
+
+def unfused_bucket_check(model) -> dict:
+    """The unfused (cuDNN) ResNet-50 branch under torch's default flags:
+    one image's row from a batch-1 forward against its row of a batch-32
+    forward.  Served through the engine's ``make_forward`` the
+    probabilities must agree within SERVE_TOL; the same forward called
+    directly, where cuDNN's TF32 algorithms are chosen by batch size, is
+    reported beside it."""
+    from tpuic_torch.serve import make_forward
+    if not torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        fail("model", "the bucket check needs torch's default TF32 flags")
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (SERVE_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)).cuda()
+    rows = (0, 17, 31)
+    model.backbone.fused_inference = False
+    try:
+        served = make_forward(model, normalize=True)
+        big, _ = served(images)
+        served_diff = max(float((served(images[r:r + 1])[0][0]
+                                 - big[r]).abs().max()) for r in rows)
+        with torch.inference_mode():
+            x = images.float() / 255.0
+            big = model(x)
+            direct = [(model(x[r:r + 1])[0], big[r]) for r in rows]
+    finally:
+        model.backbone.fused_inference = True
+    out = {"rows": list(rows), "served_probs_max_abs_diff": served_diff,
+           "direct_logits_max_abs_diff": max(
+               float((a - b).abs().max()) for a, b in direct),
+           "direct_probs_max_abs_diff": max(
+               float((a.softmax(-1) - b.softmax(-1)).abs().max())
+               for a, b in direct)}
+    if served_diff > SERVE_TOL:
+        fail("model", f"unfused ResNet-50 served under the default flags: a "
+                      f"row's probabilities at batch 1 and in batch "
+                      f"{SERVE_BATCH} differ by {served_diff} > {SERVE_TOL}")
+    return out
 
 
 def phase_serve(model, n_requests: int, seed: int, smi: str,
@@ -675,9 +724,15 @@ def phase_xent(device_name: str, gen: torch.Generator):
 
 def phase_optim(device_name: str, seed: int):
     """K2 LARS and LAMB over the ResNet-50 + head parameter list against
-    their plain versions, then timed.  Returns their summaries."""
+    their plain versions, then timed: per call from Python (``ms``, 100
+    back-to-back calls) and on the card alone (``device_ms``: the median
+    of 5 replays of a CUDA graph of 100 back-to-back updates, with their
+    spread); LARS also
+    through its earlier design (``optimizer_update_bench``), timed the same
+    way.  Returns their summaries."""
     from tpuic_torch.checkpoint import init_params
     from tpuic_torch.kernels import optimizer_update as K2
+    from tpuic_torch.kernels import optimizer_update_bench as K2B
     from tpuic_torch.models import create_model
     _, peak_flops, hbm = peaks(device_name)
     model = init_params(create_model("resnet50", 1000, dtype="float32"),
@@ -695,9 +750,11 @@ def phase_optim(device_name: str, seed: int):
     finite = torch.tensor(True, device="cuda")
     lars_kw = dict(weight_decay=1e-4, trust_coefficient=0.001, momentum=0.9)
     lamb_kw = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=1e-4)
+    block_lib = K2B.build_block()
     out = {}
     for kind in ("lars", "lamb"):
         table = K2.LeafTable()
+        earlier = None
         if kind == "lars":
             new_m = K2.lars_update_plain(w, g, m, lr, **lars_kw)
             want = [*[a + b for a, b in zip(w, new_m)], *new_m]
@@ -710,9 +767,18 @@ def phase_optim(device_name: str, seed: int):
 
             def plain():
                 return K2.lars_update_plain(w, g, m, lr, **lars_kw)
+
+            # The earlier design on its own copies and table.
+            old_w, old_m = ([t.clone() for t in ts] for ts in (w, m))
+            old_table = K2.LeafTable()
+
+            def earlier():
+                K2B.block_lars_update(block_lib, old_w, g, old_m, lr, finite,
+                                      table=old_table, **lars_kw)
             # g, w, m read; m', w' written.  Ops per element: u = g +
-            # wd*w, the two squares summed, the update and w + m'.
-            ops, nbytes = 10.0 * n, 4.0 * 5 * n
+            # wd*w, the two squares summed, the update and w + m'.  The
+            # two passes read g and w twice: 7 tensors.
+            ops, nbytes, two_pass = 10.0 * n, 4.0 * 5 * n, 4.0 * 7 * n
         else:
             upd, mus, nus = K2.lamb_update_plain(w, g, m, v, count, lr,
                                                  **lamb_kw)
@@ -728,8 +794,8 @@ def phase_optim(device_name: str, seed: int):
                 return K2.lamb_update_plain(w, g, m, v, count, lr, **lamb_kw)
             # g, w, m, v read; m', v', w' written.  Ops per element: the
             # two moments, debias, sqrt, divide, decay, the two squares
-            # summed, and the update.
-            ops, nbytes = 20.0 * n, 4.0 * 7 * n
+            # summed, and the update.  Two passes: 10 tensors.
+            ops, nbytes, two_pass = 20.0 * n, 4.0 * 7 * n, 4.0 * 10 * n
         kernel()
         torch.cuda.synchronize()
         got = [*got_w, *got_m, *got_v]
@@ -739,17 +805,34 @@ def phase_optim(device_name: str, seed: int):
         if bad:
             fail("optim", f"{kind}: {len(bad)} tensors beyond rtol "
                           f"{OPT_RTOL} / atol {OPT_ATOL}, max abs err {err}")
-        ms = time_ms(kernel, iters=20)
-        plain_ms = time_ms(plain, iters=5, warmup=1)
-        bms, by = bound(ops, nbytes, peak_flops, hbm)
         row = {"kind": kind, "leaves": len(w), "params": n,
-               "zero_norm_leaves": zero, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-               "gb_per_s": nbytes / ms / 1e6}
+               "zero_norm_leaves": zero, "max_abs_err": err}
+        if earlier is not None:
+            earlier()
+            torch.cuda.synchronize()
+            row["earlier_max_abs_err"] = max_err([*old_w, *old_m], want)
+            row["earlier_device_ms"] = K2B.device_time(earlier)
+            row["earlier_ms"] = time_ms(earlier, iters=100)
+        dev = K2B.device_time(kernel)
+        bms, by = bound(ops, nbytes, peak_flops, hbm)
+        row.update(ms=time_ms(kernel, iters=100), device_ms=dev,
+                   plain_ms=time_ms(plain, iters=5, warmup=1), bound_ms=bms,
+                   bound_by=by, two_pass_bound_ms=two_pass / hbm * 1e3,
+                   device_share_of_bound=bms / dev["median"],
+                   gb_per_s=nbytes / dev["median"] / 1e6)
+        if earlier is not None:
+            row["earlier_over_shipped"] = (row["earlier_device_ms"]["median"]
+                                           / dev["median"])
         log("optim", json.dumps(row))
-        out[f"{kind}_update"] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bms,
-                                 "bound_by": by, "library_ms": None}
+        out[f"{kind}_update"] = {
+            "max_abs_err": err, "ms": row["ms"], "device_ms": dev["median"],
+            "device_ms_spread": dev["spread"], "plain_ms": row["plain_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "two_pass_bound_ms": row["two_pass_bound_ms"],
+            "library_ms": None}
+        if earlier is not None:
+            out[f"{kind}_update"]["earlier_device_ms"] = row[
+                "earlier_device_ms"]["median"]
     return out
 
 
@@ -1079,30 +1162,43 @@ def phase_attn(device_name: str, gen: torch.Generator):
         return errs, (o, lse, delta), (dq, dk, dv)
 
     def tf32_checks(label, q, k, v, o, lse, do, grads):
-        """The float32 backward is 3xTF32 whatever the TF32 flags say: the
-        same bits with TF32 allowed.  And the tolerance tells 3xTF32 from
-        one TF32 pass: the plain backward with its products in TF32 must
-        fall outside it.  Returns that control's max abs error."""
+        """The float32 kernels are 3xTF32 whatever the TF32 flags say: the
+        forward's o and lse and the backward's dq, dk, dv have the same
+        bits with TF32 allowed.  And the tolerance tells 3xTF32 from one
+        TF32 pass: the plain forward and the plain backward with their
+        products in TF32 must each fall outside it.  Returns the two
+        controls' max abs errors (forward, backward)."""
+        want_fwd = FA.flash_attention_fwd_plain(q, k, v)
         want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
         with tf32_on():
+            fwd = FA.flash_attention_fwd(q, k, v)
             dq, delta = FA.flash_attention_bwd_dq(q, k, v, o, lse, do)
             dk, dv = FA.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+            single_fwd = FA.flash_attention_fwd_plain(q, k, v)
             single = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
             torch.cuda.synchronize()
+        if not (torch.equal(fwd[0], o) and torch.equal(fwd[1], lse)):
+            fail("attn", f"{label}: o/lse differ between allow_tf32 False "
+                         "and True")
         if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), grads)):
             fail("attn", f"{label}: dq/dk/dv differ between allow_tf32 "
                          "False and True")
-        err = max_err(single, want)
-        if all(torch.allclose(a, b, rtol=F32_TOL, atol=F32_TOL)
-               for a, b in zip(single, want)):
-            fail("attn", f"{label}: the plain backward in single-pass TF32 "
-                         f"is within atol/rtol {F32_TOL} of float32 (max "
-                         f"abs err {err}), so the check cannot tell it from "
-                         "3xTF32")
-        log("attn", f"{label}: dq, dk, dv bitwise equal under allow_tf32 "
-                    f"False and True; the plain backward in TF32 is {err} "
-                    f"off, outside atol/rtol {F32_TOL}")
-        return err
+        errs = []
+        for what, got, ref in (("forward", single_fwd, want_fwd),
+                               ("backward", single, want)):
+            err = max_err(got, ref)
+            if all(torch.allclose(a, b, rtol=F32_TOL, atol=F32_TOL)
+                   for a, b in zip(got, ref)):
+                fail("attn", f"{label}: the plain {what} in single-pass TF32 "
+                             f"is within atol/rtol {F32_TOL} of float32 "
+                             f"(max abs err {err}), so the check cannot tell "
+                             "it from 3xTF32")
+            errs.append(err)
+        log("attn", f"{label}: o, lse, dq, dk, dv bitwise equal under "
+                    "allow_tf32 False and True; the plain forward in TF32 "
+                    f"is {errs[0]} off, the plain backward {errs[1]}, both "
+                    f"outside atol/rtol {F32_TOL}")
+        return errs
 
     rows, main = [], {}
     with no_tf32():
@@ -1116,6 +1212,12 @@ def phase_attn(device_name: str, gen: torch.Generator):
                 tf32_err = (tf32_checks(label, q, k, v, o, lse, do, grads)
                             if dtype == torch.float32 else None)
                 del grads
+                fwd_device = {"kernel": device_ms(
+                                  lambda: FA.flash_attention_fwd(q, k, v)),
+                              "sdpa": device_ms(
+                                  lambda: F.scaled_dot_product_attention(
+                                      *(t.transpose(1, 2)
+                                        for t in (q, k, v))))}
                 ms = {"flash_attention_fwd": time_ms(
                           lambda: FA.flash_attention_fwd(q, k, v)),
                       "flash_attention_bwd_dq": time_ms(
@@ -1155,6 +1257,9 @@ def phase_attn(device_name: str, gen: torch.Generator):
                 row = {"shape": [b, ATTN_N, ATTN_H, ATTN_D], "dtype": dname,
                        "max_abs_err": errs, "tf32_plain_max_abs_err": tf32_err,
                        "ms": ms, "plain_ms": plain, "sdpa_ms": sdpa,
+                       "fwd_device_ms": fwd_device,
+                       "fwd_over_sdpa_fwd": ms["flash_attention_fwd"]
+                       / sdpa["fwd"],
                        "bound_ms": {}, "bound_by": {},
                        "fp32_core_bound_ms": {}, "fp32_core_bound_by": {},
                        "share_of_bound": {},
@@ -1164,12 +1269,10 @@ def phase_attn(device_name: str, gen: torch.Generator):
                 for name, (ops, nbytes) in attn_work(
                         b, itemsize=dtype.itemsize).items():
                     core = bound(ops, nbytes, peak_flops, hbm)
-                    # The bound at the rate of the products the kernel
-                    # issues: the forward's FMAs on the CUDA cores; the
-                    # backward's 3xTF32 (float32) or bf16 tensor-core MMAs.
+                    # The bound at the rate of the products each kernel
+                    # issues: 3xTF32 (float32) or bf16 tensor-core MMAs.
                     # The float32 CUDA-core bound is kept beside it.
-                    bms, by = (core if name == "flash_attention_fwd" else
-                               bound(ops, nbytes, tc_peak[dtype], hbm))
+                    bms, by = bound(ops, nbytes, tc_peak[dtype], hbm)
                     row["bound_ms"][name], row["bound_by"][name] = bms, by
                     (row["fp32_core_bound_ms"][name],
                      row["fp32_core_bound_by"][name]) = core
@@ -1184,16 +1287,20 @@ def phase_attn(device_name: str, gen: torch.Generator):
                             "plain_ms": plain["fwd" if fwd else "bwd"],
                             "bound_ms": row["bound_ms"][name],
                             "bound_by": row["bound_by"][name],
+                            "fp32_core_bound_ms": row["fp32_core_bound_ms"][
+                                name],
                             "library_ms": sdpa["fwd"] if fwd else None}
-                        if not fwd:
+                        if fwd:
+                            main[name].update(
+                                device_ms=fwd_device["kernel"],
+                                library_device_ms=fwd_device["sdpa"],
+                                over_library=row["fwd_over_sdpa_fwd"],
+                                tf32_plain_max_abs_err=tf32_err[0])
+                        else:
                             # No one PyTorch call computes dq alone or
                             # dk/dv alone: SDPA's backward (dq, dk and dv)
                             # stands beside the pair's sum.
                             main[name].update(
-                                fp32_core_bound_ms=row["fp32_core_bound_ms"][
-                                    name],
-                                fp32_core_bound_by=row["fp32_core_bound_by"][
-                                    name],
                                 sdpa_bwd_ms=sdpa["bwd"],
                                 sdpa_fwd_bwd_ms=sdpa["fwd_bwd"],
                                 bwd_sum_ms=row["bwd_sum_ms"],
@@ -1353,7 +1460,6 @@ def main(argv=None) -> int:
                                            "spill")):
                 log("build", f"{name}: {line.strip()}")
 
-    from tpuic_torch.kernels import no_tf32
     gen = torch.Generator().manual_seed(args.seed)
     summary, rows = phase_kernel(kind, gen)
     model = phase_model(gen)
@@ -1370,14 +1476,13 @@ def main(argv=None) -> int:
         counts, lamb_counts, train = phase_train(root, args.seed, smi)
         attn, attn_rows = phase_attn(kind, gen)
         vit = phase_vit(gen, args.seed)
-        # TF32 off, as the ViT's matmuls already are: cuDNN would run the
-        # patch convolution in TF32 with algorithms that differ by batch
-        # size, 5e-5 apart in the probabilities the phase holds to 1e-5.
-        with no_tf32():
-            _, vit_snap = phase_serve(vit, args.requests, args.seed, smi,
-                                      tag="vit-serve",
-                                      counter="flash_attention_fwd",
-                                      per_call=VIT_LAYERS)
+        # Under torch's default flags: the engine's forward turns TF32 off
+        # for its call, and the ViT's patch embedding is one matmul, which
+        # cuBLAS runs in float32 by default.
+        _, vit_snap = phase_serve(vit, args.requests, args.seed, smi,
+                                  tag="vit-serve",
+                                  counter="flash_attention_fwd",
+                                  per_call=VIT_LAYERS)
         del vit
         free()
         vit_counts, vit_train = phase_vit_train(root, args.seed, smi)

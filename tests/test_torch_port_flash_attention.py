@@ -302,6 +302,75 @@ def test_cuda_backward_bits_ignore_allow_tf32():
 
 
 @pytest.mark.cuda
+def test_cuda_forward_bits_ignore_allow_tf32():
+    """The float32 forward is 3xTF32 whatever torch's TF32 flags say: the
+    same o and lse bits with ``allow_tf32`` off and on, at the ViT-B/16
+    head shape.  The control: the plain forward with its products in
+    single-pass TF32 falls outside the 1e-4 tolerance the kernel is held
+    to, so that tolerance tells TF32 from 3xTF32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    q, k, v, _ = _views(197, 12, 64, torch.float32, 6)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    runs, plain = [], []
+    try:
+        for on in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = on
+            torch.backends.cudnn.allow_tf32 = on
+            runs.append(FA.flash_attention_fwd(q, k, v))
+            plain.append(FA.flash_attention_fwd_plain(q, k, v))
+            torch.cuda.synchronize()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+               for a, b in zip(runs[0], plain[0]))
+    assert not all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                   for a, b in zip(plain[1], plain[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_forward_rows_ignore_their_batch(dtype):
+    """A (b, h) slice's forward depends on that slice alone: the rows of
+    batch element 13 of 32 have the same bits when it runs alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    qkv = torch.randn((32, 197, 3 * 4 * 64), generator=g,
+                      device="cuda").to(dtype)
+    q, k, v = (t.view(32, 197, 4, 64) for t in qkv.split(256, dim=-1))
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    o1, lse1 = FA.flash_attention_fwd(q[13:14], k[13:14], v[13:14])
+    torch.cuda.synchronize()
+    assert torch.equal(o1[0], o[13]) and torch.equal(lse1[0], lse[13])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_forward_takes_misaligned_rows(dtype):
+    """Rows that do not start on 16 bytes (a view one element into its
+    buffer) go through a contiguous copy: the forward gives the same o and
+    lse as on aligned copies of the same values, and matches its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    q, k, v, _ = _views(37, 2, 32, dtype, 10, offset=1)
+    assert q.data_ptr() % 16 != 0
+    got = FA.flash_attention_fwd(q, k, v)
+    want = FA.flash_attention_fwd(*(t.contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with no_tf32():
+        plain = FA.flash_attention_fwd_plain(q, k, v)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got[0].float(), plain[0].float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_backward_takes_misaligned_rows(dtype):
     """Rows that do not start on 16 bytes (a view one element into its

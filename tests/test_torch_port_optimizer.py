@@ -380,3 +380,51 @@ def test_cuda_kernels_match_plain(kind):
     for gs, ss in zip(got, snapshot):
         for a, b in zip(gs, ss):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_lars_takes_unaligned_ragged_leaves():
+    """K2a on leaves whose lengths are not multiples of 4 and whose storage
+    offsets are not 16-byte aligned (views 1, 2 and 3 elements into one
+    buffer; one leaf longer than a chunk), beside an aligned leaf: the
+    16-byte path and the scalar path against the plain version, the same
+    bits on a second run, and nothing written under a non-finite flag."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from tpuic_torch.kernels.optimizer_update import LARS_CHUNK
+    rng = np.random.default_rng(7)
+    sizes = [(LARS_CHUNK + 5,), (7,), (3, 3, 3), (1,), (2 * LARS_CHUNK,)]
+
+    def place(ts, offsets):
+        """Copies of ``ts`` as views ``off`` elements into fresh buffers."""
+        out = []
+        for t, off in zip(ts, offsets):
+            buf = torch.empty(t.numel() + off, device="cuda")
+            out.append(buf[off:off + t.numel()].view(t.shape))
+            out[-1].copy_(t)
+        return out
+
+    offsets = [1, 2, 3, 1, 0]
+    w, g, m = ([torch.from_numpy(scale * rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in sizes] for scale in (1.0, 1.0, 0.1))
+    g = place(g, offsets)
+    assert [t.data_ptr() % 16 != 0 for t in g] == [True] * 4 + [False]
+    lr = torch.tensor(0.3, device="cuda")
+    kw = dict(weight_decay=1e-4, trust_coefficient=0.001, momentum=0.9)
+    want_m = lars_update_plain(w, g, m, lr, **kw)
+    want_w = [a + b for a, b in zip(w, want_m)]
+    runs = []
+    for flag in (True, True, False):
+        got_w, got_m = place(w, offsets), place(m, offsets[::-1])
+        lars_update(got_w, g, got_m, lr, torch.tensor(flag, device="cuda"),
+                    **kw)
+        torch.cuda.synchronize()
+        runs.append((got_w, got_m))
+    for a, b in zip(runs[0][0], want_w):
+        torch.testing.assert_close(a, b, **PARAM_TOL)
+    for a, b in zip(runs[0][1], want_m):
+        torch.testing.assert_close(a, b, **LEAF_TOL)
+    assert all(torch.equal(a, b) for x, y in zip(runs[0], runs[1])
+               for a, b in zip(x, y))
+    assert all(torch.equal(a, b) for a, b in zip(runs[2][0], w))
+    assert all(torch.equal(a, b) for a, b in zip(runs[2][1], m))

@@ -205,6 +205,32 @@ def test_order_is_a_stable_descending_sort():
     np.testing.assert_allclose(probs.numpy(), 0.2)
 
 
+def test_forward_runs_with_tf32_off_and_restores_the_flags():
+    """The served forward runs the model with cuDNN's and cuBLAS's TF32
+    off (cuDNN's TF32 algorithms differ by batch size, so a row would
+    depend on its bucket), and puts both flags back as it found them."""
+    seen = []
+
+    def model(x):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return torch.zeros(x.shape[0], 3)
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for before in ((True, False), (True, True)):
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = before
+            make_forward(model)(torch.zeros(2, SIZE, SIZE, 3))
+            assert seen[-1] == (False, False)
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == before
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
 def test_default_device_is_the_card(monkeypatch, model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

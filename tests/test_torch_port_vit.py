@@ -24,6 +24,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tpuic_torch import config as pcfg
 from tpuic_torch import models as port_models
@@ -133,6 +134,34 @@ def test_narrow_vit_logits_match_jax(jx, patch, hidden, heads, size,
     load_jax_variables(pm, variables)
     np.testing.assert_allclose(_port_logits(pm, x), want, rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("patch,size", [(4, 16), (4, 17), (16, 32),
+                                        (16, 40)])
+def test_patch_embedding_equals_the_convolution(patch, size):
+    """``embed_patches`` (a reshape and one ``F.linear``) against
+    ``F.conv2d`` with the same weights at stride = kernel, atol 1e-6: patch
+    4 and 16, with no padding (16 / 4, 32 / 16) and with flax's SAME
+    padding (17 / 4 pads (1, 2), 40 / 16 pads (4, 4)).  Both sides run in
+    float64, so the two summation orders agree to ~1e-15 and any patch or
+    channel put in the wrong place shows far above the tolerance."""
+    torch.manual_seed(size)
+    f64 = dict(dtype=torch.float64, param_dtype=torch.float64)
+    vit = ViT(patch=patch, hidden=24, depth=0, num_heads=2, image_size=size,
+              device="cpu", **f64)
+    with torch.no_grad():
+        vit.patch_embed.bias.normal_()
+    x = torch.randn(3, size, size, 3, dtype=torch.float64)
+    lo, hi = vit.pads
+    assert (lo + hi > 0) == (size % patch != 0)
+    conv = vit.patch_embed
+    want = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi)),
+                    conv.weight, conv.bias, conv.stride)
+    want = want.flatten(2).transpose(1, 2)
+    with torch.no_grad():
+        got = vit.embed_patches(x)
+    assert got.shape == want.shape == (3, (-(-size // patch)) ** 2, 24)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
 def test_vit_b16_strict_load_by_structure(jx):
@@ -353,3 +382,30 @@ def test_cuda_vit_train_step_makes_no_host_sync():
     assert [c.launches - n for c, n in zip(counters, before)] == [4, 4, 4, 2]
     assert int(state.step) == 2 and float(metrics["skipped"]) == 0.0
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+@pytest.mark.cuda
+def test_cuda_vit_row_ignores_its_batch():
+    """A ViT-B/16 row does not depend on the batch it rides in: one image's
+    probabilities from a batch-1 forward equal its row of a batch-32
+    forward within 1e-5, with the model called directly (not through the
+    engine, which turns TF32 off for its call) under torch's default flags
+    (cuDNN's TF32 allowed).  The patch embedding is one ``F.linear``, not a
+    cuDNN convolution, and K4's forward plan does not depend on the
+    batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from tpuic_torch.checkpoint import init_synthetic
+    assert torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model = init_synthetic(port_models.create_model(
+        "vit-b16", 1000, dtype="float32", attention="flash",
+        image_size=224), seed=0)
+    model.eval()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (32, 224, 224, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        big = model(x).softmax(-1)
+        for row in (0, 17, 31):
+            one = model(x[row:row + 1]).softmax(-1)
+            torch.testing.assert_close(one[0], big[row], rtol=0, atol=1e-5)

@@ -1,5 +1,6 @@
 // Flash attention (blockwise online softmax), forward and backward, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), on the tensor cores through mma.sync (mma_frag.cuh holds
+// the fragment helpers).
 //
 // Replaces the TPU kernels of tpuic/kernels/flash_attention.py:
 //   _fwd_kernel     (:154, pallas_call :324)  -> flash_fwd_kernel
@@ -19,71 +20,77 @@
 //             the dk/dv kernel); p = exp(s - lse); ds = p * (do v^T - delta);
 //             dq = scale * ds k.
 //   dk/dv:    dk = scale * ds^T q; dv = p^T do.
-// The backward reads lse; it never rebuilds the softmax normaliser.  dq is
-// owned per q tile and dk/dv per k tile (the reference grids, :457 and :484),
-// so no atomics are needed and two runs give the same bits.
+// The backward reads lse; it never rebuilds the softmax normaliser.  o and dq
+// are owned per q tile and dk/dv per k tile (the reference grids, :287, :457
+// and :484), so no atomics are needed, two runs give the same bits, and a
+// row's result does not depend on the batch it rides in.
 //
-// Forward design (simple first): one 128-thread block per (b*h, 64-row
-// tile).  The block's own tile and the tiles it loops over are staged in
-// shared memory as float32 (bf16 inputs are widened on load), 64 x 64 score
-// tiles are computed on the CUDA cores with float32 accumulation, and each
-// thread owns a 4 x 8 piece of the score tile (rows tr + 16i, columns tc +
-// 8j) and a 4 x D/8 piece of its accumulators.  Row reductions of the
-// online softmax are shuffles across the 8 lanes that share a row.
-// Shared-memory rows are padded (D + 1, 64 + 8 floats) so that the lanes of
-// a warp hit distinct banks.  What bounds it on an H100: operations.  At
-// ViT-B/16's [64, 197, 12, 64] it needs 4*B*H*N^2*D = 7.6 GFLOP (0.114 ms
-// at the 67 TFLOP/s float32 peak) against 19 MB of traffic (0.006 ms at
-// 3.35 TB/s); it pads N to whole 64-row tiles (197 -> 256, 1.7x the work),
-// feeds each FMA from shared memory, and does not use the tensor cores.
-//
-// Backward design: tensor cores through mma.sync (mma_frag.cuh holds the
-// fragment helpers).  One 128-thread block per (b*h, 64-row tile, column
-// half): each warp owns 16 rows of the block's tile (query rows in dq, key
-// rows in dk/dv) and loops over the other axis in 32-row stages of a
-// two-stage cp.async ring.  Per stage a warp does S = Q K^T and dP = dO
-// V^T (dq) or S^T = K Q^T and dP^T = V dO^T (dk/dv) as "scores" products
-// over D, forms p = exp(scale*s - lse) with keys at or past valid at
-// -1e30 before the exp, and ds = p (dp - delta) in registers, then accumulates dQ += dS K, or dV += P^T dO and dK
-// += dS^T Q, with P and dS fed from the score fragments' registers.
-//   - float32: 3xTF32.  Every operand is split on load into hi = rna(a)
-//     and lo = rna(a - hi), rounded to TF32 as cvt.rna.tf32.f32 rounds but
-//     with an integer add and mask (the conversion instruction issues at a
+// Common design.  One 128-thread block per (b*h, 64-row tile, column half):
+// each warp owns 16 rows of the block's tile (query rows in the forward and
+// dq, key rows in dk/dv) and loops over the other axis in 32-row stages of
+// a two-stage cp.async ring.
+//   - float32: 3xTF32.  Every operand is split into hi = rna(a) and lo =
+//     rna(a - hi), rounded to TF32 as cvt.rna.tf32.f32 rounds but with an
+//     integer add and mask (the conversion instruction issues at a
 //     sixteenth of the integer rate), and each m16n8k8 step issues lo*hi,
 //     hi*lo, then hi*hi (lo*lo dropped): float32 accuracy, whatever
-//     torch's allow_tf32 says (the kernel reads no flag).
-//   - bfloat16: m16n8k16 bf16 MMAs; p and ds round to bf16 before the
+//     torch's allow_tf32 says (the kernels read no flag).
+//   - bfloat16: m16n8k16 bf16 MMAs; p (and ds) round to bf16 before the
 //     second product, as the reference casts them (_f32_for).
-//   - The rows the block loops over (K, V in dq; Q, dO, lse, delta in
-//     dk/dv) come in 32 at a time through 16-byte cp.async.cg (4-byte for
-//     lse/delta) into a two-stage ring: stage i+1 loads while stage i
-//     multiplies.  68 KB of shared memory a block at D = 64 in float32,
-//     so three blocks share an SM.  Rows
-//     past N are zero-filled by the src-size operand, so nothing past the
-//     sequence is read.  q/k/v/o/do must be 16-byte aligned with strides
-//     that keep every row so (the wrapper copies a tensor that is not).
+//   - The rows a block loops over come in 32 at a time through 16-byte
+//     cp.async.cg (4-byte for lse/delta): stage i+1 loads while stage i
+//     multiplies.  Rows past N are zero-filled by the src-size operand, so
+//     nothing past the sequence is read.  q/k/v/o/do must be 16-byte
+//     aligned with strides that keep every row so (the wrappers copy a
+//     tensor that is not).
 //   - Shared tiles are rows of 32-bit words with a row stride of D words +
 //     16 bytes (4 mod 8 words): whole 16-byte chunks for cp.async and
 //     ldmatrix, fragment reads and ldmatrix phases free of bank conflicts
 //     by construction (ncu does not run where these kernels were measured,
 //     so it is not checked), and every fragment address a base plus a
 //     constant, which an XOR swizzle does not give (mma_frag.cuh).
-//   - Padding: a warp whose 16 rows lie wholly past N skips its MMAs, and
-//     the inner loop stops at the last 8-row (tf32) or 16-row (bf16) group
-//     that holds a row below N: at N = 197 the inner extent is 200, not 256.
-//     Full stages run a copy of the stage's code with the group count a
-//     constant, with no branch between the MMAs; only the ragged last
-//     stage checks each group.
+//   - A product's second operand comes from the first one's C fragments in
+//     registers: a permuted contraction index makes the C layout the tf32 A
+//     layout (accumulate_tf32); two bf16-rounded C tiles are one bf16 A.
+//   - Ragged extent: a warp whose 16 rows lie wholly past N skips its MMAs,
+//     and the inner loop stops at the last 8-row (tf32) or 16-row (bf16)
+//     group that holds a row below N: at N = 197 the inner extent is 200,
+//     not 256.  Full stages run a copy of the stage's code with the group
+//     count a constant, with no branch between the MMAs; only the ragged
+//     last stage checks each group.
 //   - Registers: D = 128 splits the output columns over two blocks
-//     (grid.z), each redoing S and dP, so that no thread holds more than 64
-//     accumulators and 32 score values, and ptxas spills nothing.
-// What bounds the backward on an H100: at [64, 197, 12, 64] float32 each
-// kernel needs 5*B*H*N^2*D = 9.54 GFLOP, in 3xTF32 3 x 9.54 G over the 495
-// TFLOP/s TF32 peak = 0.058 ms (0.075 ms with the 200/197 and 64-row tile
-// padding), and moves six [B, N, H, D] tensors, 232 MB, in 0.069 ms at
-// 3.35 TB/s: the two bounds are close, bytes slightly ahead.  In practice
-// the instruction issue rate bounds it: the hi/lo splits are about half of
-// the instructions a stage issues.
+//     (grid.z), each redoing the scores, so that no thread holds more than
+//     64 accumulators and 32 score values, and ptxas spills nothing.
+//
+// Forward.  Per stage a warp computes S = Q K^T for its 16 rows against the
+// stage's 32 keys, rescales the scores to log2 units (scale * log2 e, so p
+// = exp2(s - m)), runs the online softmax in registers (a row of the C
+// fragment lies across the 4 lanes of a quad: row max and row sum take two
+// xor shuffles each; m and l stay in registers for the whole key loop), and
+// accumulates O += P V with P fed from the S fragments.  In bf16 the
+// warp's Q fragments are loaded once per block and held in registers over
+// the key loop; in float32 they are read and split per stage (FwdTile
+// says why).  The key loop stops at valid: every row masks the keys past
+// it, so they add nothing; only the last stage masks.  52 KB of shared
+// memory a block at D = 64 in float32, four blocks an SM.
+// What bounds the forward on an H100: at [64, 197, 12, 64] float32 it needs
+// 4*B*H*N^2*D = 7.63 GFLOP, in 3xTF32 3 x 7.63 G over the 495 TFLOP/s TF32
+// peak = 0.046 ms (0.049 ms with the 200/197 key extent and 208/197 query
+// rows), against 4 [B, N, H, D] tensors, 155 MB, in 0.046 ms at 3.35
+// TB/s: operations and bytes are even.  It takes 0.218 ms on an H100 SXM
+// at 700 W (flash_attention_bench), and more warps an SM made it faster
+// (four blocks against three: 0.218 against 0.231 ms), so latency rather
+// than the MMA rate holds it: each 3xTF32 step waits on shared-memory
+// reads and five integer operations per split operand beside its three
+// MMAs.  The last q tile of each (b, h) holds 5 of 64 rows at N = 197, so
+// one block in four runs one busy warp.
+// What bounds the backward: at [64, 197, 12, 64] float32 each kernel needs
+// 5*B*H*N^2*D = 9.54 GFLOP, in 3xTF32 3 x 9.54 G over the 495 TFLOP/s TF32
+// peak = 0.058 ms (0.075 ms with the 200/197 and 64-row tile padding), and
+// moves six [B, N, H, D] tensors, 232 MB, in 0.069 ms at 3.35 TB/s: the
+// two bounds are close, bytes slightly ahead.  In practice the instruction
+// issue rate bounds it: the hi/lo splits are about half of the
+// instructions a stage issues.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,7 +103,6 @@ namespace {
 
 constexpr int BM = 64;          // rows of every q, k and v tile
 constexpr int THREADS = 128;
-constexpr int LDP = BM + 8;     // row stride of a score tile in shared memory
 constexpr float NEG = -1e30f;   // the reference's _NEG_INF
 
 struct Strides {
@@ -132,163 +138,24 @@ struct BwdParams {
   float scale;
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ T cvt(float v);
-template <>
-__device__ __forceinline__ float cvt<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float group8_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-}
-
-__device__ __forceinline__ float group8_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v + __shfl_xor_sync(0xffffffffu, v, 1);
-}
-
-// Rows [r0, r0 + BM) of one (b, h) slice into shared memory as float32 with
-// row stride D + 1; rows at or past N become zeros, so nothing past the end
-// of the sequence is read and no garbage reaches a product.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          long long sn, int r0, int N) {
-  constexpr int LD = D + 1;
-  for (int idx = threadIdx.x; idx < BM * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    const int row = r0 + r;
-    dst[r * LD + c] = row < N ? ld(base + row * sn + c) : 0.f;
-  }
-}
-
 __device__ __forceinline__ int valid_keys(const int* valid, int valid_len,
                                           int N) {
   const int vl = valid ? *valid : valid_len;
   return min(max(vl, 0), N);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdParams p) {
-  constexpr int LD = D + 1, DC = D / 8;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * LD;
-  float* Vs = Ks + BM * LD;
-  float* Ps = Vs + BM * LD;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
-  const int q0 = blockIdx.y * BM, N = p.N;
-  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
-  const int vl = valid_keys(p.valid, p.valid_len, N);
-  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
-  load_tile<T, D>(Qs, q, p.sq.n, q0, N);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < N; k0 += BM) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<T, D>(Ks, k, p.sk.n, k0, N);
-    load_tile<T, D>(Vs, v, p.sv.n, k0, N);
-    __syncthreads();
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(tc + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = k0 + tc + 8 * j < vl ? s[i][j] * p.scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], group8_max(mx));
-      const float alpha = expf(m[i] - mn);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float e = expf(s[i][j] - mn);
-        Ps[(tr + 16 * i) * LDP + tc + 8 * j] = e;
-        ps += e;
-      }
-      l[i] = l[i] * alpha + group8_sum(ps);
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BM; ++j) {
-      float pv[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(tr + 16 * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = Vs[j * LD + tc + 8 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-  T* o = static_cast<T*>(p.o) + (long long)b * N * p.H * D + h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tr + 16 * i;
-    if (row >= N) continue;
-    const bool masked = m[i] <= NEG * 0.5f;
-    const float lc = fmaxf(l[i], 1e-30f);
-    const float inv = masked ? 0.f : 1.f / lc;
-    T* orow = o + (long long)row * p.H * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tc + 8 * c] = cvt<T>(acc[i][c] * inv);
-    if (tc == 0)
-      p.lse[(long long)bh * N + row] = masked ? p.sentinel : m[i] + logf(lc);
-  }
-}
-
-// The backward loops over the other axis in stages of SUB rows, through a
+// Every kernel loops over the other axis in stages of SUB rows, through a
 // two-stage cp.async ring: small stages keep a block's shared memory at 68
-// KB (three blocks an SM at D = 64 in float32) and the score fragments of
-// a stage at 2 x 16 registers.
+// KB or less (three backward or four forward blocks an SM at D = 64 in
+// float32) and the score fragments of a stage at 16 registers a product.
 constexpr int SUB = 32;
 constexpr float LOG2E = 1.4426950408889634f;  // p = 2^((s - lse) log2 e)
 
-// The backward's shared tiles: rows of KW 32-bit words (D floats or D
+// The kernels' shared tiles: rows of KW 32-bit words (D floats or D
 // bf16), row stride RS = KW + 4 (mma_frag.cuh says why).  A block
 // writes DO output columns; D = 128 takes two blocks (grid.z).
 template <typename T, int D>
-struct BwdTile {
+struct Tile {
   static constexpr int KW = D * static_cast<int>(sizeof(T)) / 4;
   static constexpr int RS = KW + 4;
   static constexpr int OWN = BM * RS;     // words of the block's own tile
@@ -296,9 +163,10 @@ struct BwdTile {
   static constexpr int DO = D < 64 ? D : 64;
   static constexpr int NO = DO / 8;   // 8-column output tiles a warp
   static constexpr int NT = SUB / 8;  // 8-row groups of a stage
-  // Blocks an SM should hold: three up to D = 64 (68 KB of shared memory
-  // or less each; ptxas keeps to 168 registers a thread for it), one at D
-  // = 128 (132 KB in float32).
+  // Blocks an SM the backward kernels should hold: three up to D = 64 (68
+  // KB of shared memory or less each; ptxas keeps to 168 registers a
+  // thread for it), one at D = 128 (132 KB in float32).  The forward's
+  // are FwdTile's.
   static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 1;
 };
 
@@ -320,7 +188,7 @@ __device__ __forceinline__ void scores(float (&s)[SUB / 8][4],
                                        float (&dp)[SUB / 8][4],
                                        const uint32_t* A2, const uint32_t* B2,
                                        int a0, int nt) {
-  using L = BwdTile<T, D>;
+  using L = Tile<T, D>;
 #pragma unroll
   for (int j = 0; j < L::NT; ++j)
 #pragma unroll
@@ -333,9 +201,9 @@ __device__ __forceinline__ void scores(float (&s)[SUB / 8][4],
 
 template <typename T, int D>
 __device__ __forceinline__ void accumulate(
-    float (&out)[BwdTile<T, D>::NO][4], const float (&P)[SUB / 8][4],
+    float (&out)[Tile<T, D>::NO][4], const float (&P)[SUB / 8][4],
     const uint32_t* Xs, int col0, int nt) {
-  using L = BwdTile<T, D>;
+  using L = Tile<T, D>;
   if constexpr (sizeof(T) == 4)
     frag::accumulate_tf32<L::RS, L::NT, L::NO>(out, P, Xs, col0, nt);
   else
@@ -369,7 +237,7 @@ __device__ __forceinline__ float dot16(const __nv_bfloat16* a,
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_async(uint32_t* dst, const T* base,
                                            long long sn, int r0, int N) {
-  frag::load_tile_async<T, D, BwdTile<T, D>::RS, ROWS, THREADS>(dst, base, sn,
+  frag::load_tile_async<T, D, Tile<T, D>::RS, ROWS, THREADS>(dst, base, sn,
                                                                 r0, N);
 }
 
@@ -377,11 +245,11 @@ __device__ __forceinline__ void load_async(uint32_t* dst, const T* base,
 // group count as a constant, so the products compile to straight-line code.
 template <typename T, int D, bool FULL>
 __device__ __forceinline__ void dq_stage(
-    float (&acc)[BwdTile<T, D>::NO][4], const uint32_t* Qs,
+    float (&acc)[Tile<T, D>::NO][4], const uint32_t* Qs,
     const uint32_t* Gs, const uint32_t* Kt, const uint32_t* Vt, int r0,
     int k0, int nt_part, int vl, float scale, const float (&lse_r)[2],
     const float (&dl_r)[2], int col0) {
-  using L = BwdTile<T, D>;
+  using L = Tile<T, D>;
   const int nt = FULL ? L::NT : nt_part, t = threadIdx.x & 3;
   float s[L::NT][4], dp[L::NT][4];
   scores<T, D>(s, Qs, Kt, dp, Gs, Vt, r0, nt);
@@ -398,9 +266,9 @@ __device__ __forceinline__ void dq_stage(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, BwdTile<T, D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, Tile<T, D>::MIN_BLOCKS)
     flash_bwd_dq_kernel(BwdParams p) {
-  using L = BwdTile<T, D>;
+  using L = Tile<T, D>;
   extern __shared__ __align__(16) uint32_t bsm[];
   uint32_t* Qs = bsm;
   uint32_t* Gs = Qs + L::OWN;      // do
@@ -495,11 +363,11 @@ __global__ void __launch_bounds__(THREADS, BwdTile<T, D>::MIN_BLOCKS)
 // One dk/dv stage: queries of the stage tiles Qt/Gt (lse lt, delta dt).
 template <typename T, int D, bool FULL>
 __device__ __forceinline__ void dkv_stage(
-    float (&dk)[BwdTile<T, D>::NO][4], float (&dv)[BwdTile<T, D>::NO][4],
+    float (&dk)[Tile<T, D>::NO][4], float (&dv)[Tile<T, D>::NO][4],
     const uint32_t* Ks, const uint32_t* Vs, const uint32_t* Qt,
     const uint32_t* Gt, const float* lt, const float* dt, int r0,
     int nt_part, const bool (&key_ok)[2], float scale, int col0) {
-  using L = BwdTile<T, D>;
+  using L = Tile<T, D>;
   const int nt = FULL ? L::NT : nt_part, t = threadIdx.x & 3;
   // Transposed scores: the warp's keys by the stage's queries.
   float s[L::NT][4], dp[L::NT][4];
@@ -519,9 +387,9 @@ __device__ __forceinline__ void dkv_stage(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, BwdTile<T, D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, Tile<T, D>::MIN_BLOCKS)
     flash_bwd_dkv_kernel(BwdParams p) {
-  using L = BwdTile<T, D>;
+  using L = Tile<T, D>;
   extern __shared__ __align__(16) uint32_t bsm[];
   uint32_t* Ks = bsm;
   uint32_t* Vs = Ks + L::OWN;
@@ -602,14 +470,193 @@ __global__ void __launch_bounds__(THREADS, BwdTile<T, D>::MIN_BLOCKS)
   }
 }
 
-template <int D>
-constexpr size_t fwd_smem() { return sizeof(float) * (3 * BM * (D + 1) + BM * LDP); }
+// The forward's choices on top of Tile.  In bf16 the warp keeps its Q
+// fragments in registers for the whole key loop (16 registers at D = 64);
+// in float32 it reads and splits them from shared memory in every stage.
+// Holding float32's hi/lo fragments takes 64 registers more at D = 64: two
+// blocks an SM (at three, ptxas spills), which measured slower than
+// splitting per stage (flash_attention_bench).  Without them a thread
+// needs 125 registers at D = 64 in float32, so up to D = 64 four blocks
+// share an SM (128 registers a thread, 52 KB of shared memory each).
+template <typename T, int D>
+struct FwdTile {
+  static constexpr int KS = Tile<T, D>::KW / 8;  // contraction steps over D
+  static constexpr bool QREG = sizeof(T) == 2;
+  static constexpr int QF = QREG ? KS : 1;
+  static constexpr int MIN_BLOCKS = D <= 64 ? 4 : 1;
+};
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// One forward stage: the warp's rows (r0) against keys k0 .. k0 + SUB.
+// FULL (every key of the stage below kn) passes the group count as a
+// constant and masks nothing; the ragged last stage masks keys at or past
+// kn.  m and l are the running row max (log2 units) and row sum of rows g
+// and g + 8; acc the output columns col0 .. col0 + DO.
+template <typename T, int D, bool FULL>
+__device__ __forceinline__ void fwd_stage(
+    float (&acc)[Tile<T, D>::NO][4], float (&m)[2], float (&l)[2],
+    const uint32_t (&qh)[FwdTile<T, D>::QF][4],
+    const uint32_t (&ql)[FwdTile<T, D>::QF][4], const uint32_t* Qs,
+    const uint32_t* Kt, const uint32_t* Vt, int r0, int k0, int nt_part,
+    int kn, float scale_log2, int col0) {
+  using L = Tile<T, D>;
+  using F = FwdTile<T, D>;
+  const int nt = FULL ? L::NT : nt_part, t = threadIdx.x & 3;
+  float s[L::NT][4];
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < F::KS; ++kk) {
+    uint32_t ah[4], al[4];
+    if constexpr (F::QREG) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = qh[kk][i];
+        al[i] = ql[kk][i];
+      }
+    } else {
+      frag::load_a<T, L::RS>(ah, al, Qs, r0, kk);
+    }
+    frag::scores_step<T, L::RS, L::NT>(s, ah, al, Kt, kk, nt);
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1);
+      const float sv = (FULL || key < kn) ? s[j][e] * scale_log2 : NEG;
+      s[j][e] = sv;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+    }
+  float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    alpha[i] = exp2f(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = exp2f(s[j][e] - m[e >> 1]);
+      s[j][e] = pe;
+      rs[e >> 1] += pe;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+    l[i] = l[i] * alpha[i] + rs[i];
+  }
+#pragma unroll
+  for (int c = 0; c < L::NO; ++c) {
+    acc[c][0] *= alpha[0];
+    acc[c][1] *= alpha[0];
+    acc[c][2] *= alpha[1];
+    acc[c][3] *= alpha[1];
+  }
+  accumulate<T, D>(acc, s, Vt, col0, nt);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, FwdTile<T, D>::MIN_BLOCKS)
+    flash_fwd_kernel(FwdParams p) {
+  using L = Tile<T, D>;
+  using F = FwdTile<T, D>;
+  extern __shared__ __align__(16) uint32_t fsm[];
+  uint32_t* Qs = fsm;
+  uint32_t* Ks = Qs + L::OWN;        // two stages
+  uint32_t* Vs = Ks + 2 * L::STAGE;  // two stages
+  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
+  const int q0 = blockIdx.y * BM, col0 = blockIdx.z * L::DO, N = p.N;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);  // the warp's rows of the tile
+  // Keys at or past valid are masked in every row: the loop stops there.
+  const int kn = valid_keys(p.valid, p.valid_len, N);
+  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
+  load_async<T, D, BM>(Qs, q, p.sq.n, q0, N);
+  load_async<T, D, SUB>(Ks, k, p.sk.n, 0, kn);
+  load_async<T, D, SUB>(Vs, v, p.sv.n, 0, kn);
+  frag::cp_async_commit();
+  frag::cp_async_wait<0>();
+  __syncthreads();  // Q and stage 0 have landed
+  uint32_t qh[F::QF][4], ql[F::QF][4];
+  if constexpr (F::QREG) {
+#pragma unroll
+    for (int kk = 0; kk < F::KS; ++kk)
+      frag::load_a<T, L::RS>(qh[kk], ql[kk], Qs, r0, kk);
+  }
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[L::NO][4];
+#pragma unroll
+  for (int c = 0; c < L::NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  const bool active = q0 + r0 < N;
+  const float scale_log2 = p.scale * LOG2E;
+  const int stages = (kn + SUB - 1) / SUB;
+  for (int it = 0; it < stages; ++it) {
+    if (it > 0) {
+      frag::cp_async_wait<0>();
+      __syncthreads();  // stage it has landed; stage it - 1 is consumed
+    }
+    if (it + 1 < stages) {
+      const int st = (it + 1) & 1;
+      load_async<T, D, SUB>(Ks + st * L::STAGE, k, p.sk.n, (it + 1) * SUB,
+                            kn);
+      load_async<T, D, SUB>(Vs + st * L::STAGE, v, p.sv.n, (it + 1) * SUB,
+                            kn);
+    }
+    frag::cp_async_commit();
+    if (!active) continue;
+    const int k0 = it * SUB;
+    const uint32_t* Kt = Ks + (it & 1) * L::STAGE;
+    const uint32_t* Vt = Vs + (it & 1) * L::STAGE;
+    if (k0 + SUB <= kn)
+      fwd_stage<T, D, true>(acc, m, l, qh, ql, Qs, Kt, Vt, r0, k0, L::NT, kn,
+                            scale_log2, col0);
+    else
+      fwd_stage<T, D, false>(acc, m, l, qh, ql, Qs, Kt, Vt, r0, k0,
+                             groups<T>(k0, kn), kn, scale_log2, col0);
+  }
+  if (!active) return;
+  T* o = static_cast<T*>(p.o) + (long long)b * N * p.H * D + h * D + col0 +
+         2 * t;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    if (row >= N) continue;
+    const bool masked = m[i] <= NEG * 0.5f;
+    const float lc = fmaxf(l[i], 1e-30f);
+    T* orow = o + (long long)row * p.H * D;
+#pragma unroll
+    for (int c = 0; c < L::NO; ++c)
+      frag::store_pair(orow + 8 * c, masked ? 0.f : acc[c][2 * i] / lc,
+                       masked ? 0.f : acc[c][2 * i + 1] / lc);
+    if (blockIdx.z == 0 && t == 0)
+      p.lse[(long long)bh * N + row] =
+          masked ? p.sentinel : m[i] * LN2 + logf(lc);
+  }
+}
+
+// The forward: the block's q tile and two two-stage rings (k, v).
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  return sizeof(uint32_t) * (Tile<T, D>::OWN + 4 * Tile<T, D>::STAGE);
+}
 // Both backward kernels: two own tiles, two two-stage rings, and per-row
 // floats (delta of the own rows in dq; lse and delta, two stages, in
 // dk/dv).
 template <typename T, int D>
 constexpr size_t bwd_smem(int row_floats) {
-  using L = BwdTile<T, D>;
+  using L = Tile<T, D>;
   return sizeof(uint32_t) * (2 * L::OWN + 4 * L::STAGE) +
          sizeof(float) * row_floats;
 }
@@ -628,13 +675,19 @@ int launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int launch_fwd(const FwdParams& p, cudaStream_t s) {
+  return launch(flash_fwd_kernel<T, D>, fwd_smem<T, D>(), p, s,
+                D / Tile<T, D>::DO);
+}
+
 template <typename T>
 int fwd_dispatch(const FwdParams& p, int D, cudaStream_t s) {
   switch (D) {
-    case 16: return launch(flash_fwd_kernel<T, 16>, fwd_smem<16>(), p, s);
-    case 32: return launch(flash_fwd_kernel<T, 32>, fwd_smem<32>(), p, s);
-    case 64: return launch(flash_fwd_kernel<T, 64>, fwd_smem<64>(), p, s);
-    case 128: return launch(flash_fwd_kernel<T, 128>, fwd_smem<128>(), p, s);
+    case 16: return launch_fwd<T, 16>(p, s);
+    case 32: return launch_fwd<T, 32>(p, s);
+    case 64: return launch_fwd<T, 64>(p, s);
+    case 128: return launch_fwd<T, 128>(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -642,13 +695,13 @@ int fwd_dispatch(const FwdParams& p, int D, cudaStream_t s) {
 template <typename T, int D>
 int launch_dq(const BwdParams& p, cudaStream_t s) {
   return launch(flash_bwd_dq_kernel<T, D>, bwd_smem<T, D>(BM), p, s,
-                D / BwdTile<T, D>::DO);
+                D / Tile<T, D>::DO);
 }
 
 template <typename T, int D>
 int launch_dkv(const BwdParams& p, cudaStream_t s) {
   return launch(flash_bwd_dkv_kernel<T, D>, bwd_smem<T, D>(4 * SUB), p, s,
-                D / BwdTile<T, D>::DO);
+                D / Tile<T, D>::DO);
 }
 
 template <typename T>

@@ -242,6 +242,58 @@ __device__ __forceinline__ void scores_bf16(
   }
 }
 
+// The A fragment of contraction step kk of a row-major tile (rows a0 + g
+// and a0 + g + 8, words 8 kk + t and + 4): float32 tiles split into tf32
+// hi/lo, bf16 tiles (two to a word) as they stand in hi, lo zero.  A
+// caller that multiplies one A operand by many B tiles loads it once.
+template <typename T, int RS>
+__device__ __forceinline__ void load_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const uint32_t* As, int a0, int kk) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w = 8 * kk + t;
+  const uint32_t x[4] = {As[word<RS>(a0 + g, w)], As[word<RS>(a0 + g + 8, w)],
+                         As[word<RS>(a0 + g, w + 4)],
+                         As[word<RS>(a0 + g + 8, w + 4)]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+    } else {
+      hi[i] = x[i];
+      lo[i] = 0u;
+    }
+  }
+}
+
+// One contraction step kk of a "scores" product whose A operand the caller
+// holds in registers (load_a): acc[j] += A . B[8j + 0..7, step kk]^T for j
+// < nt, B a row-major tile.  float32 through 3xTF32 with B split as it is
+// read; bf16 through one bf16 MMA.
+template <typename T, int RS, int NT>
+__device__ __forceinline__ void scores_step(float (&acc)[NT][4],
+                                            const uint32_t (&ahi)[4],
+                                            const uint32_t (&alo)[4],
+                                            const uint32_t* Bs, int kk,
+                                            int nt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w = 8 * kk + t;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      const int r = 8 * j + g;
+      if constexpr (sizeof(T) == 4) {
+        const float* B = reinterpret_cast<const float*>(Bs);
+        uint32_t bh[2], bl[2];
+        split_tf32(B[word<RS>(r, w)], bh[0], bl[0]);
+        split_tf32(B[word<RS>(r, w + 4)], bh[1], bl[1]);
+        mma_3xtf32(acc[j], ahi, alo, bh, bl);
+      } else {
+        mma_bf16(acc[j], ahi, Bs[word<RS>(r, w)], Bs[word<RS>(r, w + 4)]);
+      }
+    }
+  }
+}
+
 // The "accumulate" product of one warp: out[c] (16 x 8) += P . X[0..8*nt,
 // col0 + 8c + 0..7] for c < NO, P (16 x 8*nt) held in registers in C
 // layout (the output of a scores product), X a row-major float32 tile

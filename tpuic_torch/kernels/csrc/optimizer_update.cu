@@ -18,27 +18,43 @@
 // flag (the train step's finite = isfinite(loss) & isfinite(grad_norm)): on a
 // non-finite step nothing changes, and the host never reads the flag.
 //
-// Design: one launch covers the whole list.  A device table, built once per
-// parameter list by the wrapper, holds each leaf's pointers and size, and
-// cuts every leaf into chunks of CHUNK elements; the grid runs over chunks.
-// Per-leaf scalars come by pointer (lr, and LAMB's c1, c2, all computed on the
-// device from the device step count).  Three kernels per update:
-//   1. norms:  a block per chunk writes the chunk's sum of w^2 and of u^2
-//              (LAMB: and writes m', v'); u is never stored;
-//   2. trust:  a thread per leaf sums its chunks' partials in chunk order
-//              (double, no atomics: two runs give the same bits) and writes
-//              a_l = -lr * trust_l;
-//   3. apply:  a block per chunk writes m' (LARS) and w'.  LAMB recomputes u
-//              from the m', v' of pass 1, the same arithmetic, so u needs no
-//              buffer.
+// Design: one launch per pass covers the whole list.  A device table, built
+// once per parameter list by the wrapper, holds each leaf's pointers and
+// size, and cuts every leaf into chunks; the grid runs over chunks.  Per-leaf
+// scalars come by pointer (lr, and LAMB's c1, c2, all computed on the device
+// from the device step count).  Three kernels per update:
+//   1. norms:  each chunk's sum of w^2 and of u^2 (LAMB: and writes m', v');
+//              u is never stored;
+//   2. trust:  a warp per leaf sums its chunks' partials in double, each
+//              lane a fixed stride of them, then a fixed shuffle tree (no
+//              atomics: two runs give the same bits), and writes a_l =
+//              -lr * trust_l;
+//   3. apply:  writes m' (LARS) and w'.  LAMB recomputes u from the m', v'
+//              of pass 1, the same arithmetic, so u needs no buffer.
 //
 // What bounds it: bytes.  The function must read g, w, m (, v) and write
 // m (, v) and w once: 5 (LARS) or 7 (LAMB) float32 tensors.  At ResNet-50 +
 // head (~23.8 M parameters, 95 MB a tensor) that is 0.142 ms and 0.199 ms at
-// 3.35 TB/s.  Pass 1 and pass 3 both read g and w (and LAMB's m, v), so this
-// simple version moves 7 (LARS) or 10 (LAMB) tensors; loads are scalar and
-// coalesced.  167 per-leaf launches would make launch latency the cost; one
-// multi-tensor launch per pass does not.
+// 3.35 TB/s.  The apply pass needs every leaf's norms, and 190 MB of g and w
+// do not fit in the card's 50 MB L2, so two passes read g and w twice: 7
+// tensors for LARS (0.199 ms at 3.35 TB/s), 10 for LAMB.  167 per-leaf
+// launches would make launch latency the cost; one multi-tensor launch per
+// pass does not.
+//
+// LARS (K2a) is built to stream at HBM bandwidth:
+//   - A chunk is LARS_CHUNK elements and belongs to one warp, not one block,
+//     so the 64-2,048-element BN vectors take a warp each.  The warps of a
+//     grid sized to the card (BLOCKS_PER_SM blocks an SM) walk the chunks
+//     with a grid stride.
+//   - Loads and stores are 16 bytes (float4) where a chunk's tensors are
+//     16-byte aligned, with a scalar tail; each lane issues UNROLL loads of
+//     each tensor before it uses any (8 x 16 bytes in flight in pass 1, 12
+//     in pass 3).  A chunk whose tensors are not aligned takes scalar loads,
+//     UNROLL of each tensor in flight.
+//   - A chunk's partial sums are each lane's in element order, then a fixed
+//     xor-shuffle tree: the same bits on every run.
+// LAMB (K2b) keeps the simple version: a 256-thread block per CHUNK-element
+// chunk and scalar, coalesced loads.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,6 +64,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int UNROLL = 4;         // loads of each tensor in flight a lane
+constexpr int BLOCKS_PER_SM = 4;  // LARS grid: resident blocks an SM
 
 // Leaf table row, int64 fields: g, w, m, v pointers, numel, first chunk,
 // number of chunks.  Chunk table row, int32 fields: leaf, start element.
@@ -95,48 +113,166 @@ __device__ void block_sum2(float a, float b, float* out) {
   }
 }
 
-struct Span {
+// Chunk c of the table: its leaf and the elements [lo, lo + n) it covers.
+struct Chunk {
   LeafRef r;
-  long long lo, hi;
+  long long lo;
+  int leaf, n;
 };
 
-__device__ __forceinline__ Span chunk_span(const long long* leaves,
-                                           const int* chunks, int chunk_size) {
-  const int l = chunks[2 * blockIdx.x];
-  const long long lo = chunks[2 * blockIdx.x + 1];
+__device__ __forceinline__ Chunk chunk_at(const long long* leaves,
+                                          const int* chunks, int c,
+                                          int chunk_size) {
+  const int l = chunks[2 * c];
+  const long long lo = chunks[2 * c + 1];
   const LeafRef r = leaf_ref(leaves, l);
-  const long long hi = lo + chunk_size < r.n ? lo + chunk_size : r.n;
-  return {r, lo, hi};
+  const long long n = r.n - lo < chunk_size ? r.n - lo : chunk_size;
+  return {r, lo, l, static_cast<int>(n)};
 }
 
 // ---- LARS ------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-lars_norms(const long long* __restrict__ leaves, const int* __restrict__ chunks,
-           int chunk_size, float wd, float* __restrict__ partials) {
-  const Span s = chunk_span(leaves, chunks, chunk_size);
-  float sw = 0.f, su = 0.f;
-  for (long long i = s.lo + threadIdx.x; i < s.hi; i += THREADS) {
-    const float w = s.r.w[i];
-    const float u = s.r.g[i] + wd * w;
-    sw += w * w;
-    su += u * u;
-  }
-  block_sum2(sw, su, partials + 2 * (long long)blockIdx.x);
+__device__ __forceinline__ bool aligned16(const float* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+__device__ __forceinline__ float sq4(float4 a) {
+  return a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
+}
+
+__device__ __forceinline__ float4 axpy4(float a, float4 x, float4 y) {
+  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
+                     fmaf(a, x.w, y.w));
+}
+
+// Pass 1, a warp per chunk: the chunk's sum of w^2 and of u^2, u = g + wd*w.
+__global__ void __launch_bounds__(THREADS)
+lars_norms(const long long* __restrict__ leaves, const int* __restrict__ chunks,
+           int n_chunks, int chunk_size, float wd,
+           float* __restrict__ partials) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  for (int c = blockIdx.x * WARPS + (threadIdx.x >> 5); c < n_chunks;
+       c += stride) {
+    const Chunk ch = chunk_at(leaves, chunks, c, chunk_size);
+    const float* g = ch.r.g + ch.lo;
+    const float* w = ch.r.w + ch.lo;
+    float sw = 0.f, su = 0.f;
+    int done = 0;
+    if (aligned16(g) && aligned16(w)) {
+      const int n4 = ch.n >> 2;
+      const float4* g4 = reinterpret_cast<const float4*>(g);
+      const float4* w4 = reinterpret_cast<const float4*>(w);
+      for (int i = lane; i < n4; i += 32 * UNROLL) {
+        float4 gv[UNROLL], wv[UNROLL];
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          const int j = i + 32 * k;
+          gv[k] = j < n4 ? g4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+          wv[k] = j < n4 ? w4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          sw += sq4(wv[k]);
+          su += sq4(axpy4(wd, wv[k], gv[k]));
+        }
+      }
+      done = n4 << 2;
+    }
+    for (int i = done + lane; i < ch.n; i += 32 * UNROLL) {
+      float gv[UNROLL], wv[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const int j = i + 32 * k;
+        gv[k] = j < ch.n ? g[j] : 0.f;
+        wv[k] = j < ch.n ? w[j] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const float u = fmaf(wd, wv[k], gv[k]);
+        sw += wv[k] * wv[k];
+        su += u * u;
+      }
+    }
+    sw = warp_sum(sw);
+    su = warp_sum(su);
+    if (lane == 0) {
+      partials[2 * (long long)c] = sw;
+      partials[2 * (long long)c + 1] = su;
+    }
+  }
+}
+
+// Pass 3, a warp per chunk: m' = a*u + mu*m and w' = w + m', where the
+// device flag finite says so.
 __global__ void __launch_bounds__(THREADS)
 lars_apply(const long long* __restrict__ leaves, const int* __restrict__ chunks,
-           int chunk_size, float wd, float mu, const float* __restrict__ a,
-           const bool* __restrict__ finite) {
+           int n_chunks, int chunk_size, float wd, float mu,
+           const float* __restrict__ a, const bool* __restrict__ finite) {
   if (!finite[0]) return;
-  const Span s = chunk_span(leaves, chunks, chunk_size);
-  const float al = a[chunks[2 * blockIdx.x]];
-  for (long long i = s.lo + threadIdx.x; i < s.hi; i += THREADS) {
-    const float w = s.r.w[i];
-    const float upd = al * (s.r.g[i] + wd * w) + mu * s.r.m[i];
-    s.r.m[i] = upd;
-    s.r.w[i] = w + upd;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  for (int c = blockIdx.x * WARPS + (threadIdx.x >> 5); c < n_chunks;
+       c += stride) {
+    const Chunk ch = chunk_at(leaves, chunks, c, chunk_size);
+    const float al = a[ch.leaf];
+    const float* g = ch.r.g + ch.lo;
+    float* w = ch.r.w + ch.lo;
+    float* m = ch.r.m + ch.lo;
+    int done = 0;
+    if (aligned16(g) && aligned16(w) && aligned16(m)) {
+      const int n4 = ch.n >> 2;
+      const float4* g4 = reinterpret_cast<const float4*>(g);
+      float4* w4 = reinterpret_cast<float4*>(w);
+      float4* m4 = reinterpret_cast<float4*>(m);
+      for (int i = lane; i < n4; i += 32 * UNROLL) {
+        float4 gv[UNROLL], wv[UNROLL], mv[UNROLL];
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          const int j = i + 32 * k;
+          if (j < n4) {
+            gv[k] = g4[j];
+            wv[k] = w4[j];
+            mv[k] = m4[j];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          const int j = i + 32 * k;
+          if (j < n4) {
+            const float4 u = axpy4(wd, wv[k], gv[k]);
+            const float4 upd = make_float4(
+                al * u.x + mu * mv[k].x, al * u.y + mu * mv[k].y,
+                al * u.z + mu * mv[k].z, al * u.w + mu * mv[k].w);
+            m4[j] = upd;
+            w4[j] = make_float4(wv[k].x + upd.x, wv[k].y + upd.y,
+                                wv[k].z + upd.z, wv[k].w + upd.w);
+          }
+        }
+      }
+      done = n4 << 2;
+    }
+    for (int i = done + lane; i < ch.n; i += 32 * UNROLL) {
+      float gv[UNROLL], wv[UNROLL], mv[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const int j = i + 32 * k;
+        if (j < ch.n) {
+          gv[k] = g[j];
+          wv[k] = w[j];
+          mv[k] = m[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const int j = i + 32 * k;
+        if (j < ch.n) {
+          const float upd = al * fmaf(wd, wv[k], gv[k]) + mu * mv[k];
+          m[j] = upd;
+          w[j] = wv[k] + upd;
+        }
+      }
+    }
   }
 }
 
@@ -153,11 +289,11 @@ __global__ void __launch_bounds__(THREADS)
 lamb_norms(const long long* __restrict__ leaves, const int* __restrict__ chunks,
            int chunk_size, LambHyper h, const float* __restrict__ scal,
            const bool* __restrict__ finite, float* __restrict__ partials) {
-  const Span s = chunk_span(leaves, chunks, chunk_size);
+  const Chunk s = chunk_at(leaves, chunks, blockIdx.x, chunk_size);
   const float c1 = scal[1], c2 = scal[2];
   const bool write = finite[0];
   float sw = 0.f, su = 0.f;
-  for (long long i = s.lo + threadIdx.x; i < s.hi; i += THREADS) {
+  for (long long i = s.lo + threadIdx.x; i < s.lo + s.n; i += THREADS) {
     const float g = s.r.g[i];
     const float w = s.r.w[i];
     const float m = h.b1 * s.r.m[i] + h.omb1 * g;
@@ -178,10 +314,10 @@ lamb_apply(const long long* __restrict__ leaves, const int* __restrict__ chunks,
            int chunk_size, LambHyper h, const float* __restrict__ scal,
            const float* __restrict__ a, const bool* __restrict__ finite) {
   if (!finite[0]) return;
-  const Span s = chunk_span(leaves, chunks, chunk_size);
+  const Chunk s = chunk_at(leaves, chunks, blockIdx.x, chunk_size);
   const float c1 = scal[1], c2 = scal[2];
-  const float al = a[chunks[2 * blockIdx.x]];
-  for (long long i = s.lo + threadIdx.x; i < s.hi; i += THREADS) {
+  const float al = a[s.leaf];
+  for (long long i = s.lo + threadIdx.x; i < s.lo + s.n; i += THREADS) {
     const float w = s.r.w[i];
     const float u = (s.r.m[i] * c1) / (sqrtf(s.r.v[i] * c2) + h.eps) + h.wd * w;
     s.r.w[i] = w + al * u;
@@ -190,18 +326,28 @@ lamb_apply(const long long* __restrict__ leaves, const int* __restrict__ chunks,
 
 // ---- shared: per-leaf trust ratio --------------------------------------------
 
-__global__ void trust_ratio(const long long* __restrict__ leaves, int n_leaves,
-                            const float* __restrict__ partials, float coeff,
-                            const float* __restrict__ scal, float* __restrict__ a) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+// A warp per leaf: lane i sums partials i, i + 32, ... of the leaf's chunks
+// in double, then a fixed shuffle tree; lane 0 writes a_l.
+__global__ void __launch_bounds__(THREADS)
+trust_ratio(const long long* __restrict__ leaves, int n_leaves,
+            const float* __restrict__ partials, float coeff,
+            const float* __restrict__ scal, float* __restrict__ a) {
+  const int l = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (l >= n_leaves) return;
+  const int lane = threadIdx.x & 31;
   const long long* r = leaves + (long long)l * LEAF_FIELDS;
   const long long c0 = r[5], nc = r[6];
   double sw = 0.0, su = 0.0;
-  for (long long c = c0; c < c0 + nc; ++c) {
+  for (long long c = c0 + lane; c < c0 + nc; c += 32) {
     sw += partials[2 * c];
     su += partials[2 * c + 1];
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sw += __shfl_xor_sync(0xffffffffu, sw, o);
+    su += __shfl_xor_sync(0xffffffffu, su, o);
+  }
+  if (lane != 0) return;
   const float pn = sqrtf((float)sw);
   const float un = sqrtf((float)su);
   const float trust = (pn == 0.f || un == 0.f) ? 1.f : coeff * pn / un;
@@ -220,23 +366,33 @@ extern "C" int tpuic_lars_update(const void* leaves, const void* chunks,
                                  const void* scal, const void* finite,
                                  void* partials, void* a, float wd, float tc,
                                  float mu, void* stream) {
-  if (n_leaves <= 0 || n_chunks <= 0)
+  if (n_leaves <= 0 || n_chunks <= 0 || chunk_size <= 0 || chunk_size % 4)
     return static_cast<int>(cudaErrorInvalidValue);
+  static int sms = 0;  // the card's SM count, read once
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* lv = static_cast<const long long*>(leaves);
   const int* ch = static_cast<const int*>(chunks);
-  lars_norms<<<n_chunks, THREADS, 0, st>>>(lv, ch, chunk_size, wd,
-                                           static_cast<float*>(partials));
+  const int need = (n_chunks + WARPS - 1) / WARPS;
+  const int blocks = need < sms * BLOCKS_PER_SM ? need : sms * BLOCKS_PER_SM;
+  lars_norms<<<blocks, THREADS, 0, st>>>(lv, ch, n_chunks, chunk_size, wd,
+                                         static_cast<float*>(partials));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  trust_ratio<<<(n_leaves + 127) / 128, 128, 0, st>>>(
+  trust_ratio<<<(n_leaves + WARPS - 1) / WARPS, THREADS, 0, st>>>(
       lv, n_leaves, static_cast<const float*>(partials), tc,
       static_cast<const float*>(scal), static_cast<float*>(a));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  lars_apply<<<n_chunks, THREADS, 0, st>>>(lv, ch, chunk_size, wd, mu,
-                                           static_cast<const float*>(a),
-                                           static_cast<const bool*>(finite));
+  lars_apply<<<blocks, THREADS, 0, st>>>(lv, ch, n_chunks, chunk_size, wd, mu,
+                                         static_cast<const float*>(a),
+                                         static_cast<const bool*>(finite));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,7 +414,7 @@ extern "C" int tpuic_lamb_update(const void* leaves, const void* chunks,
                                            static_cast<float*>(partials));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  trust_ratio<<<(n_leaves + 127) / 128, 128, 0, st>>>(
+  trust_ratio<<<(n_leaves + WARPS - 1) / WARPS, THREADS, 0, st>>>(
       lv, n_leaves, static_cast<const float*>(partials), 1.f, sc,
       static_cast<float*>(a));
   err = cudaGetLastError();

@@ -24,12 +24,14 @@ Layout and numerics:
   the single-call path; the ring composition passes ``-1e30``.
 - ``delta = rowsum(do * o)`` is computed by the dq kernel's prologue and
   written out for the dk/dv kernel, which runs after it on the stream.
-- The backward kernels run on the tensor cores: float32 in 3xTF32, which
-  keeps float32 accuracy whatever ``torch.backends.cuda.matmul.allow_tf32``
+- Every kernel runs on the tensor cores: float32 in 3xTF32, which keeps
+  float32 accuracy whatever ``torch.backends.cuda.matmul.allow_tf32``
   says (they read no flag, and give the same bits either way); bfloat16
-  with ``p`` and ``ds`` rounded to bf16 before the second product, as the
-  reference does.  They copy rows 16 bytes at a time, so a tensor whose
-  rows are not 16-byte aligned goes in as a contiguous copy.
+  with ``p`` (and ``ds``) rounded to bf16 before the second product, as
+  the reference does.  They copy rows 16 bytes at a time, so a tensor
+  whose rows are not 16-byte aligned goes in as a contiguous copy.  A
+  query row's output depends only on its own (b, h) slice: the same bits
+  at batch 1 as inside batch 32.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` (the reference's
 ``custom_vjp``): its forward saves ``(q, k, v, o, lse)``, all O(N*D), and
@@ -110,19 +112,24 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *,
     return _heads_last(dq, q), _heads_last(dk, k), _heads_last(dv, v)
 
 
+def bind(lib):
+    """``lib`` (a build of ``csrc/flash_attention.cu``) with its C entry
+    points' signatures declared."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tpuic_flash_fwd.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
+    lib.tpuic_flash_bwd_dq.argtypes = [p] * 10 + [i] * 6 + [f, p]
+    lib.tpuic_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [f, p]
+    for fn in (lib.tpuic_flash_fwd, lib.tpuic_flash_bwd_dq,
+               lib.tpuic_flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     lib = getattr(_lib, "cdll", None)
     if lib is None:
         from tpuic_torch.kernels import _build
-        lib = _build.load("flash_attention")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tpuic_flash_fwd.argtypes = [p] * 7 + [i] * 6 + [f, f, p]
-        lib.tpuic_flash_bwd_dq.argtypes = [p] * 10 + [i] * 6 + [f, p]
-        lib.tpuic_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [f, p]
-        for fn in (lib.tpuic_flash_fwd, lib.tpuic_flash_bwd_dq,
-                   lib.tpuic_flash_bwd_dkv):
-            fn.restype = ctypes.c_int
-        _lib.cdll = lib
+        lib = _lib.cdll = bind(_build.load("flash_attention"))
     return lib
 
 
@@ -182,7 +189,7 @@ def _launch(fn, name, q, args) -> None:
 
 def _row_aligned(t):
     """``t`` itself when every row it has starts on a 16-byte boundary (the
-    backward kernels copy rows into shared memory 16 bytes at a time),
+    kernels copy rows into shared memory 16 bytes at a time),
     else a contiguous copy.  The ViT's strided q/k/v views of one qkv
     projection are aligned and go in as they are."""
     size = t.element_size()
@@ -210,6 +217,7 @@ def flash_attention_fwd(q, k, v, *, valid_len: Optional[int] = None,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda(q, (("k", k), ("v", v)), valid)
+    q, k, v = (_row_aligned(t) for t in (q, k, v))
     b, n, h, d = q.shape
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)

@@ -25,7 +25,10 @@ CPU tensors they take the plain versions (:func:`lars_update_plain`,
 update) or raise.  ``.launches`` on each wrapper counts calls that
 launched the kernel.  The trust-ratio norms are a pass of the kernel with
 per-chunk partial sums reduced in a fixed order (no atomics), not torch
-reductions.
+reductions.  The LARS passes stream 16-byte loads and stores, a warp per
+``LARS_CHUNK`` elements, and take any alignment (a leaf that is not
+16-byte aligned goes through scalar loads); ``optimizer_update_bench``
+keeps the earlier LARS design and times the two.
 
 Every tensor must be float32 and contiguous on one device; ``lr`` is a
 0-d float32 tensor and ``count`` a 0-d int32 tensor, both on that device.
@@ -39,8 +42,11 @@ from typing import List, Optional, Sequence
 
 import torch
 
-#: Elements per chunk of the kernel's grid (one block each).
+#: Elements per chunk of the LAMB kernels' grid (one 256-thread block each).
 CHUNK = 16384
+#: Elements per chunk of the LARS kernels' grid (one warp each): a BN
+#: vector of 64-2,048 elements takes a warp, not a block.
+LARS_CHUNK = 4096
 
 
 def _norm(t: torch.Tensor) -> torch.Tensor:
@@ -109,14 +115,16 @@ class LeafTable:
     def __init__(self) -> None:
         self.key = None
 
-    def get(self, lists: Sequence[Sequence[torch.Tensor]]):
-        key = tuple((t.data_ptr(), t.numel()) for ts in lists for t in ts)
+    def get(self, lists: Sequence[Sequence[torch.Tensor]],
+            chunk: int = CHUNK):
+        key = (chunk,) + tuple((t.data_ptr(), t.numel()) for ts in lists
+                               for t in ts)
         if key != self.key:
-            self._build(lists)
+            self._build(lists, chunk)
             self.key = key
         return self
 
-    def _build(self, lists) -> None:
+    def _build(self, lists, chunk: int) -> None:
         first = lists[0]
         dev = first[0].device
         null = [0] * len(first)
@@ -128,15 +136,16 @@ class LeafTable:
             if n >= 2 ** 31:
                 raise ValueError(f"leaf {i} has {n} elements; the kernel "
                                  "indexes chunks with 32 bits")
-            nc = max(1, math.ceil(n / CHUNK))
+            nc = max(1, math.ceil(n / chunk))
             leaves.append([ptrs[0][i], ptrs[1][i], ptrs[2][i], ptrs[3][i], n,
                            len(chunks), nc])
-            chunks += [[i, c * CHUNK] for c in range(nc)]
+            chunks += [[i, c * chunk] for c in range(nc)]
         pin = dev.type == "cuda"
         host_l = torch.tensor(leaves, dtype=torch.int64)
         host_c = torch.tensor(chunks, dtype=torch.int32)
         if pin:
             host_l, host_c = host_l.pin_memory(), host_c.pin_memory()
+        self.chunk = chunk
         self.leaves = host_l.to(dev, non_blocking=pin)
         self.chunks = host_c.to(dev, non_blocking=pin)
         self._host = (host_l, host_c)  # alive until the copies are done
@@ -146,20 +155,24 @@ class LeafTable:
         self.a = torch.empty(len(leaves), dtype=torch.float32, device=dev)
 
 
+def bind(lib, kinds=("lars", "lamb")):
+    """``lib`` (a build of ``csrc/optimizer_update.cu``) with the C entry
+    points of ``kinds`` declared."""
+    head = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    floats = {"lars": 3, "lamb": 6}
+    for kind in kinds:
+        fn = getattr(lib, f"tpuic_{kind}_update")
+        fn.argtypes = head + [ctypes.c_float] * floats[kind] + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     lib = getattr(_lib, "cdll", None)
     if lib is None:
         from tpuic_torch.kernels import _build
-        lib = _build.load("optimizer_update")
-        head = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p] * 4
-        lib.tpuic_lars_update.argtypes = head + [ctypes.c_float] * 3 + \
-            [ctypes.c_void_p]
-        lib.tpuic_lars_update.restype = ctypes.c_int
-        lib.tpuic_lamb_update.argtypes = head + [ctypes.c_float] * 6 + \
-            [ctypes.c_void_p]
-        lib.tpuic_lamb_update.restype = ctypes.c_int
-        _lib.cdll = lib
+        lib = _lib.cdll = bind(_build.load("optimizer_update"))
     return lib
 
 
@@ -212,11 +225,11 @@ def lars_update(params, grads, trace, lr, finite, *, weight_decay: float,
     lists = (grads, params, trace)
     _check_cuda_args(lists, (("lr", lr, torch.float32),
                              ("finite", finite, torch.bool)))
-    tb = (table or LeafTable()).get(lists)
+    tb = (table or LeafTable()).get(lists, LARS_CHUNK)
     scal = lr.reshape(1)
     _launch(_lib().tpuic_lars_update, "lars_update", dev,
             (tb.leaves.data_ptr(), tb.chunks.data_ptr(), tb.n_leaves,
-             tb.n_chunks, CHUNK, scal.data_ptr(), finite.data_ptr(),
+             tb.n_chunks, tb.chunk, scal.data_ptr(), finite.data_ptr(),
              tb.partials.data_ptr(), tb.a.data_ptr(), float(weight_decay),
              float(trust_coefficient), float(momentum)))
     lars_update.launches += 1
@@ -246,12 +259,12 @@ def lamb_update(params, grads, mu, nu, count, lr, finite, *, b1: float,
     _check_cuda_args(lists, (("lr", lr, torch.float32),
                              ("count", count, torch.int32),
                              ("finite", finite, torch.bool)))
-    tb = (table or LeafTable()).get(lists)
+    tb = (table or LeafTable()).get(lists, CHUNK)
     c1, c2 = lamb_debias(count, b1, b2)
     scal = torch.stack([lr.reshape(()), c1, c2])
     _launch(_lib().tpuic_lamb_update, "lamb_update", dev,
             (tb.leaves.data_ptr(), tb.chunks.data_ptr(), tb.n_leaves,
-             tb.n_chunks, CHUNK, scal.data_ptr(), finite.data_ptr(),
+             tb.n_chunks, tb.chunk, scal.data_ptr(), finite.data_ptr(),
              tb.partials.data_ptr(), tb.a.data_ptr(), float(b1), float(b2),
              1.0 - b1, 1.0 - b2, float(eps), float(weight_decay)))
     lamb_update.launches += 1

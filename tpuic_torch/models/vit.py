@@ -9,7 +9,9 @@ feature ``[B, hidden]`` after the final LayerNorm.
 
 - The patch embedding is flax's ``nn.Conv`` with ``padding="SAME"`` and a
   bias: it pads nothing when the patch divides the image (224/16) and pads
-  like flax when it does not.
+  like flax when it does not.  Its patches do not overlap, so the forward
+  computes it as a reshape and one ``F.linear`` (``ViT.embed_patches``);
+  the ``patch_embed`` ``Conv2d`` holds the parameters.
 - Attention: ``attention="dense"`` is the reference's einsum core in plain
   torch ops (scores, float32 softmax, probabilities times v);
   ``"flash"`` runs the K4 kernels (``kernels/flash_attention.py``) on
@@ -162,19 +164,32 @@ class ViT(nn.Module):
         self.ln_final = LayerNorm(hidden, **kw)
         self.num_features = hidden
 
+    def embed_patches(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC ``[B, H, W, C]`` -> ``[B, N, hidden]`` tokens in (row, col)
+        order: the stride-equals-kernel convolution written as what it is,
+        one matrix product over non-overlapping patches.  Each patch
+        flattens in the ``(C, p, p)`` order of the OIHW ``patch_embed``
+        weight.  As ``F.linear`` it runs in float32 on the card whatever
+        cuDNN's TF32 flag says (cuBLAS matmuls keep TF32 off by default),
+        so a row's tokens do not depend on the batch it rides in."""
+        lo, hi = self.pads
+        if lo or hi:
+            x = F.pad(x, (0, 0, lo, hi, lo, hi))
+        b, h, w, c = x.shape
+        p = self.patch
+        x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
+        x = x.reshape(b, (h // p) * (w // p), c * p * p)
+        conv = self.patch_embed
+        weight = conv.weight.to(x.dtype).reshape(self.hidden, -1)
+        return F.linear(x, weight, conv.bias.to(x.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
         if (h, w) != (self.image_size, self.image_size):
             raise ValueError(f"images are {h}x{w}; this ViT was built for "
                              f"{self.image_size}x{self.image_size}")
         dt = self.compute_dtype
-        x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view of the NHWC data
-        lo, hi = self.pads
-        if lo or hi:
-            x = F.pad(x, (lo, hi, lo, hi))
-        conv = self.patch_embed
-        x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), conv.stride)
-        x = x.flatten(2).transpose(1, 2)  # [B, N, hidden], (row, col) order
+        x = self.embed_patches(x.to(dt))
         cls = self.cls.to(dt).expand(b, 1, self.hidden)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for i in range(self.depth):

@@ -47,6 +47,7 @@ import torch
 from tpuic_torch.checkpoint.convert import load_jax_variables
 from tpuic_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from tpuic_torch.device import resolve_device
+from tpuic_torch.kernels import no_tf32
 from tpuic_torch.serve.metrics import ServeStats
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
@@ -70,7 +71,15 @@ def make_forward(model, *, normalize: bool = False, mean=None, std=None):
     ``normalize=True`` folds uint8 -> (x/255 - mean)/std into the forward
     (serving raw images ships 4x fewer H2D bytes).  Returns float32
     softmax probabilities and the class order of a stable descending
-    sort (``jnp.argsort(-probs)``'s tie order)."""
+    sort (``jnp.argsort(-probs)``'s tie order).
+
+    The model runs with TF32 off in cuDNN (and cuBLAS) for the call, the
+    flags restored after it: under torch's default flags cuDNN runs a
+    float32 convolution in TF32 with algorithms chosen by batch size, so a
+    row's probabilities would depend on the bucket it rides in (ResNet's
+    unfused branch; ``chip_smoke.py``'s ``[model]`` phase measures it).
+    The flags are global to the process; while the engine serves, its
+    batcher thread is the only thread that runs forwards."""
     m = torch.as_tensor(IMAGENET_MEAN if mean is None else mean,
                         dtype=torch.float32)
     s = torch.as_tensor(IMAGENET_STD if std is None else std,
@@ -78,7 +87,7 @@ def make_forward(model, *, normalize: bool = False, mean=None, std=None):
     on_device = {}
 
     def forward(images: torch.Tensor):
-        with torch.inference_mode():
+        with torch.inference_mode(), no_tf32():
             x = images
             if normalize:
                 dev = x.device
