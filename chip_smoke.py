@@ -43,19 +43,28 @@ the first phase that fails:
 6. xent   — the fused cross-entropy forward and backward kernels (K1) at
    [128, 1000] and [128, 7], label smoothing 0 and 0.1, against their
    plain versions (rtol 1e-5 / atol 1e-6: float32 row sums in another
-   order), plus a class-weighted, masked case with an out-of-range label;
-   timed beside the plain versions, the bound and one ``F.cross_entropy``
-   call (forward for K1f, forward + backward for K1b).
+   order), plus class-weighted, masked cases with an out-of-range label
+   at C = 1, 7, 1000 and 21843 (w exact); the backward's bits against the
+   earlier build's (``cross_entropy_bench``: the backward is untouched);
+   timed per call from Python beside the plain versions, the bound and one
+   ``F.cross_entropy`` call (forward for K1f, forward + backward for K1b),
+   and on the card alone (the median of 5 replays of a CUDA graph of 100
+   calls) for K1f, K1b, the forward's earlier design and
+   ``F.cross_entropy``'s forward.
 7. optim  — the fused LARS and LAMB update kernels (K2) over the whole
    ResNet-50 + head parameter list (167 leaves, flax-default init, so the
    zero BN biases take the trust = 1 branch), against their plain versions
    (rtol 1e-5 / atol 1e-7: the trust-ratio norms are summed in another
-   order); timed per call from Python and on the card alone (the median
-   of 5 replays of a CUDA graph of 100 back-to-back updates, with the
-   replays' spread), beside the
-   plain versions and the bound (no single PyTorch call computes a LARS or
-   LAMB update).  LARS also through its earlier design
-   (``optimizer_update_bench``), held and timed the same way.
+   order), the same bits on two runs, and LAMB's debias factors (computed
+   by the kernel from the device count) within 1 ulp of the plain
+   version's; timed per call from Python and on the card alone (the
+   median of 5 replays of a CUDA graph of 100 back-to-back updates, with
+   the replays' spread), and the wrappers' host cost per call (``host_ms``,
+   the median of 5 windows of 20 calls enqueued without a synchronise),
+   beside the plain versions and the bound (no single PyTorch call
+   computes a LARS or LAMB update).  Each also through
+   its earlier design (``optimizer_update_bench``), held and timed the
+   same way.
 8. train  — ``Trainer`` on a synthetic 224x224 ImageFolder written by
    ``tpuic_torch.data.synthetic``: ResNet-50, float32, batch 128, LARS lr
    4.8 / wd 1e-4 / 5 warmup epochs of a 90-epoch schedule, label smoothing
@@ -119,6 +128,7 @@ import gc
 import importlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -200,6 +210,25 @@ def tf32_peak(name: str) -> float:
 
 def bf16_peak(name: str) -> float:
     return next(p for key, p in BF16_PEAKS if key in name)
+
+
+def host_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
+    """Host milliseconds per call to enqueue ``iters`` back-to-back calls
+    (no synchronise inside a window, one between windows), the median of
+    ``repeats`` windows: a wrapper's own cost.  A window is short enough
+    that the card's launch queue never fills, and the median keeps one
+    stall of the shared host out."""
+    for _ in range(warmup):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append((time.perf_counter() - t0) / iters * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -626,49 +655,62 @@ def phase_xent(device_name: str, gen: torch.Generator):
     Returns the (K1f, K1b) summaries at the train path's shape, [128,
     1000] with smoothing 0.1 and no class weights."""
     from tpuic_torch.kernels import cross_entropy as K1
+    from tpuic_torch.kernels import cross_entropy_bench as K1B
+    from tpuic_torch.kernels.optimizer_update_bench import device_time
     _, peak_flops, hbm = peaks(device_name)
-    # A class-weighted, masked batch with one out-of-range label (w = 0).
-    b, c = 37, 1000
-    x = (3.0 * torch.randn((b, c), generator=gen)).cuda()
-    y = torch.randint(0, c, (b,), generator=gen, dtype=torch.int32)
-    y[0] = c
-    y = y.cuda()
-    cw = (0.5 + torch.rand(c, generator=gen)).cuda()
-    mask = (torch.rand(b, generator=gen) > 0.2).float().cuda()
-    scale = torch.tensor(0.37, device="cuda")
-    for ls in (0.0, 0.1):
-        got = [*K1.cross_entropy_fwd(x, y, cw, mask, ls),
-               K1.cross_entropy_bwd(x, y, cw, mask, scale, ls)]
-        torch.cuda.synchronize()
-        want = [*K1.cross_entropy_fwd_plain(x, y, cw, mask, ls),
-                K1.cross_entropy_bwd_plain(x, y, cw, mask, scale, ls)]
-        if not all(torch.allclose(g, w, rtol=XENT_RTOL, atol=XENT_ATOL)
-                   for g, w in zip(got, want)) or float(got[1][0]) != 0.0:
-            fail("xent", f"weighted, masked [{b}, {c}] smoothing {ls}: max "
-                         f"abs err {max_err(got, want)}")
+    earlier = K1B.build_earlier()
+    # Class-weighted, masked batches with one out-of-range label (w = 0),
+    # from a single class to a long row (C = 21843 rows are 16-byte
+    # aligned only every fourth row: both load paths run).
+    b = 37
+    for c in (1, 7, 1000, 21843):
+        x = (3.0 * torch.randn((b, c), generator=gen)).cuda()
+        y = torch.randint(0, c, (b,), generator=gen, dtype=torch.int32)
+        y[0] = c
+        y = y.cuda()
+        cw = (0.5 + torch.rand(c, generator=gen)).cuda()
+        mask = (torch.rand(b, generator=gen) > 0.2).float().cuda()
+        scale = torch.tensor(0.37, device="cuda")
+        for ls in (0.0, 0.1):
+            got = [*K1.cross_entropy_fwd(x, y, cw, mask, ls),
+                   K1.cross_entropy_bwd(x, y, cw, mask, scale, ls)]
+            torch.cuda.synchronize()
+            want = [*K1.cross_entropy_fwd_plain(x, y, cw, mask, ls),
+                    K1.cross_entropy_bwd_plain(x, y, cw, mask, scale, ls)]
+            if not all(torch.allclose(g, w, rtol=XENT_RTOL, atol=XENT_ATOL)
+                       for g, w in zip(got, want)) \
+                    or not torch.equal(got[1], want[1]) \
+                    or float(got[1][0]) != 0.0:
+                fail("xent", f"weighted, masked [{b}, {c}] smoothing {ls}: "
+                             f"max abs err {max_err(got, want)}")
+    log("xent", f"weighted, masked [{b}, C] for C in 1, 7, 1000, 21843, "
+                f"smoothing 0 and 0.1: within rtol {XENT_RTOL} / atol "
+                f"{XENT_ATOL}, w exact")
     rows, main = [], {}
     for b, c in ((TRAIN_BATCH, 1000), (TRAIN_BATCH, 7)):
         for ls in (0.0, 0.1):
             # The train path's inputs: no class weights, nothing masked.
-            x = (3.0 * torch.randn((b, c), generator=gen)).cuda()
-            y = torch.randint(0, c, (b,), generator=gen,
-                              dtype=torch.int32).cuda()
+            x, y, cw, mask, scale = K1B.train_inputs(b, c, gen)
             yl = y.long()
-            cw = torch.ones(c, device="cuda")
-            mask = torch.ones(b, device="cuda")
-            scale = torch.tensor(1.0 / b, device="cuda")
             fwd = (x, y, cw, mask)
             got = [*K1.cross_entropy_fwd(*fwd, ls),
                    K1.cross_entropy_bwd(*fwd, scale, ls)]
+            old = [*K1B.fwd_with(earlier, *fwd, ls),
+                   K1B.bwd_with(earlier, *fwd, scale, ls)]
             torch.cuda.synchronize()
             want = [*K1.cross_entropy_fwd_plain(*fwd, ls),
                     K1.cross_entropy_bwd_plain(*fwd, scale, ls)]
             err_f, err_b = max_err(got[:2], want[:2]), max_err(got[2:],
                                                                want[2:])
             if not all(torch.allclose(g, w, rtol=XENT_RTOL, atol=XENT_ATOL)
-                       for g, w in zip(got, want)):
+                       for g, w in zip(got + old, want + want)):
                 fail("xent", f"[{b}, {c}] smoothing {ls}: max abs err "
-                             f"fwd {err_f} bwd {err_b}")
+                             f"fwd {err_f} bwd {err_b}, earlier design "
+                             f"{max_err(old, want)}")
+            # K1b is untouched: its bits must be the earlier build's.
+            if not torch.equal(got[2], old[2]):
+                fail("xent", f"[{b}, {c}] smoothing {ls}: the backward's "
+                             "bits moved from the earlier build's")
             # One library call each: with all-one weights and smoothing,
             # F.cross_entropy's smoothed sum is the same function (its
             # smoothing differs from tpuic's only with class weights).
@@ -683,40 +725,61 @@ def phase_xent(device_name: str, gen: torch.Generator):
                 return torch.autograd.grad(
                     F.cross_entropy(xr, yl, reduction="sum", **kw), xr)
 
-            ms = {"fwd": time_ms(lambda: K1.cross_entropy_fwd(*fwd, ls),
-                                 iters=200),
+            def k1f():
+                return K1.cross_entropy_fwd(*fwd, ls)
+
+            def k1b():
+                return K1.cross_entropy_bwd(*fwd, scale, ls)
+
+            def k1f_earlier():
+                return K1B.fwd_with(earlier, *fwd, ls)
+
+            ms = {"fwd": time_ms(k1f, iters=200),
                   "fwd_plain": time_ms(
                       lambda: K1.cross_entropy_fwd_plain(*fwd, ls),
                       iters=200),
                   "fwd_lib": time_ms(lib_fwd, iters=200),
-                  "bwd": time_ms(lambda: K1.cross_entropy_bwd(*fwd, scale,
-                                                              ls),
-                                 iters=200),
+                  "bwd": time_ms(k1b, iters=200),
                   "bwd_plain": time_ms(
                       lambda: K1.cross_entropy_bwd_plain(*fwd, scale, ls),
                       iters=200),
                   "bwd_lib": time_ms(lib_fwd_bwd, iters=200)}
+            # On the card alone: the median of 5 replays of a CUDA graph of
+            # 100 calls.
+            dev = {"fwd": device_time(k1f)["median"],
+                   "fwd_earlier": device_time(k1f_earlier)["median"],
+                   "bwd": device_time(k1b)["median"],
+                   "fwd_lib": device_time(lib_fwd)["median"]}
             # Bytes: each input read once, each output written once.  Ops
             # per logit: max, subtract + exp, sum (+ sum of x when
             # smoothing) forward; those plus exp, divide, subtract target
             # and scale backward.
             n = b * c
-            fb = bound(n * (5 if ls else 4), 4 * (n + 3 * b + c + 2 * b),
+            fb = bound(n * (5 if ls else 4), K1B.fwd_bytes(b, c),
                        peak_flops, hbm)
             bb = bound(n * 9, 4 * (2 * n + 2 * b + c + 1), peak_flops, hbm)
             row = {"b": b, "c": c, "label_smoothing": ls,
                    "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b,
-                   **ms, "fwd_bound_ms": fb[0], "bwd_bound_ms": bb[0]}
+                   "earlier_fwd_max_abs_err": max_err(old[:2], want[:2]),
+                   "bwd_bits_equal_earlier": True,
+                   **ms, "device_ms": dev,
+                   "fwd_earlier_over_shipped": dev["fwd_earlier"]
+                   / dev["fwd"],
+                   "fwd_bound_ms": fb[0], "bwd_bound_ms": bb[0]}
             rows.append(row)
             log("xent", json.dumps(row))
             if (b, c, ls) == (TRAIN_BATCH, 1000, 0.1):
                 main = {
                     "cross_entropy_fwd": {
                         "max_abs_err": err_f, "ms": ms["fwd"],
+                        "device_ms": dev["fwd"],
+                        "earlier_device_ms": dev["fwd_earlier"],
                         "plain_ms": ms["fwd_plain"], "bound_ms": fb[0],
-                        "bound_by": fb[1], "library_ms": ms["fwd_lib"]},
+                        "bound_by": fb[1], "library_ms": ms["fwd_lib"],
+                        "library_device_ms": dev["fwd_lib"]},
                     "cross_entropy_bwd": {
                         "max_abs_err": err_b, "ms": ms["bwd"],
+                        "device_ms": dev["bwd"],
                         "plain_ms": ms["bwd_plain"], "bound_ms": bb[0],
                         "bound_by": bb[1], "library_ms": ms["bwd_lib"]}}
     return main, rows
@@ -724,12 +787,14 @@ def phase_xent(device_name: str, gen: torch.Generator):
 
 def phase_optim(device_name: str, seed: int):
     """K2 LARS and LAMB over the ResNet-50 + head parameter list against
-    their plain versions, then timed: per call from Python (``ms``, 100
-    back-to-back calls) and on the card alone (``device_ms``: the median
-    of 5 replays of a CUDA graph of 100 back-to-back updates, with their
-    spread); LARS also
-    through its earlier design (``optimizer_update_bench``), timed the same
-    way.  Returns their summaries."""
+    their plain versions, the same bits on a second run, then timed: per
+    call from Python (``ms``, 100 back-to-back calls) and on the card alone
+    (``device_ms``: the median of 5 replays of a CUDA graph of 100
+    back-to-back updates, with their spread); each also through its
+    earlier design (``optimizer_update_bench``), held and timed the same
+    way.  LAMB's debias factors, computed by the kernel from the device
+    count, are held to ``lamb_debias`` on the card within 1 ulp.  Returns
+    their summaries."""
     from tpuic_torch.checkpoint import init_params
     from tpuic_torch.kernels import optimizer_update as K2
     from tpuic_torch.kernels import optimizer_update_bench as K2B
@@ -750,31 +815,24 @@ def phase_optim(device_name: str, seed: int):
     finite = torch.tensor(True, device="cuda")
     lars_kw = dict(weight_decay=1e-4, trust_coefficient=0.001, momentum=0.9)
     lamb_kw = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=1e-4)
-    block_lib = K2B.build_block()
+    block_libs = K2B.build_earlier()
     out = {}
     for kind in ("lars", "lamb"):
-        table = K2.LeafTable()
-        earlier = None
         if kind == "lars":
             new_m = K2.lars_update_plain(w, g, m, lr, **lars_kw)
             want = [*[a + b for a, b in zip(w, new_m)], *new_m]
-            got_w, got_m = ([t.clone() for t in ts] for ts in (w, m))
-            got_v = []
+            state = (w, m)
 
-            def kernel():
-                K2.lars_update(got_w, g, got_m, lr, finite, table=table,
+            def update(ws, table):
+                K2.lars_update(ws[0], g, ws[1], lr, finite, table=table,
                                **lars_kw)
+
+            def earlier_update(ws, table):
+                K2B.block_lars_update(block_libs["lars"], ws[0], g, ws[1],
+                                      lr, finite, table=table, **lars_kw)
 
             def plain():
                 return K2.lars_update_plain(w, g, m, lr, **lars_kw)
-
-            # The earlier design on its own copies and table.
-            old_w, old_m = ([t.clone() for t in ts] for ts in (w, m))
-            old_table = K2.LeafTable()
-
-            def earlier():
-                K2B.block_lars_update(block_lib, old_w, g, old_m, lr, finite,
-                                      table=old_table, **lars_kw)
             # g, w, m read; m', w' written.  Ops per element: u = g +
             # wd*w, the two squares summed, the update and w + m'.  The
             # two passes read g and w twice: 7 tensors.
@@ -783,12 +841,16 @@ def phase_optim(device_name: str, seed: int):
             upd, mus, nus = K2.lamb_update_plain(w, g, m, v, count, lr,
                                                  **lamb_kw)
             want = [*[a + b for a, b in zip(w, upd)], *mus, *nus]
-            got_w, got_m, got_v = ([t.clone() for t in ts]
-                                   for ts in (w, m, v))
+            state = (w, m, v)
 
-            def kernel():
-                K2.lamb_update(got_w, g, got_m, got_v, count, lr, finite,
+            def update(ws, table):
+                K2.lamb_update(ws[0], g, ws[1], ws[2], count, lr, finite,
                                table=table, **lamb_kw)
+
+            def earlier_update(ws, table):
+                K2B.block_lamb_update(block_libs["lamb"], ws[0], g, ws[1],
+                                      ws[2], count, lr, finite, table=table,
+                                      **lamb_kw)
 
             def plain():
                 return K2.lamb_update_plain(w, g, m, v, count, lr, **lamb_kw)
@@ -796,43 +858,75 @@ def phase_optim(device_name: str, seed: int):
             # two moments, debias, sqrt, divide, decay, the two squares
             # summed, and the update.  Two passes: 10 tensors.
             ops, nbytes, two_pass = 20.0 * n, 4.0 * 7 * n, 4.0 * 10 * n
-        kernel()
-        torch.cuda.synchronize()
-        got = [*got_w, *got_m, *got_v]
+        # The shipped kernels twice from the same state, each on its own
+        # copies and table, then the earlier design once.
+        runs = []
+        for _ in range(2):
+            copies = [[t.clone() for t in ts] for ts in state]
+            table = K2.LeafTable()
+            update(copies, table)
+            torch.cuda.synchronize()
+            runs.append((copies, table))
+        got = [t for ts in runs[0][0] for t in ts]
         err = max_err(got, want)
         bad = [i for i, (a, b) in enumerate(zip(got, want))
                if not torch.allclose(a, b, rtol=OPT_RTOL, atol=OPT_ATOL)]
         if bad:
             fail("optim", f"{kind}: {len(bad)} tensors beyond rtol "
                           f"{OPT_RTOL} / atol {OPT_ATOL}, max abs err {err}")
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, [t for ts in runs[1][0] for t in ts])):
+            fail("optim", f"{kind}: two runs from one state differ")
         row = {"kind": kind, "leaves": len(w), "params": n,
-               "zero_norm_leaves": zero, "max_abs_err": err}
-        if earlier is not None:
-            earlier()
-            torch.cuda.synchronize()
-            row["earlier_max_abs_err"] = max_err([*old_w, *old_m], want)
-            row["earlier_device_ms"] = K2B.device_time(earlier)
-            row["earlier_ms"] = time_ms(earlier, iters=100)
+               "zero_norm_leaves": zero, "max_abs_err": err,
+               "bits_equal_on_two_runs": True}
+        if kind == "lamb":
+            # The c1, c2 the kernel's first pass computed, against the
+            # plain version's on the card: within 1 ulp.
+            got_c = runs[0][1].a[-2:]
+            want_c = torch.stack(K2.lamb_debias(count, lamb_kw["b1"],
+                                                lamb_kw["b2"]))
+            ulps = (got_c.view(torch.int32).long()
+                    - want_c.view(torch.int32).long()).abs().max()
+            row["debias_ulps"] = int(ulps)
+            if int(ulps) > 1:
+                fail("optim", f"lamb: debias {got_c.tolist()} against "
+                              f"{want_c.tolist()}, {int(ulps)} ulps apart")
+        old_state = [[t.clone() for t in ts] for ts in state]
+        old_table = K2.LeafTable()
+
+        def earlier():
+            earlier_update(old_state, old_table)
+        earlier()
+        torch.cuda.synchronize()
+        row["earlier_max_abs_err"] = max_err(
+            [t for ts in old_state for t in ts], want)
+        copies, table = runs[0]
+
+        def kernel():
+            update(copies, table)
+        row["earlier_device_ms"] = K2B.device_time(earlier)
+        row["earlier_ms"] = time_ms(earlier, iters=100)
+        row["earlier_host_ms"] = host_ms(earlier)
         dev = K2B.device_time(kernel)
         bms, by = bound(ops, nbytes, peak_flops, hbm)
-        row.update(ms=time_ms(kernel, iters=100), device_ms=dev,
+        row.update(ms=time_ms(kernel, iters=100), host_ms=host_ms(kernel),
+                   device_ms=dev,
                    plain_ms=time_ms(plain, iters=5, warmup=1), bound_ms=bms,
                    bound_by=by, two_pass_bound_ms=two_pass / hbm * 1e3,
                    device_share_of_bound=bms / dev["median"],
                    gb_per_s=nbytes / dev["median"] / 1e6)
-        if earlier is not None:
-            row["earlier_over_shipped"] = (row["earlier_device_ms"]["median"]
-                                           / dev["median"])
+        row["earlier_over_shipped"] = (row["earlier_device_ms"]["median"]
+                                       / dev["median"])
         log("optim", json.dumps(row))
         out[f"{kind}_update"] = {
-            "max_abs_err": err, "ms": row["ms"], "device_ms": dev["median"],
+            "max_abs_err": err, "ms": row["ms"], "host_ms": row["host_ms"],
+            "device_ms": dev["median"],
             "device_ms_spread": dev["spread"], "plain_ms": row["plain_ms"],
             "bound_ms": bms, "bound_by": by,
             "two_pass_bound_ms": row["two_pass_bound_ms"],
-            "library_ms": None}
-        if earlier is not None:
-            out[f"{kind}_update"]["earlier_device_ms"] = row[
-                "earlier_device_ms"]["median"]
+            "library_ms": None,
+            "earlier_device_ms": row["earlier_device_ms"]["median"]}
     return out
 
 

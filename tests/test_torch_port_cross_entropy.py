@@ -182,3 +182,30 @@ def test_cuda_kernels_match_plain(b, c, smoothing):
                                     smoothing), rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="labels must be"):
         cross_entropy_fwd(logits, labels.long(), cw, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_row", "one_class", "spread_1e4"])
+def test_cuda_forward_edge_rows(case):
+    """K1f's warp per row at its edges, against the plain version at the
+    kernels' tolerance (1e-5 / 1e-6), w exact: a long row (C = 21843, whose
+    rows are 16-byte aligned only every fourth row, so both load paths
+    run), a single class (31 lanes of the warp see no element), and logits
+    spread over +-1e4 (exp underflows to 0 for all but the largest)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    c = {"long_row": 21843, "one_class": 1, "spread_1e4": 1000}[case]
+    logits, labels, cw, mask = (torch.from_numpy(a).cuda() for a in _case(
+        c, c, True, True))
+    if case == "spread_1e4":
+        rng = np.random.default_rng(3)
+        logits = torch.from_numpy(rng.uniform(-1e4, 1e4, (B, c)).astype(
+            np.float32)).cuda()
+    for smoothing in (0.0, 0.1):
+        wnll, w = cross_entropy_fwd(logits, labels, cw, mask, smoothing)
+        want_wnll, want_w = cross_entropy_fwd_plain(logits, labels, cw, mask,
+                                                    smoothing)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(wnll, want_wnll, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(w, want_w, rtol=0, atol=0)
+        assert float(w[3]) == 0.0  # out-of-range label

@@ -26,7 +26,9 @@ import torch
 
 from tpuic_torch.checkpoint import load_jax_opt_state
 from tpuic_torch.config import OptimConfig
-from tpuic_torch.kernels.optimizer_update import (lamb_update,
+from tpuic_torch.kernels import optimizer_update as K2
+from tpuic_torch.kernels.optimizer_update import (LeafTable, lamb_debias,
+                                                  lamb_update,
                                                   lamb_update_plain,
                                                   lars_update,
                                                   lars_update_plain)
@@ -146,6 +148,114 @@ def test_non_finite_flag_leaves_everything_unchanged():
                 weight_decay=0.01)
     for got, want in zip(pw + pm + pv, w + m + v):
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- the kernels' leaf table ----------------------------------------------
+
+def _table_lists():
+    """(g, w, m) lists of two leaves; w's first leaf is square, so its
+    transpose is a non-contiguous view at the same pointer."""
+    rng = np.random.default_rng(5)
+    shapes = [(6, 6), (10,)]
+    return tuple([torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in shapes] for _ in range(3))
+
+
+def _counting_checks(monkeypatch):
+    """Counts calls of the table's checks and builds."""
+    calls = {"check": 0, "build": 0}
+    check, build = K2.check_leaves, LeafTable._build
+
+    def counted_check(lists):
+        calls["check"] += 1
+        return check(lists)
+
+    def counted_build(self, lists, chunk):
+        calls["build"] += 1
+        return build(self, lists, chunk)
+    monkeypatch.setattr(K2, "check_leaves", counted_check)
+    monkeypatch.setattr(LeafTable, "_build", counted_build)
+    return calls
+
+
+def test_leaf_table_repeat_call_does_not_rebuild(monkeypatch):
+    """The same tensors again: one walk for the key, no check and no
+    rebuild.  A new list with the same tensors is the same key."""
+    calls = _counting_checks(monkeypatch)
+    g, w, m = _table_lists()
+    table = LeafTable()
+    assert table.get((g, w, m)) is table
+    first = (table.leaves, table.chunks, table.partials, table.a)
+    assert calls == {"check": 1, "build": 1}
+    table.get((g, w, m))
+    table.get((list(g), list(w), list(m)))
+    assert calls == {"check": 1, "build": 1}
+    assert all(a is b for a, b in zip(
+        first, (table.leaves, table.chunks, table.partials, table.a)))
+    # a_l per leaf, then LAMB's c1, c2.
+    assert table.a.shape == (len(g) + 2,) and table.n_leaves == len(g)
+    # Another chunk size is another table.
+    table.get((g, w, m), 4)
+    assert calls == {"check": 2, "build": 2} and table.n_chunks == 9 + 3
+
+
+def _non_contiguous(t):
+    return t.t() if t.dim() == 2 else t[::2]
+
+
+@pytest.mark.parametrize("change,match", [
+    (_non_contiguous, "contiguous"),
+    (lambda t: t.double(), "float32"),
+    (lambda t: t.reshape(-1)[:-1], "shaped"),
+])
+def test_leaf_table_key_catches_what_the_kernel_relies_on(monkeypatch,
+                                                          change, match):
+    """A leaf that turns into a non-contiguous view at the same pointer, a
+    float64 tensor or a tensor of another length changes the key: the
+    check runs again and raises, and the table keeps its last good key."""
+    calls = _counting_checks(monkeypatch)
+    g, w, m = _table_lists()
+    table = LeafTable()
+    table.get((g, w, m))
+    good = table.key
+    bad = change(w[0])
+    if change is _non_contiguous:
+        assert bad.data_ptr() == w[0].data_ptr()
+        assert bad.numel() == w[0].numel() and not bad.is_contiguous()
+    with pytest.raises(ValueError, match=match):
+        table.get((g, [bad, w[1]], m))
+    assert calls == {"check": 2, "build": 1} and table.key == good
+    # Until the lists are whole again, every call checks and raises.
+    with pytest.raises(ValueError, match=match):
+        table.get((g, [bad, w[1]], m))
+    table.get((g, w, m))
+    assert calls == {"check": 3, "build": 1}
+
+
+@pytest.mark.parametrize("kind", ["lars", "lamb"])
+def test_wrappers_take_plain_versions_for_cpu_tensors(kind):
+    """On CPU tensors both wrappers take the plain version, in place, and
+    count no launch."""
+    w, g, m, v = (_t(x) for x in _leaves(6))
+    lr = torch.tensor(0.2)
+    count = torch.tensor(2, dtype=torch.int32)
+    yes = torch.tensor(True)
+    before = (lars_update.launches, lamb_update.launches)
+    if kind == "lars":
+        kw = dict(weight_decay=1e-4, trust_coefficient=0.001, momentum=0.9)
+        want = lars_update_plain(w, g, m, lr, **kw)
+        pw, pm = [t.clone() for t in w], [t.clone() for t in m]
+        lars_update(pw, g, pm, lr, yes, **kw)
+        got = pm
+    else:
+        kw = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01)
+        want = lamb_update_plain(w, g, m, v, count, lr, **kw)[1]
+        pw, pm, pv = ([t.clone() for t in ts] for ts in (w, m, v))
+        lamb_update(pw, g, pm, pv, count, lr, yes, **kw)
+        got = pm
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (lars_update.launches, lamb_update.launches) == before
 
 
 # -- trajectories ---------------------------------------------------------
@@ -391,9 +501,9 @@ def test_cuda_lars_takes_unaligned_ragged_leaves():
     bits on a second run, and nothing written under a non-finite flag."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    from tpuic_torch.kernels.optimizer_update import LARS_CHUNK
+    from tpuic_torch.kernels.optimizer_update import CHUNK
     rng = np.random.default_rng(7)
-    sizes = [(LARS_CHUNK + 5,), (7,), (3, 3, 3), (1,), (2 * LARS_CHUNK,)]
+    sizes = [(CHUNK + 5,), (7,), (3, 3, 3), (1,), (2 * CHUNK,)]
 
     def place(ts, offsets):
         """Copies of ``ts`` as views ``off`` elements into fresh buffers."""
@@ -428,3 +538,77 @@ def test_cuda_lars_takes_unaligned_ragged_leaves():
                for a, b in zip(x, y))
     assert all(torch.equal(a, b) for a, b in zip(runs[2][0], w))
     assert all(torch.equal(a, b) for a, b in zip(runs[2][1], m))
+
+
+@pytest.mark.cuda
+def test_cuda_lamb_takes_unaligned_ragged_leaves():
+    """K2b on leaves whose lengths are not multiples of 4 and whose storage
+    offsets are not 16-byte aligned (views 1, 2 and 3 elements into one
+    buffer; one leaf longer than a chunk), beside an aligned leaf: the
+    16-byte path and the scalar path against the plain version, the same
+    bits on a second run, and nothing written under a non-finite flag."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from tpuic_torch.kernels.optimizer_update import CHUNK
+    rng = np.random.default_rng(8)
+    sizes = [(CHUNK + 5,), (7,), (3, 3, 3), (1,), (2 * CHUNK,)]
+
+    def place(ts, offsets):
+        """Copies of ``ts`` as views ``off`` elements into fresh buffers."""
+        out = []
+        for t, off in zip(ts, offsets):
+            buf = torch.empty(t.numel() + off, device="cuda")
+            out.append(buf[off:off + t.numel()].view(t.shape))
+            out[-1].copy_(t)
+        return out
+
+    offsets = [1, 2, 3, 1, 0]
+    w, g, m = ([torch.from_numpy(scale * rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in sizes] for scale in (1.0, 1.0, 0.1))
+    v = [torch.from_numpy(rng.random(s).astype(np.float32)).cuda()
+         for s in sizes]
+    g = place(g, offsets)
+    assert [t.data_ptr() % 16 != 0 for t in g] == [True] * 4 + [False]
+    lr = torch.tensor(0.3, device="cuda")
+    count = torch.tensor(4, dtype=torch.int32, device="cuda")
+    kw = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01)
+    upd, want_m, want_v = lamb_update_plain(w, g, m, v, count, lr, **kw)
+    want_w = [a + b for a, b in zip(w, upd)]
+    runs = []
+    for flag in (True, True, False):
+        got = (place(w, offsets), place(m, offsets[::-1]),
+               place(v, offsets[1:] + offsets[:1]))
+        lamb_update(*got[:1], g, *got[1:], count, lr,
+                    torch.tensor(flag, device="cuda"), **kw)
+        torch.cuda.synchronize()
+        runs.append(got)
+    for a, b in zip(runs[0][0], want_w):
+        torch.testing.assert_close(a, b, **PARAM_TOL)
+    for k, want in ((1, want_m), (2, want_v)):
+        for a, b in zip(runs[0][k], want):
+            torch.testing.assert_close(a, b, **LEAF_TOL)
+    assert all(torch.equal(a, b) for x, y in zip(runs[0], runs[1])
+               for a, b in zip(x, y))
+    for got, before in zip(runs[2], (w, m, v)):
+        assert all(torch.equal(a, b) for a, b in zip(got, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [0, 1, 6, 999])
+def test_cuda_lamb_debias_matches_plain(count):
+    """The c1, c2 the kernel computes from the device count (left by its
+    first pass in the table's scratch) against ``lamb_debias`` on the card:
+    within 1 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    w, g, m, v = ([t.cuda() for t in _t(x)] for x in _leaves(9))
+    cnt = torch.tensor(count, dtype=torch.int32, device="cuda")
+    table = LeafTable()
+    lamb_update(w, g, m, v, cnt, torch.tensor(0.1, device="cuda"),
+                torch.tensor(True, device="cuda"), b1=0.9, b2=0.999,
+                eps=1e-6, weight_decay=0.01, table=table)
+    got = table.a[-2:]
+    want = torch.stack(lamb_debias(cnt, 0.9, 0.999))
+    torch.cuda.synchronize()
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long())
+    assert int(ulps.abs().max()) <= 1, (got.tolist(), want.tolist())

@@ -21,7 +21,9 @@ Each wrapper takes its plain version (``cross_entropy_fwd_plain``,
 PyTorch) only for CPU tensors; for CUDA tensors it launches the kernel of
 ``csrc/cross_entropy.cu`` or raises.  ``.launches`` on each wrapper counts
 kernel launches.  The kernels take float32 logits (the classifier head
-returns float32) and int32 labels.
+returns float32) and int32 labels.  The forward kernel reads each row once,
+a warp per row; the backward is a block per row.  ``cross_entropy_bench``
+keeps the forward's earlier design and times the two.
 """
 
 from __future__ import annotations
@@ -64,18 +66,21 @@ def cross_entropy_bwd_plain(logits, labels, cw, mask, scale,
     return ((p - target) * (w * scale.float())[:, None]).to(logits.dtype)
 
 
+def bind(lib):
+    """``lib`` (a build of ``csrc/cross_entropy.cu``) with its C entry
+    points declared."""
+    for fn in (lib.tpuic_xent_fwd, lib.tpuic_xent_bwd):
+        fn.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     lib = getattr(_lib, "cdll", None)
     if lib is None:
         from tpuic_torch.kernels import _build
-        lib = _build.load("cross_entropy")
-        lib.tpuic_xent_fwd.argtypes = [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        lib.tpuic_xent_fwd.restype = ctypes.c_int
-        lib.tpuic_xent_bwd.argtypes = [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        lib.tpuic_xent_bwd.restype = ctypes.c_int
-        _lib.cdll = lib
+        lib = _lib.cdll = bind(_build.load("cross_entropy"))
     return lib
 
 

@@ -21,8 +21,8 @@
 // Design: one launch per pass covers the whole list.  A device table, built
 // once per parameter list by the wrapper, holds each leaf's pointers and
 // size, and cuts every leaf into chunks; the grid runs over chunks.  Per-leaf
-// scalars come by pointer (lr, and LAMB's c1, c2, all computed on the device
-// from the device step count).  Three kernels per update:
+// scalars come by pointer (lr, and the device step count from which LAMB's
+// debias factors are computed).  Three kernels per update:
 //   1. norms:  each chunk's sum of w^2 and of u^2 (LAMB: and writes m', v');
 //              u is never stored;
 //   2. trust:  a warp per leaf sums its chunks' partials in double, each
@@ -37,24 +37,28 @@
 // head (~23.8 M parameters, 95 MB a tensor) that is 0.142 ms and 0.199 ms at
 // 3.35 TB/s.  The apply pass needs every leaf's norms, and 190 MB of g and w
 // do not fit in the card's 50 MB L2, so two passes read g and w twice: 7
-// tensors for LARS (0.199 ms at 3.35 TB/s), 10 for LAMB.  167 per-leaf
-// launches would make launch latency the cost; one multi-tensor launch per
-// pass does not.
+// tensors for LARS (0.199 ms at 3.35 TB/s), 10 for LAMB (0.284 ms; storing
+// u instead would move as many bytes and take a 95 MB buffer).  167
+// per-leaf launches would make launch latency the cost; one multi-tensor
+// launch per pass does not.
 //
-// LARS (K2a) is built to stream at HBM bandwidth:
-//   - A chunk is LARS_CHUNK elements and belongs to one warp, not one block,
-//     so the 64-2,048-element BN vectors take a warp each.  The warps of a
-//     grid sized to the card (BLOCKS_PER_SM blocks an SM) walk the chunks
-//     with a grid stride.
+// Both updates are built to stream at HBM bandwidth:
+//   - A chunk is CHUNK elements and belongs to one warp, not one block, so
+//     the 64-2,048-element BN vectors take a warp each.  The warps of a
+//     grid sized to the card (BLOCKS_PER_SM blocks an SM, fewer for a LAMB
+//     pass if its registers allow fewer) walk the chunks with a grid
+//     stride.
 //   - Loads and stores are 16 bytes (float4) where a chunk's tensors are
 //     16-byte aligned, with a scalar tail; each lane issues UNROLL loads of
-//     each tensor before it uses any (8 x 16 bytes in flight in pass 1, 12
-//     in pass 3).  A chunk whose tensors are not aligned takes scalar loads,
-//     UNROLL of each tensor in flight.
+//     each tensor before it uses any (LARS: 8 x 16 bytes in flight in pass
+//     1, 12 in pass 3; LAMB: 16 in pass 1, 12 in pass 3).  A chunk whose
+//     tensors are not aligned takes scalar loads, UNROLL of each tensor in
+//     flight.
 //   - A chunk's partial sums are each lane's in element order, then a fixed
 //     xor-shuffle tree: the same bits on every run.
-// LAMB (K2b) keeps the simple version: a 256-thread block per CHUNK-element
-// chunk and scalar, coalesced loads.
+//   - LAMB's debias factors c1, c2 are computed at the start of every block
+//     of both passes from the device count (two powf), so the host enqueues
+//     nothing but the three launches.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,7 +69,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int UNROLL = 4;         // loads of each tensor in flight a lane
-constexpr int BLOCKS_PER_SM = 4;  // LARS grid: resident blocks an SM
+constexpr int BLOCKS_PER_SM = 4;  // resident blocks an SM, at most
 
 // Leaf table row, int64 fields: g, w, m, v pointers, numel, first chunk,
 // number of chunks.  Chunk table row, int32 fields: leaf, start element.
@@ -89,28 +93,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Two block-wide sums, written by thread 0 to out[0], out[1].
-__device__ void block_sum2(float a, float b, float* out) {
-  __shared__ float sa[WARPS], sb[WARPS];
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    sa[warp] = a;
-    sb[warp] = b;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float ra = 0.f, rb = 0.f;
-    for (int i = 0; i < WARPS; ++i) {
-      ra += sa[i];
-      rb += sb[i];
-    }
-    out[0] = ra;
-    out[1] = rb;
-  }
 }
 
 // Chunk c of the table: its leaf and the elements [lo, lo + n) it covers.
@@ -285,42 +267,190 @@ struct LambHyper {
   float b1, b2, omb1, omb2, eps, wd;
 };
 
-__global__ void __launch_bounds__(THREADS)
-lamb_norms(const long long* __restrict__ leaves, const int* __restrict__ chunks,
-           int chunk_size, LambHyper h, const float* __restrict__ scal,
-           const bool* __restrict__ finite, float* __restrict__ partials) {
-  const Chunk s = chunk_at(leaves, chunks, blockIdx.x, chunk_size);
-  const float c1 = scal[1], c2 = scal[2];
-  const bool write = finite[0];
-  float sw = 0.f, su = 0.f;
-  for (long long i = s.lo + threadIdx.x; i < s.lo + s.n; i += THREADS) {
-    const float g = s.r.g[i];
-    const float w = s.r.w[i];
-    const float m = h.b1 * s.r.m[i] + h.omb1 * g;
-    const float v = h.b2 * s.r.v[i] + h.omb2 * g * g;
-    const float u = (m * c1) / (sqrtf(v * c2) + h.eps) + h.wd * w;
-    if (write) {
-      s.r.m[i] = m;
-      s.r.v[i] = v;
-    }
-    sw += w * w;
-    su += u * u;
-  }
-  block_sum2(sw, su, partials + 2 * (long long)blockIdx.x);
+// c1, c2 = 1 / (1 - b^t), t = count + 1, in float32: lamb_debias's
+// arithmetic (optimizer_update.py), from the device step count.
+__device__ __forceinline__ float2 lamb_debias(const int* count,
+                                             const LambHyper& h) {
+  const float t = static_cast<float>(count[0] + 1);
+  return make_float2(1.f / (1.f - powf(h.b1, t)), 1.f / (1.f - powf(h.b2, t)));
 }
 
+// u from the new moments m, v: pass 1's arithmetic and pass 3's
+// recomputation alike.
+__device__ __forceinline__ float lamb_u(float w, float m, float v, float2 c,
+                                       const LambHyper& h) {
+  return (m * c.x) / (sqrtf(v * c.y) + h.eps) + h.wd * w;
+}
+
+// One element of pass 1: the new moments m, v (in place of the old) and u.
+__device__ __forceinline__ float lamb_moments(float g, float w, float& m,
+                                             float& v, float2 c,
+                                             const LambHyper& h) {
+  m = h.b1 * m + h.omb1 * g;
+  v = h.b2 * v + h.omb2 * g * g;
+  return lamb_u(w, m, v, c, h);
+}
+
+// Pass 1, a warp per chunk: m' and v' written where the device flag finite
+// says so, and the chunk's sum of w^2 and of u^2.  Block 0 also leaves its
+// c1, c2 in debias[0], debias[1].
+__global__ void __launch_bounds__(THREADS)
+lamb_norms(const long long* __restrict__ leaves, const int* __restrict__ chunks,
+           int n_chunks, int chunk_size, LambHyper h,
+           const int* __restrict__ count, const bool* __restrict__ finite,
+           float* __restrict__ partials, float* __restrict__ debias) {
+  const float2 c = lamb_debias(count, h);
+  const bool write = finite[0];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    debias[0] = c.x;
+    debias[1] = c.y;
+  }
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  for (int ci = blockIdx.x * WARPS + (threadIdx.x >> 5); ci < n_chunks;
+       ci += stride) {
+    const Chunk ch = chunk_at(leaves, chunks, ci, chunk_size);
+    const float* g = ch.r.g + ch.lo;
+    const float* w = ch.r.w + ch.lo;
+    float* m = ch.r.m + ch.lo;
+    float* v = ch.r.v + ch.lo;
+    float sw = 0.f, su = 0.f;
+    int done = 0;
+    if (aligned16(g) && aligned16(w) && aligned16(m) && aligned16(v)) {
+      const int n4 = ch.n >> 2;
+      const float4* g4 = reinterpret_cast<const float4*>(g);
+      const float4* w4 = reinterpret_cast<const float4*>(w);
+      float4* m4 = reinterpret_cast<float4*>(m);
+      float4* v4 = reinterpret_cast<float4*>(v);
+      for (int i = lane; i < n4; i += 32 * UNROLL) {
+        // Past the chunk every tensor reads as 0, and then so does u: the
+        // sums take +0.
+        float4 gv[UNROLL], wv[UNROLL], mv[UNROLL], vv[UNROLL];
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          const int j = i + 32 * k;
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          gv[k] = j < n4 ? g4[j] : z;
+          wv[k] = j < n4 ? w4[j] : z;
+          mv[k] = j < n4 ? m4[j] : z;
+          vv[k] = j < n4 ? v4[j] : z;
+        }
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          float4 u;
+          u.x = lamb_moments(gv[k].x, wv[k].x, mv[k].x, vv[k].x, c, h);
+          u.y = lamb_moments(gv[k].y, wv[k].y, mv[k].y, vv[k].y, c, h);
+          u.z = lamb_moments(gv[k].z, wv[k].z, mv[k].z, vv[k].z, c, h);
+          u.w = lamb_moments(gv[k].w, wv[k].w, mv[k].w, vv[k].w, c, h);
+          sw += sq4(wv[k]);
+          su += sq4(u);
+          const int j = i + 32 * k;
+          if (write && j < n4) {
+            m4[j] = mv[k];
+            v4[j] = vv[k];
+          }
+        }
+      }
+      done = n4 << 2;
+    }
+    for (int i = done + lane; i < ch.n; i += 32 * UNROLL) {
+      float gv[UNROLL], wv[UNROLL], mv[UNROLL], vv[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const int j = i + 32 * k;
+        gv[k] = j < ch.n ? g[j] : 0.f;
+        wv[k] = j < ch.n ? w[j] : 0.f;
+        mv[k] = j < ch.n ? m[j] : 0.f;
+        vv[k] = j < ch.n ? v[j] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const float u = lamb_moments(gv[k], wv[k], mv[k], vv[k], c, h);
+        sw += wv[k] * wv[k];
+        su += u * u;
+        const int j = i + 32 * k;
+        if (write && j < ch.n) {
+          m[j] = mv[k];
+          v[j] = vv[k];
+        }
+      }
+    }
+    sw = warp_sum(sw);
+    su = warp_sum(su);
+    if (lane == 0) {
+      partials[2 * (long long)ci] = sw;
+      partials[2 * (long long)ci + 1] = su;
+    }
+  }
+}
+
+// Pass 3, a warp per chunk: w' = w + a*u from pass 1's m', v', where the
+// device flag finite says so.
 __global__ void __launch_bounds__(THREADS)
 lamb_apply(const long long* __restrict__ leaves, const int* __restrict__ chunks,
-           int chunk_size, LambHyper h, const float* __restrict__ scal,
-           const float* __restrict__ a, const bool* __restrict__ finite) {
+           int n_chunks, int chunk_size, LambHyper h,
+           const int* __restrict__ count, const float* __restrict__ a,
+           const bool* __restrict__ finite) {
   if (!finite[0]) return;
-  const Chunk s = chunk_at(leaves, chunks, blockIdx.x, chunk_size);
-  const float c1 = scal[1], c2 = scal[2];
-  const float al = a[s.leaf];
-  for (long long i = s.lo + threadIdx.x; i < s.lo + s.n; i += THREADS) {
-    const float w = s.r.w[i];
-    const float u = (s.r.m[i] * c1) / (sqrtf(s.r.v[i] * c2) + h.eps) + h.wd * w;
-    s.r.w[i] = w + al * u;
+  const float2 c = lamb_debias(count, h);
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  for (int ci = blockIdx.x * WARPS + (threadIdx.x >> 5); ci < n_chunks;
+       ci += stride) {
+    const Chunk ch = chunk_at(leaves, chunks, ci, chunk_size);
+    const float al = a[ch.leaf];
+    float* w = ch.r.w + ch.lo;
+    const float* m = ch.r.m + ch.lo;
+    const float* v = ch.r.v + ch.lo;
+    int done = 0;
+    if (aligned16(w) && aligned16(m) && aligned16(v)) {
+      const int n4 = ch.n >> 2;
+      float4* w4 = reinterpret_cast<float4*>(w);
+      const float4* m4 = reinterpret_cast<const float4*>(m);
+      const float4* v4 = reinterpret_cast<const float4*>(v);
+      for (int i = lane; i < n4; i += 32 * UNROLL) {
+        float4 wv[UNROLL], mv[UNROLL], vv[UNROLL];
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          const int j = i + 32 * k;
+          if (j < n4) {
+            wv[k] = w4[j];
+            mv[k] = m4[j];
+            vv[k] = v4[j];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k) {
+          const int j = i + 32 * k;
+          if (j < n4) {
+            const float4 x = wv[k];
+            w4[j] = make_float4(
+                x.x + al * lamb_u(x.x, mv[k].x, vv[k].x, c, h),
+                x.y + al * lamb_u(x.y, mv[k].y, vv[k].y, c, h),
+                x.z + al * lamb_u(x.z, mv[k].z, vv[k].z, c, h),
+                x.w + al * lamb_u(x.w, mv[k].w, vv[k].w, c, h));
+          }
+        }
+      }
+      done = n4 << 2;
+    }
+    for (int i = done + lane; i < ch.n; i += 32 * UNROLL) {
+      float wv[UNROLL], mv[UNROLL], vv[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const int j = i + 32 * k;
+        if (j < ch.n) {
+          wv[k] = w[j];
+          mv[k] = m[j];
+          vv[k] = v[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const int j = i + 32 * k;
+        if (j < ch.n) w[j] = wv[k] + al * lamb_u(wv[k], mv[k], vv[k], c, h);
+      }
+    }
   }
 }
 
@@ -331,7 +461,7 @@ lamb_apply(const long long* __restrict__ leaves, const int* __restrict__ chunks,
 __global__ void __launch_bounds__(THREADS)
 trust_ratio(const long long* __restrict__ leaves, int n_leaves,
             const float* __restrict__ partials, float coeff,
-            const float* __restrict__ scal, float* __restrict__ a) {
+            const float* __restrict__ lr, float* __restrict__ a) {
   const int l = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (l >= n_leaves) return;
   const int lane = threadIdx.x & 31;
@@ -351,43 +481,72 @@ trust_ratio(const long long* __restrict__ leaves, int n_leaves,
   const float pn = sqrtf((float)sw);
   const float un = sqrtf((float)su);
   const float trust = (pn == 0.f || un == 0.f) ? 1.f : coeff * pn / un;
-  a[l] = -scal[0] * trust;
+  a[l] = -lr[0] * trust;
+}
+
+// The card's SM count, read once.
+cudaError_t sm_count(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, n = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cached = n;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}
+
+// Blocks of THREADS a LAMB pass keeps resident on an SM: BLOCKS_PER_SM, or
+// fewer where the kernel's registers allow fewer.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int* per_sm) {
+  int n = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, 0);
+  *per_sm = n < 1 ? 1 : (n < BLOCKS_PER_SM ? n : BLOCKS_PER_SM);
+  return e;
+}
+
+// A grid-stride pass's blocks: no more than its chunks need, no more than
+// the card holds at once.
+int pass_blocks(int n_chunks, int sms, int per_sm) {
+  const int need = (n_chunks + WARPS - 1) / WARPS;
+  return need < sms * per_sm ? need : sms * per_sm;
 }
 
 }  // namespace
 
 // leaves: int64 [n_leaves, 7]; chunks: int32 [n_chunks, 2]; partials: float32
-// [n_chunks, 2] scratch; a: float32 [n_leaves] scratch; scal: float32 [1]
-// (LARS: lr) or [3] (LAMB: lr, c1, c2); finite: bool [1].  Each returns
+// [n_chunks, 2] scratch; a: float32 [n_leaves + 2] scratch (LAMB leaves the
+// c1, c2 of its pass 1 in a[n_leaves], a[n_leaves + 1]); lr: float32 [1];
+// count (LAMB): int32 [1], the number of previous updates; finite: bool
+// [1].  chunk_size must be a multiple of 4.  Each returns
 // cudaGetLastError() after its three launches (0 when all were accepted).
 // They allocate nothing and do not synchronise.
 extern "C" int tpuic_lars_update(const void* leaves, const void* chunks,
                                  int n_leaves, int n_chunks, int chunk_size,
-                                 const void* scal, const void* finite,
+                                 const void* lr, const void* finite,
                                  void* partials, void* a, float wd, float tc,
                                  float mu, void* stream) {
   if (n_leaves <= 0 || n_chunks <= 0 || chunk_size <= 0 || chunk_size % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int sms = 0;  // the card's SM count, read once
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* lv = static_cast<const long long*>(leaves);
   const int* ch = static_cast<const int*>(chunks);
-  const int need = (n_chunks + WARPS - 1) / WARPS;
-  const int blocks = need < sms * BLOCKS_PER_SM ? need : sms * BLOCKS_PER_SM;
+  const int blocks = pass_blocks(n_chunks, sms, BLOCKS_PER_SM);
   lars_norms<<<blocks, THREADS, 0, st>>>(lv, ch, n_chunks, chunk_size, wd,
                                          static_cast<float*>(partials));
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   trust_ratio<<<(n_leaves + WARPS - 1) / WARPS, THREADS, 0, st>>>(
       lv, n_leaves, static_cast<const float*>(partials), tc,
-      static_cast<const float*>(scal), static_cast<float*>(a));
+      static_cast<const float*>(lr), static_cast<float*>(a));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   lars_apply<<<blocks, THREADS, 0, st>>>(lv, ch, n_chunks, chunk_size, wd, mu,
@@ -398,28 +557,39 @@ extern "C" int tpuic_lars_update(const void* leaves, const void* chunks,
 
 extern "C" int tpuic_lamb_update(const void* leaves, const void* chunks,
                                  int n_leaves, int n_chunks, int chunk_size,
-                                 const void* scal, const void* finite,
-                                 void* partials, void* a, float b1, float b2,
-                                 float omb1, float omb2, float eps, float wd,
-                                 void* stream) {
-  if (n_leaves <= 0 || n_chunks <= 0)
+                                 const void* lr, const void* count,
+                                 const void* finite, void* partials, void* a,
+                                 float b1, float b2, float omb1, float omb2,
+                                 float eps, float wd, void* stream) {
+  if (n_leaves <= 0 || n_chunks <= 0 || chunk_size <= 0 || chunk_size % 4)
     return static_cast<int>(cudaErrorInvalidValue);
+  static int norms_per_sm = 0, apply_per_sm = 0;  // read once
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess && norms_per_sm == 0) {
+    err = resident_blocks(lamb_norms, &norms_per_sm);
+    if (err == cudaSuccess) err = resident_blocks(lamb_apply, &apply_per_sm);
+    if (err != cudaSuccess) norms_per_sm = 0;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* lv = static_cast<const long long*>(leaves);
   const int* ch = static_cast<const int*>(chunks);
   const LambHyper h{b1, b2, omb1, omb2, eps, wd};
-  const float* sc = static_cast<const float*>(scal);
+  const int* cnt = static_cast<const int*>(count);
   const bool* fin = static_cast<const bool*>(finite);
-  lamb_norms<<<n_chunks, THREADS, 0, st>>>(lv, ch, chunk_size, h, sc, fin,
-                                           static_cast<float*>(partials));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  trust_ratio<<<(n_leaves + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-      lv, n_leaves, static_cast<const float*>(partials), 1.f, sc,
-      static_cast<float*>(a));
+  float* av = static_cast<float*>(a);
+  lamb_norms<<<pass_blocks(n_chunks, sms, norms_per_sm), THREADS, 0, st>>>(
+      lv, ch, n_chunks, chunk_size, h, cnt, fin,
+      static_cast<float*>(partials), av + n_leaves);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  lamb_apply<<<n_chunks, THREADS, 0, st>>>(lv, ch, chunk_size, h, sc,
-                                           static_cast<const float*>(a), fin);
+  trust_ratio<<<(n_leaves + WARPS - 1) / WARPS, THREADS, 0, st>>>(
+      lv, n_leaves, static_cast<const float*>(partials), 1.f,
+      static_cast<const float*>(lr), av);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lamb_apply<<<pass_blocks(n_chunks, sms, apply_per_sm), THREADS, 0, st>>>(
+      lv, ch, n_chunks, chunk_size, h, cnt, av, fin);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,13 +25,16 @@ CPU tensors they take the plain versions (:func:`lars_update_plain`,
 update) or raise.  ``.launches`` on each wrapper counts calls that
 launched the kernel.  The trust-ratio norms are a pass of the kernel with
 per-chunk partial sums reduced in a fixed order (no atomics), not torch
-reductions.  The LARS passes stream 16-byte loads and stores, a warp per
-``LARS_CHUNK`` elements, and take any alignment (a leaf that is not
-16-byte aligned goes through scalar loads); ``optimizer_update_bench``
-keeps the earlier LARS design and times the two.
+reductions.  Both updates' passes stream 16-byte loads and stores, a warp
+per ``CHUNK`` elements, and take any alignment (a leaf that is not 16-byte
+aligned goes through scalar loads).  LAMB's debias factors are computed
+in the kernels from the device ``count``.  ``optimizer_update_bench``
+keeps the earlier designs of both and times them beside these.
 
 Every tensor must be float32 and contiguous on one device; ``lr`` is a
 0-d float32 tensor and ``count`` a 0-d int32 tensor, both on that device.
+The per-leaf checks run only when the :class:`LeafTable` is (re)built, so
+a repeat call with the same tensors walks the lists once.
 """
 
 from __future__ import annotations
@@ -42,11 +45,9 @@ from typing import List, Optional, Sequence
 
 import torch
 
-#: Elements per chunk of the LAMB kernels' grid (one 256-thread block each).
-CHUNK = 16384
-#: Elements per chunk of the LARS kernels' grid (one warp each): a BN
+#: Elements per chunk of the update kernels' grids (one warp each): a BN
 #: vector of 64-2,048 elements takes a warp, not a block.
-LARS_CHUNK = 4096
+CHUNK = 4096
 
 
 def _norm(t: torch.Tensor) -> torch.Tensor:
@@ -71,7 +72,9 @@ def lars_update_plain(params, grads, trace, lr, *, weight_decay: float,
 
 
 def lamb_debias(count, b1: float, b2: float):
-    """``(c1, c2) = 1 / (1 - b^t)`` with ``t = count + 1``, float32."""
+    """``(c1, c2) = 1 / (1 - b^t)`` with ``t = count + 1``, float32: the
+    plain version's debias (the CUDA kernels compute the same from the
+    device ``count``)."""
     t = (count.to(torch.int32) + 1).float()
     one = torch.ones((), dtype=torch.float32, device=t.device)
     c1 = one / (one - torch.pow(torch.full_like(one, b1), t))
@@ -108,18 +111,24 @@ def _select_(finite, dsts: Sequence[torch.Tensor],
 class LeafTable:
     """The device table one multi-tensor launch reads: per leaf its
     pointers, size and chunk range, and per chunk its leaf and first
-    element.  Built on first use and rebuilt only when a pointer or size
-    changes; the caller keeps one per parameter list (the optimizer does).
-    The host copy goes through pinned memory without a synchronise."""
+    element.  Built on first use and rebuilt only when its key changes:
+    the chunk size, the lists' lengths and, for every tensor, what the
+    kernel relies on (pointer, size, dtype, contiguity, device).  The
+    checks of those (:func:`check_leaves`) run only then, so a repeat call
+    with the same tensors walks the lists once, to make the key.  The
+    caller keeps one per parameter list (the optimizer does).  The host
+    copy goes through pinned memory without a synchronise."""
 
     def __init__(self) -> None:
         self.key = None
 
     def get(self, lists: Sequence[Sequence[torch.Tensor]],
             chunk: int = CHUNK):
-        key = (chunk,) + tuple((t.data_ptr(), t.numel()) for ts in lists
-                               for t in ts)
+        key = (chunk, tuple(len(ts) for ts in lists)) + tuple(
+            (t.data_ptr(), t.numel(), t.dtype, t.is_contiguous(),
+             t.get_device()) for ts in lists for t in ts)
         if key != self.key:
+            check_leaves(lists)
             self._build(lists, chunk)
             self.key = key
         return self
@@ -152,18 +161,24 @@ class LeafTable:
         self.n_leaves, self.n_chunks = len(leaves), len(chunks)
         self.partials = torch.empty((len(chunks), 2), dtype=torch.float32,
                                     device=dev)
-        self.a = torch.empty(len(leaves), dtype=torch.float32, device=dev)
+        # a_l per leaf, then the c1, c2 LAMB's first pass used.
+        self.a = torch.empty(len(leaves) + 2, dtype=torch.float32,
+                             device=dev)
 
 
 def bind(lib, kinds=("lars", "lamb")):
     """``lib`` (a build of ``csrc/optimizer_update.cu``) with the C entry
     points of ``kinds`` declared."""
-    head = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    # table, chunks; n_leaves, n_chunks, chunk; then the pointers (LARS:
+    # lr, finite, partials, a; LAMB: lr, count, finite, partials, a), the
+    # float hyperparameters and the stream.
+    pointers = {"lars": 4, "lamb": 5}
     floats = {"lars": 3, "lamb": 6}
     for kind in kinds:
         fn = getattr(lib, f"tpuic_{kind}_update")
-        fn.argtypes = head + [ctypes.c_float] * floats[kind] + \
-            [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p] * pointers[kind] + \
+            [ctypes.c_float] * floats[kind] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -176,11 +191,14 @@ def _lib():
     return lib
 
 
-def _check_cuda_args(lists, scalars) -> torch.device:
+def check_leaves(lists) -> None:
+    """Raise unless the leaf lists are of one length and every tensor is
+    float32, contiguous, on the first one's device and shaped as its leaf
+    in the first list: what one multi-tensor launch relies on."""
+    if not lists[0]:
+        raise ValueError("empty parameter list")
     dev = lists[0][0].device
     n = len(lists[0])
-    if n == 0:
-        raise ValueError("empty parameter list")
     for ts in lists:
         if len(ts) != n:
             raise ValueError(f"leaf lists differ in length: {len(ts)} vs {n}")
@@ -191,11 +209,15 @@ def _check_cuda_args(lists, scalars) -> torch.device:
                     f"leaf {i}: every tensor must be float32, contiguous, "
                     f"on {dev} and shaped {tuple(ref.shape)}; got {t.dtype} "
                     f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_scalars(dev, scalars) -> None:
     for name, t, dtype in scalars:
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
-                             f"{dev}, got {t.dtype} on {t.device}")
-    return dev
+        if t.device != dev or t.dtype != dtype or t.numel() != 1 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a one-element {dtype} tensor "
+                             f"on {dev}, got {t.dtype} "
+                             f"{list(t.shape)} on {t.device}")
 
 
 def _launch(fn, name, dev, args) -> None:
@@ -222,14 +244,12 @@ def lars_update(params, grads, trace, lr, finite, *, weight_decay: float,
         return
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    lists = (grads, params, trace)
-    _check_cuda_args(lists, (("lr", lr, torch.float32),
-                             ("finite", finite, torch.bool)))
-    tb = (table or LeafTable()).get(lists, LARS_CHUNK)
-    scal = lr.reshape(1)
+    tb = (table or LeafTable()).get((grads, params, trace))
+    _check_scalars(dev, (("lr", lr, torch.float32),
+                         ("finite", finite, torch.bool)))
     _launch(_lib().tpuic_lars_update, "lars_update", dev,
             (tb.leaves.data_ptr(), tb.chunks.data_ptr(), tb.n_leaves,
-             tb.n_chunks, tb.chunk, scal.data_ptr(), finite.data_ptr(),
+             tb.n_chunks, tb.chunk, lr.data_ptr(), finite.data_ptr(),
              tb.partials.data_ptr(), tb.a.data_ptr(), float(weight_decay),
              float(trust_coefficient), float(momentum)))
     lars_update.launches += 1
@@ -255,17 +275,15 @@ def lamb_update(params, grads, mu, nu, count, lr, finite, *, b1: float,
         return
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    lists = (grads, params, mu, nu)
-    _check_cuda_args(lists, (("lr", lr, torch.float32),
-                             ("count", count, torch.int32),
-                             ("finite", finite, torch.bool)))
-    tb = (table or LeafTable()).get(lists, CHUNK)
-    c1, c2 = lamb_debias(count, b1, b2)
-    scal = torch.stack([lr.reshape(()), c1, c2])
+    tb = (table or LeafTable()).get((grads, params, mu, nu))
+    _check_scalars(dev, (("lr", lr, torch.float32),
+                         ("count", count, torch.int32),
+                         ("finite", finite, torch.bool)))
     _launch(_lib().tpuic_lamb_update, "lamb_update", dev,
             (tb.leaves.data_ptr(), tb.chunks.data_ptr(), tb.n_leaves,
-             tb.n_chunks, tb.chunk, scal.data_ptr(), finite.data_ptr(),
-             tb.partials.data_ptr(), tb.a.data_ptr(), float(b1), float(b2),
+             tb.n_chunks, tb.chunk, lr.data_ptr(), count.data_ptr(),
+             finite.data_ptr(), tb.partials.data_ptr(), tb.a.data_ptr(),
+             float(b1), float(b2),
              1.0 - b1, 1.0 - b2, float(eps), float(weight_decay)))
     lamb_update.launches += 1
 
