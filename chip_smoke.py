@@ -44,13 +44,16 @@ the first phase that fails:
    [128, 1000] and [128, 7], label smoothing 0 and 0.1, against their
    plain versions (rtol 1e-5 / atol 1e-6: float32 row sums in another
    order), plus class-weighted, masked cases with an out-of-range label
-   at C = 1, 7, 1000 and 21843 (w exact); the backward's bits against the
-   earlier build's (``cross_entropy_bench``: the backward is untouched);
-   timed per call from Python beside the plain versions, the bound and one
-   ``F.cross_entropy`` call (forward for K1f, forward + backward for K1b),
-   and on the card alone (the median of 5 replays of a CUDA graph of 100
-   calls) for K1f, K1b, the forward's earlier design and
-   ``F.cross_entropy``'s forward.
+   at C = 1, 7, 1000 and 21843 (w exact); the earlier design
+   (``cross_entropy_bench``) within the same tolerance; the backward's
+   bits for every row of a batch of 128 equal to that row's alone (C = 1,
+   7, 1000, 21843: a row is one team of threads, whatever its alignment)
+   and equal on two calls; timed per call from Python beside the plain
+   versions, the bound and one ``F.cross_entropy`` call (forward for K1f,
+   forward + backward for K1b), and on the card alone (the median of 5
+   replays of a CUDA graph of 100 calls) for K1f, K1b, both their earlier
+   designs and ``F.cross_entropy``'s forward and forward + backward (its
+   backward alone reported as the difference of the two).
 7. optim  — the fused LARS and LAMB update kernels (K2) over the whole
    ResNet-50 + head parameter list (167 leaves, flax-default init, so the
    zero BN biases take the trust = 1 branch), against their plain versions
@@ -78,7 +81,16 @@ the first phase that fails:
    losses agree within rtol 1e-3.  Last, a 3-step LAMB run at
    batch 32 through the Trainer, counted the same way, puts K2 LAMB on the
    path.
-9. attn   — the flash-attention kernels (K4: forward, dq, dk/dv) at the
+9. ckpt   — the checkpoint (``tpuic_torch/checkpoint/manager.py``) with
+   ``train``'s configuration: a ``Trainer`` takes 3 steps and saves
+   ``best`` and ``latest``; a fresh ``Trainer`` restores them, and every
+   parameter, BN buffer and K2 optimizer-state tensor must equal the saved
+   one bit for bit; the next step's loss on one batch, cuDNN
+   deterministic, must equal the uninterrupted trainer's exactly; with one
+   byte of ``latest``'s payload flipped the restore must fall back to
+   ``best``, bit for bit.  The payload's bytes and the host and disk
+   seconds to snapshot, commit and restore are reported.
+10. attn  — the flash-attention kernels (K4: forward, dq, dk/dv) at the
    ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64], on strided
    q/k/v views of one qkv projection, against their plain versions
    (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2); in float32 the
@@ -95,14 +107,14 @@ the first phase that fails:
    no one call computes either alone; the forward and SDPA's also on the
    card alone.  The bound is at the rate of the products each kernel
    issues, 3xTF32 or bf16 MMAs (the float32 CUDA-core bound beside it).
-10. vit   — ``create_model("vit-b16", 1000, dtype="float32",
+11. vit   — ``create_model("vit-b16", 1000, dtype="float32",
    attention="flash")`` with seeded synthetic weights: its logits at batch
    4 against the same weights under ``attention="dense"`` (TF32 off,
    atol/rtol 1e-3), and exactly 12 K4 forward launches per forward.
-11. vit-serve — the engine serving that model as ``serve`` serves
+12. vit-serve — the engine serving that model as ``serve`` serves
    ResNet-50, under torch's default flags: 12 K4 forward launches per
    device call.
-12. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
+13. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
    the repo's ViT recipe (recipes/README.md, section 4: AdamW lr 3e-4, wd
    0.05, 10 warmup epochs of 300, label smoothing 0.1, clipping at 1.0,
    batch 64), ``attention="flash"`` and the fused loss, for 12 steps, then
@@ -128,6 +140,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -158,6 +171,7 @@ TRAIN_BATCH = 128
 TRAIN_STEPS = 12
 TRAIN_CLASSES = 8
 LAMB_BATCH = 32
+CKPT_STEPS = 3
 VIT_MODEL = "vit-b16"
 VIT_BATCH = 64
 VIT_LR = 3e-4
@@ -650,6 +664,35 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
     return launches, snap
 
 
+def xent_rows_ignore_batch(K1, gen: torch.Generator) -> dict:
+    """K1b's dx for every row of a class-weighted, masked batch of 128 (one
+    label out of range, smoothing 0.1) against the same row alone at batch
+    1, bit for bit, at C = 1, 7, 1000 and 21843: in the batch a row of C =
+    7 or 21843 is 16-byte aligned only every fourth row, alone always, so
+    both load paths meet.  Returns the rows checked per C."""
+    b, out = TRAIN_BATCH, {}
+    for c in (1, 7, 1000, 21843):
+        x = (3.0 * torch.randn((b, c), generator=gen)).cuda()
+        y = torch.randint(0, c, (b,), generator=gen, dtype=torch.int32)
+        y[5] = c
+        y = y.cuda()
+        cw = (0.5 + torch.rand(c, generator=gen)).cuda()
+        mask = (torch.rand(b, generator=gen) > 0.2).float().cuda()
+        scale = torch.tensor(0.37, device="cuda")
+        whole = K1.cross_entropy_bwd(x, y, cw, mask, scale, 0.1)
+        alone = torch.cat([K1.cross_entropy_bwd(
+            x[r:r + 1].clone(), y[r:r + 1].clone(), cw,
+            mask[r:r + 1].clone(), scale, 0.1) for r in range(b)])
+        torch.cuda.synchronize()
+        if not torch.equal(whole, alone):
+            bad = [r for r in range(b) if not torch.equal(whole[r],
+                                                          alone[r])]
+            fail("xent", f"[{b}, {c}]: the backward's rows {bad[:8]} differ "
+                         "from the same rows at batch 1")
+        out[c] = b
+    return out
+
+
 def phase_xent(device_name: str, gen: torch.Generator):
     """K1 forward and backward against their plain versions, then timed.
     Returns the (K1f, K1b) summaries at the train path's shape, [128,
@@ -686,6 +729,8 @@ def phase_xent(device_name: str, gen: torch.Generator):
     log("xent", f"weighted, masked [{b}, C] for C in 1, 7, 1000, 21843, "
                 f"smoothing 0 and 0.1: within rtol {XENT_RTOL} / atol "
                 f"{XENT_ATOL}, w exact")
+    log("xent", "backward rows against their batch: " + json.dumps(
+        xent_rows_ignore_batch(K1, gen)))
     rows, main = [], {}
     for b, c in ((TRAIN_BATCH, 1000), (TRAIN_BATCH, 7)):
         for ls in (0.0, 0.1):
@@ -707,10 +752,11 @@ def phase_xent(device_name: str, gen: torch.Generator):
                 fail("xent", f"[{b}, {c}] smoothing {ls}: max abs err "
                              f"fwd {err_f} bwd {err_b}, earlier design "
                              f"{max_err(old, want)}")
-            # K1b is untouched: its bits must be the earlier build's.
-            if not torch.equal(got[2], old[2]):
-                fail("xent", f"[{b}, {c}] smoothing {ls}: the backward's "
-                             "bits moved from the earlier build's")
+            again = K1.cross_entropy_bwd(*fwd, scale, ls)
+            torch.cuda.synchronize()
+            if not torch.equal(got[2], again):
+                fail("xent", f"[{b}, {c}] smoothing {ls}: two backward "
+                             "calls gave different bits")
             # One library call each: with all-one weights and smoothing,
             # F.cross_entropy's smoothed sum is the same function (its
             # smoothing differs from tpuic's only with class weights).
@@ -734,6 +780,9 @@ def phase_xent(device_name: str, gen: torch.Generator):
             def k1f_earlier():
                 return K1B.fwd_with(earlier, *fwd, ls)
 
+            def k1b_earlier():
+                return K1B.bwd_with(earlier, *fwd, scale, ls)
+
             ms = {"fwd": time_ms(k1f, iters=200),
                   "fwd_plain": time_ms(
                       lambda: K1.cross_entropy_fwd_plain(*fwd, ls),
@@ -749,7 +798,13 @@ def phase_xent(device_name: str, gen: torch.Generator):
             dev = {"fwd": device_time(k1f)["median"],
                    "fwd_earlier": device_time(k1f_earlier)["median"],
                    "bwd": device_time(k1b)["median"],
-                   "fwd_lib": device_time(lib_fwd)["median"]}
+                   "bwd_earlier": device_time(k1b_earlier)["median"],
+                   "fwd_lib": device_time(lib_fwd)["median"],
+                   "fwd_bwd_lib": device_time(lib_fwd_bwd)["median"]}
+            # F.cross_entropy's backward alone, on the card: its forward +
+            # backward minus its forward.
+            dev["bwd_lib_fwd_bwd_minus_fwd"] = (dev["fwd_bwd_lib"]
+                                                - dev["fwd_lib"])
             # Bytes: each input read once, each output written once.  Ops
             # per logit: max, subtract + exp, sum (+ sum of x when
             # smoothing) forward; those plus exp, divide, subtract target
@@ -757,14 +812,16 @@ def phase_xent(device_name: str, gen: torch.Generator):
             n = b * c
             fb = bound(n * (5 if ls else 4), K1B.fwd_bytes(b, c),
                        peak_flops, hbm)
-            bb = bound(n * 9, 4 * (2 * n + 2 * b + c + 1), peak_flops, hbm)
+            bb = bound(n * 9, K1B.bwd_bytes(b, c), peak_flops, hbm)
             row = {"b": b, "c": c, "label_smoothing": ls,
                    "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b,
                    "earlier_fwd_max_abs_err": max_err(old[:2], want[:2]),
-                   "bwd_bits_equal_earlier": True,
+                   "earlier_bwd_max_abs_err": max_err(old[2:], want[2:]),
+                   "bwd_bits_equal_on_two_calls": True,
                    **ms, "device_ms": dev,
                    "fwd_earlier_over_shipped": dev["fwd_earlier"]
                    / dev["fwd"],
+                   "bwd_over_earlier": dev["bwd"] / dev["bwd_earlier"],
                    "fwd_bound_ms": fb[0], "bwd_bound_ms": bb[0]}
             rows.append(row)
             log("xent", json.dumps(row))
@@ -780,8 +837,12 @@ def phase_xent(device_name: str, gen: torch.Generator):
                     "cross_entropy_bwd": {
                         "max_abs_err": err_b, "ms": ms["bwd"],
                         "device_ms": dev["bwd"],
+                        "earlier_device_ms": dev["bwd_earlier"],
                         "plain_ms": ms["bwd_plain"], "bound_ms": bb[0],
-                        "bound_by": bb[1], "library_ms": ms["bwd_lib"]}}
+                        "bound_by": bb[1], "library_ms": ms["bwd_lib"],
+                        "library_device_ms": dev["fwd_bwd_lib"],
+                        "library_bwd_device_ms_fwd_bwd_minus_fwd":
+                            dev["bwd_lib_fwd_bwd_minus_fwd"]}}
     return main, rows
 
 
@@ -978,7 +1039,7 @@ def train_config(root: str, seed: int):
                           label_smoothing=0.1, class_weights=(),
                           fused_loss=True, fused_optimizer=True),
         run=RunConfig(epochs=90, max_steps=TRAIN_STEPS, log_every_steps=4,
-                      seed=seed))
+                      seed=seed, ckpt_dir=os.path.join(root, "ckpt")))
 
 
 @contextlib.contextmanager
@@ -1173,6 +1234,107 @@ def phase_train(root: str, seed: int, smi: str):
     del lamb
     free()
     return counts, lamb_counts, row
+
+
+def _flip_byte(path: str, offset: int = 4096) -> None:
+    """One byte of ``path`` XOR 0xFF, its size kept."""
+    with open(path, "r+b") as f:
+        f.seek(min(offset, os.path.getsize(path) - 1))
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def _mismatches(got: dict, want: dict) -> list:
+    """Names of the tensors of two ``snapshot``s whose bits differ."""
+    def flat(snap):
+        out = {f"model/{k}": v for k, v in snap["model"].items()}
+        for k, v in snap["opt_state"].items():
+            for i, t in enumerate(v if isinstance(v, list) else [v]):
+                out[f"opt/{k}/{i}"] = t
+        out["step"], out["skip_count"] = snap["step"], snap["skip_count"]
+        return out
+    g, w = flat(got), flat(want)
+    if sorted(g) != sorted(w):
+        return sorted(set(g) ^ set(w))
+    return [k for k in w if not torch.equal(g[k], w[k])]
+
+
+def phase_ckpt(root: str, seed: int) -> dict:
+    """The checkpoint on the card with ``[train]``'s configuration: a
+    ``Trainer`` takes CKPT_STEPS steps and saves ``best`` and ``latest``;
+    a fresh ``Trainer`` restores them (``latest``, the newer on a tie);
+    every parameter, BN buffer and K2 optimizer-state tensor must equal
+    the saved one bit for bit; the next step on one batch, under
+    ``deterministic_cudnn()``, must give the uninterrupted trainer's loss
+    exactly; then one byte of ``latest``'s payload is flipped and the
+    restore must fall back to ``best``, again bit for bit.  Reports the
+    payload's bytes and the host and disk seconds to snapshot, commit and
+    restore."""
+    from tpuic_torch.checkpoint.manager import PAYLOAD, snapshot
+    from tpuic_torch.train.loop import Trainer
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        base = train_config(root, seed)
+        cfg = dataclasses.replace(base, run=dataclasses.replace(
+            base.run, max_steps=CKPT_STEPS, ckpt_dir=ckpt_dir))
+        first = Trainer(cfg, log=lambda msg: log("ckpt", msg))
+        if first.start_epoch != 0:
+            fail("ckpt", f"an empty checkpoint directory resumed at epoch "
+                         f"{first.start_epoch}")
+        first.fit()
+        first.ckpt.save_best(first.state, 0, 12.5)
+        first.ckpt.wait()
+        saves = {"best": dict(first.ckpt.last_save)}
+        first.ckpt.save_latest(first.state, 0, 12.5)
+        first.ckpt.wait()
+        saves["latest"] = dict(first.ckpt.last_save)
+        want = snapshot(first.state)
+        second = Trainer(cfg, log=lambda msg: log("ckpt", msg))
+        rung, restore_s = (second.ckpt.last_restore_rung,
+                           second.ckpt.last_restore_s)
+        bad = _mismatches(snapshot(second.state), want)
+        if rung != "latest" or second.start_epoch != 1 or bad:
+            fail("ckpt", f"restored rung {rung}, start epoch "
+                         f"{second.start_epoch}, {len(bad)} tensors differ "
+                         f"from the save: {bad[:5]}")
+        batch = first_batches(first, 1)[0]
+        with deterministic_cudnn():
+            _, m1 = first.train_step(first.state, batch)
+            _, m2 = second.train_step(second.state, batch)
+            losses = [float(m1["loss"]), float(m2["loss"])]
+        after = _mismatches(snapshot(second.state), snapshot(first.state))
+        if losses[0] != losses[1] or not math.isfinite(losses[0]):
+            fail("ckpt", f"the next step's loss after the restore, "
+                         f"{losses[1]!r}, is not the uninterrupted run's "
+                         f"{losses[0]!r}")
+        _flip_byte(os.path.join(first.ckpt.root, "latest", PAYLOAD))
+        _, start, _ = second.ckpt.restore_into(second.state)
+        fallback, fallback_s = (second.ckpt.last_restore_rung,
+                                second.ckpt.last_restore_s)
+        bad = _mismatches(snapshot(second.state), want)
+        if fallback != "best" or start != 1 or bad:
+            fail("ckpt", f"with latest corrupt the restore took rung "
+                         f"{fallback} (start epoch {start}), {len(bad)} "
+                         f"tensors differ from the save: {bad[:5]}")
+        n_tensors = (len(want["model"]) + 3 + sum(
+            len(v) for v in want["opt_state"].values()
+            if isinstance(v, list)))
+        row = {"model": first.mcfg.name, "optimizer": first.state.tx.kind,
+               "steps_before_save": CKPT_STEPS, "tensors": n_tensors,
+               "payload_bytes": saves["latest"]["bytes"],
+               "host_and_disk_s": {
+                   "snapshot": {k: v["snapshot_s"] for k, v in saves.items()},
+                   "commit": {k: v["commit_s"] for k, v in saves.items()},
+                   "restore": restore_s, "restore_after_fallback": fallback_s},
+               "restored_rung": rung, "restore_bits_equal": True,
+               "next_step_loss": losses,
+               "tensors_differing_after_next_step": len(after),
+               "corrupt_latest_restored_rung": fallback,
+               "fallback_bits_equal": True}
+        log("ckpt", json.dumps(row))
+        del first, second
+        free()
+    return row
 
 
 K4 = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -1485,7 +1647,7 @@ def vit_train_config(root: str, seed: int):
                           grad_clip_norm=1.0, class_weights=(),
                           fused_loss=True),
         run=RunConfig(epochs=300, max_steps=TRAIN_STEPS, log_every_steps=4,
-                      seed=seed))
+                      seed=seed, ckpt_dir=os.path.join(root, "ckpt")))
 
 
 def phase_vit_train(root: str, seed: int, smi: str):
@@ -1568,6 +1730,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         write_folder(root, args.seed)
         counts, lamb_counts, train = phase_train(root, args.seed, smi)
+        ckpt = phase_ckpt(root, args.seed)
         attn, attn_rows = phase_attn(kind, gen)
         vit = phase_vit(gen, args.seed)
         # Under torch's default flags: the engine's forward turns TF32 off
@@ -1607,6 +1770,7 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
                        "shapes": rows,
                        "serve": snap, "xent": xent_rows, "train": train,
+                       "ckpt": ckpt,
                        "attn": attn_rows, "vit_serve": vit_snap,
                        "vit_train": vit_train},
                       f, indent=1)

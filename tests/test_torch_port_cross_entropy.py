@@ -59,7 +59,7 @@ def _port_value_and_grad(fn, logits, *args):
     return float(loss.detach()), x.grad.numpy()
 
 
-@pytest.mark.parametrize("c", [7, 1000])
+@pytest.mark.parametrize("c", [1, 7, 1000])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 @pytest.mark.parametrize("weighted,masked", [(False, False), (True, True)])
 def test_fused_matches_pallas_kernel(jref, c, smoothing, weighted, masked):
@@ -156,12 +156,15 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c", [(128, 1000), (128, 7), (B, 7)])
+@pytest.mark.parametrize("b,c", [(128, 1000), (128, 7), (B, 1), (B, 7),
+                                 (B, 1000), (B, 21843)])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_cuda_kernels_match_plain(b, c, smoothing):
     """K1 forward and backward against their plain versions on the card.
     Tolerance 1e-5 relative / 1e-6 absolute: float32 row sums in another
-    order, and the forward's algebraic form of the smoothed NLL."""
+    order, and the forward's algebraic form of the smoothed NLL.  At C =
+    21843 the backward streams its rows (past 1024 they do not stay in
+    registers), and only every fourth row is 16-byte aligned."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     logits, labels, cw, mask = (None if a is None else torch.from_numpy(
@@ -209,3 +212,26 @@ def test_cuda_forward_edge_rows(case):
         torch.testing.assert_close(wnll, want_wnll, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(w, want_w, rtol=0, atol=0)
         assert float(w[3]) == 0.0  # out-of-range label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 7, 1000, 21843])
+def test_cuda_backward_rows_ignore_their_batch(c):
+    """K1b's dx for each row of a batch of 128 equals, bit for bit, the
+    same row's dx at batch 1, and two calls give the same bits.  A row is
+    one team of threads that owns the same elements whatever the row's
+    alignment (at C = 7 and 21843 a row in the batch is 16-byte aligned
+    only every fourth row, alone always)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    logits, labels, cw, mask = (torch.from_numpy(a).cuda() for a in _case(
+        c + 1, c, True, True, b=128))
+    scale = torch.tensor(0.37, device="cuda")
+    whole = cross_entropy_bwd(logits, labels, cw, mask, scale, 0.1)
+    again = cross_entropy_bwd(logits, labels, cw, mask, scale, 0.1)
+    alone = torch.cat([cross_entropy_bwd(
+        logits[r:r + 1].clone(), labels[r:r + 1].clone(), cw,
+        mask[r:r + 1].clone(), scale, 0.1) for r in range(128)])
+    torch.cuda.synchronize()
+    assert torch.equal(whole, again)
+    assert torch.equal(whole, alone)

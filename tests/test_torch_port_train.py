@@ -305,8 +305,9 @@ def _cli(args, timeout=240):
                           text=True, timeout=timeout)
 
 
-def test_cli_trains_on_cpu(folder):
+def test_cli_trains_on_cpu(folder, tmp_path):
     out = _cli(["--datadir", folder, "--device", "cpu", "--steps", "2",
+                "--ckpt-dir", str(tmp_path),
                 "--model", "resnet18-cifar", "--resize", "24",
                 "--batchsize", "4", "--optimizer", "lars", "--lr", "1.0",
                 "--no-class-weights", "--milestones", "--fused-loss",

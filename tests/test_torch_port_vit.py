@@ -321,8 +321,9 @@ def _cli(args, timeout=240):
                           text=True, timeout=timeout)
 
 
-def test_cli_trains_vit_with_flash_on_cpu(folder):
+def test_cli_trains_vit_with_flash_on_cpu(folder, tmp_path):
     out = _cli(["--datadir", folder, "--device", "cpu", "--steps", "2",
+                "--ckpt-dir", str(tmp_path),
                 "--model", "vit-tiny", "--attention", "flash", "--resize",
                 "16", "--batchsize", "4", "--optimizer", "adam", "--lr",
                 "1e-3", "--weight-decay", "0.05", "--clip-grad-norm", "1.0",

@@ -168,8 +168,9 @@ class RunConfig:
     """Training-loop settings (reference train.py:131-188)."""
 
     epochs: int = 100  # reference range(100), train.py:161
-    # Checkpointing is still to port: ckpt_dir, save_period and resume
-    # are accepted and do nothing.
+    # Checkpoints: {ckpt_dir}/{model name}/best on every val improvement,
+    # /latest every save_period epochs (train.py:173-188); resume restores
+    # the newest of the two (tpuic_torch/checkpoint/manager.py).
     ckpt_dir: str = "dtmodel/cp"
     save_period: int = 5
     resume: bool = True
@@ -179,6 +180,10 @@ class RunConfig:
     # Stop after this many optimizer steps regardless of epochs (0 = no
     # cap); a mid-epoch stop skips the epoch's val pass.
     max_steps: int = 0
+    # Write and commit a checkpoint on a background thread, after its
+    # tensors were copied to the host on the caller's thread; False
+    # commits before the save returns.
+    async_checkpoint: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

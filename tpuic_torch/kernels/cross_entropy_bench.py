@@ -1,6 +1,8 @@
 """K1 (the fused cross-entropy, ``csrc/cross_entropy.cu``) on the card:
-the shipped forward against design variants and the design it replaced,
-timed on the card alone.
+the shipped forward and backward against design variants and the design
+they replaced, timed on the card alone.
+
+Forward designs:
 
 - ``shipped``: :func:`cross_entropy.cross_entropy_fwd` as it is: a warp per
   row, four rows a block, one read of the row with an online max and sum
@@ -11,29 +13,43 @@ timed on the card alone.
 - ``one_warp_blocks``: one row a block.
 - ``unroll_4``: four float4 loads in flight a lane.
 - ``scalars_32``: 32 scalar loads in flight a lane.
-- ``earlier``: the design before it, kept here as source text
-  (:data:`EARLIER_SRC`): a 128-thread block per row that reads the row
-  twice through block reductions.  Its backward is the shipped backward's
-  code, so the two backwards must agree bit for bit.
+
+Backward designs (:data:`BWD_DESIGNS`), each reading a row up to C = 1024
+once into registers:
+
+- ``shipped``: :func:`cross_entropy.cross_entropy_bwd` as it is: a
+  128-thread block per row, 2 float4 groups a thread, the max and the sum
+  each through one shared-memory exchange across the four warps; a long
+  row streams 2 groups a batch, so the kernel fits 32 registers and 16
+  blocks an SM.
+- ``team_warp``: a warp per row, four rows a block, 8 float4 groups a
+  lane, shuffle trees only (8 groups a batch on a long row, 56
+  registers).
+- ``stream_8``: the shipped block with 8 groups a batch on a long row
+  (56 registers, 9 blocks an SM).
+
+``earlier``: the design before both, kept here as source text
+(:data:`EARLIER_SRC`): a 128-thread block per row for both kernels, each
+reading the row twice (the backward three times) through block
+reductions.
 
 Each variant but ``earlier`` is the shipped source with a few text
 substitutions, built into its own library.  ``chip_smoke.py`` takes
 :func:`build_earlier`, :func:`fwd_with`, :func:`bwd_with`,
-:func:`train_inputs` and :func:`fwd_bytes` from here; nothing on the
-port's paths imports this module.
+:func:`train_inputs`, :func:`fwd_bytes` and :func:`bwd_bytes` from here;
+nothing on the port's paths imports this module.
 
 Usage (needs an NVIDIA GPU and ``nvcc``)::
 
     python -m tpuic_torch.kernels.cross_entropy_bench [--seed 0]
 
 prints, at [128, 1000] and [128, 7] with smoothing 0 and 0.1 and at
-[8192, 1000] with smoothing 0.1, each forward's max abs error against the
-plain version, whether the shipped and earlier backwards agree bit for
-bit, and the device milliseconds per call
+[8192, 1000] with smoothing 0.1, each forward's and each backward's max
+abs error against the plain version and the device milliseconds per call
 (``optimizer_update_bench.device_time``: a CUDA graph of 100 calls
-replayed 5 times) of every forward design (each twice, in turns), the
-shipped backward and one ``F.cross_entropy`` forward, beside the bytes
-bound at 3.35 TB/s.
+replayed 5 times) of every forward and backward design (each twice, in
+turns) and one ``F.cross_entropy`` forward, beside the bytes bounds at
+3.35 TB/s and each shipped kernel's share of its bound.
 """
 
 from __future__ import annotations
@@ -85,7 +101,24 @@ VARIANTS = {
                   "constexpr int FWD_UNROLL = 4;")],
     "scalars_32": [("constexpr int FWD_SCALARS = 8;",
                     "constexpr int FWD_SCALARS = 32;")],
+    "team_warp": [("constexpr int BWD_TEAM = THREADS; ",
+                   "constexpr int BWD_TEAM = 32; "),
+                  ("constexpr int BWD_STREAM = 2;",
+                   "constexpr int BWD_STREAM = 8;"),
+                  ("__launch_bounds__(THREADS, BWD_MIN_BLOCKS)\nxent_bwd",
+                   "__launch_bounds__(THREADS)\nxent_bwd")],
+    "stream_8": [("constexpr int BWD_STREAM = 2;",
+                  "constexpr int BWD_STREAM = 8;"),
+                 ("__launch_bounds__(THREADS, BWD_MIN_BLOCKS)\nxent_bwd",
+                  "__launch_bounds__(THREADS)\nxent_bwd")],
 }
+#: The backward designs timed against each other: library names of
+#: :data:`VARIANTS`, and ``earlier``.
+BWD_DESIGNS = ("shipped", "team_warp", "stream_8", "earlier")
+#: The forward designs (the backward-only variants build the shipped
+#: forward).
+FWD_DESIGNS = ("shipped", "online_merge", "one_warp_blocks", "unroll_4",
+               "scalars_32", "earlier")
 
 EARLIER_SRC = r'''
 // K1's earlier design: a 128-thread block per row for both kernels; the
@@ -240,6 +273,21 @@ def build_variants(names) -> dict:
     return {n: K1.bind(w()) for n, w in waits.items()}
 
 
+def ptxas_summary(names) -> dict:
+    """``{design: ptxas's entry, registers and spills lines}`` from
+    the logs :func:`build_variants` and :func:`build_earlier` kept."""
+    from tpuic_torch.kernels import _build
+    out = {}
+    for n in names:
+        stem = "xent_earlier" if n == "earlier" else f"k1_{n}"
+        log = _build.BUILD_DIR / "variants" / f"lib{stem}.log"
+        lines = log.read_text().splitlines() if log.is_file() else []
+        out[n] = [ln.split("ptxas info    :")[-1].strip() for ln in lines
+                  if any(k in ln for k in ("entry function", "registers",
+                                           "spill"))]
+    return out
+
+
 def _call(fn, name, logits, args) -> None:
     import torch
     with torch.cuda.device(logits.device):
@@ -292,6 +340,21 @@ def fwd_bytes(b: int, c: int) -> int:
     return 4 * (b * c + b + c + b + 2 * b)
 
 
+def bwd_bytes(b: int, c: int) -> int:
+    """What the backward must move: logits, labels, class weights, mask and
+    scale read once, dx written once."""
+    return 4 * (2 * b * c + 2 * b + c + 1)
+
+
+def in_turns(names, fn) -> dict:
+    """``{name: [ms, ms]}``: ``fn(name)`` timed for every name, then again
+    in the reverse order."""
+    ms = {n: [] for n in names}
+    for name in [*names, *reversed(names)]:
+        ms[name].append(fn(name))
+    return ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -308,34 +371,40 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     libs = build_variants(VARIANTS)
     libs["earlier"] = build_earlier()
-    names = list(libs)
+    print(json.dumps(ptxas_summary(BWD_DESIGNS)), flush=True)
     gen = torch.Generator().manual_seed(args.seed)
     for b, c, ls in SHAPES:
         x, y, cw, mask, scale = train_inputs(b, c, gen)
         fwd = (x, y, cw, mask)
         want = K1.cross_entropy_fwd_plain(*fwd, ls)
+        want_dx = K1.cross_entropy_bwd_plain(*fwd, scale, ls)
         errs = {n: max(float((g - w).abs().max()) for g, w in zip(
-            fwd_with(lib, *fwd, ls), want)) for n, lib in libs.items()}
-        bwd_bits = torch.equal(bwd_with(libs["shipped"], *fwd, scale, ls),
-                               bwd_with(libs["earlier"], *fwd, scale, ls))
+            fwd_with(libs[n], *fwd, ls), want)) for n in FWD_DESIGNS}
+        bwd_errs = {n: float((bwd_with(libs[n], *fwd, scale, ls)
+                              - want_dx).abs().max()) for n in BWD_DESIGNS}
         yl = y.long()
         kw = dict(label_smoothing=ls) if ls else dict(weight=cw)
-        ms = {n: [] for n in names}
-        for name in [*names, *reversed(names)]:
-            ms[name].append(device_time(
-                lambda: fwd_with(libs[name], *fwd, ls))["median"])
+        fwd_ms = in_turns(FWD_DESIGNS, lambda n: device_time(
+            lambda: fwd_with(libs[n], *fwd, ls))["median"])
+        bwd_ms = in_turns(BWD_DESIGNS, lambda n: device_time(
+            lambda: bwd_with(libs[n], *fwd, scale, ls))["median"])
         row = {"b": b, "c": c, "label_smoothing": ls, "max_abs_err": errs,
-               "bwd_bits_equal": bwd_bits, "fwd_device_ms": ms,
-               "bwd_device_ms": device_time(
-                   lambda: bwd_with(libs["shipped"], *fwd, scale,
-                                    ls))["median"],
+               "bwd_max_abs_err": bwd_errs, "fwd_device_ms": fwd_ms,
+               "bwd_device_ms": bwd_ms,
                "library_fwd_device_ms": device_time(
                    lambda: F.cross_entropy(x, yl, reduction="sum",
                                            **kw))["median"],
-               "fwd_bound_ms": fwd_bytes(b, c) / HBM * 1e3}
-        best = {n: min(v) for n, v in ms.items()}
+               "fwd_bound_ms": fwd_bytes(b, c) / HBM * 1e3,
+               "bwd_bound_ms": bwd_bytes(b, c) / HBM * 1e3}
+        best = {n: min(v) for n, v in fwd_ms.items()}
+        bwd_best = {n: min(v) for n, v in bwd_ms.items()}
         row["shipped_share_of_bound"] = row["fwd_bound_ms"] / best["shipped"]
-        row["over_earlier"] = {n: best[n] / best["earlier"] for n in names}
+        row["over_earlier"] = {n: best[n] / best["earlier"]
+                               for n in FWD_DESIGNS}
+        row["bwd_share_of_bound"] = {n: row["bwd_bound_ms"] / v
+                                     for n, v in bwd_best.items()}
+        row["bwd_over_earlier"] = {n: v / bwd_best["earlier"]
+                                   for n, v in bwd_best.items()}
         print(json.dumps(row), flush=True)
     print(smi, flush=True)
     return 0

@@ -362,7 +362,8 @@ def device_time(fn, iters: int = 100, repeats: int = 5,
 def build_source(stem: str, src: str):
     """Start ``nvcc`` on ``src`` with the port's flags, into
     ``variants/lib<stem>.so``; returns a function that waits for it and
-    loads the library (raising with the compiler's output if it failed)."""
+    loads the library (raising with the compiler's output if it failed).
+    The compiler's output is kept beside it as ``lib<stem>.log``."""
     from tpuic_torch.kernels import _build
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -378,6 +379,7 @@ def build_source(stem: str, src: str):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {stem}:\n{text}")
+        so.with_suffix(".log").write_text(text)
         return ctypes.CDLL(str(so))
     return wait
 

@@ -40,7 +40,6 @@ _NOT_PORTED = (
     ("--cache-dir", dict(default="")),
     ("--collect-misclassified", dict(action="store_true")),
     ("--per-class-metrics", dict(action="store_true")),
-    ("--no-async-checkpoint", dict(action="store_true")),
     ("--remat-policy", dict(default="dots")),
     ("--drop-path", dict(type=float, default=0.0)),
     ("--bn-bf16-stats", dict(action="store_true")),
@@ -97,11 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights from the train fold")
     p.add_argument("--no-class-weights", action="store_true")
     p.add_argument("--ckpt-dir", default="dtmodel/cp",
-                   help="accepted; checkpointing is not ported yet")
+                   help="checkpoints go to {ckpt-dir}/{model}/best and "
+                        "/latest")
     p.add_argument("--save-period", type=int, default=5,
-                   help="accepted; checkpointing is not ported yet")
+                   help="save 'latest' every this many epochs")
     p.add_argument("--no-resume", action="store_true",
-                   help="accepted; checkpointing is not ported yet")
+                   help="start fresh instead of restoring the newest "
+                        "checkpoint")
+    p.add_argument("--no-async-checkpoint", action="store_true",
+                   help="commit each checkpoint before training goes on")
     p.add_argument("--workers", type=int, default=6)
     p.add_argument("--val-batchsize", type=int, default=0)
     p.add_argument("--prefetch", type=int, default=2)
@@ -196,7 +199,8 @@ def config_from_args(args: argparse.Namespace,
                       save_period=args.save_period,
                       resume=not args.no_resume,
                       log_every_steps=args.log_every_steps, seed=args.seed,
-                      max_steps=args.steps),
+                      max_steps=args.steps,
+                      async_checkpoint=not args.no_async_checkpoint),
         mesh=MeshConfig(model=args.model_axis, seq=args.seq_axis,
                         fsdp=args.fsdp, zero1=args.zero1),
     )

@@ -17,6 +17,14 @@ per epoch and returns the best val accuracy.
   full float32 sets both flags off around ``fit()``.
 - **Validation** runs the eval forward, which goes through the K3 kernel
   when ``cfg.model.fused_conv_bn`` is set.
+- **Checkpoints** (``tpuic_torch/checkpoint/manager.py``): the Trainer
+  keeps ``best`` (on every val improvement) and ``latest`` (every
+  ``run.save_period`` epochs) under ``{run.ckpt_dir}/{model name}``,
+  beside the ``config.json`` and ``class_to_idx.json`` sidecars.  With
+  ``run.resume`` it restores the newest track through the integrity ladder
+  and ``fit()`` starts at the epoch after it, so a resumed run continues
+  the uninterrupted one bit for bit (the batches and their augmentation
+  are functions of the seed, the epoch and the index).
 - ``self.stats`` keeps host-side timing of the last epoch: steps, wall
   seconds, seconds spent waiting for the loader, and ``drains``, the
   (step, host time) at which each deferred read returned: the device had
@@ -32,19 +40,21 @@ accumulation, loss scaling, bf16 compute, ``remat``, the packed loader
 (``pack``), the native decode core (``native``) and mesh axes above 1.
 The ViT itself refuses drop-path and the sequence-parallel attention
 impls the same way.
-Checkpointing, rollback, elastic membership, telemetry and profiling are
-later items.
+Mid-epoch (preemption) saves, rollback, elastic membership, telemetry and
+profiling are later items.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Callable, Optional
 
 import numpy as np
 
-from tpuic_torch.checkpoint import init_params
+from tpuic_torch.checkpoint import CheckpointManager, init_params
 from tpuic_torch.config import Config
 from tpuic_torch.data.folder import ImageFolderDataset
 from tpuic_torch.data.pipeline import Loader
@@ -147,7 +157,29 @@ class Trainer:
                                           lr_schedule=self.schedule,
                                           device=self.device)
         self.eval_step = make_eval_step(cfg.optim, mcfg, device=self.device)
+        self.ckpt = CheckpointManager(cfg.run.ckpt_dir, mcfg.name,
+                                      cfg.run.save_period,
+                                      async_commit=cfg.run.async_checkpoint,
+                                      log=self.log)
+        # Sidecars: the resolved config (inferred class count, derived
+        # class weights) and the class names, for loading and serving.
+        with open(os.path.join(self.ckpt.root, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(dataclasses.replace(cfg, model=mcfg)),
+                      f, indent=2, default=str)
+        with open(os.path.join(self.ckpt.root, "class_to_idx.json"),
+                  "w") as f:
+            json.dump(self.train_ds.class_to_idx, f, indent=2)
+        self.start_epoch = 0
         self.best_score = 0.0
+        if cfg.run.resume:
+            # The newest of latest and best: a crash after the last val
+            # improvement resumes at the last periodic save.
+            self.state, self.start_epoch, self.best_score = \
+                self.ckpt.restore_into(self.state)
+            if self.ckpt.last_restore_step_in_epoch is not None:
+                self.log(f"[ckpt] a mid-epoch save: epoch "
+                         f"{self.start_epoch} replays from its first step "
+                         "(step-exact resume is not ported)")
         self.stats = {}
         self._steps_done = 0
         self._steps_exhausted = False
@@ -235,25 +267,34 @@ class Trainer:
         return score
 
     def fit(self, epochs: Optional[int] = None) -> float:
-        """Train ``epochs`` (default ``run.epochs``) epochs, each followed
-        by a val pass, and return the best val accuracy.  A ``max_steps``
-        budget reached mid-run stops before that epoch's val pass.
-        ``run.resume`` and ``run.save_period`` are accepted and do nothing:
-        checkpointing is not ported yet."""
+        """Train from ``start_epoch`` up to ``epochs`` (default
+        ``run.epochs``), each epoch followed by a val pass and the
+        checkpoint saves (``best`` on an improvement, ``latest`` every
+        ``save_period`` epochs), and return the best val accuracy.  A
+        ``max_steps`` budget reached mid-run stops before that epoch's val
+        pass.  Every save has committed when ``fit`` returns."""
         epochs = self.cfg.run.epochs if epochs is None else epochs
         best = self.best_score
         self._steps_exhausted = False
-        for epoch in range(epochs):
-            t0 = time.perf_counter()
-            self.train_epoch(epoch)
-            if self._steps_exhausted:
-                self.log(f"[tpuic_torch] step budget "
-                         f"({self.cfg.run.max_steps}) reached in epoch "
-                         f"{epoch}; stopping")
-                break
-            score = self.val_epoch(epoch)
-            self.log(f"Epoch {epoch} took {time.perf_counter() - t0:.1f}s")
-            best = max(best, score)
+        try:
+            for epoch in range(self.start_epoch, epochs):
+                t0 = time.perf_counter()
+                self.train_epoch(epoch)
+                if self._steps_exhausted:
+                    self.log(f"[tpuic_torch] step budget "
+                             f"({self.cfg.run.max_steps}) reached in epoch "
+                             f"{epoch}; stopping")
+                    break
+                score = self.val_epoch(epoch)
+                self.log(f"Epoch {epoch} took "
+                         f"{time.perf_counter() - t0:.1f}s")
+                if score > best:
+                    best = score
+                    self.ckpt.save_best(self.state, epoch, best)
+                self.ckpt.maybe_save_latest(self.state, epoch, best)
+        finally:
+            # A save staged in the last epoch commits on every exit path.
+            self.ckpt.wait()
         self.best_score = best
         return best
 
