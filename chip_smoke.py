@@ -36,10 +36,16 @@ the first phase that fails:
    through the engine's ``make_forward`` under torch's default flags: a
    row's probabilities at batch 1 and inside batch 32 agree within 1e-5.
 5. serve  — ``InferenceEngine`` (uint8 in, normalized in the forward,
-   buckets 1/8/32) answering a few hundred requests of 1-8 images from
-   eight closed-loop client threads: every future resolves with the right
-   shape, a sample matches a direct forward (1e-5), and the kernel
-   launches 53 times per device call during the run.
+   buckets 1/8/32, one CUDA graph per bucket captured at warmup, the
+   device memory the graphs hold reported) answering a few hundred
+   requests of 1-8 images from eight closed-loop client threads: every
+   future resolves with the right shape, a sample matches a direct
+   forward (1e-5), and the kernel launches 53 times per device call
+   during the run (each replay adds the launches its graph captured).
+   Then at every bucket a graph replay against an eager forward of the
+   same batch (the same bits, or within 1e-6, as reported), and a batch-8
+   device call replayed and eager, timed from Python, on the card alone
+   and as host cost per call.
 6. xent   — the fused cross-entropy forward and backward kernels (K1) at
    [128, 1000] and [128, 7], label smoothing 0 and 0.1, against their
    plain versions (rtol 1e-5 / atol 1e-6: float32 row sums in another
@@ -90,7 +96,19 @@ the first phase that fails:
    byte of ``latest``'s payload flipped the restore must fall back to
    ``best``, bit for bit.  The payload's bytes and the host and disk
    seconds to snapshot, commit and restore are reported.
-10. attn  — the flash-attention kernels (K4: forward, dq, dk/dv) at the
+10. serve-cli — ``python -m tpuic_torch.serve --model auto`` as a
+   subprocess on ``ckpt``'s ResNet-50 checkpoint: 48 image files of the
+   synthetic folder over stdin JSONL, each record's top-5 probabilities
+   within 1e-5 of a direct forward of the same decoded pixels; then a
+   ``--listen`` server: ready file, a ping answered with the model's
+   digest, requests by path and by b64 array, a burst and SIGTERM, after
+   which it exits 0 with every request answered.
+11. predict — ``python -m tpuic_torch.predict``'s ``main`` over the val
+   fold from that checkpoint's ``best`` track at the ``Trainer``'s val
+   batch: its accuracy equals the ``Trainer``'s val accuracy for the save
+   exactly, every batch reaches the engine as a tensor on the card, and
+   K3 launches 53 times per device call.
+12. attn  — the flash-attention kernels (K4: forward, dq, dk/dv) at the
    ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64], on strided
    q/k/v views of one qkv projection, against their plain versions
    (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2); in float32 the
@@ -107,14 +125,15 @@ the first phase that fails:
    no one call computes either alone; the forward and SDPA's also on the
    card alone.  The bound is at the rate of the products each kernel
    issues, 3xTF32 or bf16 MMAs (the float32 CUDA-core bound beside it).
-11. vit   — ``create_model("vit-b16", 1000, dtype="float32",
+13. vit   — ``create_model("vit-b16", 1000, dtype="float32",
    attention="flash")`` with seeded synthetic weights: its logits at batch
    4 against the same weights under ``attention="dense"`` (TF32 off,
    atol/rtol 1e-3), and exactly 12 K4 forward launches per forward.
-12. vit-serve — the engine serving that model as ``serve`` serves
-   ResNet-50, under torch's default flags: 12 K4 forward launches per
-   device call.
-13. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
+14. vit-serve — the engine serving that model as ``serve`` serves
+   ResNet-50 (graphs, their memory, graph against eager, the batch-8
+   times), under torch's default flags: 12 K4 forward launches per device
+   call.
+15. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
    the repo's ViT recipe (recipes/README.md, section 4: AdamW lr 3e-4, wd
    0.05, 10 warmup epochs of 300, label smoothing 0.1, clipping at 1.0,
    batch 64), ``attention="flash"`` and the fused loss, for 12 steps, then
@@ -163,6 +182,8 @@ F32_TOL = 1e-4
 BF16_TOL = 1e-2
 MODEL_TOL = 1e-3
 SERVE_TOL = 1e-5
+GRAPH_TOL = 1e-6   # a graph replay against an eager forward, when not bitwise
+CLI_IMAGES = 48    # image files the serve CLI answers over stdin
 XENT_RTOL, XENT_ATOL = 1e-5, 1e-6
 OPT_RTOL, OPT_ATOL = 1e-5, 1e-7
 TRAIN_LOSS_RTOL = 1e-3
@@ -585,9 +606,11 @@ def unfused_bucket_check(model) -> dict:
 def phase_serve(model, n_requests: int, seed: int, smi: str,
                 tag: str = "serve", counter: str = "conv_bn_relu",
                 per_call: int = 0):
-    """Serve ``model`` to eight closed-loop clients; ``counter``'s kernel
-    must launch ``per_call`` times per device call (default: the 53 of a
-    fused ResNet-50 forward) and no other kernel may launch."""
+    """Serve ``model`` to eight closed-loop clients through one CUDA graph
+    per bucket; ``counter``'s kernel must launch ``per_call`` times per
+    device call (default: the 53 of a fused ResNet-50 forward; replays
+    count the launches their graph captured) and no other kernel may
+    launch.  Then the graphs against eager forwards (``graph_checks``)."""
     from tpuic_torch.serve import InferenceEngine, make_forward
     per_call = per_call or len(resnet50_launches(1))
     rng = np.random.default_rng(seed)
@@ -596,7 +619,10 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
                           input_dtype=np.uint8, normalize=True,
                           buckets=(1, 8, 32))
     warm = eng.warmup()
-    log(tag, f"warmup (s per bucket): {json.dumps(warm)}")
+    log(tag, f"warmup (s per bucket: eager run, capture, one replay): "
+             f"{json.dumps(warm)}")
+    memory = eng.graph_memory()
+    log(tag, "graph memory (bytes): " + json.dumps(memory))
     eng.stats.reset()
     reset_counts()
     results, errors, lock = [], [], threading.Lock()
@@ -651,6 +677,7 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
         fail(tag, f"{launches} {counter} launches for "
                   f"{snap['device_calls']} device calls (expected "
                   f"{per_call} each), other kernels {others}")
+    graphs = graph_checks(eng, model, tag)
     log(tag, json.dumps({
         "requests": len(results), "images": snap["images"],
         "wall_s": wall, "device_calls": snap["device_calls"],
@@ -660,8 +687,56 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
         "images_per_s_wall": snap["images"] / wall,
         "pad_efficiency": snap["pad_efficiency"],
         "batch_hist": snap["batch_hist"], "span_ms": snap["span_ms"],
-        "max_abs_err_vs_direct": worst, "card": smi}))
+        "max_abs_err_vs_direct": worst, "graph_memory": memory,
+        "graphs": graphs, "card": smi}))
+    snap["graph_memory"], snap["graphs"] = memory, graphs
     return launches, snap
+
+
+def graph_checks(eng, model, tag: str) -> dict:
+    """Each bucket's graph replay against an eager forward of the same
+    batch (``make_forward``, as the engine captured it): the same bits, or
+    within GRAPH_TOL.  Then one batch-8 device call, replayed and eager,
+    timed from Python (``ms``: back-to-back calls between two events),
+    on the card alone (``device_ms``) and as host cost per call
+    (``host_ms``).  Run after the served window's counts were read: these
+    launches are comparisons, not the path."""
+    from tpuic_torch.serve import make_forward
+    eager = make_forward(model, normalize=True)
+    rng = np.random.default_rng(7)
+    rows = {}
+    for b in eng.buckets:
+        x = torch.from_numpy(rng.integers(0, 256, (b, IMAGE, IMAGE, 3),
+                                          dtype=np.uint8)).cuda()
+        want_p, want_o = eager(x)
+        got_p, got_o = (t.clone() for t in eng.replay(b, x))
+        torch.cuda.synchronize()
+        bits = bool(torch.equal(got_p, want_p) and torch.equal(got_o, want_o))
+        diff = float((got_p - want_p).abs().max())
+        rows[str(b)] = {"bits_equal": bits, "max_abs_diff": diff,
+                        "top1_equal": bool(torch.equal(got_o[:, 0],
+                                                       want_o[:, 0]))}
+        if not bits and diff > GRAPH_TOL:
+            fail(tag, f"bucket {b}: graph replay differs from an eager "
+                      f"forward by {diff} > {GRAPH_TOL}")
+    x8 = torch.from_numpy(rng.integers(0, 256, (8, IMAGE, IMAGE, 3),
+                                       dtype=np.uint8)).cuda()
+
+    def replay():
+        return eng.replay(8, x8)
+
+    def direct():
+        return eager(x8)
+
+    times = {"replay": {"ms": time_ms(replay, iters=20),
+                        "device_ms": device_ms(replay, iters=20),
+                        "host_ms": host_ms(replay)},
+             "eager": {"ms": time_ms(direct, iters=10),
+                       "device_ms": device_ms(direct, iters=5),
+                       "host_ms": host_ms(direct, iters=5)}}
+    out = {"replay_vs_eager": rows, "batch8_forward": times}
+    log(tag, "graphs: " + json.dumps(out))
+    return out
 
 
 def xent_rows_ignore_batch(K1, gen: torch.Generator) -> dict:
@@ -1260,7 +1335,7 @@ def _mismatches(got: dict, want: dict) -> list:
     return [k for k in w if not torch.equal(g[k], w[k])]
 
 
-def phase_ckpt(root: str, seed: int) -> dict:
+def phase_ckpt(root: str, seed: int, ckpt_dir: str) -> dict:
     """The checkpoint on the card with ``[train]``'s configuration: a
     ``Trainer`` takes CKPT_STEPS steps and saves ``best`` and ``latest``;
     a fresh ``Trainer`` restores them (``latest``, the newer on a tie);
@@ -1270,70 +1345,317 @@ def phase_ckpt(root: str, seed: int) -> dict:
     exactly; then one byte of ``latest``'s payload is flipped and the
     restore must fall back to ``best``, again bit for bit.  Reports the
     payload's bytes and the host and disk seconds to snapshot, commit and
-    restore."""
+    restore.  The checkpoint stays in ``ckpt_dir`` for ``serve-cli`` and
+    ``predict``, with the ``Trainer``'s val accuracy of its ``best``
+    save (``row["best_val_accuracy"]``)."""
     from tpuic_torch.checkpoint.manager import PAYLOAD, snapshot
     from tpuic_torch.train.loop import Trainer
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
-        base = train_config(root, seed)
-        cfg = dataclasses.replace(base, run=dataclasses.replace(
-            base.run, max_steps=CKPT_STEPS, ckpt_dir=ckpt_dir))
-        first = Trainer(cfg, log=lambda msg: log("ckpt", msg))
-        if first.start_epoch != 0:
-            fail("ckpt", f"an empty checkpoint directory resumed at epoch "
-                         f"{first.start_epoch}")
-        first.fit()
-        first.ckpt.save_best(first.state, 0, 12.5)
-        first.ckpt.wait()
-        saves = {"best": dict(first.ckpt.last_save)}
-        first.ckpt.save_latest(first.state, 0, 12.5)
-        first.ckpt.wait()
-        saves["latest"] = dict(first.ckpt.last_save)
-        want = snapshot(first.state)
-        second = Trainer(cfg, log=lambda msg: log("ckpt", msg))
-        rung, restore_s = (second.ckpt.last_restore_rung,
-                           second.ckpt.last_restore_s)
-        bad = _mismatches(snapshot(second.state), want)
-        if rung != "latest" or second.start_epoch != 1 or bad:
-            fail("ckpt", f"restored rung {rung}, start epoch "
-                         f"{second.start_epoch}, {len(bad)} tensors differ "
-                         f"from the save: {bad[:5]}")
-        batch = first_batches(first, 1)[0]
-        with deterministic_cudnn():
-            _, m1 = first.train_step(first.state, batch)
-            _, m2 = second.train_step(second.state, batch)
-            losses = [float(m1["loss"]), float(m2["loss"])]
-        after = _mismatches(snapshot(second.state), snapshot(first.state))
-        if losses[0] != losses[1] or not math.isfinite(losses[0]):
-            fail("ckpt", f"the next step's loss after the restore, "
-                         f"{losses[1]!r}, is not the uninterrupted run's "
-                         f"{losses[0]!r}")
-        _flip_byte(os.path.join(first.ckpt.root, "latest", PAYLOAD))
-        _, start, _ = second.ckpt.restore_into(second.state)
-        fallback, fallback_s = (second.ckpt.last_restore_rung,
-                                second.ckpt.last_restore_s)
-        bad = _mismatches(snapshot(second.state), want)
-        if fallback != "best" or start != 1 or bad:
-            fail("ckpt", f"with latest corrupt the restore took rung "
-                         f"{fallback} (start epoch {start}), {len(bad)} "
-                         f"tensors differ from the save: {bad[:5]}")
-        n_tensors = (len(want["model"]) + 3 + sum(
-            len(v) for v in want["opt_state"].values()
-            if isinstance(v, list)))
-        row = {"model": first.mcfg.name, "optimizer": first.state.tx.kind,
-               "steps_before_save": CKPT_STEPS, "tensors": n_tensors,
-               "payload_bytes": saves["latest"]["bytes"],
-               "host_and_disk_s": {
-                   "snapshot": {k: v["snapshot_s"] for k, v in saves.items()},
-                   "commit": {k: v["commit_s"] for k, v in saves.items()},
-                   "restore": restore_s, "restore_after_fallback": fallback_s},
-               "restored_rung": rung, "restore_bits_equal": True,
-               "next_step_loss": losses,
-               "tensors_differing_after_next_step": len(after),
-               "corrupt_latest_restored_rung": fallback,
-               "fallback_bits_equal": True}
-        log("ckpt", json.dumps(row))
-        del first, second
-        free()
+    base = train_config(root, seed)
+    cfg = dataclasses.replace(base, run=dataclasses.replace(
+        base.run, max_steps=CKPT_STEPS, ckpt_dir=ckpt_dir))
+    first = Trainer(cfg, log=lambda msg: log("ckpt", msg))
+    if first.start_epoch != 0:
+        fail("ckpt", f"an empty checkpoint directory resumed at epoch "
+                     f"{first.start_epoch}")
+    first.fit()
+    first.ckpt.save_best(first.state, 0, 12.5)
+    first.ckpt.wait()
+    saves = {"best": dict(first.ckpt.last_save)}
+    first.ckpt.save_latest(first.state, 0, 12.5)
+    first.ckpt.wait()
+    saves["latest"] = dict(first.ckpt.last_save)
+    want = snapshot(first.state)
+    second = Trainer(cfg, log=lambda msg: log("ckpt", msg))
+    rung, restore_s = (second.ckpt.last_restore_rung,
+                       second.ckpt.last_restore_s)
+    bad = _mismatches(snapshot(second.state), want)
+    if rung != "latest" or second.start_epoch != 1 or bad:
+        fail("ckpt", f"restored rung {rung}, start epoch "
+                     f"{second.start_epoch}, {len(bad)} tensors differ "
+                     f"from the save: {bad[:5]}")
+    batch = first_batches(first, 1)[0]
+    with deterministic_cudnn():
+        _, m1 = first.train_step(first.state, batch)
+        _, m2 = second.train_step(second.state, batch)
+        losses = [float(m1["loss"]), float(m2["loss"])]
+    after = _mismatches(snapshot(second.state), snapshot(first.state))
+    if losses[0] != losses[1] or not math.isfinite(losses[0]):
+        fail("ckpt", f"the next step's loss after the restore, "
+                     f"{losses[1]!r}, is not the uninterrupted run's "
+                     f"{losses[0]!r}")
+    _flip_byte(os.path.join(first.ckpt.root, "latest", PAYLOAD))
+    _, start, _ = second.ckpt.restore_into(second.state)
+    fallback, fallback_s = (second.ckpt.last_restore_rung,
+                            second.ckpt.last_restore_s)
+    bad = _mismatches(snapshot(second.state), want)
+    if fallback != "best" or start != 1 or bad:
+        fail("ckpt", f"with latest corrupt the restore took rung "
+                     f"{fallback} (start epoch {start}), {len(bad)} "
+                     f"tensors differ from the save: {bad[:5]}")
+    best_val = second.val_epoch(0)  # the state is best's, bit for bit
+    # The same model's top-1 per val image and its margin over the
+    # runner-up, for ``predict``'s rows.
+    second.model.eval()
+    best_top1 = {}
+    with torch.inference_mode():
+        for batch in second.val_loader.epoch(0):
+            top2 = second.model(batch["image"]).topk(2, dim=-1)
+            idx = top2.indices[:, 0].cpu().numpy()
+            gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+            for iid, i, g, m in zip(batch.image_ids, idx, gap,
+                                    batch["mask"].cpu().numpy()):
+                if m > 0:
+                    best_top1[iid] = (int(i), float(g))
+    n_tensors = (len(want["model"]) + 3 + sum(
+        len(v) for v in want["opt_state"].values()
+        if isinstance(v, list)))
+    row = {"model": first.mcfg.name, "optimizer": first.state.tx.kind,
+           "steps_before_save": CKPT_STEPS, "tensors": n_tensors,
+           "payload_bytes": saves["latest"]["bytes"],
+           "host_and_disk_s": {
+               "snapshot": {k: v["snapshot_s"] for k, v in saves.items()},
+               "commit": {k: v["commit_s"] for k, v in saves.items()},
+               "restore": restore_s, "restore_after_fallback": fallback_s},
+           "restored_rung": rung, "restore_bits_equal": True,
+           "next_step_loss": losses,
+           "tensors_differing_after_next_step": len(after),
+           "corrupt_latest_restored_rung": fallback,
+           "fallback_bits_equal": True,
+           "best_val_accuracy": best_val}
+    log("ckpt", json.dumps(row))
+    row["best_top1"] = best_top1
+    del first, second
+    free()
+    return row
+
+
+def _ckpt_model(ckpt_dir: str):
+    """``[ckpt]``'s ``best`` ResNet-50 through the loading path the CLIs
+    use, on the card, and its class names."""
+    from tpuic_torch.checkpoint.loading import load_inference_variables
+    from tpuic_torch.config import Config, DataConfig, RunConfig
+    from tpuic_torch.predict import serving_model_config
+    cfg = Config(data=DataConfig(data_dir=".", resize_size=IMAGE),
+                 model=serving_model_config("resnet50", 1000),
+                 run=RunConfig(ckpt_dir=ckpt_dir))
+    model = load_inference_variables(cfg, track="best", log=lambda m: None)
+    with open(os.path.join(ckpt_dir, "resnet50", "class_to_idx.json")) as f:
+        names = {int(v): k for k, v in json.load(f).items()}
+    return model, names
+
+
+def _serve_cmd(ckpt_dir: str, *extra) -> list:
+    return [sys.executable, "-m", "tpuic_torch.serve", "--ckpt-dir",
+            ckpt_dir, "--model", "auto", "--buckets", "1,8,32", "--top-k",
+            "5", *extra]
+
+
+class _Records:
+    """Newline-framed JSON records from a socket, the partial tail kept
+    between reads."""
+
+    def __init__(self, sock) -> None:
+        self.sock, self.buf = sock, b""
+
+    def read(self, done) -> list:
+        """Records until ``done(records so far)`` holds or the peer
+        closes."""
+        out = []
+        while not done(out):
+            chunk = self.sock.recv(1 << 16)
+            if not chunk:
+                break
+            *recs, self.buf = (self.buf + chunk).split(b"\n")
+            out.extend(json.loads(r) for r in recs if r.strip())
+        return out
+
+
+def phase_serve_cli(root: str, ckpt_dir: str, smi: str) -> dict:
+    """``python -m tpuic_torch.serve`` as a user runs it, on ``[ckpt]``'s
+    ResNet-50 checkpoint with ``--model auto``: CLI_IMAGES image files of
+    the synthetic folder over stdin JSONL, each record's top-5
+    probabilities held against a direct forward of the same decoded
+    pixels (SERVE_TOL); then a ``--listen`` server: its ready file, a
+    ping, requests by path and by b64 payload, a burst and SIGTERM, after
+    which it must exit 0 with every request answered."""
+    import glob
+    import signal
+    import socket
+
+    from tpuic_torch.checkpoint.loading import variables_digest
+    from tpuic_torch.serve import make_forward, wire
+    from tpuic_torch.serve.__main__ import _load_image
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    paths = sorted(glob.glob(os.path.join(root, "val", "*", "*.png")))
+    paths = paths[::max(1, len(paths) // CLI_IMAGES)][:CLI_IMAGES]
+    t0 = time.perf_counter()
+    out = subprocess.run(_serve_cmd(ckpt_dir), input="".join(
+        json.dumps({"id": p, "path": p}) + "\n" for p in paths),
+        capture_output=True, text=True, timeout=600, env=env, cwd=here)
+    stdin_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail("serve-cli", f"stdin server exited {out.returncode}: "
+                          f"{out.stderr[-3000:]}")
+    recs = {r["id"]: r for r in map(json.loads, out.stdout.splitlines())}
+    for line in out.stderr.splitlines():
+        if "warmup" in line or "auto-resolved" in line:
+            log("serve-cli", line)
+    model, names = _ckpt_model(ckpt_dir)
+    index = {v: k for k, v in names.items()}
+    x = torch.from_numpy(np.stack([_load_image(p, IMAGE)
+                                   for p in paths])).cuda()
+    probs, order = (t.cpu().numpy() for t in make_forward(
+        model, normalize=True)(x))
+    worst, top1 = 0.0, 0
+    for i, p in enumerate(paths):
+        rec = recs.get(p)
+        if rec is None or "pred" not in rec or len(rec["topk"]) != 5:
+            fail("serve-cli", f"no answer for {p}: {rec}")
+        for name, q in rec["topk"]:
+            j = index.get(name, None if not name.isdigit() else int(name))
+            worst = max(worst, abs(q - float(probs[i, j])))
+        a, b = order[i, 0], order[i, 1]
+        if rec["pred"] == names.get(int(a), str(a)):
+            top1 += 1
+        elif probs[i, a] - probs[i, b] > SERVE_TOL:
+            fail("serve-cli", f"{p}: top-1 {rec['pred']} against the direct "
+                              f"forward's {names.get(int(a), str(a))}")
+    # Records carry probabilities rounded to 6 decimals (tpuic's format).
+    if worst > SERVE_TOL:
+        fail("serve-cli", f"served probabilities differ from a direct "
+                          f"forward by {worst} > {SERVE_TOL}")
+    digest = variables_digest(model)
+    del model, x
+    free()
+
+    ready_file = os.path.join(root, "serve_cli_ready.json")
+    err_path = os.path.join(root, "serve_cli_listen.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            _serve_cmd(ckpt_dir, "--listen", "127.0.0.1:0", "--ready-file",
+                       ready_file), env=env, cwd=here,
+            stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        while (ready := wire.read_ready_file(ready_file)) is None:
+            if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                fail("serve-cli", f"--listen server never got ready: "
+                                  f"{open(err_path).read()[-3000:]}")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        img = _load_image(paths[0], IMAGE)[None]
+        with socket.create_connection(("127.0.0.1", ready["port"]),
+                                      timeout=300) as sock:
+            lines = [{"op": "ping", "id": "ping"}]
+            lines += [{"id": f"p{i}", "path": p}
+                      for i, p in enumerate(paths[:8])]
+            lines += [{"id": f"b{i}", **wire.encode_array(img)}
+                      for i in range(8)]
+            sock.sendall("".join(json.dumps(r) + "\n"
+                                 for r in lines).encode())
+            reader = _Records(sock)
+            first = {r["id"]: r for r in reader.read(
+                lambda got: len(got) >= len(lines))}
+            # A burst, then a ping: the server reads a connection's lines
+            # in order, so its pong means every burst line was accepted
+            # (SIGTERM before that would close a socket holding unread
+            # requests).  Then SIGTERM while the burst is in flight.
+            burst = [{"id": f"s{i}", **wire.encode_array(img)}
+                     for i in range(32)]
+            sock.sendall("".join(json.dumps(r) + "\n" for r in burst
+                                 + [{"op": "ping", "id": "ping2"}]).encode())
+            rest = reader.read(lambda got: any(r.get("id") == "ping2"
+                                               for r in got))
+            proc.send_signal(signal.SIGTERM)
+            rest += reader.read(lambda got: False)  # to the server's close
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    pong = first.get("ping", {})
+    answered = [r for r in list(first.values()) + rest if "pred" in r]
+    if (rc != 0 or pong.get("op") != "pong" or pong.get("digest") != digest
+            or ready.get("digest") != digest or pong.get("generation") != 0
+            or len(answered) != 16 + len(burst)):
+        fail("serve-cli", f"--listen: exit {rc}, pong {pong}, ready "
+                          f"{ready}, {len(answered)} of {16 + len(burst)} "
+                          f"answered; {open(err_path).read()[-2000:]}")
+    stats = [ln for ln in open(err_path).read().splitlines()
+             if "served" in ln or "SIGTERM" in ln]
+    row = {"images": len(paths), "stdin_wall_s": stdin_s,
+           "max_abs_err_vs_direct": worst, "top1_equal": top1,
+           "listen_ready_s": ready_s, "listen_exit": rc,
+           "listen_answered": len(answered), "digest": digest,
+           "listen_log": stats[-2:], "card": smi}
+    log("serve-cli", json.dumps(row))
+    return row
+
+
+def phase_predict(root: str, ckpt_dir: str, val_accuracy: float,
+                  best_top1: dict) -> dict:
+    """``python -m tpuic_torch.predict`` (its ``main``) over the synthetic
+    folder's val fold from ``[ckpt]``'s ``best`` track, at the
+    ``Trainer``'s val batch: its accuracy must equal the ``Trainer``'s val
+    accuracy for that save exactly; every batch must reach the engine as a
+    tensor on the card (no host bounce); K3 launches 53 times per device
+    call, the warmup's eager run and replay included; each row's top-1
+    equals that of the ``Trainer``'s model called on the image wherever
+    its top logit leads the next by more than MODEL_TOL."""
+    import csv
+    import io
+
+    from tpuic_torch import predict
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = predict.main(["--datadir", root, "--ckpt-dir", ckpt_dir,
+                           "--fold", "val", "--batchsize", str(TRAIN_BATCH),
+                           "--no-pack", "--top-k", "5",
+                           "--out", os.path.join(root, "predict.csv")])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    printed = buf.getvalue().strip().splitlines()
+    for line in printed[:-1]:
+        log("predict", line)
+    summary = json.loads(printed[-1])
+    eng = summary.pop("engine")
+    n_buckets = eng["compiles"]
+    batches = 2  # the val fold holds 2 x TRAIN_BATCH images
+    want = expect(conv_bn_relu=53 * (eng["device_calls"] + 2 * n_buckets))
+    if rc != 0 or summary.get("accuracy") != val_accuracy:
+        fail("predict", f"accuracy {summary.get('accuracy')!r}, the "
+                        f"Trainer's {val_accuracy!r} (exit {rc})")
+    if (summary["device_requests"] != batches or summary["host_requests"]
+            or summary["full_batches"] != batches or counts != want):
+        fail("predict", f"{summary}: expected {batches} full batches, all "
+                        f"on the card; launches {counts}, expected {want}")
+    with open(os.path.join(ckpt_dir, "resnet50", "class_to_idx.json")) as f:
+        index = json.load(f)
+    with open(os.path.join(root, "predict.csv")) as f:
+        rows = list(csv.DictReader(f))
+    same, ties = 0, 0
+    for r in rows:
+        want, gap = best_top1[r["image_id"]]
+        got = index.get(r["pred"], None if not r["pred"].isdigit()
+                        else int(r["pred"]))
+        if got == want:
+            same += 1
+        elif gap > MODEL_TOL:
+            fail("predict", f"{r['image_id']}: predicted {got}, the "
+                            f"Trainer's model {want} (logit gap {gap})")
+        else:
+            ties += 1
+    if len(rows) != len(best_top1):
+        fail("predict", f"{len(rows)} CSV rows for {len(best_top1)} images")
+    row = {**summary, "trainer_val_accuracy": val_accuracy,
+           "top1_equal_to_trainer_model": same, "near_ties": ties,
+           "wall_s": wall, "launches": counts,
+           "device_calls": eng["device_calls"], "buckets": n_buckets,
+           "latency_ms": eng["latency_ms"], "span_ms": eng["span_ms"]}
+    log("predict", json.dumps(row))
     return row
 
 
@@ -1730,7 +2052,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         write_folder(root, args.seed)
         counts, lamb_counts, train = phase_train(root, args.seed, smi)
-        ckpt = phase_ckpt(root, args.seed)
+        ckpt_dir = os.path.join(root, "ckpt_smoke")
+        ckpt = phase_ckpt(root, args.seed, ckpt_dir)
+        serve_cli = phase_serve_cli(root, ckpt_dir, smi)
+        predicted = phase_predict(root, ckpt_dir, ckpt["best_val_accuracy"],
+                                  ckpt.pop("best_top1"))
         attn, attn_rows = phase_attn(kind, gen)
         vit = phase_vit(gen, args.seed)
         # Under torch's default flags: the engine's forward turns TF32 off
@@ -1770,7 +2096,8 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
                        "shapes": rows,
                        "serve": snap, "xent": xent_rows, "train": train,
-                       "ckpt": ckpt,
+                       "ckpt": ckpt, "serve_cli": serve_cli,
+                       "predict": predicted,
                        "attn": attn_rows, "vit_serve": vit_snap,
                        "vit_train": vit_train},
                       f, indent=1)

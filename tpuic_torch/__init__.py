@@ -12,12 +12,19 @@ there it keeps as its own copy.
                                attention)
 - ``tpuic_torch.models``     — the ResNet and ViT families + the MLP
                                classifier head, with the flax module names
-- ``tpuic_torch.checkpoint`` — carry a ``tpuic`` variables tree or optimizer
-                               state into the port; initialisation
+- ``tpuic_torch.checkpoint`` — carry a ``tpuic`` variables tree, optimizer
+                               state or reference torch checkpoint into the
+                               port; initialisation; the port's own
+                               checkpoints
 - ``tpuic_torch.data``       — ImageFolder decode/augment and the Loader
 - ``tpuic_torch.train``      — loss, optimizers, schedules, steps, the
                                Trainer and ``python -m tpuic_torch.train``
-- ``tpuic_torch.serve``      — the dynamic-batching inference engine
+- ``tpuic_torch.serve``      — the dynamic-batching inference engine (one
+                               CUDA graph per padding bucket) and
+                               ``python -m tpuic_torch.serve``
+- ``tpuic_torch.predict``    — ``python -m tpuic_torch.predict``: score an
+                               ImageFolder fold to CSV
+- ``tpuic_torch.runtime``    — the SIGTERM latch
 
 Entry points that place tensors take ``device=None``, which means
 ``"cuda"``; with no CUDA device they raise instead of falling back to the

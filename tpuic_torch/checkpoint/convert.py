@@ -18,7 +18,10 @@ ViT ``cls``, ``pos_embed``         ``ViT.cls``, ``.pos_embed``  as is
 
 The load is strict: every leaf is consumed and every parameter and
 running statistic of the model is written; a missing key, an extra key or
-a shape mismatch raises naming the path.  Reading the tree needs no JAX.
+a shape mismatch raises naming the path.  ``merge_jax_variables`` is the
+lenient mode beside it (a torch checkpoint's ``--init-from``, through
+``torch_convert``): it writes what fits and leaves the rest as it was.
+Reading the tree needs no JAX.
 
 ``load_jax_opt_state(opt_state, params_order)`` carries a ``tpuic``
 optimizer state (numpy leaves) into the port's ``OptState``, by the same
@@ -44,6 +47,7 @@ from tpuic_torch.models.vit import ViT
 _PARAM_LEAF = {"scale": "weight", "bias": "bias", "cls": "cls",
                "pos_embed": "pos_embed"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+_STAT_LEAF_NAMES = tuple(_STAT_LEAF.values())
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -97,37 +101,69 @@ def _invalidate(model: nn.Module) -> None:
             m.invalidate_packed()
 
 
-def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
-    """Write a ``tpuic`` variables tree into ``model`` in place (strict);
-    drops any folded-weight cache.  Returns ``model``."""
+def _write_tree(model: nn.Module, variables: Mapping, strict: bool):
+    """Write ``variables`` into ``model`` by the layout rules above:
+    ``{collection: (names written, names the model has)}``.  ``strict``
+    raises on a leaf without a counterpart, a shape mismatch, an extra
+    collection or a tensor left unwritten; otherwise each of those leaves
+    is skipped and the tensor keeps its value."""
     extra = sorted(set(variables) - {"params", "batch_stats"})
-    if extra:
+    if extra and strict:
         raise KeyError(f"unexpected variable collections {extra}")
     targets = _targets(model)
-    written = set()
+    stats = {k for k in targets if k.endswith(_STAT_LEAF_NAMES)}
+    names = {"params": set(targets) - stats, "batch_stats": stats}
+    written = {"params": set(), "batch_stats": set()}
     for collection in ("params", "batch_stats"):
         for path, arr in _flatten(variables.get(collection, {})).items():
-            name = _port_name(collection, path)
-            if name not in targets:
-                raise KeyError(f"{collection}/{path}: the model has no "
-                               f"'{name}'")
-            if name in written:
+            try:
+                name = _port_name(collection, path)
+            except KeyError:
+                if strict:
+                    raise
+                continue
+            if name not in names[collection]:
+                if strict:
+                    raise KeyError(f"{collection}/{path}: the model has no "
+                                   f"'{name}'")
+                continue
+            if name in written[collection]:
                 raise KeyError(f"{collection}/{path}: '{name}' written twice")
             t = targets[name]
             src = _to_port_layout(arr)
             if tuple(src.shape) != tuple(t.shape):
-                raise ValueError(f"{collection}/{path}: shape "
-                                 f"{tuple(arr.shape)} does not fit '{name}' "
-                                 f"{tuple(t.shape)}")
+                if strict:
+                    raise ValueError(f"{collection}/{path}: shape "
+                                     f"{tuple(arr.shape)} does not fit "
+                                     f"'{name}' {tuple(t.shape)}")
+                continue
             with torch.no_grad():
-                t.copy_(torch.tensor(src))
-            written.add(name)
-    missing = sorted(set(targets) - written)
-    if missing:
+                t.copy_(torch.tensor(np.ascontiguousarray(src)))
+            written[collection].add(name)
+    missing = sorted(set(targets) - written["params"]
+                     - written["batch_stats"])
+    if missing and strict:
         raise KeyError(f"variables tree lacks {len(missing)} model tensors, "
                        f"first: {missing[:5]}")
     _invalidate(model)
+    return {c: (written[c], names[c]) for c in written}
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Write a ``tpuic`` variables tree into ``model`` in place (strict);
+    drops any folded-weight cache.  Returns ``model``."""
+    _write_tree(model, variables, strict=True)
     return model
+
+
+def merge_jax_variables(model: nn.Module, variables: Mapping) -> dict:
+    """The lenient counterpart of :func:`load_jax_variables` (``tpuic``'s
+    ``lenient_restore``, reference train.py:143-148): every leaf with a
+    counterpart of the same shape is written, every other leaf is
+    skipped, and a tensor the tree does not write keeps its value.
+    Returns ``{collection: (names written, names the model has)}`` for
+    ``params`` and ``batch_stats``."""
+    return _write_tree(model, variables, strict=False)
 
 
 def init_synthetic(model: nn.Module, seed: int = 0,

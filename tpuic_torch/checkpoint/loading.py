@@ -59,12 +59,24 @@ def load_inference_variables(cfg, *, track: str = "best", device=None,
     module docstring) with the weights of ``track``, on ``device`` (None:
     the card), in eval mode.  Raises ``FileNotFoundError`` when the track
     does not exist and ``ValueError`` when it restores only part of the
-    model."""
+    model.
+
+    ``cfg.run.init_from`` (a reference torch checkpoint) wins over the
+    track, as in ``tpuic``: the model is built from ``cfg.model`` at
+    ``cfg.data.resize_size`` with its fresh initialisation and the
+    checkpoint merged in leniently (``torch_convert.init_from_torch``)."""
     from tpuic_torch.checkpoint.convert import init_params
     from tpuic_torch.models import create_model_from_config
     from tpuic_torch.train.optimizer import make_optimizer
     from tpuic_torch.train.state import create_train_state
 
+    if cfg.run.init_from:
+        from tpuic_torch.checkpoint.torch_convert import init_from_torch
+        model = init_params(create_model_from_config(
+            cfg.model, device=device, image_size=cfg.data.resize_size), 0,
+            device=device)
+        init_from_torch(model, cfg.run.init_from, cfg.model.name, log=log)
+        return model.eval()
     mcfg, size = _resolved_model_config(cfg)
     mgr = CheckpointManager(cfg.run.ckpt_dir, mcfg.name, log=log)
     if not os.path.isdir(os.path.join(mgr.root, track)):

@@ -174,6 +174,11 @@ class RunConfig:
     ckpt_dir: str = "dtmodel/cp"
     save_period: int = 5
     resume: bool = True
+    # A reference torch checkpoint to start from (``{'state_dict': ...}``
+    # or a bare state_dict, family detected from its keys), merged
+    # leniently (``checkpoint.torch_convert``).  Inference loading takes
+    # it over the tracks; the Trainer does not take it yet.
+    init_from: str = ""
     # Metric readback cadence: one host read per this many steps.
     log_every_steps: int = 50
     seed: int = 0

@@ -4,6 +4,8 @@
 - Class mapping: the sorted subdirectory names of the TRAIN fold, mapped
   to contiguous ids; val shares the mapping.
 - ``image_id``: the file name without its extension.
+- ``allow_unlabeled=True`` (predict): a fold of loose images with no
+  class subdirectories yields label -1 and ``labeled`` False.
 - Index order is sorted and deterministic; shuffling is the sampler's
   (``pipeline.py``).
 
@@ -34,7 +36,8 @@ def _is_image(path: str) -> bool:
 class ImageFolderDataset:
     def __init__(self, data_dir: str, fold: str, resize_size: int,
                  cfg: Optional[DataConfig] = None,
-                 class_to_idx: Optional[Dict[str, int]] = None) -> None:
+                 class_to_idx: Optional[Dict[str, int]] = None,
+                 allow_unlabeled: bool = False) -> None:
         self.cfg = cfg or DataConfig()
         self.data_dir = data_dir
         self.fold = fold
@@ -62,6 +65,15 @@ class ImageFolderDataset:
                 fpath = os.path.join(cdir, fname)
                 if _is_image(fpath):
                     samples.append((fpath, self.class_to_idx[cls]))
+        # Flat (unlabeled) fold: images directly under the fold dir, no
+        # class subdirectories; label -1.  Opt-in (predict passes
+        # allow_unlabeled=True): training on label -1 would give a zero
+        # one-hot target, so for the Trainer a flat fold stays an error.
+        self.labeled = bool(samples)
+        if not samples and allow_unlabeled:
+            samples = [(os.path.join(root, f), -1)
+                       for f in sorted(os.listdir(root))
+                       if _is_image(os.path.join(root, f))]
         if not samples:
             raise ValueError(f"no images under {root}")
         self.samples = samples

@@ -28,3 +28,12 @@ from tpuic_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_fwd_plain)
 from tpuic_torch.kernels.optimizer_update import (  # noqa: F401
     lamb_update, lamb_update_plain, lars_update, lars_update_plain)
+
+
+def counted_kernels() -> tuple:
+    """Every kernel wrapper that counts its launches (``.launches``): the
+    wrappers add one where they launch their kernel, and the serve engine
+    adds a CUDA graph's launches at each replay."""
+    return (fused_conv_bn_relu, cross_entropy_fwd, cross_entropy_bwd,
+            lars_update, lamb_update, flash_attention_fwd,
+            flash_attention_bwd_dq, flash_attention_bwd_dkv)

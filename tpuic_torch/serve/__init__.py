@@ -1,4 +1,5 @@
-"""tpuic_torch.serve — the dynamic-batching inference engine of the port.
+"""tpuic_torch.serve — the dynamic-batching inference engine of the port,
+and its CLI, ``python -m tpuic_torch.serve`` (``__main__.py``).
 
     from tpuic_torch.models import create_model
     from tpuic_torch.serve import InferenceEngine
@@ -7,7 +8,7 @@
     eng = InferenceEngine(model, variables, image_size=224,
                           input_dtype=np.uint8, normalize=True,
                           buckets=(1, 8, 32))
-    eng.warmup()                      # one run per bucket
+    eng.warmup()                      # on the card: a CUDA graph per bucket
     fut = eng.submit(images_u8)       # [n,S,S,3] -> Future
     probs, order = fut.result()
 

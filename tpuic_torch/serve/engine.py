@@ -12,23 +12,40 @@ with few, large, fixed-shape calls:
 - **Padding buckets**: every device call is padded up to one of a small
   ladder of batch sizes (default 1/8/32/128).  Padding rows are sliced
   off before futures resolve — they never reach a caller.
+- **One CUDA graph per bucket** (on a CUDA device): ``warmup`` runs each
+  bucket once eagerly (the kernels build, K3 folds its weights), then
+  captures the forward — normalise, model, softmax, argsort — into a
+  ``torch.cuda.CUDAGraph`` with a static input and static outputs; a
+  bucket not warmed is captured at its first use, once.  A device call
+  copies the batch into the bucket's static input and replays the graph:
+  one launch from Python instead of one per kernel.  This is the port's
+  counterpart of ``tpuic``'s per-bucket AOT executables.  There is no
+  eager fallback on the card: a capture that fails raises, naming the
+  bucket.  On the CPU (the tests) the forward runs eagerly.
 - **Double buffering**: the batcher assembles and dispatches batch N+1
-  (host gather, pad, H2D, kernel launches, and the device->host copy
-  enqueued behind them) *before* it waits on batch N's readback.  CUDA's
-  asynchronous launch plays the role of JAX's async dispatch; the wait on
-  the batch's event in ``_resolve`` is where device errors surface.
-  The H2D copy is from pageable memory and therefore synchronous in this
-  slice: it waits for the device to finish the batch before, so the
-  overlap is the host's gather and padding of N+1 with N's device time.
+  (host gather, pad, the copy in, the replay, and the device->host copy
+  enqueued behind them) *before* it waits on batch N's readback.  The
+  wait on the batch's event in ``_resolve`` is where device errors
+  surface.  A numpy request's copy in is from pageable memory and
+  therefore synchronous: it waits for the device to finish the batch
+  before, so the overlap is the host's gather and padding of N+1 with N's
+  device time.
+- **Device-resident requests**: ``submit`` also takes a torch tensor on
+  the engine's device (a ``Loader`` batch, say).  It is copied device to
+  device into the static input — an exact fit as one copy, otherwise
+  padded on the device — and never bounces through the host.
 - **Counters**: ``tpuic_torch.serve.metrics.ServeStats`` —
   ``engine.stats.snapshot()`` is one JSON-able dict with ``tpuic``'s keys.
+  The kernels' ``.launches`` counters count replays too: each graph
+  records its launches per counter at capture, and every replay adds
+  them.
 
 The forward contract: ``forward(images[B,S,S,C] tensor on the engine's
 device) -> tensor or tuple of tensors``, batch dim first.  The default
 forward is predict's — softmax probs + class order.  Results resolve per
 request as numpy arrays sliced to the request's rows.
 
-H2D, the kernels, and the readback all run on the batcher thread's
+The copy in, the replay and the readback all run on the batcher thread's
 current stream (the device's default stream unless the caller set one),
 and the readback waits on an event recorded on that stream.
 """
@@ -105,20 +122,42 @@ def make_forward(model, *, normalize: bool = False, mean=None, std=None):
 
 class _Request:
     """One submitted request plus the host timestamps its span ledger is
-    computed from (``time.monotonic()`` reads — no device interaction)."""
+    computed from (``time.monotonic()`` reads — no device interaction).
+    ``images`` is a numpy array, or a tensor on the engine's device whose
+    producer stream ``ready`` marks (``None`` for numpy and on the CPU)."""
 
-    __slots__ = ("images", "n", "future", "t_enqueue", "t_gather")
+    __slots__ = ("images", "n", "future", "t_enqueue", "t_gather", "ready")
 
-    def __init__(self, images: np.ndarray, future: Future) -> None:
+    def __init__(self, images, future: Future, ready=None) -> None:
         self.images = images
         self.n = images.shape[0]
         self.future = future
+        self.ready = ready
         self.t_enqueue = time.monotonic()
         self.t_gather = self.t_enqueue  # stamped when the batcher pops it
 
 
 def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
+
+
+class _BucketGraph:
+    """One bucket's captured forward: the graph, its static input and
+    outputs, the launches each counted kernel makes per replay, and what
+    it holds on the device."""
+
+    __slots__ = ("graph", "static_in", "outputs", "launches", "scratch",
+                 "folded", "pool_bytes")
+
+    def __init__(self, graph, static_in, outputs, launches, scratch,
+                 folded, pool_bytes) -> None:
+        self.graph = graph
+        self.static_in = static_in
+        self.outputs = outputs
+        self.launches = launches
+        self.scratch = scratch
+        self.folded = folded
+        self.pool_bytes = pool_bytes
 
 
 class InferenceEngine:
@@ -143,7 +182,14 @@ class InferenceEngine:
         False to exercise queue semantics deterministically.
     device : where the model runs; ``None`` means the card, and raises
         when there is none.
+
+    Identity (the socket transport's ``pong`` and ready file carry it):
+    ``generation`` (0: weights are never swapped yet), ``model_digest``
+    (``checkpoint.variables_digest`` of the served model) and
+    ``variant_tags()`` (``("fp32",)``: no dtype ladder yet).
     """
+
+    generation = 0
 
     def __init__(self, model=None, variables=None, *, image_size: int,
                  channels: int = 3, input_dtype=np.float32,
@@ -158,10 +204,15 @@ class InferenceEngine:
         if self.buckets[0] < 1:
             raise ValueError(f"buckets must be >= 1, got {self.buckets}")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" names the current card; a tensor on it says cuda:N.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.max_batch = self.buckets[-1]
         self.image_size = int(image_size)
         self.channels = int(channels)
         self.input_dtype = np.dtype(input_dtype)
+        self._torch_dtype = torch.from_numpy(
+            np.zeros(0, self.input_dtype)).dtype
         self.max_wait = max(0.0, float(max_wait_ms)) / 1000.0
         if model is not None:
             # One up-front placement: the weights go to the device once,
@@ -171,10 +222,18 @@ class InferenceEngine:
             model.to(self.device).eval()
         elif variables is not None:
             raise ValueError("variables given without a model")
+        self.model = model
+        self._digest: Optional[str] = None
         self._forward = (forward_fn if forward_fn is not None
                          else make_forward(model, normalize=normalize,
                                            mean=mean, std=std))
         self.stats = stats if stats is not None else ServeStats()
+        # Requests whose rows reached the device as tensors on it, and
+        # those that came as host arrays.
+        self.device_requests = 0
+        self.host_requests = 0
+        self._graphs = {}
+        self._pool = None
         self._queue: "queue.Queue[_Request]" = queue.Queue(
             max(1, int(queue_size)))
         self._held: Optional[_Request] = None
@@ -182,6 +241,20 @@ class InferenceEngine:
         self._thread: Optional[threading.Thread] = None
         if autostart:
             self.start()
+
+    # -- identity ------------------------------------------------------
+    @property
+    def model_digest(self) -> Optional[str]:
+        """``variables_digest`` of the served model, computed once (None
+        for an engine built from a bare ``forward_fn``)."""
+        if self._digest is None and self.model is not None:
+            from tpuic_torch.checkpoint.loading import variables_digest
+            self._digest = variables_digest(self.model)
+        return self._digest
+
+    def variant_tags(self) -> tuple:
+        """The dtype ladder's tags: float32 weights only so far."""
+        return ("fp32",)
 
     # -- lifecycle -----------------------------------------------------
     def start(self) -> "InferenceEngine":
@@ -234,38 +307,74 @@ class InferenceEngine:
                          f"{self.max_batch}")
 
     def warmup(self) -> dict:
-        """Run every bucket's shape once, to the end of its readback, and
-        return ``{bucket: secs}``.  The first run builds the kernels and
-        folds the model's weights; each run is recorded through
-        ``stats.record_compile``, so ``compiles`` counts the buckets."""
+        """Make every bucket ready and return ``{bucket: secs}``, each
+        recorded through ``stats.record_compile`` (``compiles`` counts the
+        buckets).  On a CUDA device a bucket runs once eagerly, is
+        captured into its graph and replayed once to the end of its
+        readback; on the CPU it runs once eagerly.  The first run builds
+        the kernels and folds the model's weights."""
         timings = {}
         for b in self.buckets:
+            t0 = time.perf_counter()
+            if self.device.type == "cuda" and b not in self._graphs:
+                self._graphs[b] = self._capture(b)
             batch = np.zeros((b, self.image_size, self.image_size,
                               self.channels), self.input_dtype)
-            t0 = time.perf_counter()
-            self._readback(self._launch(batch))
+            self._readback(self._launch([(0, torch.from_numpy(batch))], b))
             timings[b] = round(time.perf_counter() - t0, 3)
             self.stats.record_compile(b, timings[b])
+        # The stats snapshot carries the served model's identity.
+        self.stats.model_digest = self.model_digest or ""
         return timings
+
+    def graph_memory(self) -> dict:
+        """Device bytes the captured graphs hold: their shared pool's
+        segments (what the captures added to the reserved memory), their
+        static inputs, and the K3 split-K scratch baked into them."""
+        return {"buckets": sorted(self._graphs),
+                "pool_bytes": sum(g.pool_bytes
+                                  for g in self._graphs.values()),
+                "static_input_bytes": sum(
+                    g.static_in.numel() * g.static_in.element_size()
+                    for g in self._graphs.values()),
+                "scratch_bytes": sum(
+                    t.numel() * t.element_size()
+                    for g in self._graphs.values() for t in g.scratch)}
 
     # -- request side --------------------------------------------------
     def submit(self, images, *, timeout: Optional[float] = None) -> Future:
-        """Enqueue [n,S,S,C] (or one [S,S,C] row) for inference.
+        """Enqueue [n,S,S,C] (or one [S,S,C] row) for inference: a numpy
+        array (or anything ``np.asarray`` takes), or a torch tensor of
+        ``input_dtype`` on the engine's device.  A tensor on another
+        device, the CPU included for an engine on the card, is refused
+        with ``ValueError``.
 
         Returns a Future resolving to the forward's outputs (numpy)
         sliced to this request's n rows.  When the queue is full:
         ``timeout=None`` blocks (backpressure), ``timeout=0`` raises
         ``queue.Full`` immediately, other values wait that long first.
 
-        The engine BORROWS the array until the future resolves (no
-        defensive copy): callers reusing a staging buffer must copy."""
-        arr = np.asarray(images, self.input_dtype)
+        The engine BORROWS the array or tensor until the future resolves
+        (no defensive copy): callers reusing a staging buffer must copy.
+        A tensor is read on the batcher's stream after the work its
+        caller's current stream had queued when it was submitted."""
+        if isinstance(images, torch.Tensor):
+            arr = images
+            if arr.device != self.device:
+                raise ValueError(f"tensor on {arr.device}; this engine "
+                                 f"takes tensors on {self.device} (or "
+                                 "numpy arrays)")
+            if arr.dtype != self._torch_dtype:
+                raise ValueError(f"tensor of {arr.dtype}; expected "
+                                 f"{self._torch_dtype}")
+        else:
+            arr = np.asarray(images, self.input_dtype)
         if arr.ndim == 3:
             arr = arr[None]
         expect = (self.image_size, self.image_size, self.channels)
-        if arr.ndim != 4 or arr.shape[1:] != expect:
+        if arr.ndim != 4 or tuple(arr.shape[1:]) != expect:
             raise ValueError(f"expected [n,{expect[0]},{expect[1]},"
-                             f"{expect[2]}] images, got {arr.shape}")
+                             f"{expect[2]}] images, got {tuple(arr.shape)}")
         if arr.shape[0] == 0:
             raise ValueError("empty request")
         if arr.shape[0] > self.max_batch:
@@ -273,8 +382,12 @@ class InferenceEngine:
                              f"bucket {self.max_batch}; chunk it caller-side")
         if self._stop.is_set():
             raise RuntimeError("engine is closed")
+        ready = None
+        if isinstance(arr, torch.Tensor) and arr.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(arr.device))
         fut: Future = Future()
-        req = _Request(arr, fut)
+        req = _Request(arr, fut, ready)
         try:
             self._queue.put(req, timeout=timeout)
         except queue.Full:
@@ -297,20 +410,137 @@ class InferenceEngine:
         return self._queue.qsize()
 
     # -- device side ---------------------------------------------------
-    def _launch(self, batch: np.ndarray):
-        """H2D, the forward, and the device->host copy, all enqueued on
-        the current stream; returns ``(host tensors, event)`` where the
-        event marks the copy's end (``None`` on the CPU)."""
-        x = torch.from_numpy(batch).to(self.device)
-        out = _as_tuple(self._forward(x))
+    def _capture(self, bucket: int) -> _BucketGraph:
+        """Capture bucket ``bucket``'s forward into a CUDA graph.  Raises
+        ``RuntimeError`` naming the bucket when the run before it or the
+        capture fails: the card has no eager fallback."""
+        from tpuic_torch.kernels import conv_bn_relu, counted_kernels
+        dev = self.device
+        static_in = torch.zeros(
+            (bucket, self.image_size, self.image_size, self.channels),
+            dtype=self._torch_dtype, device=dev)
+        # Hazard, K3's split-K scratch: it is keyed by (device, stream) and
+        # grows on demand, and a capture bakes its addresses into the
+        # graph.  Each bucket therefore captures on a stream of its own,
+        # after one eager run on that stream, which sizes the stream's
+        # scratch for exactly this bucket's convs; the capture then finds
+        # it large enough and allocates none, and nothing else ever runs
+        # on that stream, so the scratch is never replaced.  The graph
+        # keeps a reference to it all the same.  The counters start
+        # every replay at zero: the kernel leaves each it took at zero,
+        # and the eager run left them so.  Two graphs never share a
+        # scratch, and all replays go to the batcher's one stream.
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        counters = counted_kernels()
+        try:
+            # The eager run builds the kernels, folds K3's weights and
+            # makes the forward's device constants, none of which a
+            # capture may do.
+            with torch.cuda.stream(stream):
+                _as_tuple(self._forward(static_in))
+            stream.synchronize()
+            before = [fn.launches for fn in counters]
+            if self._pool is None:
+                # Hazard, memory: one pool for every bucket's graph.  That
+                # is safe because the buckets' graphs never run at once
+                # and each is used as one unit: the batcher enqueues the
+                # copy into a static input, the replay and the copy out of
+                # the static outputs back to back on its one stream, so a
+                # block that two graphs share (an intermediate of one that
+                # is a static tensor of another) is free again before the
+                # next unit's copy in.  Every graph's static tensors stay
+                # referenced here, so no later capture reuses them.
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            # Hazard, flags: the forward sets its TF32 flags itself
+            # (``make_forward`` turns TF32 off for the call), inside the
+            # capture as in the eager run, so the captured kernels are the
+            # ones the eager forward chooses.
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved(dev)
+                outputs = _as_tuple(self._forward(static_in))
+            pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of bucket {bucket} "
+                               f"failed: {e}") from e
+        # Hazard, launch counters: they count in Python, so during the
+        # capture, which launches nothing.  The capture's counts become
+        # the graph's launches per replay and are taken back off.
+        launches = []
+        for fn, b in zip(counters, before):
+            n = fn.launches - b
+            if n:
+                fn.launches = b
+                launches.append((fn, n))
+        scratch = conv_bn_relu._SCRATCH.get(
+            (static_in.get_device(), stream.cuda_stream))
+        scratch = (tuple(t for t in (scratch.ws, scratch.counters)
+                         if t is not None) if scratch is not None else ())
+        # The graph also bakes in the addresses of K3's folded weights,
+        # which the model drops when it refolds (``invalidate_packed``):
+        # the graph holds them, so a replay never reads freed memory.
+        folded = tuple(m._packed for m in (self.model.modules()
+                                           if self.model is not None else ())
+                       if getattr(m, "_packed", None) is not None)
+        return _BucketGraph(graph, static_in, outputs, tuple(launches),
+                            scratch, folded, pool_bytes)
+
+    def _graph_for(self, bucket: int) -> _BucketGraph:
+        g = self._graphs.get(bucket)
+        if g is None:
+            # A bucket not warmed is captured at its first use, once.
+            t0 = time.perf_counter()
+            g = self._graphs[bucket] = self._capture(bucket)
+            self.stats.record_compile(bucket,
+                                      round(time.perf_counter() - t0, 3))
+        return g
+
+    def replay(self, bucket: int, x: Optional[torch.Tensor] = None):
+        """Copy ``x`` ([bucket, S, S, C] on the card; None keeps the
+        static input as it is) into bucket ``bucket``'s static input,
+        replay its graph on the current stream and return the static
+        outputs, which the next replay of the bucket overwrites.  Adds
+        the graph's launches to each kernel's counter."""
+        g = self._graph_for(bucket)
+        if x is not None:
+            g.static_in.copy_(x)
+        g.graph.replay()
+        for fn, n in g.launches:
+            fn.launches += n
+        return g.outputs
+
+    def _launch(self, parts, bucket: int):
+        """The copy in, the forward and the device->host copy, all
+        enqueued on the current stream; returns ``(host tensors, event)``
+        where the event marks the copy's end (``None`` on the CPU).
+        ``parts`` are ``(row offset, tensor)`` pieces of the batch, on the
+        host or on the engine's device; rows past the last piece are
+        padding (zeros)."""
+        rows = sum(t.shape[0] for _, t in parts)
         if self.device.type != "cuda":
-            return out, None
+            if len(parts) == 1 and rows == bucket:
+                x = parts[0][1]
+            else:
+                x = torch.zeros((bucket,) + tuple(parts[0][1].shape[1:]),
+                                dtype=parts[0][1].dtype)
+                for off, t in parts:
+                    x[off:off + t.shape[0]] = t
+            return _as_tuple(self._forward(x.to(self.device))), None
+        g = self._graph_for(bucket)
+        stream = torch.cuda.current_stream(self.device)
+        for off, t in parts:
+            g.static_in[off:off + t.shape[0]].copy_(t)
+        if rows < bucket:
+            g.static_in[rows:].zero_()
+        out = self.replay(bucket)
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in out)
         for h, t in zip(host, out):
             h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        event.record(stream)
         return host, event
 
     @staticmethod
@@ -350,47 +580,68 @@ class InferenceEngine:
             rows += nxt.n
         return reqs
 
+    def _stage(self, reqs):
+        """``(requests kept, bucket, (offset, tensor) parts)``.  Host
+        arrays are gathered into one padded host batch (one copy to the
+        device); tensors on the device go in as they are, padded on the
+        device.
+
+        Error isolation: a request whose array fails the staging copy gets
+        the exception on ITS future and is dropped from the batch — its
+        batchmates still dispatch and resolve.  The survivors may then fit
+        a smaller bucket (rows packed contiguously from 0)."""
+        bucket = self.bucket_for(sum(r.n for r in reqs))
+        hosts = [r for r in reqs if not isinstance(r.images, torch.Tensor)]
+        if len(hosts) < len(reqs):
+            parts, off = [], 0
+            for r in reqs:
+                t = (r.images if isinstance(r.images, torch.Tensor)
+                     else torch.from_numpy(np.ascontiguousarray(r.images)))
+                if r.ready is not None:
+                    torch.cuda.current_stream(self.device).wait_event(
+                        r.ready)
+                parts.append((off, t))
+                off += r.n
+            self.device_requests += len(reqs) - len(hosts)
+            self.host_requests += len(hosts)
+            return reqs, bucket, parts
+        if len(reqs) == 1 and reqs[0].n == bucket:
+            self.host_requests += 1
+            return reqs, bucket, [(0, torch.from_numpy(
+                np.ascontiguousarray(reqs[0].images)))]  # no staging copy
+        batch = np.zeros((bucket, self.image_size, self.image_size,
+                          self.channels), self.input_dtype)
+        off, ok = 0, []
+        for r in reqs:
+            try:
+                batch[off:off + r.n] = r.images
+            except Exception as e:
+                if not r.future.cancelled():
+                    r.future.set_exception(e)
+                continue
+            ok.append(r)
+            off += r.n
+        if not ok:
+            return None
+        bucket = self.bucket_for(off)
+        self.host_requests += len(ok)
+        return ok, bucket, [(0, torch.from_numpy(batch[:bucket]))]
+
     def _dispatch(self, reqs):
         """Pad to bucket, then launch.  Returns the in-flight batch (None
         when every request failed staging); results are NOT read back
         here, so the device works on this batch while the batcher
-        assembles the next one.
-
-        Error isolation: a request whose array fails the staging copy gets
-        the exception on ITS future and is dropped from the batch — its
-        batchmates still dispatch and resolve."""
+        assembles the next one."""
         t_batch = time.monotonic()  # batch closed: formation span ends
+        staged = self._stage(reqs)
+        if staged is None:
+            return None
+        reqs, bucket, parts = staged
         rows = sum(r.n for r in reqs)
-        bucket = self.bucket_for(rows)
-        if len(reqs) == 1 and reqs[0].n == bucket:
-            batch = reqs[0].images  # exact fit: no staging copy
-        else:
-            batch = np.zeros((bucket, self.image_size, self.image_size,
-                              self.channels), self.input_dtype)
-            off = 0
-            ok = []
-            for r in reqs:
-                try:
-                    batch[off:off + r.n] = r.images
-                except Exception as e:
-                    if not r.future.cancelled():
-                        r.future.set_exception(e)
-                    continue
-                ok.append(r)
-                off += r.n
-            if not ok:
-                return None
-            if off < rows:
-                # Some request dropped: the survivors may fit a smaller
-                # bucket (rows packed contiguously from 0).
-                reqs = ok
-                bucket = self.bucket_for(off)
-                batch = batch[:bucket]
-                rows = off
         t_staged = time.monotonic()  # staging (pad/copy) span ends
         self.stats.record_dispatch(bucket, rows,
                                    [t_staged - r.t_enqueue for r in reqs])
-        launched = self._launch(np.ascontiguousarray(batch))
+        launched = self._launch(parts, bucket)
         return reqs, launched, bucket, (t_batch, t_staged, time.monotonic())
 
     def _resolve(self, inflight) -> None:

@@ -89,6 +89,7 @@ def unported_settings(cfg: Config) -> list:
         ("mesh.model", mesh.model > 1),
         ("mesh.fsdp", mesh.fsdp),
         ("mesh.zero1", mesh.zero1),
+        ("run.init_from", bool(cfg.run.init_from)),
     ]
     return [name for name, on in checks if on]
 
