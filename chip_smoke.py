@@ -45,8 +45,30 @@ the first phase that fails:
    Then at every bucket a graph replay against an eager forward of the
    same batch (the same bits, or within 1e-6, as reported), and a batch-8
    device call replayed and eager, timed from Python, on the card alone
-   and as host cost per call.
-6. xent   — the fused cross-entropy forward and backward kernels (K1) at
+   and as host cost per call.  The requests' numpy rows reach the card
+   through two page-locked staging buffers a bucket (their bytes are in
+   the graph-memory line).
+6. swap   — the engine's hot swap through the graphs: ResNet-50 weights A
+   (``[model]``'s) served to eight closed-loop clients and swapped to B
+   (another seed) after a third of SWAP_REQUESTS; traffic goes on until
+   a third more are submitted after the swap returned.  Every answer is A's
+   or B's within 1e-5, every one submitted after the swap B's, and the
+   kernel launches 53 times per device call and per standby capture.  Then
+   three swaps with traffic stopped (A, B, A): each bucket's replay
+   launches 53 kernels and equals an eager forward of the weights just
+   swapped in bit for bit (K3's folded weights are refolded in place), and
+   the graph memory and allocated bytes after the fourth swap equal those
+   after the second.  Each swap's duration, captures and the host time it
+   held the batcher, and the latency of requests that span the flip, are
+   printed.
+7. admission — priorities, quotas and deadline shedding: a ResNet-50
+   engine with queue 32 and an ``AdmissionController`` quota on a flood
+   tenant, four threads flooding ``low`` requests of 8 images and one
+   thread sending ``high`` requests with ``deadline_ms`` (every fifth too
+   tight to meet) for ADMISSION_S: accepted + rejected == offered, the
+   causes queue_full, quota and deadline all seen, no ``high`` request
+   evicted, ``high``'s p50 latency below ``low``'s.
+8. xent   — the fused cross-entropy forward and backward kernels (K1) at
    [128, 1000] and [128, 7], label smoothing 0 and 0.1, against their
    plain versions (rtol 1e-5 / atol 1e-6: float32 row sums in another
    order), plus class-weighted, masked cases with an out-of-range label
@@ -60,7 +82,7 @@ the first phase that fails:
    replays of a CUDA graph of 100 calls) for K1f, K1b, both their earlier
    designs and ``F.cross_entropy``'s forward and forward + backward (its
    backward alone reported as the difference of the two).
-7. optim  — the fused LARS and LAMB update kernels (K2) over the whole
+9. optim  — the fused LARS and LAMB update kernels (K2) over the whole
    ResNet-50 + head parameter list (167 leaves, flax-default init, so the
    zero BN biases take the trust = 1 branch), against their plain versions
    (rtol 1e-5 / atol 1e-7: the trust-ratio norms are summed in another
@@ -74,7 +96,7 @@ the first phase that fails:
    computes a LARS or LAMB update).  Each also through
    its earlier design (``optimizer_update_bench``), held and timed the
    same way.
-8. train  — ``Trainer`` on a synthetic 224x224 ImageFolder written by
+10. train  — ``Trainer`` on a synthetic 224x224 ImageFolder written by
    ``tpuic_torch.data.synthetic``: ResNet-50, float32, batch 128, LARS lr
    4.8 / wd 1e-4 / 5 warmup epochs of a 90-epoch schedule, label smoothing
    0.1, no class weights, fused loss and fused optimizer, for 12 steps, then
@@ -87,7 +109,7 @@ the first phase that fails:
    losses agree within rtol 1e-3.  Last, a 3-step LAMB run at
    batch 32 through the Trainer, counted the same way, puts K2 LAMB on the
    path.
-9. ckpt   — the checkpoint (``tpuic_torch/checkpoint/manager.py``) with
+11. ckpt   — the checkpoint (``tpuic_torch/checkpoint/manager.py``) with
    ``train``'s configuration: a ``Trainer`` takes 3 steps and saves
    ``best`` and ``latest``; a fresh ``Trainer`` restores them, and every
    parameter, BN buffer and K2 optimizer-state tensor must equal the saved
@@ -96,19 +118,27 @@ the first phase that fails:
    byte of ``latest``'s payload flipped the restore must fall back to
    ``best``, bit for bit.  The payload's bytes and the host and disk
    seconds to snapshot, commit and restore are reported.
-10. serve-cli — ``python -m tpuic_torch.serve --model auto`` as a
+12. serve-cli — ``python -m tpuic_torch.serve --model auto`` as a
    subprocess on ``ckpt``'s ResNet-50 checkpoint: 48 image files of the
    synthetic folder over stdin JSONL, each record's top-5 probabilities
    within 1e-5 of a direct forward of the same decoded pixels; then a
    ``--listen`` server: ready file, a ping answered with the model's
    digest, requests by path and by b64 array, a burst and SIGTERM, after
    which it exits 0 with every request answered.
-11. predict — ``python -m tpuic_torch.predict``'s ``main`` over the val
+13. swap-cli — ``{"op": "swap"}`` lines through a ``--listen`` server on
+   that checkpoint: a swap to ``synthetic_seed`` 1 with requests in flight (a
+   ``swap_result`` of generation 1; the next pong and the ready file carry
+   its digest), a swap back to the checkpoint by ``ckpt_dir`` (answers
+   equal a direct forward within 1e-5, the digest ``serve-cli``'s), a swap
+   from a copy with one byte flipped (a typed ``swap_corrupt`` record, the
+   digest and generation unchanged), then SIGTERM: exit 0, every request
+   answered.
+14. predict — ``python -m tpuic_torch.predict``'s ``main`` over the val
    fold from that checkpoint's ``best`` track at the ``Trainer``'s val
    batch: its accuracy equals the ``Trainer``'s val accuracy for the save
    exactly, every batch reaches the engine as a tensor on the card, and
    K3 launches 53 times per device call.
-12. attn  — the flash-attention kernels (K4: forward, dq, dk/dv) at the
+15. attn  — the flash-attention kernels (K4: forward, dq, dk/dv) at the
    ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64], on strided
    q/k/v views of one qkv projection, against their plain versions
    (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2); in float32 the
@@ -125,15 +155,17 @@ the first phase that fails:
    no one call computes either alone; the forward and SDPA's also on the
    card alone.  The bound is at the rate of the products each kernel
    issues, 3xTF32 or bf16 MMAs (the float32 CUDA-core bound beside it).
-13. vit   — ``create_model("vit-b16", 1000, dtype="float32",
+16. vit   — ``create_model("vit-b16", 1000, dtype="float32",
    attention="flash")`` with seeded synthetic weights: its logits at batch
    4 against the same weights under ``attention="dense"`` (TF32 off,
    atol/rtol 1e-3), and exactly 12 K4 forward launches per forward.
-14. vit-serve — the engine serving that model as ``serve`` serves
+17. vit-serve — the engine serving that model as ``serve`` serves
    ResNet-50 (graphs, their memory, graph against eager, the batch-8
    times), under torch's default flags: 12 K4 forward launches per device
    call.
-15. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
+18. vit-swap — ``swap``'s traffic and checks on that model (B another
+   seed), with one stopped swap: 12 K4 forward launches per device call.
+19. vit-train — ``Trainer`` on the ImageFolder of ``train``: ViT-B/16 with
    the repo's ViT recipe (recipes/README.md, section 4: AdamW lr 3e-4, wd
    0.05, 10 warmup epochs of 300, label smoothing 0.1, clipping at 1.0,
    batch 64), ``attention="flash"`` and the fused loss, for 12 steps, then
@@ -184,6 +216,9 @@ MODEL_TOL = 1e-3
 SERVE_TOL = 1e-5
 GRAPH_TOL = 1e-6   # a graph replay against an eager forward, when not bitwise
 CLI_IMAGES = 48    # image files the serve CLI answers over stdin
+SWAP_REQUESTS = 160  # closed-loop requests in each [swap] phase
+FLOOD_RPS = 1000   # the [admission] flood tenant's quota, requests/s
+ADMISSION_S = 3.0  # how long the [admission] flood runs
 XENT_RTOL, XENT_ATOL = 1e-5, 1e-6
 OPT_RTOL, OPT_ATOL = 1e-5, 1e-7
 TRAIN_LOSS_RTOL = 1e-3
@@ -563,6 +598,23 @@ def phase_model(gen: torch.Generator):
     return model
 
 
+def resnet50_b(seed: int):
+    """[model]'s ResNet-50 with other seeded weights: [swap]'s B."""
+    from tpuic_torch.checkpoint import init_synthetic
+    from tpuic_torch.models import create_model
+    return init_synthetic(create_model("resnet50", 1000, dtype="float32",
+                                       fused_conv_bn=True), seed=seed).eval()
+
+
+def vit_b(seed: int):
+    """[vit]'s ViT-B/16 with other seeded weights."""
+    from tpuic_torch.checkpoint import init_synthetic
+    from tpuic_torch.models import create_model
+    return init_synthetic(create_model(VIT_MODEL, 1000, dtype="float32",
+                                       attention="flash", image_size=IMAGE),
+                          seed=seed).eval()
+
+
 def unfused_bucket_check(model) -> dict:
     """The unfused (cuDNN) ResNet-50 branch under torch's default flags:
     one image's row from a batch-1 forward against its row of a batch-32
@@ -601,6 +653,34 @@ def unfused_bucket_check(model) -> dict:
                       f"row's probabilities at batch 1 and in batch "
                       f"{SERVE_BATCH} differ by {served_diff} > {SERVE_TOL}")
     return out
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Python's cyclic collections in the block, which stop every thread
+    while they run: the yielded dict gets, on exit, their count by
+    generation and the longest and total pause in ms."""
+    started, pauses = {}, []
+
+    def note(phase, info):
+        if phase == "start":
+            started[threading.get_ident()] = time.perf_counter()
+        elif threading.get_ident() in started:
+            pauses.append((info["generation"], time.perf_counter()
+                           - started.pop(threading.get_ident())))
+
+    out = {}
+    gc.callbacks.append(note)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(note)
+        out.update({"by_generation": {str(g): sum(1 for p in pauses
+                                                   if p[0] == g)
+                                      for g in (0, 1, 2)},
+                    "max_ms": 1000.0 * max((p[1] for p in pauses),
+                                           default=0.0),
+                    "total_ms": 1000.0 * sum(p[1] for p in pauses)})
 
 
 def phase_serve(model, n_requests: int, seed: int, smi: str,
@@ -645,10 +725,11 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(t,))
                for t in range(n_clients)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
+    with gc_pauses() as pauses:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
     wall = time.perf_counter() - t0
     counts = read_counts()
     launches = counts[counter]
@@ -687,6 +768,7 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
         "images_per_s_wall": snap["images"] / wall,
         "pad_efficiency": snap["pad_efficiency"],
         "batch_hist": snap["batch_hist"], "span_ms": snap["span_ms"],
+        "gc_during_traffic": pauses,
         "max_abs_err_vs_direct": worst, "graph_memory": memory,
         "graphs": graphs, "card": smi}))
     snap["graph_memory"], snap["graphs"] = memory, graphs
@@ -737,6 +819,300 @@ def graph_checks(eng, model, tag: str) -> dict:
     out = {"replay_vs_eager": rows, "batch8_forward": times}
     log(tag, "graphs: " + json.dumps(out))
     return out
+
+
+def _pct(values, q) -> float:
+    """Nearest-rank quantile in ms of ``values`` (seconds); None if empty."""
+    if not values:
+        return None
+    v = sorted(values)
+    return 1000.0 * v[max(0, min(len(v) - 1, math.ceil(q / 100 * len(v))
+                                 - 1))]
+
+
+def phase_swap(model, other, n_requests: int, seed: int, smi: str,
+               tag: str = "swap", name: str = "resnet50",
+               counter: str = "conv_bn_relu", per_call: int = 0,
+               stopped: int = 3) -> dict:
+    """Hot swap on the card through the per-bucket graphs.  ``model``
+    holds weights A and ``other`` weights B (each a direct, eager
+    reference); the engine serves a copy of A to eight closed-loop
+    clients; once ``n_requests // 3`` are answered the main thread swaps
+    to B, and the clients go on until ``n_requests // 3`` submitted after
+    the swap returned are answered.  Every request must be answered, with
+    A's or B's probabilities (SERVE_TOL), and every request submitted
+    after ``swap_weights`` returned with B's; A's and B's answers to each
+    request must lie more than 2 * SERVE_TOL apart, so that the nearer
+    one names the weights that served it.  ``counter`` must launch
+    ``per_call`` times per device call and per capture of the standby's
+    graphs (the eager run before each).  Then, traffic stopped,
+    ``stopped`` more swaps
+    alternating A and B: after each, every bucket's replay must launch
+    ``per_call`` kernels and equal bit for bit an eager forward of the
+    weights just swapped in (K3's folded weights refolded in place), and
+    the graph memory after the fourth swap must equal that after the
+    second."""
+    import copy
+
+    from tpuic_torch.serve import InferenceEngine, make_forward
+    per_call = per_call or len(resnet50_launches(1))
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (64, IMAGE, IMAGE, 3), dtype=np.uint8)
+    weights = {"A": model, "B": other}
+    direct = {}
+    for k, m in weights.items():
+        fwd = make_forward(m, normalize=True)
+        direct[k] = np.concatenate([
+            fwd(torch.from_numpy(pool[i:i + SERVE_BATCH]).cuda())[0]
+            .cpu().numpy() for i in range(0, pool.shape[0], SERVE_BATCH)])
+    eng = InferenceEngine(copy.deepcopy(model), None, image_size=IMAGE,
+                          input_dtype=np.uint8, normalize=True,
+                          buckets=(1, 8, 32))
+    eng.warmup()
+    eng.stats.reset()
+    reset_counts()
+    results, errors, lock = [], [], threading.Lock()
+    stop, offered = threading.Event(), [0] * 8
+
+    def client(tid):
+        r = np.random.default_rng(seed + 1 + tid)
+        try:
+            while not stop.is_set():
+                n = int(r.integers(1, 9))
+                lo = int(r.integers(0, pool.shape[0] - n + 1))
+                offered[tid] += 1
+                t0 = time.perf_counter()
+                out = eng.submit(pool[lo:lo + n]).result(timeout=600)
+                with lock:
+                    results.append((t0, time.perf_counter(), lo, n, out[0]))
+        except Exception as e:  # reported below; the phase fails
+            errors.append(repr(e))
+
+    def answered(since=-math.inf):
+        with lock:
+            return sum(r[0] > since for r in results)
+
+    # Traffic from eight closed-loop clients until n_requests // 3 are
+    # answered, then the swap, then until n_requests // 3 more submitted
+    # after the swap returned are answered.
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(len(offered))]
+    for t in threads:
+        t.start()
+    while answered() < n_requests // 3 and not errors:
+        time.sleep(0.001)
+    t_swap0 = time.perf_counter()
+    first = eng.swap_weights(other.state_dict())
+    t_swap1 = time.perf_counter()
+    while answered(t_swap1) < n_requests // 3 and not errors \
+            and time.perf_counter() - t_swap1 < 300:
+        time.sleep(0.001)
+    stop.set()
+    for t in threads:
+        t.join(timeout=600)
+    counts = read_counts()
+    eng.close()
+    snap = eng.stats.snapshot()
+    if errors or any(t.is_alive() for t in threads) \
+            or len(results) != sum(offered) \
+            or answered(t_swap1) < n_requests // 3:
+        fail(tag, f"{len(results)} of {sum(offered)} answered, "
+                  f"{answered(t_swap1)} submitted after the swap; client "
+                  f"errors: {errors[:3]}")
+    worst, by_gen, spanning = {"A": 0.0, "B": 0.0}, {"A": 0, "B": 0}, []
+    apart = math.inf  # the least max |A - B| over a request's rows
+    for t0, t1, lo, n, probs in results:
+        errs = {k: float(np.abs(probs - d[lo:lo + n]).max())
+                for k, d in direct.items()}
+        gen = min(errs, key=errs.get)
+        # Only where A's and B's answers lie more than twice the
+        # tolerance apart does "within SERVE_TOL of one" name which.
+        dist = float(np.abs(direct["A"][lo:lo + n]
+                            - direct["B"][lo:lo + n]).max())
+        apart = min(apart, dist)
+        if errs[gen] > SERVE_TOL or (t0 > t_swap1 and gen != "B") \
+                or dist <= 2 * SERVE_TOL:
+            fail(tag, f"request {lo}:{n} submitted at {t0 - t_swap1:+.4f} s "
+                      f"from the swap's return: max abs err against A "
+                      f"{errs['A']}, against B {errs['B']}, A and B "
+                      f"{dist} apart (tolerance {SERVE_TOL}, after the "
+                      f"swap only B, A and B more than twice it apart)")
+        worst[gen] = max(worst[gen], errs[gen])
+        by_gen[gen] += 1
+        if t0 <= t_swap1 and t1 >= t_swap0:
+            spanning.append(t1 - t0)
+    want = per_call * (snap["device_calls"] + first["prewarmed"])
+    others = {k: v for k, v in counts.items() if k != counter and v}
+    if counts[counter] != want or others or first["generation"] != 1:
+        fail(tag, f"{counts[counter]} {counter} launches for "
+                  f"{snap['device_calls']} device calls and "
+                  f"{first['prewarmed']} captures (expected {want}), "
+                  f"other kernels {others}; swap {first}")
+    swaps, memory = [first], []
+    x = torch.from_numpy(rng.integers(0, 256, (SERVE_BATCH, IMAGE, IMAGE, 3),
+                                      dtype=np.uint8)).cuda()
+    # The eager references' device constants exist before the first
+    # reading of the memory, so that the readings compare like with like.
+    eagers = {k: make_forward(m, normalize=True) for k, m in weights.items()}
+    for fwd in eagers.values():
+        fwd(x[:1])
+    for i in range(stopped):
+        k = "A" if i % 2 == 0 else "B"
+        res = eng.swap_weights(weights[k].state_dict())
+        torch.cuda.synchronize()
+        memory.append({**eng.graph_memory(),
+                       "allocated": torch.cuda.memory_allocated()})
+        eager = eagers[k]
+        for b in eng.buckets:
+            reset_counts()
+            got = [t.clone() for t in eng.replay(b, x[:b])]
+            launched = read_counts()
+            ref = eager(x[:b])
+            if launched != expect(**{counter: per_call}) or not (
+                    torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])):
+                fail(tag, f"swap {res['generation']} to {k}, bucket {b}: "
+                          f"launches {launched}, replay against an eager "
+                          f"forward of {k}: max abs diff "
+                          f"{float((got[0] - ref[0]).abs().max())} (must "
+                          f"be bitwise equal)")
+            del got, ref  # the next swap's memory reading must not see them
+        swaps.append(res)
+    if stopped >= 3 and memory[2] != memory[0]:
+        fail(tag, f"graph memory after the fourth swap {memory[2]} differs "
+                  f"from that after the second {memory[0]}")
+    if any(not r["reused_executables"] for r in swaps[1:]):
+        fail(tag, f"a swap after the first captured again: {swaps}")
+    lat = [t1 - t0 for t0, t1, *_ in results]
+    row = {"model": name, "requests": len(results),
+           "submitted_after_the_swap": answered(t_swap1),
+           "answered_by": by_gen,
+           "max_abs_err_vs_direct": worst, "least_a_b_distance": apart, "device_calls":
+           snap["device_calls"], "kernel": counter,
+           "kernel_launches": counts[counter],
+           "swaps": [{k: r[k] for k in ("generation", "duration_s",
+                                        "reused_executables", "prewarmed",
+                                        "batcher_hold_s")} for r in swaps],
+           "latency_ms": {"p50": _pct(lat, 50), "p99": _pct(lat, 99)},
+           "spanning_the_flip": {"requests": len(spanning),
+                                 "p50_ms": _pct(spanning, 50),
+                                 "p99_ms": _pct(spanning, 99)},
+           "replay_vs_eager_after_each_stopped_swap": "bits_equal",
+           "graph_memory_after_swaps_2_3_4": memory, "card": smi}
+    log(tag, json.dumps(row))
+    del eng
+    free()
+    return row
+
+
+def phase_admission(model, seed: int, smi: str) -> dict:
+    """Priorities, quotas and deadline shedding on the card: a
+    ResNet-50 engine (queue 32) with an ``AdmissionController`` quota
+    on the ``flood`` tenant, four threads flooding ``low`` requests of 8
+    images, and one thread sending ``high`` requests of one image with
+    ``deadline_ms`` (every fifth tight enough to be shed).  Accepted +
+    rejected must equal offered, the causes ``queue_full``, ``quota``
+    and ``deadline`` must all be seen, no ``high`` request may be
+    evicted, and ``high``'s p50 latency must be below ``low``'s."""
+    from tpuic_torch.serve import InferenceEngine
+    from tpuic_torch.serve.admission import (AdmissionController,
+                                             AdmissionError, parse_quotas)
+    tag = "admission"
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (64, IMAGE, IMAGE, 3), dtype=np.uint8)
+    ctl = AdmissionController(parse_quotas([f"flood={FLOOD_RPS}"]))
+    eng = InferenceEngine(model, None, image_size=IMAGE,
+                          input_dtype=np.uint8, normalize=True,
+                          buckets=(1, 8, 32), queue_size=32, admission=ctl)
+    eng.warmup()
+    eng.stats.reset()
+    reset_counts()
+    outcomes, lock, stop = {"low": [], "high": []}, threading.Lock(), \
+        threading.Event()
+
+    def note(cls, out, secs):
+        with lock:
+            outcomes[cls].append((out, secs))
+
+    def offer(cls, images, **sla):
+        t0 = time.perf_counter()
+        try:
+            fut = eng.submit(images, timeout=0, priority=cls, **sla)
+        except AdmissionError as e:
+            note(cls, e.cause, None)
+            return
+
+        def done(f):
+            try:
+                f.result()
+                out = "ok"
+            except AdmissionError as e:
+                out = e.cause
+            except Exception as e:  # reported below; the phase fails
+                out = repr(e)
+            note(cls, out, time.perf_counter() - t0)
+
+        fut.add_done_callback(done)
+
+    def flood(tid):
+        r = np.random.default_rng(seed + 10 + tid)
+        while not stop.is_set():
+            lo = int(r.integers(0, pool.shape[0] - 8))
+            offer("low", pool[lo:lo + 8], tenant="flood")
+            time.sleep(0.0005)
+
+    def high():
+        i = 0
+        while not stop.is_set():
+            offer("high", pool[i % 64:i % 64 + 1], tenant="app",
+                  deadline_ms=0.5 if i % 5 == 4 else 2000.0)
+            i += 1
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=flood, args=(t,)) for t in range(4)]
+    threads.append(threading.Thread(target=high))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(ADMISSION_S)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    eng.close()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    snap = eng.stats.snapshot()
+    offered = sum(len(v) for v in outcomes.values())
+    causes = {c for v in outcomes.values() for c, _ in v if c != "ok"}
+    lat = {cls: [s for c, s in v if c == "ok"] for cls, v in outcomes.items()}
+    p50 = {cls: _pct(v, 50) for cls, v in lat.items()}
+    bad = [c for v in outcomes.values() for c, _ in v
+           if c not in ("ok", "queue_full", "quota", "deadline")]
+    evicted_high = sum(c == "queue_full" for c, _ in outcomes["high"])
+    per_call = len(resnet50_launches(1))
+    if (bad or snap["requests"] + snap["rejected"] != offered
+            or not {"queue_full", "quota", "deadline"} <= causes
+            or evicted_high or None in p50.values()
+            or not p50["high"] < p50["low"]
+            or counts != expect(conv_bn_relu=per_call
+                                * snap["device_calls"])):
+        fail(tag, f"offered {offered}, accepted {snap['requests']}, "
+                  f"rejected {snap['rejected']} {snap['rejected_by']}; "
+                  f"causes seen {sorted(causes)}, unexpected {bad[:3]}; "
+                  f"high evicted {evicted_high}; p50 ms {p50}; launches "
+                  f"{counts} for {snap['device_calls']} device calls")
+    row = {"seconds": wall, "offered": offered,
+           "accepted": snap["requests"], "rejected": snap["rejected"],
+           "rejected_by": snap["rejected_by"],
+           "latency_ms": {cls: {"requests": len(v), "p50": _pct(v, 50),
+                                "p99": _pct(v, 99)}
+                          for cls, v in lat.items()},
+           "images_per_s": snap["throughput_images_per_sec"],
+           "device_calls": snap["device_calls"],
+           "conv_bn_relu_launches": counts["conv_bn_relu"],
+           "quota": ctl.state(), "card": smi}
+    log(tag, json.dumps(row))
+    return row
 
 
 def xent_rows_ignore_batch(K1, gen: torch.Generator) -> dict:
@@ -1593,6 +1969,145 @@ def phase_serve_cli(root: str, ckpt_dir: str, smi: str) -> dict:
     return row
 
 
+def phase_swap_cli(root: str, ckpt_dir: str, digest: str, smi: str) -> dict:
+    """Swap lines through ``python -m tpuic_torch.serve --listen`` on
+    ``[ckpt]``'s checkpoint: a ping; requests with ``{"op": "swap",
+    "synthetic_seed": 1}`` among them, answered by a ``swap_result`` of
+    generation 1 and then a pong and a ready file with its digest; a swap
+    back to the checkpoint by ``ckpt_dir``, after which answers equal a
+    direct forward of the checkpoint's model (SERVE_TOL) and the digest
+    is ``[serve-cli]``'s again; a swap from a copy of the checkpoint with
+    one byte flipped, refused with a typed ``swap_corrupt`` record while
+    the digest and generation stay; then a burst, SIGTERM, exit 0 and
+    every request answered."""
+    import glob
+    import shutil
+    import signal
+    import socket
+
+    from tpuic_torch.checkpoint.manager import PAYLOAD
+    from tpuic_torch.serve import make_forward, wire
+    from tpuic_torch.serve.__main__ import _load_image
+    tag = "swap-cli"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    paths = sorted(glob.glob(os.path.join(root, "val", "*", "*.png")))[:16]
+    model, names = _ckpt_model(ckpt_dir)
+    index = {v: k for k, v in names.items()}
+    x = torch.from_numpy(np.stack([_load_image(p, IMAGE)
+                                   for p in paths])).cuda()
+    probs = make_forward(model, normalize=True)(x)[0].cpu().numpy()
+    del model, x
+    free()
+    flipped = os.path.join(root, "ckpt_flipped")
+    shutil.copytree(ckpt_dir, flipped)
+    _flip_byte(os.path.join(flipped, "resnet50", "best", PAYLOAD))
+    ready_file = os.path.join(root, "swap_cli_ready.json")
+    err_path = os.path.join(root, "swap_cli_listen.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            _serve_cmd(ckpt_dir, "--listen", "127.0.0.1:0", "--ready-file",
+                       ready_file), env=env, cwd=here,
+            stdout=subprocess.DEVNULL, stderr=err)
+    seen = {}
+    try:
+        t0 = time.perf_counter()
+        while wire.read_ready_file(ready_file) is None:
+            if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                fail(tag, f"--listen server never got ready: "
+                          f"{open(err_path).read()[-3000:]}")
+            time.sleep(0.1)
+        port = wire.read_ready_file(ready_file)["port"]
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=300) as sock:
+            reader = _Records(sock)
+
+            def ask(lines, *ids):
+                sock.sendall("".join(json.dumps(r) + "\n"
+                                     for r in lines).encode())
+                for r in reader.read(lambda got: all(
+                        i in seen or any(g.get("id") == i for g in got)
+                        for i in ids)):
+                    seen[r.get("id")] = r
+                return [seen[i] for i in ids]
+
+            def req(prefix, n):
+                return [{"id": f"{prefix}{i}", "path": paths[i % 16]}
+                        for i in range(n)]
+
+            (p0,) = ask([{"op": "ping", "id": "p0"}], "p0")
+            t_swap = time.perf_counter()
+            s1, p1 = ask(req("a", 8) + [{"op": "swap", "id": "s1",
+                                         "synthetic_seed": 1}]
+                         + req("b", 8) + [{"op": "ping", "id": "p1"}],
+                         "s1", "p1")
+            swap1_s = time.perf_counter() - t_swap
+            *_, p2 = ask([{"op": "ping", "id": "p2"}],
+                         *[f"{c}{i}" for c in "ab" for i in range(8)], "p2")
+            ready = wire.read_ready_file(ready_file)
+            s2, *_ = ask([{"op": "swap", "id": "s2", "ckpt_dir": ckpt_dir,
+                           "track": "best"}], "s2")
+            answers = ask(req("c", 16), *[f"c{i}" for i in range(16)])
+            s3, p3 = ask([{"op": "swap", "id": "s3", "ckpt_dir": flipped,
+                           "track": "best"}, {"op": "ping", "id": "p3"}],
+                         "s3", "p3")
+            (p4,) = ask([{"op": "ping", "id": "p4"}], "p4")
+            burst = req("d", 16) + [{"op": "ping", "id": "p5"}]
+            ask(burst, "p5")
+            proc.send_signal(signal.SIGTERM)
+            for r in reader.read(lambda got: False):  # to the server's close
+                seen[r.get("id")] = r
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    worst = 0.0
+    for i, rec in enumerate(answers):
+        if "pred" not in rec:
+            fail(tag, f"no answer after the swap back: {rec}")
+        for name, q in rec["topk"]:
+            j = index.get(name, None if not name.isdigit() else int(name))
+            worst = max(worst, abs(q - float(probs[i % 16, j])))
+    ids = [f"{c}{i}" for c in "ab" for i in range(8)] + \
+        [f"c{i}" for i in range(16)] + [f"d{i}" for i in range(16)]
+    answered = sum("pred" in seen.get(i, {}) for i in ids)
+    new_digest = s1.get("digest")
+    if (rc != 0 or p0.get("generation") != 0 or p0.get("digest") != digest
+            or not s1.get("ok") or s1.get("generation") != 1
+            or new_digest == digest
+            or (p2.get("digest"), p2.get("generation")) != (new_digest, 1)
+            or (ready.get("digest"), ready.get("generation"))
+            != (new_digest, 1)
+            or not s2.get("ok") or s2.get("generation") != 2
+            or s2.get("digest") != digest or worst > SERVE_TOL
+            or s3.get("cause") != "swap_corrupt"
+            or (p4.get("digest"), p4.get("generation")) != (digest, 2)
+            or answered != len(ids)):
+        fail(tag, f"exit {rc}; pongs {p0} {p2} {p4}; ready {ready}; swaps "
+                  f"{s1} {s2} {s3}; served against direct {worst}; "
+                  f"{answered} of {len(ids)} answered; "
+                  f"{open(err_path).read()[-2000:]}")
+    row = {"answered": answered, "exit": rc,
+           "swap_synthetic": {k: s1[k] for k in (
+               "generation", "digest", "reused_executables", "prewarmed",
+               "duration_s", "batcher_hold_s")},
+           "swap_synthetic_line_to_result_s": swap1_s,
+           "pong_after": {k: p2[k] for k in ("digest", "generation")},
+           "swap_back": {k: s2[k] for k in ("generation", "digest",
+                                            "reused_executables",
+                                            "duration_s")},
+           "max_abs_err_vs_direct_after_swap_back": worst,
+           "corrupt": {k: s3.get(k) for k in ("cause", "error")},
+           "pong_after_corrupt": {k: p4[k] for k in ("digest",
+                                                     "generation")},
+           "log": [ln for ln in open(err_path).read().splitlines()
+                   if "hot-swap" in ln or "[swap]" in ln or "served" in ln
+                   ][-6:], "card": smi}
+    log(tag, json.dumps(row))
+    return row
+
+
 def phase_predict(root: str, ckpt_dir: str, val_accuracy: float,
                   best_top1: dict) -> dict:
     """``python -m tpuic_torch.predict`` (its ``main``) over the synthetic
@@ -2044,6 +2559,9 @@ def main(argv=None) -> int:
     launches, snap = phase_serve(model, args.requests, args.seed, smi)
     summary["launches"] = launches
     summary["status"] = "ok"
+    swap = phase_swap(model, resnet50_b(args.seed + 1), SWAP_REQUESTS,
+                      args.seed, smi)
+    admission = phase_admission(model, args.seed, smi)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2055,6 +2573,7 @@ def main(argv=None) -> int:
         ckpt_dir = os.path.join(root, "ckpt_smoke")
         ckpt = phase_ckpt(root, args.seed, ckpt_dir)
         serve_cli = phase_serve_cli(root, ckpt_dir, smi)
+        swap_cli = phase_swap_cli(root, ckpt_dir, serve_cli["digest"], smi)
         predicted = phase_predict(root, ckpt_dir, ckpt["best_val_accuracy"],
                                   ckpt.pop("best_top1"))
         attn, attn_rows = phase_attn(kind, gen)
@@ -2066,6 +2585,11 @@ def main(argv=None) -> int:
                                   tag="vit-serve",
                                   counter="flash_attention_fwd",
                                   per_call=VIT_LAYERS)
+        vit_swap = phase_swap(vit, vit_b(args.seed + 1), SWAP_REQUESTS,
+                              args.seed, smi, tag="vit-swap",
+                              name=VIT_MODEL,
+                              counter="flash_attention_fwd",
+                              per_call=VIT_LAYERS, stopped=1)
         del vit
         free()
         vit_counts, vit_train = phase_vit_train(root, args.seed, smi)
@@ -2096,10 +2620,11 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
                        "shapes": rows,
                        "serve": snap, "xent": xent_rows, "train": train,
+                       "swap": swap, "admission": admission,
                        "ckpt": ckpt, "serve_cli": serve_cli,
-                       "predict": predicted,
+                       "swap_cli": swap_cli, "predict": predicted,
                        "attn": attn_rows, "vit_serve": vit_snap,
-                       "vit_train": vit_train},
+                       "vit_swap": vit_swap, "vit_train": vit_train},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

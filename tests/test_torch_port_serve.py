@@ -184,6 +184,31 @@ def test_snapshot_has_the_tpuic_keys(model):
     assert set(snap) == set(JaxServeStats().snapshot())
     assert set(snap["span_ms"]) == {"queue", "batch", "staging", "dispatch",
                                     "device", "scatter"}
+    # One sequence of updates, the same counters: rejections by cause and
+    # priority, the served identity (kept across reset()), the service
+    # estimate the deadline shed reads.
+    from tpuic_torch.serve.metrics import ServeStats
+    snaps = []
+    for st in (ServeStats(), JaxServeStats()):
+        st.note_identity("abcd1234")
+        for cause, prio in (("quota", "low"), ("queue_full", "high"),
+                            ("queue_full", "high"), ("deadline", "normal")):
+            st.record_reject(cause, prio)
+        before = st.snapshot()
+        st.record_swap(1, "ffff0000")
+        st.record_swap(2, "abcd1234")
+        st.reset()
+        for i in range(5):
+            st.record_spans([0.001 * (i + 1) * (k + 1) for k in range(6)])
+        after = st.snapshot()
+        snaps.append((
+            {k: before[k] for k in ("rejected", "rejected_by", "swaps",
+                                    "generation", "model_digest")},
+            {k: after[k] for k in ("rejected", "rejected_by", "swaps",
+                                   "generation", "model_digest", "span_ms")},
+            round(st.estimated_service_s(), 9)))
+    assert snaps[0] == snaps[1]
+    assert snaps[0][1]["swaps"] == 2 and snaps[0][1]["rejected"] == 0
 
 
 def test_uint8_normalize_equals_normalizing_outside(model):
@@ -229,6 +254,38 @@ def test_forward_runs_with_tf32_off_and_restores_the_flags():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def test_launch_tally_is_the_capturing_threads_own():
+    """A thread inside ``counting.tally()`` (the engine capturing a CUDA
+    graph) counts into its own tally; another thread's launches meanwhile
+    reach the counter, and a replay adds the tally to it."""
+    from tpuic_torch.kernels import counting
+
+    def kernel():
+        pass
+
+    kernel.launches = 0
+    inside, done = threading.Event(), threading.Event()
+
+    def other():
+        inside.wait(10)
+        for _ in range(5):
+            counting.count_launch(kernel)
+        done.set()
+
+    t = threading.Thread(target=other)
+    t.start()
+    with counting.tally() as mine:
+        counting.count_launch(kernel)
+        counting.count_launch(kernel)
+        inside.set()
+        assert done.wait(10)
+    t.join()
+    assert mine == {kernel: 2} and kernel.launches == 5
+    counting.count_launch(kernel)
+    counting.add_launches(mine.items())
+    assert kernel.launches == 8
 
 
 def test_default_device_is_the_card(monkeypatch, model):

@@ -7,8 +7,8 @@ torch-checkpoint converter, and the engine's device-resident requests.
   line, and SIGTERM drains with typed stragglers
   (tests/test_serve.py's contract).
 - Refusals: each ``tpuic`` flag whose feature is not ported is refused by
-  name; a swap line gets a typed error line and the server keeps
-  answering.
+  name (and a malformed ``--quota``); a refused swap line gets a typed
+  error line and the server keeps answering.
 - Whole-CLI parity: one reference-format torch checkpoint (``module.``
   prefixed, written by ``tpuic``'s ``export_state_dict`` from a
   ``tpuic``-initialised model) served by ``tpuic``'s CLI and the port's,
@@ -121,7 +121,7 @@ def _cli(args, stdin_text=None, monkeypatch=None):
 
 def test_stdin_jsonl_answers_each_request(served, tmp_path, monkeypatch):
     lines = [json.dumps({"id": p, "path": p}) for p in served["images"]]
-    lines += ['{"op": "swap", "id": "s1", "synthetic_seed": 3}',
+    lines += ['{"op": "swap", "id": "s1", "ckpt_dir": "/nonexistent"}',
               "not json", json.dumps({"id": "miss", "path": "/nope.png"}),
               json.dumps({"id": "d", "path": served["images"][0],
                           "serve_dtype": "int8"}),
@@ -135,11 +135,12 @@ def test_stdin_jsonl_answers_each_request(served, tmp_path, monkeypatch):
     by_id = {}
     for r in recs:
         by_id.setdefault(r.get("id"), []).append(r)
-    # The swap line gets a typed error; the server went on answering.
-    assert "swap unsupported" in by_id["s1"][0]["error"]
+    # The refused swap gets a typed error; the server went on answering.
+    assert by_id["s1"][0]["cause"] == "swap_corrupt"
+    assert "swap candidate missing" in by_id["s1"][0]["error"]
     assert "bad request line" in by_id[None][0]["error"]
     assert by_id["miss"][0]["error"].startswith("decode:")
-    assert "not configured" in by_id["d"][0]["error"]
+    assert "unknown serve dtype 'int8'" in by_id["d"][0]["error"]
     answers = [r for r in recs if "pred" in r]
     assert len(answers) == len(served["images"]) + 1
     _check_records(answers, served, 2)
@@ -162,14 +163,26 @@ def test_watch_once_answers_each_file(served, tmp_path, monkeypatch):
     _check_records(recs, served, 3)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--admission"], ["--quota", "a=1"], ["--brownout-slo", "x"],
-    ["--brownout-tighten", "3"], ["--brownout-recover", "0.5"],
-    ["--slo", "serve_latency:p99<=5ms"], ["--prom-port", "9"],
-    ["--prom-host", "0.0.0.0"], ["--prom-dump", "m.prom"],
-    ["--serve-dtypes", "fp32,int8"]], ids=lambda f: f[0])
-def test_unported_flag_is_refused_by_name(flag):
-    with pytest.raises(SystemExit, match=f"{flag[0]}.*not yet ported"):
+@pytest.mark.parametrize("flag,match", [
+    pytest.param(["--admission", "--brownout-slo", "x"],
+                 "--brownout-slo: not yet ported.*item 6", id="--admission"),
+    pytest.param(["--quota", "a=0"], "--quota: bad quota spec 'a=0'",
+                 id="--quota"),
+    *(pytest.param(f, f"{f[0]}.*not yet ported.*item {item}", id=f[0])
+      for f, item in ((["--brownout-slo", "x"], 6),
+                      (["--brownout-tighten", "3"], 6),
+                      (["--brownout-recover", "0.5"], 6),
+                      (["--slo", "serve_latency:p99<=5ms"], 6),
+                      (["--prom-port", "9"], 6),
+                      (["--prom-host", "0.0.0.0"], 6),
+                      (["--prom-dump", "m.prom"], 6),
+                      (["--serve-dtypes", "fp32,int8"], 3)))])
+def test_unported_flag_is_refused_by_name(flag, match):
+    """Each flag whose feature is not ported is refused by name, naming
+    its ROADMAP item (``--admission`` itself works, but not with
+    brownout); a malformed ``--quota`` is refused before the model
+    loads."""
+    with pytest.raises(SystemExit, match=match):
         pserve.main(["--device", "cpu", "--synthetic-init", "--model",
                      "resnet18", "--num-classes", "3"] + flag)
 

@@ -7,6 +7,6 @@ from tpuic_torch.checkpoint.convert import (init_params,  # noqa: F401
                                             load_jax_opt_state,
                                             load_jax_variables)
 from tpuic_torch.checkpoint.loading import (  # noqa: F401
-    load_inference_variables, variables_digest)
+    load_candidate_variables, load_inference_variables, variables_digest)
 from tpuic_torch.checkpoint.manager import (  # noqa: F401
     CheckpointManager, lenient_restore)

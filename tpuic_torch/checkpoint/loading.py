@@ -15,8 +15,10 @@ caller's ``cfg.model`` gives the rest: the backbone name (the directory
 the tracks live in), the compute dtype, the fused conv+BN path and the
 attention impl.
 
-Not ported yet: ``load_candidate_variables``, the hot-swap gate's read,
-which waits for the engine's ``swap_weights``.
+``load_candidate_variables`` is the hot-swap gate's read, stricter still:
+the named track only, its commit manifest required and verified, every
+failure a typed ``SwapRejected`` (cause ``swap_corrupt``), and the
+weights restored into a fresh model, never into a serving one.
 """
 
 from __future__ import annotations
@@ -98,6 +100,64 @@ def load_inference_variables(cfg, *, track: str = "best", device=None,
     log(f"[load] restored {mcfg.name}/{mgr.last_restore_rung} (saved at "
         f"{saved_at}, best {best:.2f})")
     return model.eval()
+
+
+def load_candidate_variables(cfg, *, track: str = "best", log=print,
+                             device=None):
+    """Gate-grade load of a hot-swap candidate: ``(model, digest)``, the
+    model built as :func:`load_inference_variables` builds it (on
+    ``device``, None: the card, in eval mode) with ``track``'s weights.
+
+    - No ladder: only the named track is read (``restore_exact``); a
+      swap that fell back to ``.prev`` would serve weights nobody named.
+    - The commit manifest is mandatory and verified: a missing track, a
+      missing ``.manifest.json``, a failed ``verify_track`` or a failed
+      read raises ``SwapRejected`` with cause ``swap_corrupt``.
+    - A partial restore (another model or class count) raises
+      ``ValueError``.
+    - The weights go into a fresh model: a serving model is never
+      touched, whatever fails."""
+    from tpuic_torch.models import create_model_from_config
+    from tpuic_torch.serve.admission import SwapRejected
+    from tpuic_torch.train.optimizer import make_optimizer
+    from tpuic_torch.train.state import create_train_state
+
+    mcfg, size = _resolved_model_config(cfg)
+    mgr = CheckpointManager(cfg.run.ckpt_dir, mcfg.name, log=log)
+    path = os.path.join(mgr.root, track)
+    if not os.path.isdir(path):
+        raise SwapRejected(f"swap candidate missing: no '{track}' "
+                           f"checkpoint under {mgr.root}",
+                           cause="swap_corrupt")
+    if not os.path.exists(path + ".manifest.json"):
+        raise SwapRejected(
+            f"swap candidate {mgr.root}/{track} has no commit manifest — "
+            "the swap gate requires CRC-verifiable bytes",
+            cause="swap_corrupt")
+    ok, detail = mgr.verify_track(track)
+    if not ok:
+        raise SwapRejected(f"swap candidate {mgr.root}/{track} failed the "
+                           f"integrity gate: {detail}", cause="swap_corrupt")
+    # No initialisation: the restore writes every tensor, or the load is
+    # refused below.
+    model = create_model_from_config(mcfg, device=device, image_size=size)
+    state = create_train_state(model, make_optimizer(cfg.optim))
+    try:
+        _, _, best = mgr.restore_exact(state, track)
+    except Exception as e:
+        raise SwapRejected(
+            f"swap candidate {mgr.root}/{track} failed to restore: "
+            f"{type(e).__name__}: {e}", cause="swap_corrupt") from e
+    loaded, total = mgr.last_restore_loaded
+    if loaded < total:
+        raise ValueError(
+            f"swap candidate {mgr.root}/{track} restored only "
+            f"{loaded}/{total} tensors into model '{mcfg.name}' — wrong "
+            "model/num_classes for this checkpoint")
+    digest = variables_digest(model)
+    log(f"[swap] candidate {mcfg.name}/{track} verified ({detail}; best "
+        f"{best:.2f}, digest {digest})")
+    return model.eval(), digest
 
 
 def variables_digest(model_or_state_dict) -> str:

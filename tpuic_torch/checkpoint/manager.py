@@ -39,9 +39,12 @@ protocol:
   ``state_dict`` names with equal shapes.  The optimizer state, ``step``
   and ``skip_count`` are restored only when every model tensor was.
 
+- **Exact restore.** ``restore_exact`` reads one named track with no
+  ladder: the hot-swap gate's read (``loading.load_candidate_variables``),
+  where falling back to another rung would serve weights nobody named.
+
 Not ported: the fault point ``ckpt_kill``, the ``checkpoint_commit``
-telemetry event, the multi-host commit barrier, EMA parameters and the
-hot-swap read ``restore_exact``.
+telemetry event, the multi-host commit barrier and EMA parameters.
 """
 
 from __future__ import annotations
@@ -465,6 +468,25 @@ class CheckpointManager:
         raise RuntimeError(
             "no restorable checkpoint: every integrity-ladder rung failed ("
             + "; ".join(failures) + ")")
+
+    def restore_exact(self, state, track: str):
+        """Restore ``state`` (in place) from ``track`` alone, with no
+        ladder fallback: the hot-swap gate's read.  The caller verifies
+        the track first (``verify_track``); any read failure here raises.
+        Returns ``(state, start_epoch, best_score)`` and sets the same
+        ``last_restore_*`` attributes as ``restore_into``."""
+        self.wait()
+        t0 = time.perf_counter()
+        self.last_restore_loaded = None
+        self.last_restore_meta = None
+        self.last_restore_step_in_epoch = None
+        self.last_restore_geometry = None
+        self.last_restore_rung = track
+        payload = torch.load(os.path.join(self.root, track, PAYLOAD),
+                             map_location="cpu", weights_only=True)
+        out = self._restore_payload(state, payload, track)
+        self.last_restore_s = time.perf_counter() - t0
+        return out
 
     def _restore_payload(self, state, payload: Mapping, rung: str):
         """Copy one read payload into ``state``: the model's tensors by

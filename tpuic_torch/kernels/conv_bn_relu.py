@@ -38,10 +38,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from tpuic_torch.kernels.counting import count_launch
 
 Padding = Union[int, Sequence[Tuple[int, int]]]
 Strides = Union[int, Tuple[int, int]]
@@ -89,20 +92,28 @@ def _out_hw(x, w, strides, padding) -> Tuple[int, int]:
     return ho, wo
 
 
+# The TF32 flags are global to the process, so the lock that keeps one
+# thread from restoring them under another's block is too.
+_TF32_FLAGS = threading.RLock()
+
+
 @contextlib.contextmanager
 def no_tf32():
     """Full float32 for cuDNN convolutions and cuBLAS matmuls in the block
     (cuDNN's default TF32 keeps about three decimal digits); restores both
-    flags on exit."""
-    conv, mm = (torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+    flags on exit.  Blocks of several threads run one after another (the
+    flags are process-global: a thread leaving its block would otherwise
+    turn TF32 back on under another thread's forward)."""
+    with _TF32_FLAGS:
+        conv, mm = (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = conv
+            torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def fused_conv_bn_relu_plain(x, w, scale, bias, strides: Strides = 1,
@@ -316,7 +327,7 @@ def fused_conv_bn_relu(x, w, scale, bias, *, strides: Strides = 1,
         raise RuntimeError(f"conv_bn_relu kernel launch failed: CUDA error "
                            f"{rc} for x {tuple(x.shape)}, w {tuple(w.shape)}, "
                            f"{pl_}")
-    fused_conv_bn_relu.launches += 1
+    count_launch(fused_conv_bn_relu)
     return out
 
 

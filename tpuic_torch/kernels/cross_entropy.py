@@ -35,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from tpuic_torch.kernels.counting import count_launch
+
 
 def _targets(x, labels, label_smoothing: float):
     """(onehot, smoothed target) for [B, C] float32 logits."""
@@ -133,7 +135,7 @@ def cross_entropy_fwd(logits, labels, cw, mask, label_smoothing: float = 0.0):
             (logits.data_ptr(), labels.data_ptr(), cw.data_ptr(),
              mask.data_ptr(), wnll.data_ptr(), w.data_ptr(), b, c,
              float(label_smoothing)))
-    cross_entropy_fwd.launches += 1
+    count_launch(cross_entropy_fwd)
     return wnll, w
 
 
@@ -156,7 +158,7 @@ def cross_entropy_bwd(logits, labels, cw, mask, scale,
             (logits.data_ptr(), labels.data_ptr(), cw.data_ptr(),
              mask.data_ptr(), scale.data_ptr(), dx.data_ptr(), b, c,
              float(label_smoothing)))
-    cross_entropy_bwd.launches += 1
+    count_launch(cross_entropy_bwd)
     return dx
 
 

@@ -51,6 +51,8 @@ from typing import Optional
 
 import torch
 
+from tpuic_torch.kernels.counting import count_launch
+
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -227,7 +229,7 @@ def flash_attention_fwd(q, k, v, *, valid_len: Optional[int] = None,
              *_valid_args(q, valid_len, valid), b, n, h, d,
              _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d),
              float(masked_sentinel)))
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     return o, lse
 
 
@@ -253,7 +255,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *,
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              _strides(q, k, v, o, do), *_valid_args(q, valid_len, valid), b,
              n, h, d, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d)))
-    flash_attention_bwd_dq.launches += 1
+    count_launch(flash_attention_bwd_dq)
     return dq, delta
 
 
@@ -279,7 +281,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *,
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _strides(q, k, v, do), *_valid_args(q, valid_len, valid), b, n,
              h, d, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d)))
-    flash_attention_bwd_dkv.launches += 1
+    count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 

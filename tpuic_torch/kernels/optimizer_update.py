@@ -45,6 +45,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from tpuic_torch.kernels.counting import count_launch
+
 #: Elements per chunk of the update kernels' grids (one warp each): a BN
 #: vector of 64-2,048 elements takes a warp, not a block.
 CHUNK = 4096
@@ -252,7 +254,7 @@ def lars_update(params, grads, trace, lr, finite, *, weight_decay: float,
              tb.n_chunks, tb.chunk, lr.data_ptr(), finite.data_ptr(),
              tb.partials.data_ptr(), tb.a.data_ptr(), float(weight_decay),
              float(trust_coefficient), float(momentum)))
-    lars_update.launches += 1
+    count_launch(lars_update)
 
 
 lars_update.launches = 0
@@ -285,7 +287,7 @@ def lamb_update(params, grads, mu, nu, count, lr, finite, *, b1: float,
              finite.data_ptr(), tb.partials.data_ptr(), tb.a.data_ptr(),
              float(b1), float(b2),
              1.0 - b1, 1.0 - b2, float(eps), float(weight_decay)))
-    lamb_update.launches += 1
+    count_launch(lamb_update)
 
 
 lamb_update.launches = 0

@@ -55,6 +55,13 @@ class LatencyMeter:
         self._win.append(float(seconds))
         self.count += 1
 
+    def quantile_s(self, q: float):
+        """One nearest-rank quantile in seconds over the window (None
+        when there are no samples yet)."""
+        if not self._win:
+            return None
+        return next(iter(quantiles(self._win, (q,)).values()))
+
     def percentiles_ms(self, qs=(50, 95, 99, 99.9)) -> dict:
         """{'p50': ms, ..., 'p999': ms} over the window; {} when empty."""
         return {k: round(1000.0 * v, 3)

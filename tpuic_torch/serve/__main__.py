@@ -34,14 +34,31 @@ stops accepting, drains what is in flight for up to ``--drain-timeout``
 seconds (stragglers get a typed error line, never a silent drop), closes
 the engine and exits 0.
 
+Admission (``--admission``, ``--quota TENANT=RPS``; a quota implies
+admission): request lines may carry ``priority``, ``deadline_ms`` and
+``tenant``; the enqueue does not block, and a full queue, a dry quota or
+a passed deadline answers with a typed error line naming its cause.
+Without ``--admission`` those fields are ignored, as in ``tpuic``.  A
+request's ``serve_dtype`` names the ladder rung: any but ``fp32`` gets a
+typed error line.
+
+Hot swap: a ``{"op": "swap", "id", "synthetic_seed": N}`` line (seeded
+weights of the served architecture) or ``{"op": "swap", "id",
+"ckpt_dir", "track"}`` line (a committed checkpoint, CRC-verified, no
+ladder) gates and flips the candidate on a worker thread while traffic
+and pings go on: a candidate that fails the integrity gate gets a typed
+``swap_corrupt`` line, one with non-finite outputs on the pinned eval
+images a ``swap_accuracy`` line, and a flipped one ``{"op":
+"swap_result", "ok": true, "generation", "digest", ...}``; ``pong`` and
+the ready file carry the new identity.
+
 Flags of ``tpuic``'s server whose features are not ported are accepted
-by the parser and refused by name when set (ROADMAP §1): admission
-control (``--admission``, ``--quota``, ``--brownout-*``; item 1, the
-engine features), the dtype ladder (``--serve-dtypes`` other than fp32;
-item 3), SLOs and Prometheus (``--slo``, ``--prom-*``; item 6).  A
-``{"op": "swap"}`` line gets a typed error line (hot swap is item 1) and
-the server keeps serving.  Fault points (``TPUIC_FAULTS``), the
-supervisor's heartbeat and the flight recorder wait for item 11.
+by the parser and refused by name when set (ROADMAP §1): brownout
+(``--brownout-*``, which couples admission to an ``--slo`` objective),
+SLOs and Prometheus (``--slo``, ``--prom-*``; item 6), and the dtype
+ladder (``--serve-dtypes`` other than fp32; item 3).  Fault points
+(``TPUIC_FAULTS``), the supervisor's heartbeat and the flight recorder
+wait for item 11.
 """
 
 from __future__ import annotations
@@ -50,35 +67,43 @@ import argparse
 import json
 import os
 import sys
+import threading
 import time
 from collections import deque
+from concurrent.futures import Future as _FutFuture
 from concurrent.futures import TimeoutError as _FutTimeout
 
 import numpy as np
 
 from tpuic_torch.serve import wire
+from tpuic_torch.serve.admission import AdmissionError
 
 _PROG = "python -m tpuic_torch.serve"
 
 #: ``tpuic`` server flags whose features are not ported:
 #: (flag, argparse kwargs, the ROADMAP §1 item that brings them).
 _NOT_PORTED = (
-    ("--admission", dict(action="store_true"), "item 1 (engine features)"),
-    ("--quota", dict(action="append", default=[], metavar="TENANT=RPS"),
-     "item 1 (engine features)"),
-    ("--brownout-slo", dict(default=""), "item 1 (engine features)"),
+    ("--brownout-slo", dict(default=""), "item 6 (telemetry)"),
     ("--brownout-tighten", dict(type=float, default=2.0),
-     "item 1 (engine features)"),
+     "item 6 (telemetry)"),
     ("--brownout-recover", dict(type=float, default=1.0),
-     "item 1 (engine features)"),
+     "item 6 (telemetry)"),
     ("--slo", dict(default=""), "item 6 (telemetry)"),
     ("--prom-port", dict(type=int, default=0), "item 6 (telemetry)"),
     ("--prom-host", dict(default="127.0.0.1"), "item 6 (telemetry)"),
     ("--prom-dump", dict(default=""), "item 6 (telemetry)"),
 )
 
-_SWAP_UNSUPPORTED = ("swap unsupported: hot swap is not yet ported to "
-                     "tpuic_torch (ROADMAP §1 item 1)")
+# One swap at a time per process: a second candidate racing the first
+# would gate against a moving incumbent.
+_SWAP_LOCK = threading.Lock()
+
+
+def eval_images(n: int, size: int, seed: int = 0) -> np.ndarray:
+    """The pinned synthetic eval set (``tpuic.quant.eval_images``):
+    seeded uniform uint8 images, the same on every machine."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (n, size, size, 3)).astype(np.uint8)
 
 
 def _load_image(path: str, size: int) -> np.ndarray:
@@ -124,14 +149,6 @@ def _result_record(rid, probs, order, names, k: int) -> dict:
             "topk": topk}
 
 
-def _check_serve_dtype(req: dict) -> None:
-    """A request's ``serve_dtype`` must name a configured rung: fp32."""
-    tag = req.get("serve_dtype")
-    if tag is not None and str(tag) != "fp32":
-        raise ValueError(f"serve_dtype {tag!r} is not configured; this "
-                         "server serves fp32 only")
-
-
 def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                  guard, beat=lambda: None, drain_timeout: float = 30.0,
                  ready_file: str = "",
@@ -145,10 +162,15 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
       payload), answered on the SAME connection with the usual result
       record or a typed error line (``wire.py``); responses are keyed by
       id and may arrive out of submission order.
+      Under ``--admission`` (``engine.admission`` set) the SLA fields
+      ``priority``/``deadline_ms``/``tenant`` are honoured and the
+      enqueue does not block: a rejection is a typed error line.
     - ``{"op": "ping", "id": ...}`` -> ``{"op": "pong", "id",
       "queue_depth", "inflight", "digest", "generation", "pid"}``.
-    - ``{"op": "swap", ...}`` -> a typed error line: hot swap is not
-      ported, and the server keeps serving.
+    - ``{"op": "swap", ...}`` -> gate and flip on a worker thread
+      (``submit_swap``); its ``swap_result`` or typed verdict comes back
+      keyed by id like any answer, and the ready file is written again
+      with the new identity.
 
     Single-threaded select loop: reads submit, completed futures flush
     each tick, and the SIGTERM latch drains everything in flight for up
@@ -162,11 +184,16 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
     srv = _socket.create_server((host, port), backlog=64)
     srv.setblocking(False)
     bound = srv.getsockname()[1]
-    if ready_file:
-        wire.write_ready_file(ready_file, port=int(bound), pid=os.getpid(),
-                              prom_port=None, digest=engine.model_digest,
-                              dtypes=list(engine.variant_tags()),
-                              generation=engine.generation)
+
+    def publish_ready() -> None:
+        if ready_file:
+            wire.write_ready_file(
+                ready_file, port=int(bound), pid=os.getpid(),
+                prom_port=None, digest=engine.model_digest,
+                dtypes=list(engine.variant_tags()),
+                generation=engine.generation)
+
+    publish_ready()
     log(f"[serve] socket-JSONL transport on {host}:{bound}"
         + (f" (ready file {ready_file})" if ready_file else ""))
 
@@ -247,8 +274,10 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                         "pid": os.getpid()})
             return
         if req.get("op") == "swap":
-            send(sock, wire.error_record(str(req.get("id", "swap")),
-                                         _SWAP_UNSUPPORTED))
+            # Control line, not traffic: gate and flip on a worker thread
+            # so pings and requests keep flowing.
+            st["pending"].append((str(req.get("id", "swap")),
+                                  submit_swap(engine, req, log)))
             return
         accepted += 1
         rid = str(req.get("id", req.get("path", accepted)))
@@ -263,9 +292,9 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
             send(sock, wire.error_record(rid, f"decode: {e}"))
             return
         try:
-            _check_serve_dtype(req)
-            st["pending"].append((rid, engine.submit(img)))
-        except (ValueError, TypeError) as e:
+            st["pending"].append((rid, engine.submit(img, **_sla(engine,
+                                                                 req))))
+        except (AdmissionError, ValueError, TypeError) as e:
             send(sock, wire.error_record(rid, e))
 
     def flush(sock, st) -> None:
@@ -282,6 +311,10 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                 send(sock, wire.error_record(rid, "cancelled"))
             elif fut.exception() is not None:
                 send(sock, wire.error_record(rid, fut.exception()))
+            elif isinstance(fut.result(), dict):
+                # A swap's outcome: already a record, not traffic.
+                send(sock, {**fut.result(), "id": rid})
+                publish_ready()
             else:
                 probs, order = fut.result()
                 send(sock, _result_record(rid, probs, order, names, top_k))
@@ -397,6 +430,150 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
     return served
 
 
+def _sla(engine, req: dict) -> dict:
+    """``submit`` keywords from a request line: under ``--admission`` its
+    ``priority``/``deadline_ms``/``tenant`` and a non-blocking enqueue
+    (without it a client self-assigning ``high`` could evict others'
+    requests on a plain FIFO server); ``serve_dtype`` names the rung
+    (``dtype`` is the array payload's element type)."""
+    sla = {}
+    if engine.admission is not None:
+        sla = {f: req[f] for f in ("priority", "deadline_ms", "tenant")
+               if req.get(f) is not None}
+        sla["timeout"] = 0
+    if req.get("serve_dtype") is not None:
+        sla["dtype"] = str(req["serve_dtype"])
+    return sla
+
+
+def _swap_context(engine, *, mcfg, resize: int, mean, std,
+                  ckpt_dir: str, track: str) -> None:
+    """Attach what a later ``{"op": "swap"}`` line needs to build and gate
+    a candidate for this engine: the served architecture, its image size
+    and normalisation, the default checkpoint location.  An engine built
+    elsewhere has none and answers swap lines with a typed error."""
+    engine.tpuic_swap_ctx = {"mcfg": mcfg, "resize": int(resize),
+                             "tags": tuple(engine.variant_tags()),
+                             "mean": mean, "std": std,
+                             "ckpt_dir": ckpt_dir, "track": track}
+
+
+def _gate_outputs(engine, cand, imgs, tag: str):
+    """A candidate's outputs on the gate images: through the standby
+    slot's graphs (``candidate_outputs``) when it is shaped like the
+    served model, else through its own eager forward (``swap_weights``
+    captures a slot for it)."""
+    import torch
+
+    from tpuic_torch.serve.engine import make_forward
+    try:
+        return engine.candidate_outputs(cand, imgs, variant=tag)
+    except ValueError:
+        if not isinstance(cand, torch.nn.Module):
+            raise
+        ctx = engine.tpuic_swap_ctx
+        out = make_forward(cand, normalize=True, mean=ctx["mean"],
+                           std=ctx["std"])(torch.from_numpy(np.asarray(
+                               imgs, engine.input_dtype)).to(engine.device))
+        return tuple(t.cpu().numpy() for t in out)
+
+
+def run_swap(engine, req: dict, log) -> dict:
+    """Gate and flip for one ``{"op": "swap", ...}`` line
+    (``tpuic.serve.__main__.run_swap``).
+
+    Candidate: ``{"synthetic_seed": N}`` (the served architecture with
+    flax-default weights drawn from seed N) or ``{"ckpt_dir", "track"}``
+    (defaults: the serving checkpoint), read by
+    ``load_candidate_variables``: the named track only, its manifest
+    required and verified.
+
+    Gates before the flip, in order: integrity (``swap_corrupt``;
+    checkpoint candidates); finite outputs on ``eval_images(128,
+    resize)`` through the standby's graphs (``swap_accuracy``); each
+    further ladder rung's top-1 agreement with the candidate's fp32 — the
+    port serves fp32 only, so that loop has no rung to check yet.  Then
+    ``engine.swap_weights``.  A refused candidate never touches
+    traffic.  Raises ``SwapRejected`` / ``ValueError``; returns the
+    ``swap_result`` record."""
+    from tpuic_torch.checkpoint.convert import init_params
+    from tpuic_torch.checkpoint.loading import load_candidate_variables
+    from tpuic_torch.config import Config, DataConfig, RunConfig
+    from tpuic_torch.models import create_model_from_config
+    from tpuic_torch.predict import sidecar_ema
+    from tpuic_torch.serve.admission import SwapRejected
+    ctx = getattr(engine, "tpuic_swap_ctx", None)
+    if ctx is None:
+        raise ValueError("swap unsupported: this engine was built "
+                         "without a swap context")
+    if not _SWAP_LOCK.acquire(blocking=False):
+        raise RuntimeError("swap already in progress — one candidate "
+                           "at a time")
+    try:
+        resize, tags, mcfg = ctx["resize"], ctx["tags"], ctx["mcfg"]
+        if req.get("synthetic_seed") is not None:
+            seed = int(req["synthetic_seed"])
+            cand = init_params(create_model_from_config(
+                mcfg, device=engine.device, image_size=resize), seed,
+                device=engine.device).eval()
+            source = f"synthetic:{seed}"
+        else:
+            ckpt_dir = str(req.get("ckpt_dir") or ctx["ckpt_dir"] or "")
+            if not ckpt_dir:
+                raise ValueError(
+                    "swap line needs 'ckpt_dir' (or 'synthetic_seed')")
+            track = str(req.get("track") or ctx["track"] or "best")
+            if sidecar_ema(ckpt_dir, mcfg.name) > 0:
+                raise ValueError(
+                    f"swap candidate {ckpt_dir} was trained with EMA, whose "
+                    "weights tpuic serves; EMA is not yet ported to "
+                    "tpuic_torch (ROADMAP §1 item 8)")
+            cfg = Config(data=DataConfig(data_dir=".", resize_size=resize),
+                         model=mcfg, run=RunConfig(ckpt_dir=ckpt_dir))
+            cand, _ = load_candidate_variables(cfg, track=track, log=log,
+                                               device=engine.device)
+            source = os.path.join(ckpt_dir, mcfg.name, track)
+        imgs = eval_images(128, resize)
+        ref = _gate_outputs(engine, cand, imgs, tags[0])
+        if not np.isfinite(ref[0]).all():
+            raise SwapRejected(
+                f"swap candidate {source} produced non-finite outputs on "
+                "the pinned eval set — refusing to flip it into traffic",
+                cause="swap_accuracy")
+        # tpuic's second gate: each further ladder rung built from the
+        # candidate agrees with its fp32 top-1.  The port's ladder is fp32
+        # alone, so this loop has no rung to check yet.
+        for tag in tags[1:]:
+            raise ValueError(f"ladder rung {tag!r} has no accuracy gate")
+        res = engine.swap_weights(cand)
+        how = ("graphs reused" if res["reused_executables"]
+               else f"{res['prewarmed']} bucket graphs captured")
+        log(f"[serve] hot-swap OK: {source} -> generation "
+            f"{res['generation']} digest {res['digest']} ({how}, "
+            f"{res['duration_s'] * 1000:.0f} ms)")
+        return {"op": "swap_result", "ok": True, "source": source, **res}
+    finally:
+        _SWAP_LOCK.release()
+
+
+def submit_swap(engine, req: dict, log) -> _FutFuture:
+    """Run ``run_swap`` on a worker thread; a Future of its record (or
+    its typed verdict).  The transports treat it like a request's future,
+    so the loops keep serving traffic and pings while the candidate
+    loads and gates."""
+    fut = _FutFuture()
+
+    def _worker() -> None:
+        try:
+            fut.set_result(run_swap(engine, req, log))
+        except BaseException as e:
+            fut.set_exception(e)
+
+    threading.Thread(target=_worker, daemon=True,
+                     name="tpuic-torch-swap").start()
+    return fut
+
+
 def _parse_dtypes(spec: str) -> tuple:
     """--serve-dtypes: fp32 is the only rung the port serves."""
     tags = [t.strip() for t in (spec or "fp32").split(",") if t.strip()]
@@ -412,7 +589,8 @@ def build_engine(args):
     """Checkpoint (or seeded init) -> a warm ``InferenceEngine``, with the
     loading rules predict shares: ``(engine, size, num_classes, model)``."""
     from tpuic_torch.checkpoint.convert import init_params
-    from tpuic_torch.checkpoint.loading import load_inference_variables
+    from tpuic_torch.checkpoint.loading import (_resolved_model_config,
+                                                load_inference_variables)
     from tpuic_torch.config import Config, DataConfig, RunConfig
     from tpuic_torch.models import create_model_from_config
     from tpuic_torch.predict import (refuse_ema, resolve_model_auto,
@@ -433,9 +611,10 @@ def build_engine(args):
                              "--model and --num-classes (there is no "
                              "checkpoint to resolve them from)")
         resize = 299 if resize is None else resize
+        mcfg = serving_model_config(model_name, num_classes)
         model = init_params(create_model_from_config(
-            serving_model_config(model_name, num_classes),
-            device=args.device, image_size=resize), 0, device=args.device)
+            mcfg, device=args.device, image_size=resize), 0,
+            device=args.device)
         how = f"synthetic init ({model_name}); "
     else:
         if model_name == "auto":
@@ -461,6 +640,8 @@ def build_engine(args):
                                    init_from=args.init_from))
         model = load_inference_variables(cfg, track=args.track,
                                          device=args.device, log=log)
+        mcfg = (cfg.model if args.init_from
+                else _resolved_model_config(cfg)[0])
         how = ""
     dc = DataConfig()
     # Raw uint8 in, normalised inside the forward (4x fewer bytes to the
@@ -473,6 +654,8 @@ def build_engine(args):
     made = ("captured {} bucket CUDA graphs" if engine.device.type == "cuda"
             else "ran {} buckets eagerly")
     log(f"{how}warmup {made.format(len(t))}: {t}")
+    _swap_context(engine, mcfg=mcfg, resize=resize, mean=dc.mean,
+                  std=dc.std, ckpt_dir=args.ckpt_dir, track=args.track)
     return engine, resize, num_classes, model_name
 
 
@@ -526,6 +709,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs on "
                         "the CPU)")
+    p.add_argument("--admission", action="store_true",
+                   help="SLA-aware admission control: request lines may "
+                        "carry priority/deadline_ms/tenant; a full queue "
+                        "rejects with a typed, cause-labeled error line "
+                        "instead of blocking the accept loop, higher "
+                        "priority classes are batched first (and evict "
+                        "lower ones from a full queue), and expired "
+                        "deadlines shed at pop time")
+    p.add_argument("--quota", action="append", default=[],
+                   metavar="TENANT=RPS",
+                   help="per-tenant token-bucket quota in requests/sec "
+                        "(repeatable, or one comma list); '*=RPS' sets "
+                        "the shared free pool unconfigured tenants and "
+                        "dry tenant buckets draw from. Implies "
+                        "--admission")
     for flag, kw, item in _NOT_PORTED:
         p.add_argument(flag, help=f"not yet ported to tpuic_torch "
                                   f"(ROADMAP §1 {item})", **kw)
@@ -545,6 +743,16 @@ def main(argv=None) -> int:
         raise SystemExit(f"{_PROG}: error: TPUIC_FAULTS: fault points are "
                          "not yet ported to tpuic_torch (ROADMAP §1 item "
                          "11)")
+    # Admission parses before the checkpoint load and warmup: a typo'd
+    # quota would read as "unlimited" exactly when it was meant to cap.
+    admission_ctl = None
+    if args.admission or args.quota:
+        from tpuic_torch.serve.admission import (AdmissionController,
+                                                 parse_quotas)
+        try:
+            admission_ctl = AdmissionController(parse_quotas(args.quota))
+        except ValueError as e:
+            raise SystemExit(f"{_PROG}: error: --quota: {e}")
 
     # Install the latch BEFORE the checkpoint load and warmup: an eviction
     # during startup must also exit cleanly.
@@ -559,9 +767,17 @@ def main(argv=None) -> int:
     engine, size, num_classes, model_name = build_engine(args)
     names = _class_names(args.ckpt_dir, model_name, num_classes,
                          args.classes)
+    if admission_ctl is not None:
+        engine.admission = admission_ctl
+        print(f"[serve] admission control on: "
+              f"{json.dumps(admission_ctl.state())}", file=sys.stderr)
     k = max(1, min(args.top_k, num_classes))
     out = open(args.out, "w") if args.out else sys.stdout
     pending = deque()  # (id, Future) in submission order
+    # Swap lines drain out of order, in their own lane: a checkpoint load
+    # and gate take seconds, and must not hold back the answers behind
+    # them (responses are keyed by id).
+    control_pending = deque()
     served = 0
 
     def emit(rid, probs, order) -> None:
@@ -570,6 +786,59 @@ def main(argv=None) -> int:
                                             names, k)) + "\n")
         out.flush()
         served += 1
+
+    def emit_outcome(rid, res) -> None:
+        """A resolved future: ``(probs, order)`` emits the usual record; a
+        dict is a swap's record, written as it is (not counted as
+        served traffic)."""
+        if isinstance(res, dict):
+            out.write(json.dumps({**res, "id": rid}) + "\n")
+            out.flush()
+        else:
+            emit(rid, res[0], res[1])
+
+    def drain_control(block: bool = False, deadline: float = None) -> None:
+        """Emit completed swap outcomes, in any order.  ``block`` waits
+        each out, up to ``deadline``; past it the straggler gets an error
+        line, as in ``drain``."""
+        still = deque()
+        while control_pending:
+            rid, fut = control_pending.popleft()
+            if not fut.done():
+                if not block:
+                    still.append((rid, fut))
+                    continue
+                if deadline is None:
+                    while not fut.done() and not guard.triggered:
+                        try:
+                            fut.result(timeout=0.5)
+                        except (TimeoutError, _FutTimeout):
+                            pass
+                        except Exception:  # noqa: BLE001 — read below
+                            break
+                    if not fut.done() and guard.triggered:
+                        deadline = (time.monotonic()
+                                    + max(0.0, args.drain_timeout))
+                try:
+                    if deadline is not None and not fut.done():
+                        fut.result(timeout=max(
+                            0.0, deadline - time.monotonic()))
+                except (TimeoutError, _FutTimeout):
+                    fut.cancel()
+                    out.write(wire.error_line(
+                        rid, "drain timeout: swap unresolved at shutdown"))
+                    out.flush()
+                    continue
+                except Exception:  # noqa: BLE001 — read below
+                    pass
+            if fut.cancelled():
+                out.write(wire.error_line(rid, "cancelled"))
+            elif fut.exception() is not None:
+                out.write(wire.error_line(rid, fut.exception()))
+            else:
+                emit_outcome(rid, fut.result())
+            out.flush()
+        control_pending.extend(still)
 
     def drain(block: bool, deadline: float = None) -> None:
         """Emit completed responses; ``block`` waits for stragglers, up to
@@ -581,7 +850,9 @@ def main(argv=None) -> int:
         The no-deadline blocking wait polls in short slices re-checking
         the SIGTERM latch (PEP 475 would resume a bare ``result()``
         through the signal); the latch turns the wait into a
-        ``--drain-timeout`` deadline."""
+        ``--drain-timeout`` deadline.  Swap outcomes drain on their own
+        lane, last when blocking."""
+        drain_control()
         while pending and (block or pending[0][1].done()):
             rid, fut = pending.popleft()
             try:
@@ -617,8 +888,11 @@ def main(argv=None) -> int:
                         srid, "drain timeout: engine shutting down "
                         "before this request finished"))
                 out.flush()
+                drain_control(block=True, deadline=deadline)
                 return
             except Exception as e:  # noqa: BLE001 — per-request error line
+                # A typed verdict (a deadline shed, an eviction) keeps its
+                # cause and class labels (wire.py).
                 out.write(wire.error_line(rid, e))
                 out.flush()
                 continue
@@ -629,16 +903,26 @@ def main(argv=None) -> int:
                 pending.appendleft((rid, fut))
                 raise
             emit(rid, res[0], res[1])
+        if block:
+            drain_control(block=True, deadline=deadline)
 
-    def submit(rid: str, path: str) -> bool:
-        """Decode + enqueue; False = decode failed (error line emitted)."""
+    def submit(rid: str, path: str, req: dict = None) -> bool:
+        """Decode + enqueue with the request line's SLA fields
+        (``_sla``); False = decode failed (error line emitted).  A typed
+        rejection, or a bad SLA field, is an error line at once."""
         try:
             img = _load_image(path, size)
         except Exception as e:  # noqa: BLE001
             out.write(wire.error_line(rid, f"decode: {e}"))
             out.flush()
             return False
-        pending.append((rid, engine.submit(img)))
+        try:
+            pending.append((rid, engine.submit(img, **_sla(engine,
+                                                           req or {}))))
+        except (AdmissionError, ValueError, TypeError) as e:
+            out.write(wire.error_line(rid, e))
+            out.flush()
+            return True  # handled: the verdict went out
         drain(block=False)  # opportunistic: decode overlaps device work
         return True
 
@@ -685,9 +969,12 @@ def main(argv=None) -> int:
                     if not isinstance(req, dict):
                         raise TypeError("not an object")
                     if req.get("op") == "swap":
-                        out.write(wire.error_line(
-                            str(req.get("id", "swap")), _SWAP_UNSUPPORTED))
-                        out.flush()
+                        # Gate and flip off-thread; the outcome drains on
+                        # the control lane.
+                        control_pending.append(
+                            (str(req.get("id", "swap")),
+                             submit_swap(engine, req, lambda m: print(
+                                 m, file=sys.stderr))))
                         return
                     path = req["path"]
                 except (ValueError, KeyError, TypeError):
@@ -695,14 +982,7 @@ def main(argv=None) -> int:
                         None, f"bad request line: {line[:80]}"))
                     out.flush()
                     return
-                rid = str(req.get("id", path))
-                try:
-                    _check_serve_dtype(req)
-                except ValueError as e:
-                    out.write(wire.error_line(rid, e))
-                    out.flush()
-                    return
-                submit(rid, path)
+                submit(str(req.get("id", path)), path, req)
 
             # select()-gated raw reads, not ``for line in sys.stdin``: a
             # signal handler only sets the latch, and PEP 475 would
@@ -755,6 +1035,16 @@ def main(argv=None) -> int:
     finally:
         guard.uninstall()
         engine.close(timeout=max(5.0, args.drain_timeout))
+        if admission_ctl is not None:
+            # Every cause of the typed vocabulary, zero-filled, so a
+            # ledger reads each from this one line.
+            from tpuic_torch.serve.admission import CAUSES
+            snap = engine.stats.snapshot()
+            rej = {c: snap["rejected_by"].get(c, {}) for c in CAUSES}
+            rej.update({c: by for c, by in snap["rejected_by"].items()
+                        if c not in rej})
+            print(f"[admission] state={json.dumps(admission_ctl.state())} "
+                  f"rejected_by={json.dumps(rej)}", file=sys.stderr)
         print(f"[serve] served {served} requests; stats: "
               f"{json.dumps(engine.stats.snapshot())}", file=sys.stderr)
         if out is not sys.stdout:

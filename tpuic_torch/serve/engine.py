@@ -1,14 +1,23 @@
-"""Dynamic-batching inference engine (``tpuic/serve/engine.py``, core).
+"""Dynamic-batching inference engine (``tpuic/serve/engine.py``).
 
 The engine sits between callers and the model and keeps the device busy
 with few, large, fixed-shape calls:
 
-- **Micro-batcher**: a bounded request queue (backpressure: ``submit``
-  blocks or raises ``queue.Full`` when the server is saturated) feeds one
-  batcher thread that coalesces FIFO requests until ``max_batch`` rows
-  are ready or ``max_wait_ms`` has passed since the batch opened —
-  whichever comes first.  A request that would overflow the batch is
-  held and leads the next one; requests are never split.
+- **Micro-batcher**: a bounded request queue feeds one batcher thread
+  that coalesces requests until ``max_batch`` rows are ready or
+  ``max_wait_ms`` has passed since the batch opened — whichever comes
+  first.  A request that would overflow the batch is held and leads the
+  next one; requests are never split.
+- **Priorities, admission and shedding** (``admission.py``): the queue
+  keeps one lane per priority class and pops the highest first; a full
+  queue evicts the youngest request of the lowest class strictly below
+  an arrival's (its future gets a typed ``AdmissionRejected``), else
+  ``submit`` blocks or raises ``queue.Full``.  An attached
+  ``AdmissionController`` (``engine.admission``) rejects up front by
+  quota or brownout.  A request whose deadline has passed, or will
+  within the span ledger's estimate of the service still ahead of it,
+  is shed at pop time with ``DeadlineExceeded``, before it joins a
+  batch.
 - **Padding buckets**: every device call is padded up to one of a small
   ladder of batch sizes (default 1/8/32/128).  Padding rows are sliced
   off before futures resolve — they never reach a caller.
@@ -22,22 +31,37 @@ with few, large, fixed-shape calls:
   counterpart of ``tpuic``'s per-bucket AOT executables.  There is no
   eager fallback on the card: a capture that fails raises, naming the
   bucket.  On the CPU (the tests) the forward runs eagerly.
+- **Pinned host staging**: on the card, host (numpy) requests are
+  gathered into one of two page-locked buffers of their bucket and copied
+  to the device with ``non_blocking=True`` on the batcher's stream; an
+  event recorded after the copy guards the buffer, and the host waits on
+  it before it writes that buffer again.  So the batcher does not wait
+  for the device to take a batch: it goes on to the previous batch's
+  readback, and the device runs the copy, then the replay.
 - **Double buffering**: the batcher assembles and dispatches batch N+1
-  (host gather, pad, the copy in, the replay, and the device->host copy
-  enqueued behind them) *before* it waits on batch N's readback.  The
-  wait on the batch's event in ``_resolve`` is where device errors
-  surface.  A numpy request's copy in is from pageable memory and
-  therefore synchronous: it waits for the device to finish the batch
-  before, so the overlap is the host's gather and padding of N+1 with N's
-  device time.
+  *before* it waits on batch N's readback.  The wait on the batch's event
+  in ``_resolve`` is where device errors surface.
 - **Device-resident requests**: ``submit`` also takes a torch tensor on
   the engine's device (a ``Loader`` batch, say).  It is copied device to
-  device into the static input — an exact fit as one copy, otherwise
-  padded on the device — and never bounces through the host.
+  device into the static input and never bounces through the host.
+- **Generations and hot swap**: the served weights are a *slot* — a
+  model with its forward, its graphs and their memory pool.
+  ``swap_weights`` writes a candidate into a standby slot (a second copy
+  of the model with graphs of its own, built off-path at the first
+  swap), folds K3's weights into the tensors those graphs read, and flips
+  the live slot between two batches: the batcher reads the live slot
+  once per dispatch, so a batch runs all old or all new weights, and
+  nothing queued is dropped or re-run.  The old slot becomes the
+  standby; the next swap waits on the event of the last batch dispatched
+  with it before writing it.  ``candidate_outputs`` runs the standby's
+  graphs on a candidate without touching what traffic sees; a
+  ``swap_weights`` of the same candidate object right after it flips the
+  standby as it is, without writing it again.
 - **Counters**: ``tpuic_torch.serve.metrics.ServeStats`` —
   ``engine.stats.snapshot()`` is one JSON-able dict with ``tpuic``'s keys.
   The kernels' ``.launches`` counters count replays too: each graph
-  records its launches per counter at capture, and every replay adds
+  records its launches per counter at capture, in a tally of the
+  capturing thread's own (``kernels.counting``), and every replay adds
   them.
 
 The forward contract: ``forward(images[B,S,S,C] tensor on the engine's
@@ -47,14 +71,20 @@ request as numpy arrays sliced to the request's rows.
 
 The copy in, the replay and the readback all run on the batcher thread's
 current stream (the device's default stream unless the caller set one),
-and the readback waits on an event recorded on that stream.
+and the readback waits on an event recorded on that stream.  A swap's
+writes, captures and gate replays run on the standby slot's own streams.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import itertools
 import queue
 import threading
 import time
+from collections import deque
+from collections.abc import Mapping
 from concurrent.futures import Future
 from typing import Optional, Sequence
 
@@ -64,10 +94,15 @@ import torch
 from tpuic_torch.checkpoint.convert import load_jax_variables
 from tpuic_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from tpuic_torch.device import resolve_device
-from tpuic_torch.kernels import no_tf32
+from tpuic_torch.kernels import counting, no_tf32
+from tpuic_torch.serve.admission import (DEFAULT_PRIORITY, PRIORITIES,
+                                         AdmissionRejected, DeadlineExceeded,
+                                         priority_index)
 from tpuic_torch.serve.metrics import ServeStats
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+#: The dtype ladder's rungs: float32 weights only so far.
+VARIANTS = ("fp32",)
 
 
 def default_buckets(max_batch: int) -> tuple:
@@ -95,8 +130,8 @@ def make_forward(model, *, normalize: bool = False, mean=None, std=None):
     float32 convolution in TF32 with algorithms chosen by batch size, so a
     row's probabilities would depend on the bucket it rides in (ResNet's
     unfused branch; ``chip_smoke.py``'s ``[model]`` phase measures it).
-    The flags are global to the process; while the engine serves, its
-    batcher thread is the only thread that runs forwards."""
+    The flags are global to the process, and ``no_tf32`` runs the blocks
+    of several threads one after another."""
     m = torch.as_tensor(IMAGENET_MEAN if mean is None else mean,
                         dtype=torch.float32)
     s = torch.as_tensor(IMAGENET_STD if std is None else std,
@@ -121,24 +156,133 @@ def make_forward(model, *, normalize: bool = False, mean=None, std=None):
 
 
 class _Request:
-    """One submitted request plus the host timestamps its span ledger is
-    computed from (``time.monotonic()`` reads — no device interaction).
-    ``images`` is a numpy array, or a tensor on the engine's device whose
-    producer stream ``ready`` marks (``None`` for numpy and on the CPU)."""
+    """One submitted request plus its trace id, its SLA fields and the
+    host timestamps its span ledger is computed from (``time.monotonic()``
+    reads — no device interaction).  ``images`` is a numpy array, or a
+    tensor on the engine's device whose producer stream ``ready`` marks
+    (``None`` for numpy and on the CPU)."""
 
-    __slots__ = ("images", "n", "future", "t_enqueue", "t_gather", "ready")
+    __slots__ = ("images", "n", "future", "trace", "priority", "pidx",
+                 "tenant", "deadline", "variant", "t_enqueue", "t_gather",
+                 "ready")
 
-    def __init__(self, images, future: Future, ready=None) -> None:
+    def __init__(self, images, future: Future, ready=None, trace: int = 0,
+                 priority: str = DEFAULT_PRIORITY,
+                 tenant: Optional[str] = None,
+                 deadline_ms: Optional[float] = None,
+                 variant: str = "fp32") -> None:
         self.images = images
         self.n = images.shape[0]
         self.future = future
         self.ready = ready
+        self.trace = trace
+        self.priority = priority
+        self.pidx = priority_index(priority)
+        self.tenant = tenant
+        self.variant = variant
         self.t_enqueue = time.monotonic()
         self.t_gather = self.t_enqueue  # stamped when the batcher pops it
+        # Absolute monotonic deadline; None = the caller waits forever.
+        self.deadline = (None if deadline_ms is None
+                         else self.t_enqueue + float(deadline_ms) / 1000.0)
+
+
+class _PriorityQueue:
+    """Bounded multi-class FIFO (``tpuic``'s): one lane per priority
+    class; ``get`` pops the highest populated class first and FIFO within
+    it.  ``put`` on a full queue may **evict** the youngest request of the
+    lowest populated class strictly below the arrival's.  All-one-class
+    traffic is exactly a bounded FIFO: nothing is evicted by its own
+    class, and ``queue.Full``/``queue.Empty`` keep the stdlib
+    semantics."""
+
+    def __init__(self, maxsize: int) -> None:
+        self._maxsize = max(1, int(maxsize))
+        self._lock = threading.Lock()
+        self._not_empty = threading.Condition(self._lock)
+        self._not_full = threading.Condition(self._lock)
+        self._lanes = tuple(deque() for _ in PRIORITIES)
+        self._size = 0
+
+    def qsize(self) -> int:
+        with self._lock:
+            return self._size
+
+    def empty(self) -> bool:
+        return self.qsize() == 0
+
+    def _evict_locked(self, pidx: int) -> Optional[_Request]:
+        """Youngest request of the lowest class strictly below ``pidx``
+        (None when every queued request is >= the arrival's class)."""
+        for lane in reversed(self._lanes[pidx + 1:]):
+            if lane:
+                self._size -= 1
+                return lane.pop()
+        return None
+
+    def put(self, req: _Request,
+            timeout: Optional[float] = None) -> Optional[_Request]:
+        """Enqueue ``req``; returns the evicted lower-priority request
+        when admission came at someone else's expense (the caller fails
+        its future).  ``timeout=None`` blocks, ``0`` raises ``queue.Full``
+        at once, else waits that long — only when no eviction candidate
+        exists."""
+        with self._not_full:
+            deadline = (None if timeout is None
+                        else time.monotonic() + max(0.0, timeout))
+            while self._size >= self._maxsize:
+                victim = self._evict_locked(req.pidx)
+                if victim is not None:
+                    self._lanes[req.pidx].append(req)
+                    self._size += 1
+                    self._not_empty.notify()
+                    return victim
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                if remaining is not None and remaining <= 0:
+                    raise queue.Full
+                self._not_full.wait(remaining)
+            self._lanes[req.pidx].append(req)
+            self._size += 1
+            self._not_empty.notify()
+            return None
+
+    def get(self, timeout: Optional[float] = None) -> _Request:
+        with self._not_empty:
+            deadline = (None if timeout is None
+                        else time.monotonic() + max(0.0, timeout))
+            while self._size == 0:
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                if remaining is not None and remaining <= 0:
+                    raise queue.Empty
+                self._not_empty.wait(remaining)
+            for lane in self._lanes:
+                if lane:
+                    self._size -= 1
+                    self._not_full.notify()
+                    return lane.popleft()
+            raise queue.Empty  # unreachable: _size > 0 implies a lane
+
+    def get_nowait(self) -> _Request:
+        return self.get(timeout=0)
 
 
 def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a nest of tensors (dicts, tuples) into one of the same
+    structure, tensor by tensor, in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
 
 
 class _BucketGraph:
@@ -147,17 +291,44 @@ class _BucketGraph:
     it holds on the device."""
 
     __slots__ = ("graph", "static_in", "outputs", "launches", "scratch",
-                 "folded", "pool_bytes")
+                 "pool_bytes")
 
     def __init__(self, graph, static_in, outputs, launches, scratch,
-                 folded, pool_bytes) -> None:
+                 pool_bytes) -> None:
         self.graph = graph
         self.static_in = static_in
         self.outputs = outputs
         self.launches = launches
         self.scratch = scratch
-        self.folded = folded
         self.pool_bytes = pool_bytes
+
+
+class _Slot:
+    """One set of served weights: the model (None for a bare
+    ``forward_fn``), its forward, on the card a CUDA graph per bucket in a
+    memory pool of the slot's own and the stream a swap's work on it runs
+    on; the ``(module, folded weights)`` pairs its graphs read, recorded
+    at its first capture; its generation and digest once it has served;
+    the event of the last batch dispatched with it; the captures made for
+    it since it last went live; and the candidate last written into it
+    while it stood by (None once it is flipped live or a write fails)."""
+
+    __slots__ = ("model", "forward", "graphs", "pool", "stream", "folded",
+                 "generation", "digest", "last_event", "captures",
+                 "staged")
+
+    def __init__(self, model, forward, stream=None) -> None:
+        self.model = model
+        self.forward = forward
+        self.graphs = {}
+        self.pool = None
+        self.stream = stream
+        self.folded: Optional[tuple] = None
+        self.generation = 0
+        self.digest: Optional[str] = None
+        self.last_event = None
+        self.captures = 0
+        self.staged = None
 
 
 class InferenceEngine:
@@ -170,7 +341,8 @@ class InferenceEngine:
         weights as they are).  The engine puts the model on ``device`` in
         eval mode once; a fused model folds its BN weights at the first
         forward (``warmup``).  ``forward_fn`` overrides
-        ``make_forward(model)`` entirely (then ``model`` may be None).
+        ``make_forward(model)`` entirely (then ``model`` may be None, and
+        the engine cannot swap weights).
     image_size, channels, input_dtype : the fixed per-row shape/dtype
         every request must carry — [n, S, S, C] of ``input_dtype``.
     buckets : padding ladder; the largest bucket is ``max_batch`` (the
@@ -178,18 +350,18 @@ class InferenceEngine:
     max_wait_ms : how long an open batch waits for more requests before
         dispatching below max_batch.
     queue_size : bound of the request queue — backpressure, not memory.
+    admission : an ``AdmissionController`` consulted at submit (None
+        admits whatever the queue takes); public and settable later.
     autostart : start the batcher thread in the constructor.  Tests pass
         False to exercise queue semantics deterministically.
     device : where the model runs; ``None`` means the card, and raises
         when there is none.
 
     Identity (the socket transport's ``pong`` and ready file carry it):
-    ``generation`` (0: weights are never swapped yet), ``model_digest``
-    (``checkpoint.variables_digest`` of the served model) and
+    ``generation`` (0 at boot, +1 per swap), ``model_digest``
+    (``checkpoint.variables_digest`` of the live weights) and
     ``variant_tags()`` (``("fp32",)``: no dtype ladder yet).
     """
-
-    generation = 0
 
     def __init__(self, model=None, variables=None, *, image_size: int,
                  channels: int = 3, input_dtype=np.float32,
@@ -197,7 +369,8 @@ class InferenceEngine:
                  max_wait_ms: float = 5.0, queue_size: int = 256,
                  normalize: bool = False, mean=None, std=None,
                  forward_fn=None, stats: Optional[ServeStats] = None,
-                 autostart: bool = True, device=None) -> None:
+                 admission=None, autostart: bool = True,
+                 device=None) -> None:
         if not buckets:
             raise ValueError("need at least one padding bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -222,20 +395,28 @@ class InferenceEngine:
             model.to(self.device).eval()
         elif variables is not None:
             raise ValueError("variables given without a model")
-        self.model = model
-        self._digest: Optional[str] = None
-        self._forward = (forward_fn if forward_fn is not None
-                         else make_forward(model, normalize=normalize,
-                                           mean=mean, std=std))
+        self._forward_kw = dict(normalize=normalize, mean=mean, std=std)
+        self._gen = _Slot(model, forward_fn if forward_fn is not None
+                          else make_forward(model, **self._forward_kw),
+                          torch.cuda.Stream(self.device)
+                          if self.device.type == "cuda" else None)
+        self._standby: Optional[_Slot] = None
+        # One swap at a time; the batcher holds _flip for the read of the
+        # live slot and the launch with it, a swap for the flip.
+        self._swap_lock = threading.Lock()
+        self._flip = threading.Lock()
         self.stats = stats if stats is not None else ServeStats()
         # Requests whose rows reached the device as tensors on it, and
         # those that came as host arrays.
         self.device_requests = 0
         self.host_requests = 0
-        self._graphs = {}
-        self._pool = None
-        self._queue: "queue.Queue[_Request]" = queue.Queue(
-            max(1, int(queue_size)))
+        # On the card: per bucket two page-locked staging buffers, each
+        # with the event of its last copy to the device, and the next to
+        # use.
+        self._staging = {}
+        self._traces = itertools.count(1)
+        self.admission = admission
+        self._queue = _PriorityQueue(max(1, int(queue_size)))
         self._held: Optional[_Request] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -244,17 +425,33 @@ class InferenceEngine:
 
     # -- identity ------------------------------------------------------
     @property
+    def model(self):
+        """The live slot's model."""
+        return self._gen.model
+
+    @property
+    def generation(self) -> int:
+        """Weight generation counter: 0 at boot, +1 per hot swap."""
+        return self._gen.generation
+
+    @property
     def model_digest(self) -> Optional[str]:
-        """``variables_digest`` of the served model, computed once (None
-        for an engine built from a bare ``forward_fn``)."""
-        if self._digest is None and self.model is not None:
+        """``variables_digest`` of the live weights (None for an engine
+        built from a bare ``forward_fn``)."""
+        gen = self._gen
+        if gen.digest is None and gen.model is not None:
             from tpuic_torch.checkpoint.loading import variables_digest
-            self._digest = variables_digest(self.model)
-        return self._digest
+            gen.digest = variables_digest(gen.model)
+        return gen.digest
 
     def variant_tags(self) -> tuple:
         """The dtype ladder's tags: float32 weights only so far."""
-        return ("fp32",)
+        return VARIANTS
+
+    @property
+    def _graphs(self) -> dict:
+        """The live slot's graphs, by bucket."""
+        return self._gen.graphs
 
     # -- lifecycle -----------------------------------------------------
     def start(self) -> "InferenceEngine":
@@ -310,39 +507,59 @@ class InferenceEngine:
         """Make every bucket ready and return ``{bucket: secs}``, each
         recorded through ``stats.record_compile`` (``compiles`` counts the
         buckets).  On a CUDA device a bucket runs once eagerly, is
-        captured into its graph and replayed once to the end of its
-        readback; on the CPU it runs once eagerly.  The first run builds
-        the kernels and folds the model's weights."""
+        captured into its graph and replayed once, from its pinned staging
+        buffer, to the end of its readback; on the CPU it runs once
+        eagerly.  The first run builds the kernels and folds the model's
+        weights."""
         timings = {}
         for b in self.buckets:
             t0 = time.perf_counter()
-            if self.device.type == "cuda" and b not in self._graphs:
-                self._graphs[b] = self._capture(b)
-            batch = np.zeros((b, self.image_size, self.image_size,
-                              self.channels), self.input_dtype)
-            self._readback(self._launch([(0, torch.from_numpy(batch))], b))
+            if self.device.type == "cuda":
+                with self._flip:
+                    gen = self._gen
+                    self._graph_for(gen, b, record=False)
+                    buf, ev = self._pinned(b)
+                    buf.zero_()
+                    launched = self._launch(gen, [(0, buf)], b, ev)
+            else:
+                batch = np.zeros((b, self.image_size, self.image_size,
+                                  self.channels), self.input_dtype)
+                launched = self._launch(self._gen,
+                                        [(0, torch.from_numpy(batch))], b)
+            self._readback(launched)
             timings[b] = round(time.perf_counter() - t0, 3)
             self.stats.record_compile(b, timings[b])
+        self._gen.captures = 0
         # The stats snapshot carries the served model's identity.
-        self.stats.model_digest = self.model_digest or ""
+        self.stats.note_identity(self.model_digest or "", self.generation)
         return timings
 
     def graph_memory(self) -> dict:
-        """Device bytes the captured graphs hold: their shared pool's
-        segments (what the captures added to the reserved memory), their
-        static inputs, and the K3 split-K scratch baked into them."""
-        return {"buckets": sorted(self._graphs),
-                "pool_bytes": sum(g.pool_bytes
-                                  for g in self._graphs.values()),
+        """Device bytes the captured graphs hold, over the live slot and
+        the standby (``slots``): their pools' segments (what the captures
+        added to the reserved memory), their static inputs, and the K3
+        split-K scratch baked into them; and the page-locked host bytes of
+        the staging buffers, by bucket."""
+        slots = [s for s in (self._gen, self._standby) if s is not None]
+        graphs = [g for s in slots for g in s.graphs.values()]
+        return {"buckets": sorted(self._gen.graphs),
+                "slots": sum(1 for s in slots if s.graphs),
+                "pool_bytes": sum(g.pool_bytes for g in graphs),
                 "static_input_bytes": sum(
                     g.static_in.numel() * g.static_in.element_size()
-                    for g in self._graphs.values()),
-                "scratch_bytes": sum(
-                    t.numel() * t.element_size()
-                    for g in self._graphs.values() for t in g.scratch)}
+                    for g in graphs),
+                "scratch_bytes": sum(t.numel() * t.element_size()
+                                     for g in graphs for t in g.scratch),
+                "pinned_bytes": {str(b): sum(
+                    buf.numel() * buf.element_size() for buf, _ in bufs)
+                    for b, (bufs, _) in sorted(self._staging.items())}}
 
     # -- request side --------------------------------------------------
-    def submit(self, images, *, timeout: Optional[float] = None) -> Future:
+    def submit(self, images, *, timeout: Optional[float] = None,
+               priority: str = DEFAULT_PRIORITY,
+               deadline_ms: Optional[float] = None,
+               tenant: Optional[str] = None,
+               dtype: Optional[str] = None) -> Future:
         """Enqueue [n,S,S,C] (or one [S,S,C] row) for inference: a numpy
         array (or anything ``np.asarray`` takes), or a torch tensor of
         ``input_dtype`` on the engine's device.  A tensor on another
@@ -350,9 +567,23 @@ class InferenceEngine:
         with ``ValueError``.
 
         Returns a Future resolving to the forward's outputs (numpy)
-        sliced to this request's n rows.  When the queue is full:
-        ``timeout=None`` blocks (backpressure), ``timeout=0`` raises
-        ``queue.Full`` immediately, other values wait that long first.
+        sliced to this request's n rows; ``fut.tpuic_trace`` is its trace
+        id.  When the queue is full: ``timeout=None`` blocks
+        (backpressure), ``timeout=0`` raises ``queue.Full`` immediately,
+        other values wait that long first — unless a strictly
+        lower-priority request is queued, in which case IT is evicted
+        (its future gets a typed ``AdmissionRejected``) and this one is
+        admitted.
+
+        SLA fields: ``priority`` is one of ``admission.PRIORITIES``;
+        ``deadline_ms`` is the request's latency budget, past which (or
+        past which the estimated service would end) the batcher sheds it
+        at pop time with ``DeadlineExceeded``; ``tenant`` names the quota
+        bucket of an attached ``AdmissionController``, which may reject
+        with a typed ``AdmissionRejected`` (also a ``queue.Full``).  With
+        a controller attached a full queue raises ``AdmissionRejected``
+        (cause ``queue_full``) too.  ``dtype`` names the ladder rung:
+        ``None`` or ``"fp32"``.
 
         The engine BORROWS the array or tensor until the future resolves
         (no defensive copy): callers reusing a staging buffer must copy.
@@ -382,17 +613,50 @@ class InferenceEngine:
                              f"bucket {self.max_batch}; chunk it caller-side")
         if self._stop.is_set():
             raise RuntimeError("engine is closed")
+        # The SLA fields are validated before admission: a malformed one
+        # failing after admit() would have spent a quota token.
+        priority_index(priority)
+        variant = VARIANTS[0] if dtype is None else str(dtype)
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown serve dtype {variant!r}; "
+                             f"configured: {sorted(VARIANTS)}")
+        if deadline_ms is not None:
+            deadline_ms = float(deadline_ms)
+        if self.admission is not None:
+            verdict = self.admission.admit(priority=priority, tenant=tenant)
+            if not verdict:
+                self.stats.record_reject(verdict.cause, priority)
+                raise AdmissionRejected(
+                    f"admission rejected ({verdict.cause}, "
+                    f"priority={priority}, tenant={tenant})",
+                    cause=verdict.cause, priority=priority, tenant=tenant)
         ready = None
         if isinstance(arr, torch.Tensor) and arr.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(arr.device))
         fut: Future = Future()
-        req = _Request(arr, fut, ready)
+        req = _Request(arr, fut, ready, trace=next(self._traces),
+                       priority=priority, tenant=tenant,
+                       deadline_ms=deadline_ms, variant=variant)
+        fut.tpuic_trace = req.trace
         try:
-            self._queue.put(req, timeout=timeout)
+            evicted = self._queue.put(req, timeout=timeout)
         except queue.Full:
-            self.stats.record_reject("queue_full")
+            self.stats.record_reject("queue_full", priority)
+            if self.admission is not None:
+                raise AdmissionRejected(
+                    f"queue full (priority={priority})", cause="queue_full",
+                    priority=priority, tenant=tenant) from None
             raise
+        if evicted is not None:
+            # From the evicted request's point of view the queue was full
+            # of more important work: the same typed verdict.
+            self.stats.record_reject("queue_full", evicted.priority)
+            if not evicted.future.cancelled():
+                evicted.future.set_exception(AdmissionRejected(
+                    f"evicted by a higher-priority arrival "
+                    f"(priority={evicted.priority})", cause="queue_full",
+                    priority=evicted.priority, tenant=evicted.tenant))
         # Re-check after the put: a close() that ran between the check
         # above and the put has already drained the queue, and nothing
         # will ever read this request — fail it instead of hanging.
@@ -410,114 +674,158 @@ class InferenceEngine:
         return self._queue.qsize()
 
     # -- device side ---------------------------------------------------
-    def _capture(self, bucket: int) -> _BucketGraph:
-        """Capture bucket ``bucket``'s forward into a CUDA graph.  Raises
-        ``RuntimeError`` naming the bucket when the run before it or the
-        capture fails: the card has no eager fallback."""
-        from tpuic_torch.kernels import conv_bn_relu, counted_kernels
+    def _capture(self, slot: _Slot, bucket: int) -> _BucketGraph:
+        """Capture bucket ``bucket``'s forward of ``slot`` into a CUDA
+        graph in the slot's pool.  Raises ``RuntimeError`` naming the
+        bucket when the run before it or the capture fails: the card has
+        no eager fallback."""
+        from tpuic_torch.kernels import conv_bn_relu
         dev = self.device
         static_in = torch.zeros(
             (bucket, self.image_size, self.image_size, self.channels),
             dtype=self._torch_dtype, device=dev)
-        # Hazard, K3's split-K scratch: it is keyed by (device, stream) and
-        # grows on demand, and a capture bakes its addresses into the
+        # Hazard, K3's split-K scratch: it is keyed by (device, stream)
+        # and grows on demand, and a capture bakes its addresses into the
         # graph.  Each bucket therefore captures on a stream of its own,
-        # after one eager run on that stream, which sizes the stream's
-        # scratch for exactly this bucket's convs; the capture then finds
-        # it large enough and allocates none, and nothing else ever runs
-        # on that stream, so the scratch is never replaced.  The graph
-        # keeps a reference to it all the same.  The counters start
-        # every replay at zero: the kernel leaves each it took at zero,
-        # and the eager run left them so.  Two graphs never share a
-        # scratch, and all replays go to the batcher's one stream.
+        # after one eager run on that stream, which sizes a scratch for
+        # exactly this bucket's convs; the capture then finds it large
+        # enough and allocates none.  torch hands out its streams again
+        # after a while, so the stream's scratch entry is dropped before
+        # the eager run and after the capture: the graph holds the only
+        # reference to its scratch, and no other launch or graph uses it.
+        # The counters start every replay at zero: the kernel leaves
+        # each it took at zero, and the eager run left them so.
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        counters = counted_kernels()
+        key = (static_in.get_device(), stream.cuda_stream)
         try:
+            conv_bn_relu._SCRATCH.pop(key, None)
             # The eager run builds the kernels, folds K3's weights and
             # makes the forward's device constants, none of which a
             # capture may do.
             with torch.cuda.stream(stream):
-                _as_tuple(self._forward(static_in))
+                _as_tuple(slot.forward(static_in))
             stream.synchronize()
-            before = [fn.launches for fn in counters]
-            if self._pool is None:
-                # Hazard, memory: one pool for every bucket's graph.  That
-                # is safe because the buckets' graphs never run at once
-                # and each is used as one unit: the batcher enqueues the
-                # copy into a static input, the replay and the copy out of
-                # the static outputs back to back on its one stream, so a
-                # block that two graphs share (an intermediate of one that
-                # is a static tensor of another) is free again before the
-                # next unit's copy in.  Every graph's static tensors stay
-                # referenced here, so no later capture reuses them.
-                self._pool = torch.cuda.graph_pool_handle()
+            if slot.pool is None:
+                # Hazard, memory: one pool for every bucket's graph of a
+                # slot.  That is safe because a slot's graphs never run
+                # at once and each is used as one unit: the copy into a
+                # static input, the replay and the copy out of the static
+                # outputs go back to back on one stream (the batcher's,
+                # or the swap's for a standby), so a block that two
+                # graphs share is free again before the next unit's copy
+                # in.  Every graph's static tensors stay referenced here,
+                # so no later capture reuses them.  Another slot, whose
+                # graphs may replay at the same time on another stream,
+                # has a pool of its own.
+                slot.pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            # Hazard, flags: the forward sets its TF32 flags itself
-            # (``make_forward`` turns TF32 off for the call), inside the
-            # capture as in the eager run, so the captured kernels are the
-            # ones the eager forward chooses.
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                reserved = torch.cuda.memory_reserved(dev)
-                outputs = _as_tuple(self._forward(static_in))
+            reserved = torch.cuda.memory_reserved(dev)
+            # The capture's stream has run everything before it (the
+            # synchronize above), so ``torch.cuda.graph``'s device-wide
+            # synchronize, which would wait on the batcher's replays, is
+            # not needed: the capture is begun and ended by hand.
+            with torch.cuda.stream(stream):
+                graph.capture_begin(slot.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    # Hazard, launch counters: they count in Python, so
+                    # during the capture too, which launches nothing.
+                    # This thread's counts go to a tally of its own, the
+                    # graph's launches per replay, and never reach the
+                    # counters that replays on other threads add to.
+                    # Hazard, flags: the forward sets its TF32 flags
+                    # itself (``make_forward``), inside the capture as in
+                    # the eager run, under ``no_tf32``'s process-wide
+                    # lock.
+                    with counting.tally() as launches:
+                        outputs = _as_tuple(slot.forward(static_in))
+                finally:
+                    graph.capture_end()
             pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of bucket {bucket} "
                                f"failed: {e}") from e
-        # Hazard, launch counters: they count in Python, so during the
-        # capture, which launches nothing.  The capture's counts become
-        # the graph's launches per replay and are taken back off.
-        launches = []
-        for fn, b in zip(counters, before):
-            n = fn.launches - b
-            if n:
-                fn.launches = b
-                launches.append((fn, n))
-        scratch = conv_bn_relu._SCRATCH.get(
-            (static_in.get_device(), stream.cuda_stream))
+        scratch = conv_bn_relu._SCRATCH.pop(key, None)
         scratch = (tuple(t for t in (scratch.ws, scratch.counters)
                          if t is not None) if scratch is not None else ())
-        # The graph also bakes in the addresses of K3's folded weights,
-        # which the model drops when it refolds (``invalidate_packed``):
-        # the graph holds them, so a replay never reads freed memory.
-        folded = tuple(m._packed for m in (self.model.modules()
-                                           if self.model is not None else ())
-                       if getattr(m, "_packed", None) is not None)
-        return _BucketGraph(graph, static_in, outputs, tuple(launches),
-                            scratch, folded, pool_bytes)
+        # The graph also bakes in the addresses of K3's folded weights.
+        # The slot's first capture records them, a swap folds new weights
+        # into these same tensors (``_write``), and every later capture
+        # must read them too.
+        folded = tuple((m, m._packed) for m in (
+            slot.model.modules() if slot.model is not None else ())
+            if getattr(m, "_packed", None) is not None)
+        if slot.folded is None:
+            slot.folded = folded
+        elif [(id(m), id(t)) for m, t in folded] != [
+                (id(m), id(t)) for m, t in slot.folded]:
+            raise RuntimeError(f"CUDA graph of bucket {bucket} reads folded "
+                               f"weights that the slot's other graphs do "
+                               f"not")
+        slot.captures += 1
+        return _BucketGraph(graph, static_in, outputs,
+                            tuple(launches.items()), scratch, pool_bytes)
 
-    def _graph_for(self, bucket: int) -> _BucketGraph:
-        g = self._graphs.get(bucket)
+    def _graph_for(self, slot: _Slot, bucket: int,
+                   record: bool = True) -> _BucketGraph:
+        g = slot.graphs.get(bucket)
         if g is None:
             # A bucket not warmed is captured at its first use, once.
             t0 = time.perf_counter()
-            g = self._graphs[bucket] = self._capture(bucket)
-            self.stats.record_compile(bucket,
-                                      round(time.perf_counter() - t0, 3))
+            g = slot.graphs[bucket] = self._capture(slot, bucket)
+            if record:
+                self.stats.record_compile(
+                    bucket, round(time.perf_counter() - t0, 3))
         return g
+
+    def _replay(self, g: _BucketGraph):
+        """Replay ``g`` on the current stream; adds its launches to each
+        kernel's counter."""
+        g.graph.replay()
+        counting.add_launches(g.launches)
+        return g.outputs
 
     def replay(self, bucket: int, x: Optional[torch.Tensor] = None):
         """Copy ``x`` ([bucket, S, S, C] on the card; None keeps the
-        static input as it is) into bucket ``bucket``'s static input,
-        replay its graph on the current stream and return the static
-        outputs, which the next replay of the bucket overwrites.  Adds
-        the graph's launches to each kernel's counter."""
-        g = self._graph_for(bucket)
+        static input as it is) into the live slot's static input of
+        bucket ``bucket``, replay its graph on the current stream and
+        return the static outputs, which the next replay of the bucket
+        overwrites.  Adds the graph's launches to each kernel's
+        counter."""
+        g = self._graph_for(self._gen, bucket)
         if x is not None:
             g.static_in.copy_(x)
-        g.graph.replay()
-        for fn, n in g.launches:
-            fn.launches += n
-        return g.outputs
+        return self._replay(g)
 
-    def _launch(self, parts, bucket: int):
-        """The copy in, the forward and the device->host copy, all
-        enqueued on the current stream; returns ``(host tensors, event)``
-        where the event marks the copy's end (``None`` on the CPU).
-        ``parts`` are ``(row offset, tensor)`` pieces of the batch, on the
-        host or on the engine's device; rows past the last piece are
-        padding (zeros)."""
+    def _pinned(self, bucket: int):
+        """The next of the bucket's two page-locked staging buffers and
+        its event, once the buffer's last copy to the device has ended
+        (allocated at the bucket's first use).  Reusing a buffer before
+        its copy ran would change a batch on its way to the device, with
+        no error."""
+        entry = self._staging.get(bucket)
+        if entry is None:
+            shape = (bucket, self.image_size, self.image_size, self.channels)
+            bufs = [(torch.empty(shape, dtype=self._torch_dtype,
+                                 pin_memory=True), torch.cuda.Event())
+                    for _ in range(2)]
+            entry = self._staging[bucket] = [bufs, 0]
+        bufs, nxt = entry
+        entry[1] = 1 - nxt
+        buf, ev = bufs[nxt]
+        ev.synchronize()  # returns at once for an event never recorded
+        return buf, ev
+
+    def _launch(self, slot: _Slot, parts, bucket: int, staged=None):
+        """The copy in, the forward and the device->host copy with
+        ``slot``, all enqueued on the current stream; returns ``(host
+        tensors, event)`` where the event marks the copy's end (``None``
+        on the CPU).  ``parts`` are ``(row offset, tensor)`` pieces of the
+        batch, on the host (page-locked on the card) or on the engine's
+        device; rows past the last piece are padding (zeros).  ``staged``
+        is the event of the staging buffer the host pieces came from,
+        recorded after their copies."""
         rows = sum(t.shape[0] for _, t in parts)
         if self.device.type != "cuda":
             if len(parts) == 1 and rows == bucket:
@@ -527,14 +835,16 @@ class InferenceEngine:
                                 dtype=parts[0][1].dtype)
                 for off, t in parts:
                     x[off:off + t.shape[0]] = t
-            return _as_tuple(self._forward(x.to(self.device))), None
-        g = self._graph_for(bucket)
+            return _as_tuple(slot.forward(x.to(self.device))), None
+        g = self._graph_for(slot, bucket)
         stream = torch.cuda.current_stream(self.device)
         for off, t in parts:
-            g.static_in[off:off + t.shape[0]].copy_(t)
+            g.static_in[off:off + t.shape[0]].copy_(t, non_blocking=True)
+        if staged is not None:
+            staged.record(stream)
         if rows < bucket:
             g.static_in[rows:].zero_()
-        out = self.replay(bucket)
+        out = self._replay(g)
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in out)
         for h, t in zip(host, out):
@@ -550,18 +860,260 @@ class InferenceEngine:
             event.synchronize()
         return tuple(t.numpy() for t in host)
 
+    # -- hot swap ------------------------------------------------------
+    def _candidate(self, variables, variants) -> object:
+        """The fp32 rung of a swap: the tag set must equal the ladder's
+        (the ladder swaps as one unit)."""
+        staged = {}
+        if variables is not None:
+            staged[VARIANTS[0]] = variables
+        for tag, spec in (variants or {}).items():
+            tag = str(tag)
+            if tag in staged:
+                raise ValueError(f"duplicate swap rung {tag!r}")
+            staged[tag] = spec
+        if set(staged) != set(VARIANTS):
+            raise ValueError(
+                f"swap must replace the dtype ladder as one unit: "
+                f"configured rungs {sorted(VARIANTS)}, swap covers "
+                f"{sorted(staged)}")
+        return staged[VARIANTS[0]]
+
+    @staticmethod
+    def _same_shapes(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+        sa, sb = a.state_dict(), b.state_dict()
+        return (list(sa) == list(sb) and all(
+            sa[k].shape == sb[k].shape and sa[k].dtype == sb[k].dtype
+            for k in sa) and type(a) is type(b))
+
+    def _stream_ctx(self, slot: _Slot):
+        return (torch.cuda.stream(slot.stream) if slot.stream is not None
+                else contextlib.nullcontext())
+
+    def _write(self, slot: _Slot, cand) -> None:
+        """Write ``cand`` (a ``tpuic`` variables tree, a ``state_dict`` or
+        a model) into ``slot``'s model in place, then fold K3's weights
+        into the tensors its graphs read (``slot.folded``).  Loading drops
+        a model's folded weights, and the next fold would build new
+        tensors while the graphs go on reading the old ones: the old
+        weights, with no error."""
+        model = slot.model
+        slot.staged = None
+        with self._stream_ctx(slot), torch.no_grad():
+            try:
+                if isinstance(cand, torch.nn.Module):
+                    model.load_state_dict(cand.state_dict())
+                elif isinstance(cand, Mapping) and "params" in cand:
+                    load_jax_variables(model, cand)
+                elif isinstance(cand, Mapping):
+                    model.load_state_dict(cand)
+                else:
+                    raise TypeError(f"swap candidate must be a tpuic "
+                                    f"variables tree, a state_dict or a "
+                                    f"model, got {type(cand).__name__}")
+            finally:
+                # A load that fails has dropped them too (torch checks the
+                # keys after it wrote those that match): the graphs' fold
+                # targets go back either way.
+                for m, packed in slot.folded or ():
+                    m._packed = packed
+            for m, packed in slot.folded or ():
+                m._packed = None
+                _copy_into(packed, m.packed_weights())
+                m._packed = packed
+        slot.staged = cand
+
+    def _new_slot(self, model) -> _Slot:
+        return _Slot(model, make_forward(model, **self._forward_kw)
+                     if model is not None else None,
+                     torch.cuda.Stream(self.device)
+                     if self.device.type == "cuda" else None)
+
+    def _load(self, cand, *, new_shapes: bool) -> _Slot:
+        """The slot that holds ``cand`` once it returns (its work on the
+        device done): the standby with ``cand`` written into it (made at
+        the first swap from a copy of the live model, its graphs captured
+        then), or — for a model of other shapes, when ``new_shapes`` —
+        a new slot around that model, captured off-path.  Call under the
+        swap lock."""
+        live = self._gen
+        if live.model is None:
+            raise ValueError("swap needs an engine built from a model; this "
+                             "one serves a bare forward_fn")
+        if isinstance(cand, torch.nn.Module) and not self._same_shapes(
+                cand, live.model):
+            if not new_shapes:
+                raise ValueError(
+                    "candidate model is not shaped like the serving model: "
+                    "gate it through swap_weights, which captures a new "
+                    "slot for it")
+            slot = self._new_slot(cand.to(self.device).eval())
+            if slot.stream is not None:
+                slot.stream.wait_stream(torch.cuda.current_stream(
+                    self.device))
+        else:
+            slot = self._standby
+            if slot is None:
+                slot = self._standby = self._new_slot(None)
+            elif slot.last_event is not None:
+                # The last batch dispatched with this slot before it went
+                # standby must be done before its weights change.
+                slot.last_event.synchronize()
+            if slot.stream is not None:
+                # The candidate's tensors may still be in the making on
+                # the caller's stream.
+                slot.stream.wait_stream(torch.cuda.current_stream(
+                    self.device))
+            if slot.model is None:
+                with self._stream_ctx(slot):
+                    slot.model = copy.deepcopy(live.model)
+                slot.forward = make_forward(slot.model, **self._forward_kw)
+            if slot.staged is not cand:
+                # A gate's candidate_outputs wrote it already.
+                self._write(slot, cand)
+        if self.device.type == "cuda":
+            with torch.cuda.stream(slot.stream):
+                for b in self.buckets:
+                    self._graph_for(slot, b)
+            slot.stream.synchronize()
+        return slot
+
+    def swap_weights(self, variables=None, *,
+                     variants: Optional[dict] = None) -> dict:
+        """Atomically replace the serving weights: no drain, no dropped
+        request.
+
+        ``variables`` is the new fp32 rung: a ``tpuic`` variables tree
+        (numpy leaves), a port ``state_dict`` or a model; ``variants``
+        maps other ladder tags to theirs.  The tag set must equal the
+        configured ladder, ``{"fp32"}`` (``ValueError`` otherwise).
+
+        A candidate shaped like the serving model is written into the
+        standby slot, whose graphs then read it: ``reused_executables``
+        is true when no bucket was captured for it (every swap after the
+        first); ``prewarmed`` counts the captures made since the slot
+        last served.  A model of other shapes gets a new slot, captured
+        off-path; the old one is freed once its last batch has run.  A
+        candidate object that ``candidate_outputs`` was just given is
+        already in the standby and is not written again: the engine
+        borrows it, unchanged, from the one call to the other.  The flip
+        is one reference assignment between two batches: a batch runs all
+        old or all new weights, and in-flight and queued requests resolve,
+        none re-run.  One swap at a time.  Returns ``{generation, digest,
+        reused_executables, prewarmed, duration_s, batcher_hold_s}``, the
+        last the host time the flip held the batcher."""
+        from tpuic_torch.checkpoint.loading import variables_digest
+        t0 = time.perf_counter()
+        with self._swap_lock:
+            cand = self._candidate(variables, variants)
+            slot = self._load(cand, new_shapes=True)
+            # The digest reads the weights off the batcher's stream.
+            with self._stream_ctx(slot):
+                slot.digest = variables_digest(slot.model)
+            slot.staged = None
+            with self._flip:
+                t_flip = time.perf_counter()
+                old = self._gen
+                slot.generation = old.generation + 1
+                self._gen = slot  # THE flip: one reference
+                hold = time.perf_counter() - t_flip
+            if slot is self._standby:
+                old.captures = 0
+                self._standby = old
+            else:
+                # Other shapes: the old slots cannot take the next
+                # candidate.  The old live slot goes once its last batch
+                # has run (the graphs hold its memory until then).
+                self._standby = None
+                if old.last_event is not None:
+                    old.last_event.synchronize()
+                del old
+            prewarmed, slot.captures = slot.captures, 0
+            duration_s = time.perf_counter() - t0
+            self.stats.record_swap(slot.generation, slot.digest)
+        return {"generation": slot.generation, "digest": slot.digest,
+                "reused_executables": prewarmed == 0,
+                "prewarmed": prewarmed, "duration_s": round(duration_s, 4),
+                "batcher_hold_s": round(hold, 6)}
+
+    def candidate_outputs(self, variables, images, *,
+                          variant: Optional[str] = None):
+        """The forward's outputs on ``images`` with ``variables`` in place
+        of the serving weights, without touching what traffic sees: the
+        candidate is written into the standby slot and its graphs replay
+        on the slot's stream — the same graphs, and so the same bits,
+        that serve it after a swap.  Raises ``ValueError`` for an unknown
+        rung, and for a model shaped unlike the serving one (swap_weights
+        captures those).  Returns numpy arrays with ``images``' rows."""
+        variant = VARIANTS[0] if variant is None else str(variant)
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown serve dtype {variant!r}; "
+                             f"configured: {sorted(VARIANTS)}")
+        arr = np.asarray(images, self.input_dtype)
+        if arr.ndim == 3:
+            arr = arr[None]
+        chunks = []
+        with self._swap_lock:
+            slot = self._load(variables, new_shapes=False)
+            for lo in range(0, arr.shape[0], self.max_batch):
+                chunk = arr[lo:lo + self.max_batch]
+                n = chunk.shape[0]
+                bucket = self.bucket_for(n)
+                if slot.stream is None:
+                    x = np.zeros((bucket,) + chunk.shape[1:], chunk.dtype)
+                    x[:n] = chunk
+                    out = _as_tuple(slot.forward(torch.from_numpy(x)))
+                    chunks.append(tuple(t[:n].numpy() for t in out))
+                    continue
+                with torch.cuda.stream(slot.stream):
+                    g = self._graph_for(slot, bucket)
+                    g.static_in[:n].copy_(torch.from_numpy(
+                        np.ascontiguousarray(chunk)))
+                    g.static_in[n:].zero_()
+                    out = self._replay(g)
+                    chunks.append(tuple(t[:n].cpu().numpy() for t in out))
+        if len(chunks) == 1:
+            return chunks[0]
+        return tuple(np.concatenate(xs, axis=0) for xs in zip(*chunks))
+
     # -- batcher thread ------------------------------------------------
+    def _maybe_shed(self, req: _Request) -> bool:
+        """Pop-time deadline shed: True when ``req``'s deadline has passed
+        or will within ``stats.estimated_service_s()``; its future then
+        gets a typed ``DeadlineExceeded``.  Shedding happens strictly
+        before batch membership, so batchmates are untouched."""
+        if req.deadline is None:
+            return False
+        if time.monotonic() + self.stats.estimated_service_s() \
+                <= req.deadline:
+            return False
+        self.stats.record_reject("deadline", req.priority)
+        if not req.future.cancelled():
+            req.future.set_exception(DeadlineExceeded(
+                f"deadline expired before service (trace {req.trace}, "
+                f"priority={req.priority})", priority=req.priority,
+                tenant=req.tenant))
+        return True
+
     def _gather(self, idle_timeout: float):
-        """One coalescing decision: FIFO requests until max_batch rows or
-        max_wait_ms after the batch opened.  A request that would overflow
-        max_batch is held and leads the next batch."""
+        """One coalescing decision: requests (highest priority class
+        first, FIFO within a class) until max_batch rows or max_wait_ms
+        after the batch opened.  A request that would overflow max_batch
+        is held and leads the next batch, whatever its class.  Expired
+        deadlines are shed here, at pop time."""
         first, self._held = self._held, None
-        if first is None:
+        if first is not None and self._maybe_shed(first):
+            first = None
+        while first is None:
             try:
                 first = self._queue.get(timeout=idle_timeout)
             except queue.Empty:
                 return None
+            # A held request keeps its first pop time: the wait while held
+            # belongs to batch formation.
             first.t_gather = time.monotonic()
+            if self._maybe_shed(first):
+                first = None
         reqs, rows = [first], first.n
         deadline = time.monotonic() + self.max_wait
         while rows < self.max_batch:
@@ -573,6 +1125,8 @@ class InferenceEngine:
             except queue.Empty:
                 break
             nxt.t_gather = time.monotonic()
+            if self._maybe_shed(nxt):
+                continue
             if rows + nxt.n > self.max_batch:
                 self._held = nxt
                 break
@@ -581,51 +1135,58 @@ class InferenceEngine:
         return reqs
 
     def _stage(self, reqs):
-        """``(requests kept, bucket, (offset, tensor) parts)``.  Host
-        arrays are gathered into one padded host batch (one copy to the
-        device); tensors on the device go in as they are, padded on the
+        """``(requests kept, bucket, (offset, tensor) parts, event)``.
+        Host arrays are gathered into one padded batch — on the card into
+        a page-locked staging buffer, whose event comes back with the
+        parts; tensors on the device go in as they are, padded on the
         device.
 
-        Error isolation: a request whose array fails the staging copy gets
-        the exception on ITS future and is dropped from the batch — its
-        batchmates still dispatch and resolve.  The survivors may then fit
-        a smaller bucket (rows packed contiguously from 0)."""
+        Error isolation: a request whose array fails the staging copy
+        gets the exception on ITS future and is dropped from the batch —
+        its batchmates still dispatch and resolve.  The survivors may then
+        fit a smaller bucket (rows packed contiguously from 0)."""
         bucket = self.bucket_for(sum(r.n for r in reqs))
-        hosts = [r for r in reqs if not isinstance(r.images, torch.Tensor)]
-        if len(hosts) < len(reqs):
-            parts, off = [], 0
-            for r in reqs:
-                t = (r.images if isinstance(r.images, torch.Tensor)
-                     else torch.from_numpy(np.ascontiguousarray(r.images)))
+        on_card = self.device.type == "cuda"
+        n_hosts = sum(not isinstance(r.images, torch.Tensor) for r in reqs)
+        buf = ev = batch = None
+        if on_card and n_hosts:
+            buf, ev = self._pinned(bucket)
+            batch = buf.numpy()
+        elif n_hosts == len(reqs) == 1 and reqs[0].n == bucket:
+            self.host_requests += 1
+            return reqs, bucket, [(0, torch.from_numpy(
+                np.ascontiguousarray(reqs[0].images)))], None
+        elif n_hosts:
+            batch = np.zeros((bucket, self.image_size, self.image_size,
+                              self.channels), self.input_dtype)
+        parts, off, ok, hosts = [], 0, [], 0
+        for r in reqs:
+            if isinstance(r.images, torch.Tensor):
                 if r.ready is not None:
                     torch.cuda.current_stream(self.device).wait_event(
                         r.ready)
-                parts.append((off, t))
-                off += r.n
-            self.device_requests += len(reqs) - len(hosts)
-            self.host_requests += len(hosts)
-            return reqs, bucket, parts
-        if len(reqs) == 1 and reqs[0].n == bucket:
-            self.host_requests += 1
-            return reqs, bucket, [(0, torch.from_numpy(
-                np.ascontiguousarray(reqs[0].images)))]  # no staging copy
-        batch = np.zeros((bucket, self.image_size, self.image_size,
-                          self.channels), self.input_dtype)
-        off, ok = 0, []
-        for r in reqs:
-            try:
-                batch[off:off + r.n] = r.images
-            except Exception as e:
-                if not r.future.cancelled():
-                    r.future.set_exception(e)
-                continue
+                parts.append((off, r.images))
+            else:
+                try:
+                    batch[off:off + r.n] = r.images
+                except Exception as e:
+                    if not r.future.cancelled():
+                        r.future.set_exception(e)
+                    continue
+                parts.append((off, None))
+                hosts += 1
             ok.append(r)
             off += r.n
         if not ok:
             return None
-        bucket = self.bucket_for(off)
-        self.host_requests += len(ok)
-        return ok, bucket, [(0, torch.from_numpy(batch[:bucket]))]
+        if hosts:
+            rows = buf if on_card else torch.from_numpy(batch)
+            parts = ([(0, rows[:off])] if hosts == len(ok) else
+                     [(o, rows[o:o + r.n] if t is None else t)
+                      for (o, t), r in zip(parts, ok)])
+        self.device_requests += len(ok) - hosts
+        self.host_requests += hosts
+        return ok, self.bucket_for(off), parts, ev if hosts else None
 
     def _dispatch(self, reqs):
         """Pad to bucket, then launch.  Returns the in-flight batch (None
@@ -636,12 +1197,18 @@ class InferenceEngine:
         staged = self._stage(reqs)
         if staged is None:
             return None
-        reqs, bucket, parts = staged
+        reqs, bucket, parts, used = staged
         rows = sum(r.n for r in reqs)
         t_staged = time.monotonic()  # staging (pad/copy) span ends
         self.stats.record_dispatch(bucket, rows,
                                    [t_staged - r.t_enqueue for r in reqs])
-        launched = self._launch(parts, bucket)
+        # ONE read of the live slot per batch: a swap flips it between
+        # batches, never inside one, and cannot write the old slot until
+        # this batch's event (the slot's last) has completed.
+        with self._flip:
+            gen = self._gen
+            launched = self._launch(gen, parts, bucket, used)
+            gen.last_event = launched[1]
         return reqs, launched, bucket, (t_batch, t_staged, time.monotonic())
 
     def _resolve(self, inflight) -> None:

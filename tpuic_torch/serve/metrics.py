@@ -4,9 +4,11 @@ Everything the engine's micro-batcher decides leaves a trace here: queue
 wait and total latency percentiles, pad efficiency (valid rows / device
 rows), the batch-size histogram, and the per-request span ledger.
 ``snapshot()`` keeps ``tpuic``'s keys.  In the port ``compiles`` counts
-the one warm-up run of each bucket (eager PyTorch has no executables to
-compile), and the executable-cache, rejection and hot-swap fields stay at
-their idle values until the features that move them are ported.
+bucket captures (a CUDA graph each on the card; one eager run each on the
+CPU), and the executable-cache and cost fields stay at their idle values:
+there are no XLA executables.  ``rejected_by`` counts rejections by cause
+and priority class; ``swaps``, ``generation`` and ``model_digest`` name the
+weights being served, and survive ``reset()``.
 
 All updates happen under one lock: the engine touches this from its
 batcher thread while callers snapshot from theirs.
@@ -41,6 +43,8 @@ class ServeStats:
         self._lock = threading.Lock()
         self._window = window
         self.executable_cost: Dict[int, dict] = {}
+        # The served weights' identity belongs to the engine, not to the
+        # measurement window: reset() keeps it.
         self.swaps = 0
         self.generation = 0
         self.model_digest = ""
@@ -63,8 +67,26 @@ class ServeStats:
             self.compile_s = 0.0
             self.cache_hits = 0
             self.rejected = 0
+            # cause -> priority -> count: queue_full (backpressure or a
+            # priority eviction), deadline (pop-time shed), quota,
+            # brownout.
             self.rejected_by: Dict[str, Dict[str, int]] = {}
+            self._est = 0.0            # cached estimated_service_s
+            self._est_t = float("-inf")
             self._t0 = time.monotonic()
+
+    def note_identity(self, digest: str, generation: int = 0) -> None:
+        """Record the boot weights' identity; no swap happened."""
+        with self._lock:
+            self.model_digest = str(digest)
+            self.generation = int(generation)
+
+    def record_swap(self, generation: int, digest: str) -> None:
+        """One completed hot swap (``InferenceEngine.swap_weights``)."""
+        with self._lock:
+            self.swaps += 1
+            self.generation = int(generation)
+            self.model_digest = str(digest)
 
     # -- engine-side updates -------------------------------------------
     def record_compile(self, bucket: int, seconds: float) -> None:
@@ -76,7 +98,9 @@ class ServeStats:
 
     def record_reject(self, cause: str = "queue_full",
                       priority: str = "normal") -> None:
-        """One rejected request, labeled by cause and priority class."""
+        """One rejected or shed request, labeled by cause and priority
+        class: every submit either resolves (``requests``) or lands here
+        under exactly one cause, so accepted + rejected == offered."""
         with self._lock:
             self.rejected += 1
             by_prio = self.rejected_by.setdefault(cause, {})
@@ -107,6 +131,26 @@ class ServeStats:
                 self.spans[phase].update(s)
 
     # -- reads ---------------------------------------------------------
+    def estimated_service_s(self) -> float:
+        """Rolling estimate of the service time a popped request still
+        has ahead of it: the span ledger's p50s of every phase after the
+        queue.  The pop-time deadline shed uses it; 0.0 until the ledger
+        has samples.  Cached for 50 ms (the quantiles sort the window)."""
+        max_age_s = 0.05
+        with self._lock:
+            now = time.monotonic()
+            if now - self._est_t < max_age_s:
+                return self._est
+            est = 0.0
+            for phase in SPAN_PHASES:
+                if phase == "queue":
+                    continue  # already behind a popped request
+                p50 = self.spans[phase].quantile_s(50)
+                if p50 is not None:
+                    est += p50
+            self._est, self._est_t = est, now
+            return est
+
     def pad_efficiency_rows(self) -> tuple:
         """(valid_rows, padded_rows) so far."""
         with self._lock:
