@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--requests N] [--seed S] [--out smoke.json]
 
-Drives ``tpuic_torch``'s serving path on the card and exits non-zero at
-the first phase that fails:
+Drives ``tpuic_torch``'s serving and training paths on the card and exits
+non-zero at the first phase that fails:
 
 1. device — ``nvidia-smi`` name and power limit, torch/CUDA versions.
    Refuses to run without CUDA.
@@ -174,12 +174,57 @@ the first phase that fails:
    state through the kernels and 3 through dense attention and the plain
    loss, TF32 off: the per-step losses agree within rtol 1e-3.
 
-Every launch count is set to 0 just before a path runs and read just after
-it.  Cuts: float32, not bf16; no mixup, CutMix, random erasing, EMA or
-drop-path; one card.
+20. inception — ``create_model("inceptionv3", 1000, dtype="float32")`` at
+   299x299 with seeded synthetic weights, eval forward: a row's
+   probabilities at batch 1 and inside batch 32 agree within 1e-5
+   (``make_forward``, TF32 off), then ``serve``'s engine, clients and graph
+   checks at 299 px.  No kernel lies on this forward (K3 is ResNet-only, as
+   in ``tpuic``): every launch count must stay 0.
+21. inception-train — the reference's recipe (InceptionV3 with its aux
+   head, 299 px, Adam lr 0.5e-5, the 7 class weights) on a synthetic
+   7-class ImageFolder at batch 32 with the fused loss, through
+   ``Trainer``: 12 steps in float32 and 12 in bf16 (``compute_dtype``
+   bf16), each launching K1 forward and backward twice a step (main and
+   aux logits), master weights and Adam moments float32 after, and every
+   convolution of the first step returning the arm's dtype (a forward
+   hook); then 3 steps from one state through the kernels and through the
+   plain loss (float32, TF32 off: loss rtol 1e-3), and through the
+   kernels in bf16 (loss within BF16_LOSS_RTOL, 2e-2, of the float32
+   kernels', every convolution's output bfloat16).
+22. ref-cli — the reference's own command, ``python -m tpuic_torch.train
+   --datadir D --epochs 1 --no-pack --no-native --ckpt-dir C``, as a
+   subprocess with its defaults (InceptionV3, bfloat16, Adam, batch 4, the
+   class weights; the plain loss, as ``--fused-loss`` is off) on 7 classes
+   at 299 px, 8 train and 4 val images a class: exit 0, ``best`` and
+   ``latest`` written.  Predict scores ``best`` in float32, as the serve
+   CLI serves every checkpoint; the ``Trainer``'s own bf16 forward,
+   through ``run_predict``, must score it as the ``Trainer`` did, and the
+   two may disagree on at most REF_PREDICT_LIMIT (2) of the 28 images.
+23. digits — the port's first real-data run: the
+   handwritten digits written from ``tpuic_torch/data/digits_split.npz``
+   (1,438 train, 359 val), the train CLI's ``main`` with the recipe of
+   ``perf/convergence_digits.json`` (``resnet18-cifar``, 32 px, batch 128,
+   SGD lr 0.05, 3 warmup epochs of a 40-epoch cosine, wd 5e-4, no
+   augmentation, no class weights, the fused loss), once in float32 and
+   once in bf16: per-epoch val top-1, each arm's best at least DIGITS_BOUND
+   (350/359 = 97.49%, stated before the first run), K1 once forward and
+   once backward a step, each convolution of the first step in the arm's
+   dtype.  Predict scores each ``best`` in float32 through K3, as served:
+   it may disagree with the ``Trainer``'s own forward on at most
+   DIGITS_PREDICT_LIMIT (3) images, and in the float32 arm its accuracy
+   equals the ``Trainer``'s.
+24. effnet-serve — ``inception``'s checks and serving for EfficientNet-B3
+   at 300x300, 1000 classes, seeded synthetic weights.
 
-The second-to-last lines are the per-kernel JSON summary and the card's
-name and power limit; the last line is ``{"ok": true, "device": ...}``.
+Every launch count is set to 0 just before a path runs and read just after
+it.  Cuts: ResNet-50 and ViT-B/16 train and serve in float32 (bf16 runs
+the InceptionV3 and digits training phases); no mixup, CutMix, random
+erasing, EMA or drop-path; one card.  ``timing`` prints each new phase's
+seconds and the run's total.
+
+The second-to-last lines are the per-kernel JSON summary (K1's
+``launches`` are ``[train]``'s; its ``launches_by_path`` gives each
+training path's count) and the card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -228,6 +273,18 @@ TRAIN_STEPS = 12
 TRAIN_CLASSES = 8
 LAMB_BATCH = 32
 CKPT_STEPS = 3
+INC_IMAGE = 299     # the reference's resize (train.py:110)
+INC_BATCH = 32
+EFF_MODEL = "efficientnet-b3"
+EFF_IMAGE = 300     # EfficientNet-B3's published resolution
+REF_WEIGHTS = (3.0, 3.0, 10.0, 1.0, 4.0, 4.0, 5.0)  # train.py:157-158
+BF16_LOSS_RTOL = 2e-2
+DIGITS_EPOCHS = 40
+DIGITS_BOUND = 100.0 * 350 / 359  # at most 3 val images below 98.33
+# Val images on which predict (float32, as served) may score a run's best
+# otherwise than its Trainer's own forward, stated before the first run.
+DIGITS_PREDICT_LIMIT = 3  # of 359
+REF_PREDICT_LIMIT = 2     # of 28
 VIT_MODEL = "vit-b16"
 VIT_BATCH = 64
 VIT_LR = 3e-4
@@ -685,17 +742,19 @@ def gc_pauses():
 
 def phase_serve(model, n_requests: int, seed: int, smi: str,
                 tag: str = "serve", counter: str = "conv_bn_relu",
-                per_call: int = 0):
+                per_call: int = 0, image: int = IMAGE):
     """Serve ``model`` to eight closed-loop clients through one CUDA graph
     per bucket; ``counter``'s kernel must launch ``per_call`` times per
     device call (default: the 53 of a fused ResNet-50 forward; replays
     count the launches their graph captured) and no other kernel may
-    launch.  Then the graphs against eager forwards (``graph_checks``)."""
+    launch (``counter=None``: no kernel at all).  Then the graphs against
+    eager forwards (``graph_checks``)."""
     from tpuic_torch.serve import InferenceEngine, make_forward
-    per_call = per_call or len(resnet50_launches(1))
+    if counter is not None:
+        per_call = per_call or len(resnet50_launches(1))
     rng = np.random.default_rng(seed)
-    pool = rng.integers(0, 256, (64, IMAGE, IMAGE, 3), dtype=np.uint8)
-    eng = InferenceEngine(model, None, image_size=IMAGE,
+    pool = rng.integers(0, 256, (64, image, image, 3), dtype=np.uint8)
+    eng = InferenceEngine(model, None, image_size=image,
                           input_dtype=np.uint8, normalize=True,
                           buckets=(1, 8, 32))
     warm = eng.warmup()
@@ -732,7 +791,7 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
             t.join(timeout=600)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    launches = counts[counter]
+    launches = counts.get(counter, 0)
     eng.close()
     snap = eng.stats.snapshot()
     if errors or any(t.is_alive() for t in threads):
@@ -753,12 +812,12 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
         fail(tag, f"probs differ from a direct forward by {worst} > "
                   f"{SERVE_TOL}")
     others = {k: v for k, v in counts.items() if k != counter and v}
-    if launches == 0 or launches != per_call * snap["device_calls"] \
-            or others:
+    if (counter is not None and launches == 0) \
+            or launches != per_call * snap["device_calls"] or others:
         fail(tag, f"{launches} {counter} launches for "
                   f"{snap['device_calls']} device calls (expected "
                   f"{per_call} each), other kernels {others}")
-    graphs = graph_checks(eng, model, tag)
+    graphs = graph_checks(eng, model, tag, image)
     log(tag, json.dumps({
         "requests": len(results), "images": snap["images"],
         "wall_s": wall, "device_calls": snap["device_calls"],
@@ -775,7 +834,7 @@ def phase_serve(model, n_requests: int, seed: int, smi: str,
     return launches, snap
 
 
-def graph_checks(eng, model, tag: str) -> dict:
+def graph_checks(eng, model, tag: str, image: int = IMAGE) -> dict:
     """Each bucket's graph replay against an eager forward of the same
     batch (``make_forward``, as the engine captured it): the same bits, or
     within GRAPH_TOL.  Then one batch-8 device call, replayed and eager,
@@ -788,7 +847,7 @@ def graph_checks(eng, model, tag: str) -> dict:
     rng = np.random.default_rng(7)
     rows = {}
     for b in eng.buckets:
-        x = torch.from_numpy(rng.integers(0, 256, (b, IMAGE, IMAGE, 3),
+        x = torch.from_numpy(rng.integers(0, 256, (b, image, image, 3),
                                           dtype=np.uint8)).cuda()
         want_p, want_o = eager(x)
         got_p, got_o = (t.clone() for t in eng.replay(b, x))
@@ -801,7 +860,7 @@ def graph_checks(eng, model, tag: str) -> dict:
         if not bits and diff > GRAPH_TOL:
             fail(tag, f"bucket {b}: graph replay differs from an eager "
                       f"forward by {diff} > {GRAPH_TOL}")
-    x8 = torch.from_numpy(rng.integers(0, 256, (8, IMAGE, IMAGE, 3),
+    x8 = torch.from_numpy(rng.integers(0, 256, (8, image, image, 3),
                                        dtype=np.uint8)).cuda()
 
     def replay():
@@ -1508,11 +1567,43 @@ def deterministic_cudnn():
          torch.backends.cudnn.benchmark) = saved
 
 
-def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None):
+@contextlib.contextmanager
+def conv_dtypes(first: int = 64):
+    """Yields a list that receives the output dtype of the first ``first``
+    convolutions run inside the block: a global forward hook that removes
+    itself after them, so the steps it does not see pay nothing."""
+    seen = []
+
+    def hook(module, args, out):
+        if isinstance(module, torch.nn.Conv2d):
+            seen.append(out.dtype)
+            if len(seen) >= first:
+                handle.remove()
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def check_conv_dtypes(tag: str, arm: str, seen: list, dtype: str) -> str:
+    """Fails unless convolutions ran and every one returned ``dtype``: a
+    bf16 arm that computes in float32 would pass every loss bound."""
+    want = getattr(torch, dtype)
+    if not seen or set(seen) != {want}:
+        fail(tag, f"{arm}: convolution outputs "
+                  f"{sorted(str(d) for d in set(seen))}, expected {want}")
+    return dtype
+
+
+def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None,
+                  bf16_model=None):
     """3 steps from one initial state on ``batches``, through the kernels
     and through the plain versions (the plain loss, the plain optimizer
     and ``plain_model``, default ``cfg.model``), TF32 off: per-step loss
-    and gradient norm of each arm, and the step times."""
+    and gradient norm of each arm, and the step times.  ``bf16_model``
+    adds an arm through the kernels under that (bf16) model config."""
     from tpuic_torch.checkpoint import init_params
     from tpuic_torch.kernels import no_tf32
     from tpuic_torch.models import create_model_from_config
@@ -1520,8 +1611,11 @@ def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None):
     from tpuic_torch.train.state import create_train_state
     from tpuic_torch.train.step import make_train_step
     arms = {}
-    for arm, mcfg, fused in (("kernels", cfg.model, True),
-                             ("plain", plain_model or cfg.model, False)):
+    todo = [("kernels", cfg.model, True),
+            ("plain", plain_model or cfg.model, False)]
+    if bf16_model is not None:
+        todo.append(("bf16", bf16_model, True))
+    for arm, mcfg, fused in todo:
         # Both arms start from the same numbers: init_params draws them
         # from a CPU generator seeded alike.
         model = init_params(create_model_from_config(
@@ -1533,10 +1627,11 @@ def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None):
                                    warmup_epochs=0, milestones=(),
                                    fused_loss=fused, fused_optimizer=fused)
         state = create_train_state(model, make_optimizer(ocfg))
-        step = make_train_step(ocfg, cfg.model, lr_schedule=make_schedule(
+        step = make_train_step(ocfg, mcfg, lr_schedule=make_schedule(
             ocfg, 1, 1), device="cuda")
         metrics, times = [], []
-        with no_tf32(), deterministic_cudnn():
+        probe = conv_dtypes() if arm == "bf16" else contextlib.nullcontext()
+        with no_tf32(), deterministic_cudnn(), probe as seen:
             for batch in batches:
                 t0 = time.perf_counter()
                 state, mt = step(state, batch)
@@ -1546,6 +1641,8 @@ def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None):
                                                           "grad_norm",
                                                           "skipped")})
         arms[arm] = {"metrics": metrics, "step_ms": times}
+        if arm == "bf16":
+            arms[arm]["conv_dtypes"] = seen
         del model, state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -1576,8 +1673,9 @@ def train_row(trainer, stats: dict, counts: dict, batch: int,
     drains = stats["drains"]
     (s0, t_0), (s1, t_1) = drains[0], drains[-1]
     step_ms = (t_1 - t_0) / (s1 - s0) * 1e3
-    return {"model": trainer.mcfg.name, "image": IMAGE, "batch": batch,
-            "dtype": "float32", "optimizer": trainer.state.tx.kind,
+    return {"model": trainer.mcfg.name,
+            "image": trainer.cfg.data.resize_size, "batch": batch,
+            "dtype": trainer.mcfg.dtype, "optimizer": trainer.state.tx.kind,
             "steps": stats["steps"], "wall_s": stats["wall_s"],
             "step_ms": step_ms, "step_ms_window": [s0, s1],
             "images_per_s": batch / step_ms * 1e3,
@@ -2525,6 +2623,362 @@ def phase_vit_train(root: str, seed: int, smi: str):
     return counts, row
 
 
+def rows_check(model, tag: str, image: int) -> dict:
+    """Rows served through the engine's ``make_forward`` (TF32 off for the
+    call): one image's probabilities from a batch-1 forward against its row
+    of a batch-32 forward, within SERVE_TOL."""
+    from tpuic_torch.serve import make_forward
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (SERVE_BATCH, image, image, 3), dtype=np.uint8)).cuda()
+    served = make_forward(model, normalize=True)
+    big, _ = served(images)
+    rows = (0, 17, 31)
+    diff = max(float((served(images[r:r + 1])[0][0] - big[r]).abs().max())
+               for r in rows)
+    if not bool(torch.isfinite(big).all()):
+        fail(tag, "non-finite probabilities")
+    if diff > SERVE_TOL:
+        fail(tag, f"a row's probabilities at batch 1 and in batch "
+                  f"{SERVE_BATCH} differ by {diff} > {SERVE_TOL}")
+    return {"rows": list(rows), "probs_max_abs_diff": diff,
+            "batch32_forward_ms": time_ms(lambda: served(images), iters=5)}
+
+
+def phase_cnn_serve(name: str, image: int, tag: str, n_requests: int,
+                    seed: int, smi: str) -> dict:
+    """``name`` at full width, 1000 classes, seeded synthetic weights, in
+    eval mode: batch-1 rows against batch-32 rows, then ``phase_serve``'s
+    engine, clients and graph checks.  No kernel lies on this forward (as
+    in ``tpuic``, K3 is ResNet-only): every launch count must stay 0."""
+    from tpuic_torch.checkpoint import init_synthetic
+    from tpuic_torch.models import create_model
+    model = init_synthetic(create_model(name, 1000, dtype="float32"),
+                           seed=0).eval()
+    params = sum(p.numel() for p in model.parameters())
+    bucket = rows_check(model, tag, image)
+    log(tag, json.dumps({"model": name, "image": image, "classes": 1000,
+                         "params": params, "dtype": "float32",
+                         "batch1_vs_batch32": bucket}))
+    _, snap = phase_serve(model, n_requests, seed, smi, tag=tag,
+                          counter=None, image=image)
+    del model
+    free()
+    return {"model": name, "image": image, "params": params,
+            "batch1_vs_batch32": bucket, "serve": snap}
+
+
+def write_ref_folder(root: str, seed: int, per_train: int,
+                     per_val: int) -> None:
+    """A synthetic ImageFolder of the reference's 7 classes at 299 px."""
+    from tpuic_torch.data.synthetic import make_synthetic_imagefolder
+    classes = tuple(f"class{i}" for i in range(len(REF_WEIGHTS)))
+    make_synthetic_imagefolder(root, classes, per_class=per_train,
+                               size=INC_IMAGE, folds=("train",), seed=seed)
+    make_synthetic_imagefolder(root, classes, per_class=per_val,
+                               size=INC_IMAGE, folds=("val",), seed=seed + 1)
+
+
+def inception_train_config(root: str, seed: int, dtype: str):
+    """The reference program's recipe (train.py: InceptionV3 with its aux
+    head at 299 px, Adam lr 0.5e-5, MultiStepLR [50, 80], the 7 class
+    weights) at batch 32, with the fused loss K1."""
+    from tpuic_torch.config import (Config, DataConfig, ModelConfig,
+                                    OptimConfig, RunConfig)
+    return Config(
+        data=DataConfig(data_dir=root, resize_size=INC_IMAGE,
+                        batch_size=INC_BATCH, num_workers=8,
+                        shuffle_seed=seed, native=False, pack=False),
+        model=ModelConfig(name="inceptionv3", dtype=dtype,
+                          compute_dtype="bf16" if dtype == "bfloat16"
+                          else ""),
+        optim=OptimConfig(optimizer="adam", class_weights=REF_WEIGHTS,
+                          fused_loss=True),
+        run=RunConfig(epochs=100, max_steps=TRAIN_STEPS, log_every_steps=4,
+                      seed=seed, ckpt_dir=os.path.join(root, "ckpt"),
+                      resume=False))
+
+
+def phase_inception_train(root: str, seed: int, smi: str):
+    """InceptionV3 training, the reference's own model and recipe, through
+    ``Trainer``: 12 steps in float32 and 12 in bf16, each counting two K1
+    forward and two K1 backward launches a step (main and aux logits);
+    then 3 steps from one state through the kernels, through the plain
+    loss (float32, TF32 off: loss rtol 1e-3) and through the kernels in
+    bf16 (loss within BF16_LOSS_RTOL of the float32 kernels')."""
+    from tpuic_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    write_ref_folder(root, seed, per_train=INC_BATCH * TRAIN_STEPS
+                     // len(REF_WEIGHTS) + 1, per_val=4)
+    log("inception-train", f"synthetic ImageFolder {INC_IMAGE}x{INC_IMAGE}, "
+                           f"{len(REF_WEIGHTS)} classes, in "
+                           f"{time.perf_counter() - t0:.3f} s")
+    rows, counts = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = inception_train_config(root, seed, dtype)
+        trainer = Trainer(cfg, log=lambda msg: log("inception-train", msg))
+        reset_counts()
+        with conv_dtypes() as seen:
+            trainer.fit()
+        stats = dict(trainer.stats)
+        counts[dtype] = read_counts()
+        conv_out = check_conv_dtypes("inception-train", dtype, seen, dtype)
+        steps = stats["steps"]
+        want = expect(cross_entropy_fwd=2 * steps,
+                      cross_entropy_bwd=2 * steps)
+        if steps != TRAIN_STEPS or counts[dtype] != want:
+            fail("inception-train", f"{dtype}: {steps} steps, launches "
+                                    f"{counts[dtype]}, expected "
+                                    f"{TRAIN_STEPS} steps and {want}")
+        if not all(bool(torch.isfinite(p).all())
+                   for p in trainer.model.parameters()):
+            fail("inception-train", f"{dtype}: non-finite parameters")
+        if not all(p.dtype == torch.float32
+                   for p in trainer.model.parameters()) or not all(
+                t.dtype == torch.float32 for t in trainer.state.opt_state.mu):
+            fail("inception-train", f"{dtype}: master weights or Adam "
+                                    "moments are not float32")
+        trainer.val_epoch(0)  # one val forward: no kernel on it
+        rows[dtype] = train_row(trainer, stats, counts[dtype], INC_BATCH,
+                                smi)
+        rows[dtype]["conv_out_dtype"] = conv_out
+        log("inception-train", json.dumps(rows[dtype]))
+        if dtype == "float32":
+            batches = first_batches(trainer)
+        del trainer
+        free()
+    cfg = inception_train_config(root, seed, "float32")
+    arms = compare_plain(cfg, batches, seed, cfg.optim.learning_rate,
+                         bf16_model=inception_train_config(
+                             root, seed, "bfloat16").model)
+    bf16_rel = [abs(b["loss"] - k["loss"]) / abs(k["loss"])
+                for b, k in zip(arms["bf16"]["metrics"],
+                                arms["kernels"]["metrics"])]
+    bf16_conv = check_conv_dtypes("inception-train", "3-step bf16 arm",
+                                  arms["bf16"].pop("conv_dtypes"),
+                                  "bfloat16")
+    row = check_compare("inception-train", arms)
+    row["bf16_loss_rel_diff"] = bf16_rel
+    row["bf16_conv_out_dtype"] = bf16_conv
+    log("inception-train", "bf16 vs float32 through the kernels: "
+                           + json.dumps({"loss_rel_diff": bf16_rel,
+                                         "rtol": BF16_LOSS_RTOL}))
+    if max(bf16_rel) > BF16_LOSS_RTOL:
+        fail("inception-train", f"bf16 and float32 losses differ by "
+                                f"{max(bf16_rel)} > {BF16_LOSS_RTOL}")
+    del batches
+    free()
+    return counts, {**rows, "compare": row}
+
+
+def _train_cli(argv: list):
+    """``python -m tpuic_torch.train``'s ``main`` in this process (so its
+    kernel launches count), its printed lines kept."""
+    import io
+
+    from tpuic_torch.train import __main__ as train_cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _rows(path: str) -> dict:
+    import csv
+    with open(path) as f:
+        return {r["image_id"]: r["pred"] for r in csv.DictReader(f)}
+
+
+def _predict(root: str, ckpt_dir: str, batch: int, tag: str,
+             out: str) -> dict:
+    """``python -m tpuic_torch.predict``'s ``main`` on the val fold of the
+    single trained model under ``ckpt_dir`` (``--model auto``), its rows
+    written to ``out``."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module("tpuic_torch.predict").main(
+            ["--datadir", root, "--ckpt-dir", ckpt_dir, "--fold", "val",
+             "--batchsize", str(batch), "--no-pack", "--out", out])
+    printed = buf.getvalue().strip().splitlines()
+    for line in printed[:-1]:
+        log(tag, line)
+    if rc != 0:
+        fail(tag, f"predict exited {rc}")
+    return json.loads(printed[-1])
+
+
+def _trainer_forward(root: str, ckpt_dir: str, batch: int,
+                     out: str) -> dict:
+    """The val fold scored by the ``Trainer``'s own eval forward: the run's
+    model config from its ``config.json`` (its dtype, no fused kernel),
+    through ``run_predict``, its rows written to ``out``."""
+    from tpuic_torch.config import Config, DataConfig, ModelConfig, RunConfig
+    from tpuic_torch.predict import resolve_model_auto, run_predict
+    name = resolve_model_auto(ckpt_dir)["name"]
+    with open(os.path.join(ckpt_dir, name, "config.json")) as f:
+        saved = json.load(f)
+    model = dict(saved["model"], head_widths=tuple(
+        saved["model"]["head_widths"]))
+    cfg = Config(data=DataConfig(data_dir=root,
+                                 resize_size=saved["data"]["resize_size"],
+                                 batch_size=batch, val_batch_size=batch,
+                                 pack=False, native=False),
+                 model=ModelConfig(**model),
+                 run=RunConfig(ckpt_dir=ckpt_dir))
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run_predict(cfg, fold="val", track="best", top_k=1,
+                           out_path=out)
+
+
+def against_trainer(tag: str, arm: str, root: str, ckpt_dir: str,
+                    batch: int, best: float, limit: int,
+                    k3: bool) -> dict:
+    """Predict's CLI on ``best`` (float32 through the kernels, as the serve
+    CLI serves every checkpoint) against the ``Trainer``'s own forward,
+    which must score ``best`` exactly: the two may disagree on at most
+    ``limit`` val images, and their accuracies lie at most ``limit``
+    images apart.  ``k3``: predict's forward launches K3 and nothing
+    else (the ResNet family), else no kernel."""
+    cli_out = os.path.join(root, f"predict_{arm}.csv")
+    own_out = os.path.join(root, f"trainer_forward_{arm}.csv")
+    reset_counts()
+    summary = _predict(root, ckpt_dir, batch, tag, cli_out)
+    launched = read_counts()
+    want = expect(conv_bn_relu=launched["conv_bn_relu"]) if k3 else expect()
+    if launched != want or (k3 and not launched["conv_bn_relu"]):
+        fail(tag, f"{arm}: predict launched {launched}")
+    own = _trainer_forward(root, ckpt_dir, batch, own_out)
+    if round(own.get("accuracy", -1.0), 4) != best:
+        fail(tag, f"{arm}: the Trainer's forward scores "
+                  f"{own.get('accuracy')} on best, the Trainer {best}")
+    got, ref = _rows(cli_out), _rows(own_out)
+    if set(got) != set(ref):
+        fail(tag, f"{arm}: predict wrote {len(got)} rows, the Trainer's "
+                  f"forward {len(ref)}")
+    n = len(got)
+    disagree = sum(got[k] != ref[k] for k in got)
+    gap = abs(round(summary["accuracy"] * n / 100) - round(best * n / 100))
+    row = {"predict_accuracy": summary["accuracy"], "predict_rows": n,
+           "trainer_forward_accuracy": own["accuracy"],
+           "disagree_images": disagree, "accuracy_gap_images": gap,
+           "limit_images": limit, "predict_launches": launched}
+    if disagree > limit or gap > limit:
+        fail(tag, f"{arm}: predict (float32) and the Trainer's forward "
+                  f"disagree on {disagree} of {n} images, accuracies "
+                  f"{gap} images apart; the limit is {limit}")
+    return row
+
+
+def phase_ref_cli(root: str, seed: int, smi: str) -> dict:
+    """The reference program's own command on the port, with nothing
+    added but its data, one epoch and a checkpoint directory:
+    ``python -m tpuic_torch.train --datadir D --epochs 1 --no-pack
+    --no-native --ckpt-dir C`` (InceptionV3 with its aux head, 299 px,
+    bfloat16, Adam, batch 4, the 7 class weights), as a user starts it.
+    It must exit 0 and write ``best`` and ``latest``; predict scores
+    ``best`` in float32, as served, within REF_PREDICT_LIMIT images of the
+    ``Trainer``'s bf16 forward (``against_trainer``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, "ref")
+    write_ref_folder(data, seed, per_train=8, per_val=4)
+    ckpt = os.path.join(root, "ref_ckpt")
+    cmd = [sys.executable, "-m", "tpuic_torch.train", "--datadir", data,
+           "--epochs", "1", "--no-pack", "--no-native", "--ckpt-dir", ckpt]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=here), cwd=here)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    for line in lines:
+        if line.startswith(("[model]", "[tpuic_torch]", "[ckpt]")) \
+                or "Val Accuracy" in line:
+            log("ref-cli", line)
+    if out.returncode != 0:
+        fail("ref-cli", f"exited {out.returncode}: {out.stderr[-3000:]}")
+    model_dir = os.path.join(ckpt, "inceptionv3")
+    missing = [t for t in ("best", "latest")
+               if not os.path.isdir(os.path.join(model_dir, t))]
+    if missing or not any("bfloat16 compute" in ln for ln in lines):
+        fail("ref-cli", f"tracks missing {missing}, or not the bfloat16 "
+                        f"defaults: {lines[:3]}")
+    best = float(lines[-1].split("best val accuracy ")[1])
+    scored = against_trainer("ref-cli", "bfloat16", data, ckpt, 4, best,
+                             REF_PREDICT_LIMIT, k3=False)
+    row = {"command": " ".join(cmd[1:]), "wall_s": wall,
+           "trainer_best": best, **scored, "card": smi}
+    log("ref-cli", json.dumps(row))
+    return row
+
+
+DIGITS_ARGS = ["--model", "resnet18-cifar", "--resize", "32", "--batchsize",
+               "128", "--optimizer", "sgd", "--lr", "0.05",
+               "--warmup-epochs", "3", "--weight-decay", "5e-4",
+               "--milestones", "--epochs", str(DIGITS_EPOCHS),
+               "--no-augment", "--no-class-weights", "--fused-loss",
+               "--no-pack", "--no-native", "--log-every-steps", "11"]
+
+
+def phase_digits(root: str, smi: str):
+    """The port's first real-data run: sklearn's
+    handwritten digits (``tpuic_torch.data.digits``, 1,438 train and 359
+    val images) through the train CLI with the recipe of
+    ``perf/convergence_digits.json``, once in float32 and once in
+    bfloat16.  Each arm's best val top-1 must reach DIGITS_BOUND (350 of
+    359, stated before the first run), K1 must launch once forward and
+    once backward a step, and every convolution of the arm's first step
+    must return its dtype.  Predict scores each ``best`` in float32
+    through K3, as served, within DIGITS_PREDICT_LIMIT images of the
+    ``Trainer``'s forward (``against_trainer``); in the float32 arm its
+    accuracy also equals the ``Trainer``'s."""
+    from tpuic_torch.data.digits import write_digits_folder
+    data = os.path.join(root, "digits")
+    counts_written = write_digits_folder(data)
+    out, counts = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        ckpt = os.path.join(root, f"digits_ckpt_{dtype}")
+        reset_counts()
+        with conv_dtypes() as seen:
+            rc, lines, wall = _train_cli(["--datadir", data, "--ckpt-dir",
+                                          ckpt, "--dtype", dtype,
+                                          *DIGITS_ARGS])
+        counts[dtype] = read_counts()
+        conv_out = check_conv_dtypes("digits", dtype, seen, dtype)
+        for line in lines:
+            if line.startswith(("[model]", "[tpuic_torch]")):
+                log("digits", f"{dtype}: {line}")
+        curve = [float(ln.split("Val Accuracy ")[1].split(";")[0])
+                 for ln in lines if "Val Accuracy" in ln]
+        steps = max((int(ln.split("; step ")[1].split(";")[0])
+                     for ln in lines if ln.startswith("Epoch: ")
+                     and "; step " in ln), default=0)
+        best = max(curve) if curve else 0.0
+        want = expect(cross_entropy_fwd=steps, cross_entropy_bwd=steps)
+        if rc != 0 or len(curve) != DIGITS_EPOCHS or counts[dtype] != want:
+            fail("digits", f"{dtype}: exit {rc}, {len(curve)} val passes, "
+                           f"launches {counts[dtype]}, expected {want}")
+        scored = against_trainer("digits", dtype, data, ckpt, 128, best,
+                                 DIGITS_PREDICT_LIMIT, k3=True)
+        row = {"dtype": dtype, "val_top1_per_epoch": curve, "best": best,
+               "bound": DIGITS_BOUND, "steps": steps, "wall_s": wall,
+               "launches": counts[dtype], "conv_out_dtype": conv_out,
+               **scored, "card": smi}
+        log("digits", json.dumps(row))
+        if best < DIGITS_BOUND:
+            fail("digits", f"{dtype}: best val top-1 {best} < "
+                           f"{DIGITS_BOUND}")
+        if dtype == "float32" and round(scored["predict_accuracy"],
+                                        4) != best:
+            fail("digits", f"float32: predict's accuracy "
+                           f"{scored['predict_accuracy']} on best, the "
+                           f"Trainer's {best}")
+        out[dtype] = row
+    out["images"] = counts_written
+    return counts, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=320)
@@ -2543,7 +2997,7 @@ def main(argv=None) -> int:
                   f"{peaks(kind)}")
 
     from tpuic_torch.kernels import _build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _build.build()
     log("build", f"{json.dumps(built)} in {time.perf_counter() - t0:.3f} s")
     for name in _build.sources():
@@ -2593,6 +3047,37 @@ def main(argv=None) -> int:
         del vit
         free()
         vit_counts, vit_train = phase_vit_train(root, args.seed, smi)
+        took = {"to_vit_train": time.perf_counter() - t_start}
+        t0 = time.perf_counter()
+        inception = phase_cnn_serve("inceptionv3", INC_IMAGE, "inception",
+                                    args.requests, args.seed, smi)
+        took["inception"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inc_counts, inc_train = phase_inception_train(
+            os.path.join(root, "inception"), args.seed, smi)
+        took["inception-train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref_cli = phase_ref_cli(root, args.seed, smi)
+        took["ref-cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        digits_counts, digits = phase_digits(root, smi)
+        took["digits"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        effnet = phase_cnn_serve(EFF_MODEL, EFF_IMAGE, "effnet-serve",
+                                 args.requests, args.seed, smi)
+        took["effnet-serve"] = time.perf_counter() - t0
+    took["total"] = time.perf_counter() - t_start
+    log("timing", json.dumps(took))
+
+    def k1(name):
+        """K1's launches on each training path, each counted from 0 just
+        before its path ran; ``launches`` stays ``[train]``'s."""
+        return {"train": counts[name], **{
+            f"{tag} {dtype}": c[name]
+            for tag, per in (("inception-train", inc_counts),
+                             ("digits", digits_counts))
+            for dtype, c in per.items()}}
+
     csrc = "tpuic_torch/kernels/csrc/"
     kernels = [summary]
     for name, row, source, replaces, n in (
@@ -2615,6 +3100,8 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n, **row,
                         "status": "ok"})
+        if name.startswith("cross_entropy"):
+            kernels[-1]["launches_by_path"] = k1(name)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
@@ -2624,7 +3111,13 @@ def main(argv=None) -> int:
                        "ckpt": ckpt, "serve_cli": serve_cli,
                        "swap_cli": swap_cli, "predict": predicted,
                        "attn": attn_rows, "vit_serve": vit_snap,
-                       "vit_swap": vit_swap, "vit_train": vit_train},
+                       "vit_swap": vit_swap, "vit_train": vit_train,
+                       "inception": inception,
+                       "inception_train": inc_train, "ref_cli": ref_cli,
+                       "digits": digits, "effnet_serve": effnet,
+                       "k1_launches": {"train": counts, "inception_train":
+                                       inc_counts, "digits": digits_counts},
+                       "seconds": took},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

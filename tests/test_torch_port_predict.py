@@ -11,6 +11,10 @@
   ``--model auto`` and its ambiguity error; a missing checkpoint; the
   wrong model for a checkpoint; ``--no-pack`` required; an EMA-trained
   checkpoint refused.
+- ``--model auto`` on an InceptionV3 and an EfficientNet-B0 checkpoint:
+  each row is a direct eval forward's (1e-5); a bf16 run's checkpoint is
+  scored in float32, as the serve CLI serves it, each row a float32
+  forward's (1e-5).
 
 JAX and ``tpuic`` are imported inside fixtures and tests.
 """
@@ -239,3 +243,111 @@ def test_predict_matches_tpuic_on_one_torch_checkpoint(trained, tmp_path):
             [float(g["prob"]), float(g["prob_2"])],
             [float(w["prob"]), float(w["prob_2"])], atol=1e-5)
     assert got["accuracy"] == want["accuracy"]
+
+
+@pytest.mark.parametrize("name,size", [("inceptionv3", 75),
+                                       ("efficientnet-b0", SIZE)])
+def test_model_auto_scores_inception_and_efficientnet(tmp_path, name, size):
+    """``--model auto`` on a port checkpoint of each new family (its
+    sidecar written as a ``Trainer`` writes it): every row's top-1 and
+    probability are a direct eval forward's of the same weights over the
+    same pixels (1e-5)."""
+    from tpuic_torch.checkpoint import CheckpointManager, init_params
+    from tpuic_torch.data.pipeline import Loader
+    from tpuic_torch.models import create_model
+    from tpuic_torch.train.optimizer import make_optimizer
+    from tpuic_torch.train.state import create_train_state
+    root = str(tmp_path / "data")
+    make_synthetic_imagefolder(root, classes=CLASSES, per_class=2,
+                               size=size + 3)
+    ckpt = str(tmp_path / "ckpt")
+    model = init_params(create_model(name, 3, dtype="float32",
+                                     device="cpu"), 3, device="cpu")
+    cfg = _cfg(root, ckpt, name=name, num_classes=3)
+    cfg = cfg.replace(data=pcfg.DataConfig(
+        data_dir=root, resize_size=size, batch_size=4, val_batch_size=4,
+        num_workers=2, pack=False, native=False))
+    mgr = CheckpointManager(ckpt, name, async_commit=False,
+                            log=lambda m: None)
+    mgr.save_best(create_train_state(model, make_optimizer(cfg.optim)), 0,
+                  10.0)
+    mgr.wait()
+    import dataclasses
+    with open(os.path.join(mgr.root, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, default=str)
+    out = str(tmp_path / "p.csv")
+    assert predict_main(["--datadir", root, "--ckpt-dir", ckpt, "--out",
+                         out, "--batchsize", "4", "--no-pack", "--device",
+                         "cpu"]) == 0
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    ds = ImageFolderDataset(root, "val", size, cfg.data)
+    batch = next(iter(Loader(ds, 8, shuffle=False, num_workers=1,
+                             augment=False, device="cpu").epoch(0)))
+    model.eval()
+    with torch.no_grad():
+        probs = torch.softmax(model(batch["image"]), -1).numpy()
+    names = {i: c for c, i in ds.class_to_idx.items()}
+    assert [r["image_id"] for r in rows] == batch.image_ids[:len(rows)]
+    assert len(rows) == 6
+    for i, r in enumerate(rows):
+        assert r["pred"] == names[int(probs[i].argmax())]
+        assert float(r["prob"]) == pytest.approx(float(probs[i].max()),
+                                                 abs=1e-5)
+
+
+def test_a_bf16_run_is_scored_in_float32(tmp_path):
+    """A ``Trainer`` run in bf16 (its sidecar says ``bfloat16``): predict
+    scores the ``best`` save as the serve CLI serves it, in float32
+    (``serving_model_config``): every row's top-1 and probability are a
+    float32 eval forward's of the saved weights over the same pixels
+    (1e-5), and the accuracy is that forward's."""
+    from tpuic_torch.data.pipeline import Loader
+    from tpuic_torch.models import create_model
+    from tpuic_torch.predict import serving_model_config
+    root = str(tmp_path / "data")
+    make_synthetic_imagefolder(root, classes=CLASSES, per_class=5,
+                               size=SIZE + 4)
+    ckpt = str(tmp_path / "ckpt")
+    cfg = _cfg(root, ckpt, name="resnet18-cifar", epochs=1, save_period=1,
+               resume=False, log_every_steps=1, async_checkpoint=False)
+    cfg = cfg.replace(model=pcfg.ModelConfig(name="resnet18-cifar",
+                                             num_classes=3,
+                                             dtype="bfloat16"))
+    trainer = Trainer(cfg, device="cpu", log=lambda m: None)
+    assert trainer.mcfg.dtype == "bfloat16"
+    trainer.fit()
+    trainer.ckpt.save_best(trainer.state, 1, trainer.val_epoch(1))
+    trainer.ckpt.wait()
+    with open(os.path.join(ckpt, "resnet18-cifar", "config.json")) as f:
+        assert json.load(f)["model"]["dtype"] == "bfloat16"
+    assert serving_model_config("resnet18-cifar", 3).dtype == "float32"
+    out = str(tmp_path / "p.csv")
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert predict_main(["--datadir", root, "--ckpt-dir", ckpt,
+                             "--out", out, "--batchsize", "4", "--no-pack",
+                             "--device", "cpu"]) == 0
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    model = create_model("resnet18-cifar", 3, dtype="float32", device="cpu")
+    model.load_state_dict(trainer.model.state_dict())
+    model.eval()
+    ds = ImageFolderDataset(root, "val", SIZE, cfg.data)
+    batch = next(iter(Loader(ds, 64, shuffle=False, num_workers=1,
+                             augment=False, device="cpu").epoch(0)))
+    with torch.no_grad():
+        probs = torch.softmax(model(batch["image"]), -1).numpy()
+    names = {i: c for c, i in ds.class_to_idx.items()}
+    labels = batch["label"].numpy()
+    assert len(rows) == len(ds) and [r["image_id"] for r in rows] == \
+        batch.image_ids[:len(rows)]
+    for i, r in enumerate(rows):
+        assert r["pred"] == names[int(probs[i].argmax())]
+        assert float(r["prob"]) == pytest.approx(float(probs[i].max()),
+                                                 abs=1e-5)
+    hits = (probs[:len(rows)].argmax(-1) == labels[:len(rows)]).sum()
+    assert summary["accuracy"] == pytest.approx(100.0 * hits / len(rows))

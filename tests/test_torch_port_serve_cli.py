@@ -20,6 +20,8 @@ torch-checkpoint converter, and the engine's device-resident requests.
 - Converter parity: the port's ``convert_resnet`` / ``convert_vit`` give
   ``tpuic``'s trees exactly, and the lenient merge leaves fresh exactly
   the leaves ``tpuic`` leaves fresh (a head of another class count).
+  InceptionV3 and EfficientNet keys convert; ``--model auto`` serves a
+  checkpoint of each family (1e-5 against a direct forward).
 
 JAX and ``tpuic`` are imported inside fixtures and tests.
 """
@@ -507,11 +509,59 @@ def test_lenient_merge_leaves_fresh_what_tpuic_leaves_fresh(jx, tmp_path,
 
 
 def test_inception_and_efficientnet_checkpoints_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ptc.convert_state_dict({"Mixed_5b.branch1x1.conv.weight":
-                                np.zeros((1,))})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ptc.convert_state_dict({"_conv_stem.weight": np.zeros((1,))})
+    """Both families are ported now: their keys convert to ``tpuic``'s
+    names, and a bare ``efficientnet`` needs the checkpoint's blocks to
+    name its variant."""
+    w = np.zeros((4, 3, 3, 3), np.float32)
+    tree = ptc.convert_state_dict({"Mixed_5b.branch1x1.conv.weight": w})
+    assert tree["params"]["backbone"]["mixed5b"]["b1x1"]["conv"][
+        "kernel"].shape == (3, 3, 3, 4)
+    tree = ptc.convert_state_dict({"_conv_stem.weight": w},
+                                  arch="efficientnet-b0")
+    assert tree["params"]["backbone"]["stem_conv"]["kernel"].shape == \
+        (3, 3, 3, 4)
+    with pytest.raises(ValueError, match="no _blocks"):
+        ptc.convert_state_dict({"_conv_stem.weight": w})
+
+
+@pytest.mark.parametrize("name,size", [("inceptionv3", 75),
+                                       ("efficientnet-b0", SIZE)])
+def test_model_auto_serves_inception_and_efficientnet(tmp_path, monkeypatch,
+                                                      name, size):
+    """``--model auto`` on a port checkpoint of each new family: every
+    stdin request answered with the top-2 of a direct eval forward of the
+    same weights (1e-5)."""
+    ckpt = str(tmp_path / "ckpt")
+    model = init_params(create_model(name, 3, dtype="float32",
+                                     device="cpu"), 2, device="cpu")
+    ocfg = pcfg.OptimConfig(optimizer="sgd", class_weights=(),
+                            milestones=())
+    mgr = CheckpointManager(ckpt, name, async_commit=False,
+                            log=lambda m: None)
+    mgr.save_best(create_train_state(model, make_optimizer(ocfg)), 0, 50.0)
+    mgr.wait()
+    cfg = pcfg.Config(data=pcfg.DataConfig(resize_size=size),
+                      model=pcfg.ModelConfig(name=name, num_classes=3,
+                                             dtype="float32"), optim=ocfg)
+    with open(os.path.join(mgr.root, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, default=str)
+    with open(os.path.join(mgr.root, "class_to_idx.json"), "w") as f:
+        json.dump({c: i for i, c in enumerate(CLASSES)}, f)
+    images = _write_images(str(tmp_path / "images"), 3, 1)
+    out = tmp_path / "out.jsonl"
+    lines = [json.dumps({"id": p, "path": p}) for p in images]
+    assert _cli(["--ckpt-dir", ckpt, "--model", "auto", "--top-k", "2",
+                 "--out", str(out)], "\n".join(lines) + "\n",
+                monkeypatch) == 0
+    recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+    assert sorted(r["id"] for r in recs) == sorted(images)
+    x = np.stack([pserve._load_image(r["id"], size) for r in recs])
+    want, _ = make_forward(model.eval(), normalize=True)(torch.from_numpy(x))
+    for rec, p in zip(recs, want.numpy()):
+        order = np.argsort(-p, kind="stable")
+        assert [n for n, _ in rec["topk"]] == [CLASSES[j] for j in order[:2]]
+        np.testing.assert_allclose([q for _, q in rec["topk"]],
+                                   p[order[:2]], atol=1e-5)
 
 
 # -- the whole CLI against tpuic's --------------------------------------------

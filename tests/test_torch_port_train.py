@@ -298,8 +298,10 @@ def test_loader_batches_bitwise_tpuic(jx, folder):
                 float(pb[-1]["mask"].sum()) == len(pds) % 4
 
 
-def _cli(args, timeout=240):
+def _cli(args, timeout=240, threads=None):
     env = dict(os.environ, PYTHONPATH=ROOT)
+    if threads:  # the suite's processes share the cores
+        env["OMP_NUM_THREADS"] = str(threads)
     return subprocess.run([sys.executable, "-m", "tpuic_torch.train",
                            *args], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=timeout)
@@ -330,9 +332,31 @@ def test_cli_refuses_unported_settings(folder):
         main(base + ["--slo", "train_step:p99<=5ms"])
     with pytest.raises(SystemExit, match="data.pack"):
         main(base[:-4] + ["--model", "resnet18-cifar"])
-    with pytest.raises(SystemExit, match="model.dtype"):
+    # bfloat16 (the default) is refused for the ViT family by name.
+    with pytest.raises(SystemExit, match="model.dtype=bfloat16 for the ViT"):
         main(["--datadir", folder, "--device", "cpu", "--no-pack",
-              "--no-native"])
+              "--no-native", "--model", "vit-tiny"])
+    with pytest.raises(SystemExit, match="EfficientNet training.*item 8"):
+        main(["--datadir", folder, "--device", "cpu", "--no-pack",
+              "--no-native", "--model", "efficientnet-b0"])
+
+
+def test_cli_reference_defaults_run_on_cpu(tmp_path):
+    """The reference's own command line: InceptionV3 with its aux head at
+    299 px, bfloat16, Adam, batch 4, the 7 class weights; one step."""
+    root = str(tmp_path / "data")
+    make_synthetic_imagefolder(root, classes=tuple(f"c{i}"
+                                                   for i in range(7)),
+                               per_class=1, size=299)
+    out = _cli(["--datadir", root, "--device", "cpu", "--no-pack",
+                "--no-native", "--ckpt-dir", str(tmp_path / "ck"),
+                "--steps", "1", "--workers", "2", "--log-every-steps", "1"],
+               threads=2)
+    assert out.returncode == 0, out.stderr
+    assert ("[model] inceptionv3: 24.6M params, 7 classes, batch 4, "
+            "optimizer adam, on cpu, bfloat16 compute") in out.stdout
+    assert "Epoch: 0; step 1;" in out.stdout
+    assert "step budget (1) reached" in out.stdout
 
 
 @pytest.mark.cuda

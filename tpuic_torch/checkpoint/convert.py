@@ -9,6 +9,7 @@ gives) and writes it into the module of the same names:
 flax leaf                          port tensor                  mapping
 =================================  ===========================  ===========
 conv ``kernel`` [kh,kw,Cin,Cout]   ``Conv2d.weight``            HWIO->OIHW
+depthwise ``kernel`` [k,k,1,C]     ``Conv2d.weight`` [C,1,k,k]  HWIO->OIHW
 Dense ``kernel`` [in, out]         ``Linear.weight``            transpose
 ``bias`` of a Dense or a conv      ``.bias``                    as is
 BN, LayerNorm ``scale``, ``bias``  ``weight``, ``bias``         as is
@@ -174,8 +175,10 @@ def init_synthetic(model: nn.Module, seed: int = 0,
     fan-in scaled normals; BN gets statistics near the identity, with the
     last BN of each residual branch scaled down so activations stay
     bounded through deep stacks; LayerNorm gets a scale near 1 and a small
-    bias; the ViT's ``cls`` and ``pos_embed`` get normals of std 0.02.  It
-    does not reproduce the numbers of a ``tpuic`` init."""
+    bias; the ViT's ``cls`` and ``pos_embed`` get normals of std 0.02.
+    Depthwise and SE convs (EfficientNet) and InceptionV3's aux head are
+    drawn like any conv or linear.  It does not reproduce the numbers of a
+    ``tpuic`` init."""
     model.to(resolve_device(device))
     g = torch.Generator().manual_seed(int(seed))
 
@@ -184,6 +187,8 @@ def init_synthetic(model: nn.Module, seed: int = 0,
 
     tails = {f"{name}.{m.PAIRS[-1][1]}" for name, m in model.named_modules()
              if getattr(m, "PAIRS", None)}
+    tails |= {f"{name}.project_bn" for name, m in model.named_modules()
+              if getattr(m, "residual", False)}  # EfficientNet's MBConv
     with torch.no_grad():
         for mod_name, m in model.named_modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):

@@ -6,7 +6,8 @@ The reference saves ``{'epoch', 'best_score', 'state_dict'}`` with DDP's
 ``Classifier(name, num_classes)``: a torchvision backbone whose ``fc`` was
 replaced by a 4-layer MLP (``fc.0/2/4/6``, nn/classifier.py:26-34), hung
 off an ``encoder`` attribute.  This module converts those checkpoints, or
-plain torchvision ``resnet{18,34,50,101}`` and ``vit_*`` state dicts, into
+plain torchvision ``resnet{18,34,50,101}``, ``inception_v3`` and ``vit_*``
+state dicts and efficientnet_pytorch ``efficientnet-b{0..7}`` ones, into
 ``tpuic``'s ``{'params': ..., 'batch_stats': ...}`` tree (numpy leaves,
 flax layout and names) with the same rules as ``tpuic``:
 
@@ -19,14 +20,19 @@ flax layout and names) with the same rules as ``tpuic``:
 - the ViT's ``conv_proj``, ``class_token``, ``pos_embedding``,
   ``in_proj_weight`` ([q; k; v] rows) and ``heads.head`` -> ``tpuic``'s
   ``patch_embed``, ``cls``, ``pos_embed``, fused ``qkv`` and head.
+- Inception's ``Conv2d_1a_3x3``.. -> ``stem1``.., ``Mixed_6b.branch7x7_2``
+  -> ``mixed6b/b7_2``, ``AuxLogits.conv0/conv1/fc`` -> ``aux``;
+- EfficientNet's flat ``_blocks.{i}`` -> ``block{stage}_{repeat}`` (the
+  variant's depth multiplier decides), ``_depthwise_conv`` -> ``dw_conv``
+  (``[C, 1, k, k]`` -> ``[k, k, 1, C]``), ``_se_reduce/_se_expand`` (with
+  their biases) -> ``se/reduce``, ``se/expand``, ``_fc`` -> ``head/out``.
 
 :func:`init_from_torch` carries that tree into a port model through
 ``checkpoint/convert.py``'s layout rules in their lenient mode
 (``merge_jax_variables``), so there is one name map, ``tpuic``'s, and the
 port's own flax-to-torch rules.  Leniency is the reference's
 (train.py:143-148, ``tpuic``'s ``init_state_from_torch``): an unmapped or
-shape-mismatched leaf keeps its fresh initialisation.  InceptionV3 and
-EfficientNet are not ported yet: their checkpoints raise.
+shape-mismatched leaf keeps its fresh initialisation.
 """
 
 from __future__ import annotations
@@ -164,6 +170,241 @@ def _put_head_fc(params: Dict, name: str, leaf: str, v: np.ndarray,
     elif leaf == "bias":
         _set(params, (head_scope, target, "bias"), v)
     return True
+
+
+# ---------------------------------------------------------------------------
+# Inception-v3 (torchvision naming; the reference's default backbone,
+# nn/classifier.py:20-23). torchvision BasicConv2d children are `.conv`/`.bn`,
+# exactly like tpuic's ConvBN (models/inception.py) — only block/branch names
+# translate.
+# ---------------------------------------------------------------------------
+
+_INCEPTION_STEM = {
+    "Conv2d_1a_3x3": "stem1", "Conv2d_2a_3x3": "stem2",
+    "Conv2d_2b_3x3": "stem3", "Conv2d_3b_1x1": "stem4",
+    "Conv2d_4a_3x3": "stem5",
+}
+
+# torchvision Mixed_* module -> inception block family (models/inception.py)
+_INCEPTION_FAMILY = {
+    "Mixed_5b": "A", "Mixed_5c": "A", "Mixed_5d": "A",
+    "Mixed_6a": "B",
+    "Mixed_6b": "C", "Mixed_6c": "C", "Mixed_6d": "C", "Mixed_6e": "C",
+    "Mixed_7a": "D",
+    "Mixed_7b": "E", "Mixed_7c": "E",
+}
+
+# per-family branch-name translation torchvision -> tpuic
+_INCEPTION_BRANCH = {
+    "A": {"branch1x1": "b1x1", "branch5x5_1": "b5_1", "branch5x5_2": "b5_2",
+          "branch3x3dbl_1": "b3_1", "branch3x3dbl_2": "b3_2",
+          "branch3x3dbl_3": "b3_3", "branch_pool": "bpool"},
+    "B": {"branch3x3": "b3", "branch3x3dbl_1": "bd_1",
+          "branch3x3dbl_2": "bd_2", "branch3x3dbl_3": "bd_3"},
+    "C": {"branch1x1": "b1x1", "branch7x7_1": "b7_1", "branch7x7_2": "b7_2",
+          "branch7x7_3": "b7_3", "branch7x7dbl_1": "bd_1",
+          "branch7x7dbl_2": "bd_2", "branch7x7dbl_3": "bd_3",
+          "branch7x7dbl_4": "bd_4", "branch7x7dbl_5": "bd_5",
+          "branch_pool": "bpool"},
+    "D": {"branch3x3_1": "b3_1", "branch3x3_2": "b3_2",
+          "branch7x7x3_1": "b7_1", "branch7x7x3_2": "b7_2",
+          "branch7x7x3_3": "b7_3", "branch7x7x3_4": "b7_4"},
+    "E": {"branch1x1": "b1x1", "branch3x3_1": "b3_1",
+          "branch3x3_2a": "b3_2a", "branch3x3_2b": "b3_2b",
+          "branch3x3dbl_1": "bd_1", "branch3x3dbl_2": "bd_2",
+          "branch3x3dbl_3a": "bd_3a", "branch3x3dbl_3b": "bd_3b",
+          "branch_pool": "bpool"},
+}
+
+
+def convert_inception(state_dict: Mapping[str, Any],
+                      backbone_scope: str = "backbone",
+                      head_scope: str = "head") -> Dict[str, Dict]:
+    """torchvision ``inception_v3`` (or reference Classifier-over-inception)
+    state_dict -> ``{'params', 'batch_stats'}`` for tpuic InceptionV3.
+
+    Covers the aux head (``AuxLogits.conv0/conv1/fc`` -> ``aux``), which the
+    reference re-heads with a fresh Linear (nn/classifier.py:22-23). Unknown
+    keys are skipped; merge with ``lenient_restore``.
+    """
+    sd = strip_prefixes(state_dict)
+    fc_map = _head_fc_mapping(sd)
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put_convbn(scope: Tuple[str, ...], sub: str, leaf: str,
+                   v: np.ndarray) -> None:
+        if sub == "conv" and leaf == "weight":
+            _set(params, scope + ("conv", "kernel"), _conv(v))
+        elif sub == "bn":
+            if leaf == "weight":
+                _set(params, scope + ("bn", "scale"), v)
+            elif leaf == "bias":
+                _set(params, scope + ("bn", "bias"), v)
+            elif leaf == "running_mean":
+                _set(stats, scope + ("bn", "mean"), v)
+            elif leaf == "running_var":
+                _set(stats, scope + ("bn", "var"), v)
+
+    for key, v in sd.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+
+        if parts[0] in _INCEPTION_STEM and len(parts) == 3:
+            put_convbn((backbone_scope, _INCEPTION_STEM[parts[0]]),
+                       parts[1], leaf, v)
+            continue
+
+        fam = _INCEPTION_FAMILY.get(parts[0])
+        if fam is not None and len(parts) == 4:
+            branch = _INCEPTION_BRANCH[fam].get(parts[1])
+            if branch is None:
+                continue
+            put_convbn((backbone_scope, parts[0].lower().replace("_", ""),
+                        branch), parts[2], leaf, v)
+            continue
+
+        if parts[0] == "AuxLogits":
+            if parts[1] in ("conv0", "conv1") and len(parts) == 4:
+                put_convbn((backbone_scope, "aux", parts[1]), parts[2],
+                           leaf, v)
+            elif parts[1] == "fc" and len(parts) == 3:
+                if leaf == "weight":
+                    _set(params, (backbone_scope, "aux", "fc", "kernel"),
+                         _linear(v))
+                elif leaf == "bias":
+                    _set(params, (backbone_scope, "aux", "fc", "bias"), v)
+            continue
+
+        _put_head_fc(params, ".".join(parts[:-1]), leaf, v, head_scope,
+                     fc_map)
+
+    return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# EfficientNet (efficientnet_pytorch naming; reference nn/classifier.py:17-18
+# — that branch is broken upstream, here the intended behavior works).
+# ---------------------------------------------------------------------------
+
+# block-internal leaf module translation efficientnet_pytorch -> tpuic MBConv
+_EFFNET_BLOCK_CONV = {
+    "_expand_conv": "expand_conv", "_depthwise_conv": "dw_conv",
+    "_project_conv": "project_conv",
+}
+_EFFNET_BLOCK_BN = {"_bn0": "expand_bn", "_bn1": "dw_bn", "_bn2": "project_bn"}
+_EFFNET_SE = {"_se_reduce": "reduce", "_se_expand": "expand"}
+
+
+def _effnet_block_coords(variant: str):
+    """Flat efficientnet_pytorch block index -> tpuic ``block{stage}_{rep}``."""
+    from tpuic_torch.models.efficientnet import (_BASE_BLOCKS, _SCALING,
+                                                 _round_repeats)
+    _, depth_mult, _ = _SCALING[variant]
+    coords = []
+    for si, (_, _, repeats, _, _) in enumerate(_BASE_BLOCKS):
+        for r in range(_round_repeats(repeats, depth_mult)):
+            coords.append(f"block{si}_{r}")
+    return coords
+
+
+def detect_efficientnet_variant(state_dict: Mapping[str, Any]) -> str:
+    """Infer b0..b7 from the checkpoint itself.
+
+    The flat block count separates b0 (16) and b3 (26); b1 and b2 both have
+    23 blocks, so they are disambiguated by the final block's projection
+    width (320 vs 352 — width multipliers 1.0 vs 1.1)."""
+    from tpuic_torch.models.efficientnet import _SCALING, _round_filters
+
+    sd = strip_prefixes(state_dict)
+    idxs = [int(k.split(".")[1]) for k in sd if k.startswith("_blocks.")]
+    if not idxs:
+        raise ValueError("not an efficientnet_pytorch state_dict "
+                         "(no _blocks.* keys)")
+    n_blocks = max(idxs) + 1
+    candidates = [v for v in _SCALING
+                  if len(_effnet_block_coords(v)) == n_blocks]
+    if not candidates:
+        raise ValueError(f"no known efficientnet variant has {n_blocks} "
+                         f"blocks (b0..b7 supported)")
+    if len(candidates) > 1:
+        proj = sd.get(f"_blocks.{n_blocks - 1}._project_conv.weight")
+        if proj is not None:
+            candidates = [v for v in candidates
+                          if _round_filters(320, _SCALING[v][0])
+                          == proj.shape[0]] or candidates
+    return candidates[0]
+
+
+def convert_efficientnet(state_dict: Mapping[str, Any], variant: str = "b3",
+                         backbone_scope: str = "backbone",
+                         head_scope: str = "head") -> Dict[str, Dict]:
+    """efficientnet_pytorch state_dict -> ``{'params', 'batch_stats'}``.
+
+    ``variant`` ('b0'..'b7') resolves the flat ``_blocks.{i}`` index into the
+    tpuic ``block{stage}_{repeat}`` name (depth multiplier dependent). The
+    package's ``_fc`` single Linear maps to ``head/out``; a reference-style
+    MLP (``fc.0/2/4/6``) maps to the full head.
+    """
+    sd = strip_prefixes(state_dict)
+    fc_map = _head_fc_mapping(sd)
+    coords = _effnet_block_coords(variant)
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put_bn(scope: Tuple[str, ...], leaf: str, v: np.ndarray) -> None:
+        if leaf == "weight":
+            _set(params, scope + ("scale",), v)
+        elif leaf == "bias":
+            _set(params, scope + ("bias",), v)
+        elif leaf == "running_mean":
+            _set(stats, scope + ("mean",), v)
+        elif leaf == "running_var":
+            _set(stats, scope + ("var",), v)
+
+    for key, v in sd.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+
+        if parts[0] == "_blocks" and len(parts) >= 4:
+            idx = int(parts[1])
+            if idx >= len(coords):
+                continue
+            block = coords[idx]
+            mod = parts[2]
+            if mod in _EFFNET_BLOCK_CONV and leaf == "weight":
+                _set(params,
+                     (backbone_scope, block, _EFFNET_BLOCK_CONV[mod],
+                      "kernel"), _conv(v))
+            elif mod in _EFFNET_BLOCK_BN:
+                put_bn((backbone_scope, block, _EFFNET_BLOCK_BN[mod]),
+                       leaf, v)
+            elif mod in _EFFNET_SE:
+                scope = (backbone_scope, block, "se", _EFFNET_SE[mod])
+                if leaf == "weight":
+                    _set(params, scope + ("kernel",), _conv(v))
+                elif leaf == "bias":
+                    _set(params, scope + ("bias",), v)
+            continue
+
+        if parts[0] == "_conv_stem" and leaf == "weight":
+            _set(params, (backbone_scope, "stem_conv", "kernel"), _conv(v))
+        elif parts[0] == "_bn0":
+            put_bn((backbone_scope, "stem_bn"), leaf, v)
+        elif parts[0] == "_conv_head" and leaf == "weight":
+            _set(params, (backbone_scope, "head_conv", "kernel"), _conv(v))
+        elif parts[0] == "_bn1":
+            put_bn((backbone_scope, "head_bn"), leaf, v)
+        elif parts[0] == "_fc":
+            if leaf == "weight":
+                _set(params, (head_scope, "out", "kernel"), _linear(v))
+            elif leaf == "bias":
+                _set(params, (head_scope, "out", "bias"), v)
+        else:
+            _put_head_fc(params, ".".join(parts[:-1]), leaf, v, head_scope,
+                         fc_map)
+
+    return {"params": params, "batch_stats": stats}
 
 
 # torchvision encoder-block leaf -> (tpuic module path, is_layernorm)
@@ -308,18 +549,23 @@ def detect_resnet_depth(state_dict: Mapping[str, Any]) -> str:
 def convert_state_dict(state_dict: Mapping[str, Any],
                        arch: str = "auto", **kw) -> Dict[str, Dict]:
     """Convert a supported torch state_dict to ``tpuic``'s trees.
-    ``arch``: 'auto' | 'resnet*' | 'vit*'; InceptionV3 and EfficientNet
-    checkpoints raise ``NotImplementedError``."""
+    ``arch``: 'auto' | 'resnet*' | 'inceptionv3' | 'efficientnet-b{0..7}'
+    | 'vit*'."""
     if arch == "auto":
         arch = detect_arch(state_dict)
     if arch.startswith("resnet"):
         return convert_resnet(state_dict, **kw)
+    if arch.startswith("inception"):
+        return convert_inception(state_dict, **kw)
     if arch.startswith("vit"):
         return convert_vit(state_dict, **kw)
-    if arch.startswith(("inception", "efficientnet")):
-        raise NotImplementedError(
-            f"{arch} checkpoints are not yet ported to tpuic_torch "
-            "(ROADMAP §1: InceptionV3 and EfficientNet)")
+    if arch.startswith("efficientnet"):
+        # Bare 'efficientnet' (auto-detection): the variant comes from the
+        # checkpoint; a guess would mis-key every block and the lenient
+        # merge would skip the whole backbone.
+        variant = (arch.rsplit("-", 1)[-1] if "-" in arch
+                   else detect_efficientnet_variant(state_dict))
+        return convert_efficientnet(state_dict, variant=variant, **kw)
     raise ValueError(f"unsupported arch '{arch}'")
 
 

@@ -68,13 +68,19 @@ class ModelConfig:
     num_classes: int = 7
     # MLP head widths (reference nn/classifier.py:26-34: in->128->64->32->n).
     head_widths: Sequence[int] = (128, 64, 32)
-    # Compute dtype; parameters stay float32.  Training takes float32 only
-    # in this slice (bf16 parity is still to port).
+    # Compute dtype; parameters stay float32.  bfloat16 runs convolutions
+    # and matmuls in bf16 from float32 master parameters (BN statistics
+    # and the loss stay float32); serving and predict compute in float32.
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     # BatchNorm momentum/eps matching torch defaults the reference inherits.
     bn_momentum: float = 0.9  # flax convention: ema = m*ema + (1-m)*batch
     bn_eps: float = 1e-5
+    # BN batch-statistics accumulation dtype.  True (default) reduces in
+    # float32 (torch/SyncBN semantics); False reduces in the compute dtype
+    # (bf16), the ``--bn-bf16-stats`` bandwidth experiment.  ResNet family
+    # only; InceptionV3 and EfficientNet keep float32 statistics.
+    bn_f32_stats: bool = True
     # Rematerialization: not ported; the Trainer refuses True, so
     # remat_policy is carried for the config's shape only.
     remat: bool = False
@@ -93,9 +99,34 @@ class ModelConfig:
     attention: str = "dense"
     # Stochastic depth of the ViT family: not ported; the ViT refuses > 0.
     drop_path: float = 0.0
-    # Training compute-dtype policy ('' | 'bf16' | 'f32'): only '' and
-    # 'f32' are ported.
+    # Training compute-dtype policy ('' | 'bf16' | 'f32'), see
+    # resolve_compute_dtype.  '' leaves ``dtype`` in charge; 'bf16' forces
+    # bf16 compute (the batch is cast once in the step, the loss is taken
+    # on float32 logits); 'f32' forces float32.  Master parameters,
+    # optimizer moments and checkpoints stay float32 either way.
     compute_dtype: str = ""
+
+    def __post_init__(self):
+        resolve_compute_dtype(self)  # validate eagerly
+
+
+# Accepted spellings of the ModelConfig.compute_dtype policy -> canonical
+# tag ('' = the per-model ``dtype`` field rules).
+_COMPUTE_DTYPES = {"": "", "bf16": "bf16", "bfloat16": "bf16",
+                   "f32": "f32", "float32": "f32"}
+
+
+def resolve_compute_dtype(model: "ModelConfig") -> str:
+    """Canonical compute-dtype tag of a ModelConfig: '', 'bf16' or 'f32'.
+    The one normalisation point the Trainer (the model dtype override) and
+    the train step (the batch cast, float32 logits) share."""
+    key = str(getattr(model, "compute_dtype", "") or "").lower()
+    if key not in _COMPUTE_DTYPES:
+        raise ValueError(
+            f"unknown compute_dtype {model.compute_dtype!r}; expected one "
+            f"of {sorted(k for k in _COMPUTE_DTYPES if k)} (or '' for the "
+            "per-model dtype default)")
+    return _COMPUTE_DTYPES[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +175,8 @@ class OptimConfig:
     # Fused multi-tensor LARS/LAMB update kernel K2
     # (tpuic_torch/kernels/optimizer_update.py) for 'lars' / 'lamb'.
     fused_optimizer: bool = False
-    # Static loss scaling: not ported; the Trainer refuses != 1.
+    # Static loss scaling: the backward runs on loss * loss_scale, then
+    # the loss and the gradients are divided by it.
     loss_scale: float = 1.0
     # Non-finite step guard: a NaN/Inf loss or gradient norm leaves the
     # whole state unchanged (params, optimizer state, BN statistics, step)

@@ -2,34 +2,39 @@
 
 ``create_model(name, num_classes)`` builds ``Classifier(backbone, head)``
 with the same names, defaults and parameter structure as ``tpuic``'s.
-The ResNet family and the dense ViT family are ported; every other
-``tpuic`` model name raises ``ValueError`` saying it is not ported yet.
+The ResNet, InceptionV3, EfficientNet and dense ViT families are ported;
+the MoE ViTs raise ``ValueError`` saying they are not ported yet.
+InceptionV3 and EfficientNet keep BN eps 1e-3 and float32 statistics
+whatever ``bn_eps`` and ``bn_f32_stats`` say, and ``fused_conv_bn`` stays
+ResNet-only, as in ``tpuic`` (``tpuic/models/__init__.py:146-193``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from tpuic_torch.config import ATTENTION_IMPLS, ModelConfig
 from tpuic_torch.device import resolve_device
+from tpuic_torch.models import efficientnet as _effnet
+from tpuic_torch.models import inception as _inception
 from tpuic_torch.models import resnet as _resnet
 from tpuic_torch.models import vit as _vit
 from tpuic_torch.models.classifier import Classifier
 
-_REGISTRY: Dict[str, Callable[..., torch.nn.Module]] = {}
+# name -> (factory, has_aux)
+_REGISTRY: Dict[str, Tuple[Callable[..., torch.nn.Module], bool]] = {}
 
 #: ``tpuic`` model names whose backbones are later slices of the port.
-NOT_YET_PORTED = tuple(
-    [f"efficientnet-b{i}" for i in range(8)]
-    + ["vit-s16-moe", "vit-tiny-moe", "inceptionv3"])
+NOT_YET_PORTED = ("vit-s16-moe", "vit-tiny-moe")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def register(name: str, factory: Callable[..., torch.nn.Module]) -> None:
-    _REGISTRY[name] = factory
+def register(name: str, factory: Callable[..., torch.nn.Module],
+             has_aux: bool = False) -> None:
+    _REGISTRY[name] = (factory, has_aux)
 
 
 def available_models():
@@ -45,13 +50,15 @@ def _dtype(dt) -> torch.dtype:
     return _DTYPES[dt]
 
 
-def create_backbone(name: str, *, dtype=torch.float32,
-                    param_dtype=torch.float32, bn_momentum: float = 0.9,
-                    bn_eps: float = 1e-5, attention: str = "dense",
+def create_backbone(name: str, num_classes: int = 0, *,
+                    dtype=torch.float32, param_dtype=torch.float32,
+                    bn_momentum: float = 0.9, bn_eps: float = 1e-5,
+                    attention: str = "dense", bn_f32_stats: bool = True,
                     drop_path: float = 0.0, fused_conv_bn: bool = False,
                     image_size: Optional[int] = None,
-                    device=None) -> torch.nn.Module:
-    """``image_size`` sizes the ViT's position embedding (default 224);
+                    device=None) -> Tuple[torch.nn.Module, bool]:
+    """``(backbone, has_aux)``.  ``num_classes`` sizes InceptionV3's aux
+    head; ``image_size`` sizes the ViT's position embedding (default 224);
     CNNs ignore it, as they ignore ``attention`` and ``drop_path``."""
     if name not in _REGISTRY:
         if name in NOT_YET_PORTED:
@@ -62,32 +69,34 @@ def create_backbone(name: str, *, dtype=torch.float32,
     if attention not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl '{attention}'; "
                          f"available: {ATTENTION_IMPLS}")
-    return _REGISTRY[name](dtype=_dtype(dtype),
-                           param_dtype=_dtype(param_dtype),
-                           bn_momentum=bn_momentum, bn_eps=bn_eps,
-                           attention=attention, drop_path=drop_path,
-                           fused_conv_bn=fused_conv_bn, image_size=image_size,
-                           device=resolve_device(device))
+    factory, has_aux = _REGISTRY[name]
+    return factory(num_classes=num_classes, dtype=_dtype(dtype),
+                   param_dtype=_dtype(param_dtype),
+                   bn_momentum=bn_momentum, bn_eps=bn_eps,
+                   attention=attention, bn_f32_stats=bn_f32_stats,
+                   drop_path=drop_path, fused_conv_bn=fused_conv_bn,
+                   image_size=image_size,
+                   device=resolve_device(device)), has_aux
 
 
 def create_model(name: str, num_classes: int, *, head_widths=(128, 64, 32),
                  dtype="bfloat16", param_dtype="float32",
                  bn_momentum: float = 0.9, bn_eps: float = 1e-5,
-                 attention: str = "dense", drop_path: float = 0.0,
-                 fused_conv_bn: bool = False,
+                 attention: str = "dense", bn_f32_stats: bool = True,
+                 drop_path: float = 0.0, fused_conv_bn: bool = False,
                  image_size: Optional[int] = None,
                  device=None) -> Classifier:
     """The ``tpuic.models.create_model`` counterpart, built on ``device``
     (``None`` = the card)."""
     device = resolve_device(device)
-    backbone = create_backbone(name, dtype=dtype, param_dtype=param_dtype,
-                               bn_momentum=bn_momentum, bn_eps=bn_eps,
-                               attention=attention, drop_path=drop_path,
-                               fused_conv_bn=fused_conv_bn,
-                               image_size=image_size, device=device)
+    backbone, has_aux = create_backbone(
+        name, num_classes, dtype=dtype, param_dtype=param_dtype,
+        bn_momentum=bn_momentum, bn_eps=bn_eps, attention=attention,
+        bn_f32_stats=bn_f32_stats, drop_path=drop_path,
+        fused_conv_bn=fused_conv_bn, image_size=image_size, device=device)
     return Classifier(backbone, num_classes, tuple(head_widths),
-                      dtype=_dtype(dtype), param_dtype=_dtype(param_dtype),
-                      device=device)
+                      has_aux=has_aux, dtype=_dtype(dtype),
+                      param_dtype=_dtype(param_dtype), device=device)
 
 
 def create_model_from_config(cfg: ModelConfig, device=None,
@@ -96,25 +105,56 @@ def create_model_from_config(cfg: ModelConfig, device=None,
                         head_widths=cfg.head_widths, dtype=cfg.dtype,
                         param_dtype=cfg.param_dtype,
                         bn_momentum=cfg.bn_momentum, bn_eps=cfg.bn_eps,
-                        attention=cfg.attention, drop_path=cfg.drop_path,
+                        attention=cfg.attention,
+                        bn_f32_stats=cfg.bn_f32_stats,
+                        drop_path=cfg.drop_path,
                         fused_conv_bn=cfg.fused_conv_bn,
                         image_size=image_size, device=device)
 
 
 def _cnn(factory, **extra):
-    def make(*, dtype, param_dtype, bn_momentum, bn_eps, attention,
-             drop_path, fused_conv_bn, image_size, device):
-        del attention, drop_path, image_size  # ViT-only
+    def make(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps,
+             attention, bn_f32_stats, drop_path, fused_conv_bn, image_size,
+             device):
+        del num_classes, attention, drop_path, image_size  # ViT/aux only
         return factory(dtype=dtype, param_dtype=param_dtype,
                        bn_momentum=bn_momentum, bn_eps=bn_eps,
+                       bn_f32_stats=bn_f32_stats,
                        fused_inference=fused_conv_bn, device=device, **extra)
     return make
 
 
+def _eff(variant):
+    def make(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps,
+             attention, bn_f32_stats, drop_path, fused_conv_bn, image_size,
+             device):
+        # eps 1e-3 and float32 statistics whatever the config says; the
+        # stochastic depth stays tpuic's default 0.2, as tpuic's factory
+        # never overrides it.
+        del (num_classes, bn_eps, attention, bn_f32_stats, drop_path,
+             fused_conv_bn, image_size)
+        return _effnet.efficientnet(variant, dtype=dtype,
+                                    param_dtype=param_dtype,
+                                    bn_momentum=bn_momentum, device=device)
+    return make
+
+
+def _inc(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps, attention,
+         bn_f32_stats, drop_path, fused_conv_bn, image_size, device):
+    # eps 1e-3 and float32 statistics; the aux head is num_classes wide.
+    del (bn_eps, attention, bn_f32_stats, drop_path, fused_conv_bn,
+         image_size)
+    return _inception.InceptionV3(aux_classes=num_classes, dtype=dtype,
+                                  param_dtype=param_dtype,
+                                  bn_momentum=bn_momentum, device=device)
+
+
 def _vit_factory(ctor):
-    def make(*, dtype, param_dtype, bn_momentum, bn_eps, attention,
-             drop_path, fused_conv_bn, image_size, device):
-        del bn_momentum, bn_eps, fused_conv_bn  # no BN in a ViT
+    def make(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps,
+             attention, bn_f32_stats, drop_path, fused_conv_bn, image_size,
+             device):
+        del num_classes, bn_momentum, bn_eps, bn_f32_stats  # no BN
+        del fused_conv_bn  # ResNet-only
         return ctor(dtype=dtype, param_dtype=param_dtype,
                     attention=attention, drop_path=drop_path,
                     image_size=224 if image_size is None else image_size,
@@ -132,6 +172,9 @@ register("resnet18-cifar", _cnn(_resnet.resnet18, small_stem=True))
 # [H/2, W/2, 12]; convert standard stem weights with
 # models.resnet.s2d_stem_kernel.
 register("resnet50-s2d", _cnn(_resnet.resnet50, space_to_depth=True))
+for _v in _effnet._SCALING:
+    register(f"efficientnet-{_v}", _eff(_v))
+register("inceptionv3", _inc, has_aux=True)
 register("vit-b16", _vit_factory(_vit.vit_b16))
 register("vit-l16", _vit_factory(_vit.vit_l16))
 register("vit-b32", _vit_factory(_vit.vit_b32))

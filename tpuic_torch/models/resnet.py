@@ -17,7 +17,8 @@ Two branches:
 - **unfused** (``fused_inference=False``, or a module in training mode):
   ``nn.Conv2d`` + ``nn.BatchNorm2d`` in plain PyTorch over an NCHW view
   of the NHWC data (channels_last memory, no copy).  In training mode BN
-  uses batch statistics.
+  uses batch statistics, reduced in float32 unless ``bn_f32_stats`` is
+  off (the ``--bn-bf16-stats`` experiment, ``models/layers.py``).
 - **fused inference** (``fused_inference=True`` in eval mode): every
   conv -> BN (-> ReLU) runs as one ``fused_conv_bn_relu`` kernel launch
   on NHWC activations, which stay NHWC-contiguous from block to block.
@@ -69,11 +70,12 @@ class BasicBlock(_Block):
     def __init__(self, in_features: int, features: int, strides: int = 1,
                  bn_momentum: float = 0.9, bn_eps: float = 1e-5, *,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 device=None) -> None:
+                 bn_f32_stats: bool = True, device=None) -> None:
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype,
                   device=resolve_device(device))
-        bn = partial(batch_norm, momentum=bn_momentum, eps=bn_eps, **kw)
+        bn = partial(batch_norm, momentum=bn_momentum, eps=bn_eps,
+                     f32_stats=bn_f32_stats, **kw)
         self.strides = strides
         self.conv1 = conv3x3(in_features, features, strides, **kw)
         self.bn1 = bn(features)
@@ -110,11 +112,12 @@ class Bottleneck(_Block):
     def __init__(self, in_features: int, features: int, strides: int = 1,
                  bn_momentum: float = 0.9, bn_eps: float = 1e-5, *,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 device=None) -> None:
+                 bn_f32_stats: bool = True, device=None) -> None:
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype,
                   device=resolve_device(device))
-        bn = partial(batch_norm, momentum=bn_momentum, eps=bn_eps, **kw)
+        bn = partial(batch_norm, momentum=bn_momentum, eps=bn_eps,
+                     f32_stats=bn_f32_stats, **kw)
         out_features = features * 4
         self.strides = strides
         self.conv1 = conv1x1(in_features, features, **kw)
@@ -169,7 +172,7 @@ class ResNet(nn.Module):
                  space_to_depth: bool = False, bn_momentum: float = 0.9,
                  bn_eps: float = 1e-5, *, dtype=torch.float32,
                  param_dtype=torch.float32, fused_inference: bool = False,
-                 device=None) -> None:
+                 bn_f32_stats: bool = True, device=None) -> None:
         super().__init__()
         self._packed: Optional[Dict[str, Packed]] = None
         self.compute_dtype = dtype
@@ -191,7 +194,7 @@ class ResNet(nn.Module):
             self._stem = (2, 3)
             self.conv1 = Conv(3, num_filters, 7, *self._stem, **kw)
         self.bn1 = batch_norm(num_filters, momentum=bn_momentum, eps=bn_eps,
-                              **kw)
+                              f32_stats=bn_f32_stats, **kw)
         in_features = num_filters
         self._blocks = []
         for stage, n_blocks in enumerate(stage_sizes):
@@ -200,7 +203,8 @@ class ResNet(nn.Module):
                 name = f"layer{stage + 1}_{i}"
                 features = num_filters * 2 ** stage
                 setattr(self, name, block(in_features, features, strides,
-                                          bn_momentum, bn_eps, **kw))
+                                          bn_momentum, bn_eps,
+                                          bn_f32_stats=bn_f32_stats, **kw))
                 self._blocks.append(name)
                 in_features = features * block.expansion
         self.num_features = in_features

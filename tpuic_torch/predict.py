@@ -24,7 +24,8 @@ bucket is one CUDA graph, full batches reach the engine as the
 ``Loader``'s tensors on the card (no host bounce), and the tail batch
 submits only its valid rows.  ``--device cpu`` runs on the CPU.
 ``--no-pack`` is required: the packed loader is not ported (ROADMAP §1
-item 7).
+item 7).  Every checkpoint is scored in float32 through the kernels, as
+the serve CLI serves it (``serving_model_config``), a bf16 run's too.
 """
 
 from __future__ import annotations
@@ -292,9 +293,9 @@ def main(argv=None) -> int:
 
 
 def serving_model_config(name: str, num_classes: int):
-    """The ``ModelConfig`` the port serves and scores with: float32, the
-    fused conv+BN+ReLU kernel for CNNs and flash attention for ViTs (the
-    forwards that carry the kernels)."""
+    """The ``ModelConfig`` the port serves and scores with, whatever dtype
+    the run trained in: float32, the fused conv+BN+ReLU kernel for ResNets
+    and flash attention for ViTs (the forwards that carry the kernels)."""
     from tpuic_torch.config import ModelConfig
     return ModelConfig(name=name, num_classes=num_classes, dtype="float32",
                        fused_conv_bn=True, attention="flash")

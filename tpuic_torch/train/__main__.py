@@ -4,8 +4,13 @@ The counterpart of the repo's ``train.py``, with the same flag names for
 what the port supports, plus ``--device`` (default: the card; ``cpu``
 runs on the CPU).  Every other ``train.py`` flag is accepted by the
 parser and, when set, exits with "not yet ported".  Like ``train.py``,
-the defaults are the reference's, so a run on the port names what it
-supports explicitly, e.g.::
+the defaults are the reference's (InceptionV3 with its aux head at 299
+px, bfloat16 compute, Adam at 0.5e-5, MultiStepLR [50, 80], batch 4, the
+reference's 7 class weights), and they run as they are::
+
+  python -m tpuic_torch.train --datadir /data/folder --no-pack --no-native
+
+Other recipes name what they change, e.g.::
 
   python -m tpuic_torch.train --datadir /data/imagenet --model resnet50 \\
       --resize 224 --batchsize 128 --num-classes 1000 --optimizer lars \\
@@ -42,7 +47,6 @@ _NOT_PORTED = (
     ("--per-class-metrics", dict(action="store_true")),
     ("--remat-policy", dict(default="dots")),
     ("--drop-path", dict(type=float, default=0.0)),
-    ("--bn-bf16-stats", dict(action="store_true")),
     ("--profile-dir", dict(default="")),
     ("--log-dir", dict(default="")),
     ("--skip-threshold", dict(type=int, default=10)),
@@ -127,10 +131,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="required: the packed loader is not ported")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"],
-                   help="the port trains float32 only so far")
+                   help="compute dtype of the model (parameters, optimizer "
+                        "moments and checkpoints stay float32); bfloat16 is "
+                        "refused for the ViT family so far")
     p.add_argument("--compute-dtype", default="", dest="compute_dtype",
-                   choices=["", "bf16", "f32"])
-    p.add_argument("--loss-scale", type=float, default=1.0)
+                   choices=["", "bf16", "f32"],
+                   help="training compute-dtype policy: 'bf16' casts the "
+                        "batch to bfloat16 in the step and computes in bf16 "
+                        "from float32 master weights; 'f32' forces float32; "
+                        "'' leaves --dtype in charge")
+    p.add_argument("--loss-scale", type=float, default=1.0,
+                   help="static loss scaling (loss x N before backward, "
+                        "grads / N after; 1.0 = off)")
+    p.add_argument("--bn-bf16-stats", action="store_true",
+                   help="accumulate BatchNorm batch statistics in the "
+                        "compute dtype instead of float32 (ResNet family; "
+                        "a bandwidth experiment)")
     p.add_argument("--fused-optimizer", action="store_true",
                    help="the fused multi-tensor LARS/LAMB kernel K2 "
                         "(tpuic_torch/kernels/optimizer_update.py)")
@@ -177,6 +193,7 @@ def config_from_args(args: argparse.Namespace,
         model=ModelConfig(name=args.model, num_classes=args.num_classes,
                           dtype=args.dtype, remat=args.remat,
                           attention=args.attention,
+                          bn_f32_stats=not args.bn_bf16_stats,
                           compute_dtype=args.compute_dtype),
         optim=OptimConfig(optimizer=args.optimizer, learning_rate=args.lr,
                           milestones=tuple(args.milestones), gamma=args.gamma,

@@ -34,10 +34,19 @@ The model is built for ``data.resize_size`` images (the ViT's position
 embedding depends on it) with ``model.attention``: a ViT trains through
 the K4 flash-attention kernels with ``attention="flash"``.
 
+- **Compute dtype** (``tpuic/train/loop.py:86-98``): a
+  ``model.compute_dtype`` policy forces the model's ``dtype`` (``bf16``
+  -> bfloat16, ``f32`` -> float32); without one, ``model.dtype`` rules,
+  and its default is the reference's bfloat16.  Parameters, optimizer
+  moments and checkpoints stay float32 (``train/step.py``).
+
 Not ported, and refused with ``NotImplementedError`` naming the field:
 mixup, CutMix, random erasing, EMA, ``freeze_backbone``, gradient
-accumulation, loss scaling, bf16 compute, ``remat``, the packed loader
-(``pack``), the native decode core (``native``) and mesh axes above 1.
+accumulation, ``remat``, the packed loader (``pack``), the native decode
+core (``native``), mesh axes above 1, bf16 compute for the ViT family
+(K4's bf16 build is not redesigned yet, ROADMAP §1 item 3) and
+EfficientNet training (its stochastic depth needs the step's RNG
+plumbing, ROADMAP §1 item 8).
 The ViT itself refuses drop-path and the sequence-parallel attention
 impls the same way.
 Mid-epoch (preemption) saves, rollback, elastic membership, telemetry and
@@ -55,7 +64,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from tpuic_torch.checkpoint import CheckpointManager, init_params
-from tpuic_torch.config import Config
+from tpuic_torch.config import Config, resolve_compute_dtype
 from tpuic_torch.data.folder import ImageFolderDataset
 from tpuic_torch.data.pipeline import Loader
 from tpuic_torch.device import resolve_device
@@ -64,6 +73,14 @@ from tpuic_torch.models import create_model_from_config
 from tpuic_torch.train.optimizer import make_optimizer, make_schedule
 from tpuic_torch.train.state import create_train_state
 from tpuic_torch.train.step import make_eval_step, make_train_step
+
+
+def resolved_model_dtype(m) -> str:
+    """The model's compute dtype after the ``compute_dtype`` policy."""
+    policy = resolve_compute_dtype(m)
+    if policy:
+        return "bfloat16" if policy == "bf16" else "float32"
+    return m.dtype
 
 
 def unported_settings(cfg: Config) -> list:
@@ -76,11 +93,12 @@ def unported_settings(cfg: Config) -> list:
         ("optim.ema_decay", o.ema_decay > 0),
         ("optim.freeze_backbone", o.freeze_backbone),
         ("optim.grad_accum_steps", o.grad_accum_steps > 1),
-        ("optim.loss_scale", o.loss_scale != 1.0),
-        ("model.compute_dtype", m.compute_dtype.lower() in ("bf16",
-                                                           "bfloat16")),
-        ("model.dtype", m.dtype != "float32"
-         and m.compute_dtype.lower() not in ("f32", "float32")),
+        ("model.dtype=bfloat16 for the ViT family (K4's bf16 build is "
+         "not redesigned yet, ROADMAP §1 item 3)", m.name.startswith("vit")
+         and resolved_model_dtype(m) == "bfloat16"),
+        ("model.name: EfficientNet training (stochastic depth needs the "
+         "step's RNG plumbing, ROADMAP §1 item 8)",
+         m.name.startswith("efficientnet")),
         ("model.remat", m.remat),
         ("data.pack", d.pack),
         ("data.native", d.native),
@@ -124,7 +142,7 @@ class Trainer:
                                  prefetch=d.prefetch, device=self.device)
         num_classes = cfg.model.num_classes or self.train_ds.num_classes
         mcfg = dataclasses.replace(cfg.model, num_classes=num_classes,
-                                   dtype="float32")
+                                   dtype=resolved_model_dtype(cfg.model))
         if cfg.optim.auto_class_weights:
             counts = self.train_ds.class_counts()
             if len(counts) > num_classes:
@@ -153,7 +171,8 @@ class Trainer:
         n_params = sum(p.numel() for p in self.model.parameters())
         self.log(f"[model] {mcfg.name}: {n_params / 1e6:.1f}M params, "
                  f"{num_classes} classes, batch {d.batch_size}, "
-                 f"optimizer {tx.kind}, on {self.device}")
+                 f"optimizer {tx.kind}, on {self.device}, {mcfg.dtype} "
+                 "compute")
         self.train_step = make_train_step(cfg.optim, mcfg,
                                           lr_schedule=self.schedule,
                                           device=self.device)

@@ -17,10 +17,20 @@ forward (one concatenation) and selected back after it; the optimizer
 updates are gated by ``finite`` inside the update (the K2 kernels read
 it on the device).
 
+The bf16 tier (``ModelConfig.compute_dtype='bf16'``,
+``tpuic/train/step.py:158-166``, ``:313-320``, ``:345-348``,
+``:376-388``): the batch is cast once to bf16 at the step entry (the
+port augments in the ``Loader``, before the step); the model, which the
+Trainer built with ``dtype=bfloat16``, computes in bf16 from its float32
+master parameters, so autograd accumulates float32 gradients; the
+outputs are cast to float32 before the loss, so K1 sees float32 logits.
+Optimizer moments and checkpoints stay float32.  ``optim.loss_scale`` is static
+loss scaling: the backward runs on ``loss * loss_scale`` and the
+gradients are divided by it before the norm, the guard and the update.
+
 ``batch`` is ``{"image": [B, H, W, 3] float32, "label": [B] int32,
 "mask": [B] float32}`` on the model's device.  Mixup, CutMix, random
-erasing, remat and bf16 compute are not ported (the Trainer refuses
-them).
+erasing and remat are not ported (the Trainer refuses them).
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from typing import Callable, Optional
 
 import torch
 
-from tpuic_torch.config import ModelConfig, OptimConfig
+from tpuic_torch.config import ModelConfig, OptimConfig, resolve_compute_dtype
 from tpuic_torch.metrics.meters import accuracy, topk_accuracy
 from tpuic_torch.train.loss import classification_loss
 from tpuic_torch.train.optimizer import global_norm
@@ -59,6 +69,8 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
     class_weights = _class_weights(optim_cfg, device)
     impl = "fused" if optim_cfg.fused_loss else "reference"
     guard = bool(optim_cfg.skip_nonfinite)
+    bf16 = resolve_compute_dtype(model_cfg) == "bf16"
+    loss_scale = float(optim_cfg.loss_scale or 1.0)
 
     def train_step(state: TrainState, batch):
         images, labels = batch["image"], batch["label"]
@@ -78,14 +90,21 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
         grads = [p.grad for p in params]
         if all(g is not None for g in grads):
             torch._foreach_zero_(grads)
+        if bf16:
+            images = images.to(torch.bfloat16)
         out = model(images)
+        if bf16:  # the loss is taken on float32 logits
+            out = (tuple(t.float() for t in out) if isinstance(out, tuple)
+                   else out.float())
         loss = classification_loss(
             out, labels, class_weights=class_weights, mask=mask,
             aux_weight=model_cfg.aux_loss_weight,
             label_smoothing=optim_cfg.label_smoothing, impl=impl)
-        loss.backward()
+        (loss * loss_scale if loss_scale != 1.0 else loss).backward()
         logits = (out[0] if isinstance(out, tuple) else out).detach()
         grads = [p.grad for p in params]
+        if loss_scale != 1.0:
+            torch._foreach_mul_(grads, 1.0 / loss_scale)
         grad_norm = global_norm(grads)
         with torch.no_grad():
             if guard:
