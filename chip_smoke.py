@@ -27,7 +27,13 @@ non-zero at the first phase that fails:
    row at batch 1 must equal the same row inside batch 32 at a split-K
    shape, the bits must not move with the TF32 flags, and the plain
    version on TF32-rounded inputs must fall outside 1e-4 (so the check
-   tells one TF32 pass from 3xTF32).
+   tells one TF32 pass from 3xTF32).  bf16 x (the serve ladder's bf16
+   rung) is timed per shape too, beside its plain version and one cuDNN
+   bf16 convolution of the same x with the folded weights in bf16 and the
+   earlier bf16 design (the mma.sync build, at the shapes the wgmma build
+   now runs), with bf16 w as the bf16 rung folds it (held too), its bound
+   at the rate of its products (one bf16 wgmma product, or two TF32 MMAs
+   in the mma.sync build), and summed per forward.
 4. model  — ``create_model("resnet50", 1000, dtype="float32",
    fused_conv_bn=True)`` with seeded synthetic weights: its logits at
    batch 4 against the same weights through the unfused cuDNN branch (TF32
@@ -148,7 +154,11 @@ non-zero at the first phase that fails:
    the 1e-4 tolerance (so the check tells TF32 from 3xTF32); plus a
    ``valid_len`` case (50 of 64 keys) and a
    fully masked case (o = 0, lse = the sentinel, for sentinels 0 and
-   -1e30).  Each kernel is timed beside its plain version and one
+   -1e30), in float32 and in bf16, plus [2, 300, 12, 64] (bf16's
+   forward refills its key ring there).  bf16 at D = 64 runs K4f's TMA and
+   wgmma build (``flash_fwd_sm90.cu``); the earlier mma.sync bf16 forward
+   is held and timed beside it.  Each kernel is timed beside its plain
+   version and one
    ``F.scaled_dot_product_attention`` call (timed only): the forward
    beside K4f; SDPA's backward alone (from one forward outside the timed
    calls) and its forward + backward beside the sum of dq and dk/dv, as
@@ -169,18 +179,43 @@ non-zero at the first phase that fails:
    the repo's ViT recipe (recipes/README.md, section 4: AdamW lr 3e-4, wd
    0.05, 10 warmup epochs of 300, label smoothing 0.1, clipping at 1.0,
    batch 64), ``attention="flash"`` and the fused loss, for 12 steps, then
-   one val pass.  Launches: K4 forward 12 per step and 12 per val forward,
-   dq and dk/dv 12 per step, K1 once per step.  Then 3 steps from one
-   state through the kernels and 3 through dense attention and the plain
-   loss, TF32 off: the per-step losses agree within rtol 1e-3.
+   one val pass, in float32 and in bf16 (``compute_dtype`` bf16: K4's bf16
+   kernels forward and backward; a forward hook holds every attention
+   block's input and output to bfloat16).  Launches per arm: K4 forward 12
+   per step and 12 per val forward, dq and dk/dv 12 per step, K1 once per
+   step.  The bf16 arm's logged losses (steps 4, 8, 12) lie within
+   BF16_LOSS_RTOL (2e-2) of the float32 arm's.  Then 3 steps from one
+   state through the kernels, through dense attention and the plain loss
+   (TF32 off: the per-step losses agree within rtol 1e-3), and through the
+   kernels in bf16 (within BF16_LOSS_RTOL of the float32 kernels').
+20. ladder — the serve dtype ladder (``tpuic_torch.quant``: fp32, bf16,
+   int8) for ResNet-50 (224 px, K3 on every rung), InceptionV3 (299 px,
+   no kernel) and ViT-B/16 (224 px, K4f on every rung, its bf16 build on
+   the bf16 rung), each at full width with synthetic weights: the accuracy
+   gate (each rung's top-1 agreement with fp32 on
+   ``quant.eval_images(128)`` at least 1 - DEFAULT_EPSILON, a corrupted
+   int8 rung below it), each rung's batch-1 row against batch 32 within
+   RUNG_ROW_TOL (stated before the first run: fp32 and int8 1e-5, bf16
+   1e-2), each rung's weight bytes (int8's quantized leaves beside their
+   float32 bytes), then one engine with a graph per (rung, bucket): per
+   rung ``[serve]``'s client mix (images/s, p50/p99, spans, graph pool by
+   rung, launches per device call, answers within RUNG_SERVE_TOL of the
+   rung's direct forward); for ResNet-50 one swap of the whole ladder
+   under mixed traffic, every answer the old or the new ladder's and every
+   one submitted after the swap the new one's.
+21. serve-cli-ladder — ``python -m tpuic_torch.serve --serve-dtypes
+   fp32,bf16,int8`` on ``ckpt``'s checkpoint: its start gate's lines, and
+   CLI_IMAGES image files over stdin naming the rungs in turn with
+   ``serve_dtype``, each record within its rung's bound of the rung's
+   direct forward.
 
-20. inception — ``create_model("inceptionv3", 1000, dtype="float32")`` at
+22. inception — ``create_model("inceptionv3", 1000, dtype="float32")`` at
    299x299 with seeded synthetic weights, eval forward: a row's
    probabilities at batch 1 and inside batch 32 agree within 1e-5
    (``make_forward``, TF32 off), then ``serve``'s engine, clients and graph
    checks at 299 px.  No kernel lies on this forward (K3 is ResNet-only, as
    in ``tpuic``): every launch count must stay 0.
-21. inception-train — the reference's recipe (InceptionV3 with its aux
+23. inception-train — the reference's recipe (InceptionV3 with its aux
    head, 299 px, Adam lr 0.5e-5, the 7 class weights) on a synthetic
    7-class ImageFolder at batch 32 with the fused loss, through
    ``Trainer``: 12 steps in float32 and 12 in bf16 (``compute_dtype``
@@ -191,7 +226,7 @@ non-zero at the first phase that fails:
    plain loss (float32, TF32 off: loss rtol 1e-3), and through the
    kernels in bf16 (loss within BF16_LOSS_RTOL, 2e-2, of the float32
    kernels', every convolution's output bfloat16).
-22. ref-cli — the reference's own command, ``python -m tpuic_torch.train
+24. ref-cli — the reference's own command, ``python -m tpuic_torch.train
    --datadir D --epochs 1 --no-pack --no-native --ckpt-dir C``, as a
    subprocess with its defaults (InceptionV3, bfloat16, Adam, batch 4, the
    class weights; the plain loss, as ``--fused-loss`` is off) on 7 classes
@@ -200,7 +235,7 @@ non-zero at the first phase that fails:
    CLI serves every checkpoint; the ``Trainer``'s own bf16 forward,
    through ``run_predict``, must score it as the ``Trainer`` did, and the
    two may disagree on at most REF_PREDICT_LIMIT (2) of the 28 images.
-23. digits — the port's first real-data run: the
+25. digits — the port's first real-data run: the
    handwritten digits written from ``tpuic_torch/data/digits_split.npz``
    (1,438 train, 359 val), the train CLI's ``main`` with the recipe of
    ``perf/convergence_digits.json`` (``resnet18-cifar``, 32 px, batch 128,
@@ -213,18 +248,21 @@ non-zero at the first phase that fails:
    it may disagree with the ``Trainer``'s own forward on at most
    DIGITS_PREDICT_LIMIT (3) images, and in the float32 arm its accuracy
    equals the ``Trainer``'s.
-24. effnet-serve — ``inception``'s checks and serving for EfficientNet-B3
+26. effnet-serve — ``inception``'s checks and serving for EfficientNet-B3
    at 300x300, 1000 classes, seeded synthetic weights.
 
 Every launch count is set to 0 just before a path runs and read just after
-it.  Cuts: ResNet-50 and ViT-B/16 train and serve in float32 (bf16 runs
-the InceptionV3 and digits training phases); no mixup, CutMix, random
-erasing, EMA or drop-path; one card.  ``timing`` prints each new phase's
+it.  Cuts: ResNet-50 trains in float32 (bf16 runs the ViT-B/16,
+InceptionV3 and digits training phases); bf16 and int8 serving run in
+``ladder``; no mixup, CutMix, random erasing, EMA or drop-path; one
+card.  ``timing`` prints each new phase's
 seconds and the run's total.
 
 The second-to-last lines are the per-kernel JSON summary (K1's
 ``launches`` are ``[train]``'s; its ``launches_by_path`` gives each
-training path's count) and the card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
+training path's count; K3's and K4's bf16 builds have rows of their own,
+with the launches of the bf16 paths) and the card's name and power
+limit; the last line is ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -292,6 +330,16 @@ VIT_COMPARE_LR = 3e-5
 VIT_LAYERS = 12
 ATTN_N, ATTN_H, ATTN_D = 197, 12, 64
 ATTN_BATCHES = (8, VIT_BATCH)
+LADDER_REQUESTS = 160  # closed-loop requests a rung in [ladder]
+# Each rung's batch-1 row against its row of a batch-32 forward, the
+# largest probability difference allowed, stated before the first run on
+# the card: fp32 and int8 compute in float32 with TF32 off (int8 widens
+# its weights first), rows independent of their bucket; bf16 rounds every
+# layer's output to 8 mantissa bits, and cuDNN and cuBLAS may take other
+# algorithms at another batch.
+RUNG_ROW_TOL = {"fp32": SERVE_TOL, "bf16": 1e-2, "int8": SERVE_TOL}
+# Served answers against the same rung's direct forward (another bucket).
+RUNG_SERVE_TOL = RUNG_ROW_TOL
 
 # Published dense peaks by card variant (NVIDIA data sheets): float32
 # outside the tensor cores, and HBM bandwidth.  The name nvidia-smi reports
@@ -446,7 +494,8 @@ def kernel_row(device_name, spec, per_fwd, gen, batch):
     bandwidth if larger; the float32 CUDA-core bound stands beside it."""
     from tpuic_torch.kernels.conv_bn_relu import (fused_conv_bn_relu,
                                                   fused_conv_bn_relu_plain,
-                                                  no_tf32, plan)
+                                                  no_tf32, plan, takes_sm90)
+    from tpuic_torch.kernels.conv_bn_relu_bench import earlier_bf16_conv
     _, peak_flops, hbm = peaks(device_name)
     xs, ws, stride, padding, relu = spec
     xs = (batch,) + tuple(xs[1:])
@@ -482,7 +531,65 @@ def kernel_row(device_name, spec, per_fwd, gen, batch):
     if not torch.allclose(gotb, wantb, rtol=BF16_TOL, atol=BF16_TOL):
         fail("kernel", f"bf16 x {xs} w {ws}: max abs err {bf16_err} beyond "
                        f"atol/rtol {BF16_TOL}")
-    del xb, gotb, wantb
+    del gotb, wantb
+    # bf16 x and bf16 w, as the serve ladder's bf16 rung folds them (the
+    # check above held a float32 w, which the wgmma build takes as two bf16
+    # parts), beside one cuDNN bf16 convolution of the same x with the
+    # folded weights in bf16, and the earlier bf16 design (the mma.sync
+    # build, with the same w widened to float32) where the wgmma build now
+    # runs the shape.
+    wb = w.to(torch.bfloat16)
+    gotb = fused_conv_bn_relu(xb, wb, scale, bias, strides=stride,
+                              padding=padding, relu=relu).float()
+    wantb = fused_conv_bn_relu_plain(xb, wb, scale, bias, stride, padding,
+                                     relu).float()
+    bf16_err = max(bf16_err, float((gotb - wantb).abs().max()))
+    if not torch.allclose(gotb, wantb, rtol=BF16_TOL, atol=BF16_TOL):
+        fail("kernel", f"bf16 x, bf16 w {xs} w {ws}: max abs err "
+                       f"{float((gotb - wantb).abs().max())} beyond atol/rtol "
+                       f"{BF16_TOL}")
+    del gotb, wantb
+    w_folded_b = (wb.float() * scale).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last).to(torch.bfloat16)
+    bias_b = bias.to(torch.bfloat16)
+    sm90 = takes_sm90(xs, ws, torch.bfloat16)
+
+    def kernel_b():
+        return fused_conv_bn_relu(xb, wb, scale, bias, strides=stride,
+                                  padding=padding, relu=relu)
+
+    def library_b():
+        return library_call(xb, w_folded_b, bias_b, stride, padding, relu)
+
+    def plain_b():
+        return fused_conv_bn_relu_plain(xb, wb, scale, bias, stride, padding,
+                                        relu)
+
+    def earlier_b():
+        return earlier_bf16_conv(xb, wb.float(), scale, bias, stride,
+                                 padding, relu)
+
+    flops_b, bytes_b = work(xs, ws, stride, padding, dtype_bytes=2)
+    bf16 = {"ms": time_ms(kernel_b), "device_ms": device_ms(kernel_b),
+            "plain_ms": time_ms(plain_b), "library_ms": time_ms(library_b),
+            "library_device_ms": device_ms(library_b),
+            "flops": flops_b, "bytes": bytes_b}
+    if sm90:
+        erb = earlier_b().float()
+        bf16["earlier_max_abs_err"] = float((erb - kernel_b().float())
+                                            .abs().max())
+        bf16["earlier_ms"] = time_ms(earlier_b)
+        bf16["earlier_device_ms"] = device_ms(earlier_b)
+        del erb
+    else:
+        bf16["earlier_ms"], bf16["earlier_device_ms"] = (bf16["ms"],
+                                                         bf16["device_ms"])
+    # At the rate of the products each build issues: one bf16 wgmma
+    # product for a bf16 w, two TF32 MMAs in the mma.sync build.
+    bf16["bound_ms"], bf16["bound_by"] = bound(
+        flops_b, bytes_b, bf16_peak(device_name) if sm90
+        else tf32_peak(device_name) / 2, hbm)
+    del xb, wb, w_folded_b, bias_b
     with no_tf32():
         lib = library().permute(0, 2, 3, 1)
         lib_err = float((lib[:, :want.shape[1], :want.shape[2]]
@@ -505,7 +612,7 @@ def kernel_row(device_name, spec, per_fwd, gen, batch):
            "library_tf32_device_ms": ms_lib_tf32[1],
            "bound_ms": bound_ms, "bound_by": bound_by,
            "fp32_core_bound_ms": core_ms, "fp32_core_bound_by": core_by,
-           "flops": flops, "bytes": nbytes}
+           "flops": flops, "bytes": nbytes, "bf16": bf16}
     row["share_of_bound"] = bound_ms / row["ms"]
     row["device_share_of_bound"] = bound_ms / row["device_ms"]
     log("kernel", json.dumps(row))
@@ -584,6 +691,20 @@ def phase_kernel(device_name: str, gen: torch.Generator):
                                  "bound_ms", "fp32_core_bound_ms")}
         sums[batch]["over_library"] = (sums[batch]["ms"]
                                        / sums[batch]["library_ms"])
+        b16 = {k: sum(r["bf16"][k] * r["per_forward"] for r in fwd)
+               for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "library_device_ms", "bound_ms", "earlier_ms",
+                         "earlier_device_ms")}
+        # What bounds most of the forward's bound time.
+        by = {}
+        for r in fwd:
+            by[r["bf16"]["bound_by"]] = by.get(r["bf16"]["bound_by"], 0.0) \
+                + r["bf16"]["bound_ms"] * r["per_forward"]
+        b16["bound_by"] = max(by, key=by.get)
+        b16["over_library"] = b16["ms"] / b16["library_ms"]
+        b16["device_over_library"] = (b16["device_ms"]
+                                      / b16["library_device_ms"])
+        sums[batch]["bf16"] = b16
         sums[batch]["device_over_library"] = (
             sums[batch]["device_ms"] / sums[batch]["library_device_ms"])
         _, peak_flops, hbm = peaks(device_name)
@@ -1587,6 +1708,27 @@ def conv_dtypes(first: int = 64):
         handle.remove()
 
 
+@contextlib.contextmanager
+def attn_dtypes(first: int = 48):
+    """As ``conv_dtypes`` for the ViT: the dtype of each attention block's
+    input and output (q, k and v are views of the projection of that
+    input), for the first ``first`` blocks run inside the block."""
+    from tpuic_torch.models.vit import MultiHeadAttention
+    seen = []
+
+    def hook(module, args, out):
+        if isinstance(module, MultiHeadAttention):
+            seen.extend((args[0].dtype, out.dtype))
+            if len(seen) >= 2 * first:
+                handle.remove()
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
 def check_conv_dtypes(tag: str, arm: str, seen: list, dtype: str) -> str:
     """Fails unless convolutions ran and every one returned ``dtype``: a
     bf16 arm that computes in float32 would pass every loss bound."""
@@ -1598,12 +1740,13 @@ def check_conv_dtypes(tag: str, arm: str, seen: list, dtype: str) -> str:
 
 
 def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None,
-                  bf16_model=None):
+                  bf16_model=None, probe=None):
     """3 steps from one initial state on ``batches``, through the kernels
     and through the plain versions (the plain loss, the plain optimizer
     and ``plain_model``, default ``cfg.model``), TF32 off: per-step loss
     and gradient norm of each arm, and the step times.  ``bf16_model``
-    adds an arm through the kernels under that (bf16) model config."""
+    adds an arm through the kernels under that (bf16) model config, whose
+    output dtypes ``probe`` (default ``conv_dtypes``) records."""
     from tpuic_torch.checkpoint import init_params
     from tpuic_torch.kernels import no_tf32
     from tpuic_torch.models import create_model_from_config
@@ -1630,8 +1773,9 @@ def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None,
         step = make_train_step(ocfg, mcfg, lr_schedule=make_schedule(
             ocfg, 1, 1), device="cuda")
         metrics, times = [], []
-        probe = conv_dtypes() if arm == "bf16" else contextlib.nullcontext()
-        with no_tf32(), deterministic_cudnn(), probe as seen:
+        seen_by = ((probe or conv_dtypes)() if arm == "bf16"
+                   else contextlib.nullcontext())
+        with no_tf32(), deterministic_cudnn(), seen_by as seen:
             for batch in batches:
                 t0 = time.perf_counter()
                 state, mt = step(state, batch)
@@ -2324,7 +2468,7 @@ def phase_attn(device_name: str, gen: torch.Generator):
         do = torch.randn((b, n, ATTN_H, ATTN_D), generator=gen)
         return q, k, v, do.cuda().to(dtype)
 
-    def check(label, q, k, v, do, tol, sentinel=0.0, **mask):
+    def check(label, q, k, v, do, tol, sentinel=0.0, backward=True, **mask):
         o, lse = FA.flash_attention_fwd(q, k, v, masked_sentinel=sentinel,
                                         **mask)
         dq, delta = FA.flash_attention_bwd_dq(q, k, v, o, lse, do, **mask)
@@ -2338,6 +2482,8 @@ def phase_attn(device_name: str, gen: torch.Generator):
         pairs = {"flash_attention_fwd": ((o, lse), (want_o, want_lse)),
                  "flash_attention_bwd_dq": ((dq, delta), (wdq, want_delta)),
                  "flash_attention_bwd_dkv": ((dk, dv), (wdk, wdv))}
+        if not backward:
+            pairs = {"flash_attention_fwd": pairs["flash_attention_fwd"]}
         errs = {name: max_err([t.float() for t in got],
                               [t.float() for t in want])
                 for name, (got, want) in pairs.items()}
@@ -2391,7 +2537,8 @@ def phase_attn(device_name: str, gen: torch.Generator):
                     f"outside atol/rtol {F32_TOL}")
         return errs
 
-    rows, main = [], {}
+    from tpuic_torch.kernels.flash_attention_bench import earlier_bf16_fwd
+    rows, main, main_bf16 = [], {}, {}
     with no_tf32():
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
@@ -2457,6 +2604,21 @@ def phase_attn(device_name: str, gen: torch.Generator):
                        "bwd_sum_ms": ms["flash_attention_bwd_dq"]
                        + ms["flash_attention_bwd_dkv"]}
                 row["bwd_sum_over_sdpa_bwd"] = row["bwd_sum_ms"] / sdpa["bwd"]
+                if dtype == torch.bfloat16:
+                    # The earlier bf16 forward (flash_attention.cu's
+                    # mma.sync build, PR 7), held and timed beside.
+                    eo, el = earlier_bf16_fwd(q, k, v)
+                    torch.cuda.synchronize()
+                    row["earlier_fwd"] = {
+                        "max_abs_err": max_err((eo.float(), el),
+                                               (o.float(), lse)),
+                        "ms": time_ms(lambda: earlier_bf16_fwd(q, k, v)),
+                        "device_ms": device_ms(
+                            lambda: earlier_bf16_fwd(q, k, v))}
+                    if row["earlier_fwd"]["max_abs_err"] > BF16_TOL:
+                        fail("attn", f"{label}: the earlier bf16 forward "
+                                     f"is {row['earlier_fwd']} off")
+                    del eo, el
                 for name, (ops, nbytes) in attn_work(
                         b, itemsize=dtype.itemsize).items():
                     core = bound(ops, nbytes, peak_flops, hbm)
@@ -2470,10 +2632,11 @@ def phase_attn(device_name: str, gen: torch.Generator):
                     row["share_of_bound"][name] = bms / ms[name]
                 rows.append(row)
                 log("attn", json.dumps(row))
-                if b == VIT_BATCH and dtype == torch.float32:
+                if b == VIT_BATCH:
+                    summary = main if dtype == torch.float32 else main_bf16
                     for name in K4:
                         fwd = name == "flash_attention_fwd"
-                        main[name] = {
+                        summary[name] = {
                             "max_abs_err": errs[name], "ms": ms[name],
                             "plain_ms": plain["fwd" if fwd else "bwd"],
                             "bound_ms": row["bound_ms"][name],
@@ -2482,16 +2645,20 @@ def phase_attn(device_name: str, gen: torch.Generator):
                                 name],
                             "library_ms": sdpa["fwd"] if fwd else None}
                         if fwd:
-                            main[name].update(
+                            summary[name].update(
                                 device_ms=fwd_device["kernel"],
                                 library_device_ms=fwd_device["sdpa"],
-                                over_library=row["fwd_over_sdpa_fwd"],
-                                tf32_plain_max_abs_err=tf32_err[0])
+                                over_library=row["fwd_over_sdpa_fwd"])
+                            if tf32_err is not None:
+                                summary[name]["tf32_plain_max_abs_err"] = \
+                                    tf32_err[0]
+                            if "earlier_fwd" in row:
+                                summary[name]["earlier"] = row["earlier_fwd"]
                         else:
                             # No one PyTorch call computes dq alone or
                             # dk/dv alone: SDPA's backward (dq, dk and dv)
                             # stands beside the pair's sum.
-                            main[name].update(
+                            summary[name].update(
                                 sdpa_bwd_ms=sdpa["bwd"],
                                 sdpa_fwd_bwd_ms=sdpa["fwd_bwd"],
                                 bwd_sum_ms=row["bwd_sum_ms"],
@@ -2500,20 +2667,39 @@ def phase_attn(device_name: str, gen: torch.Generator):
                 del q, k, v, do, o, lse, delta, qh, kh, vh, gh, qr, kr, vr
                 del out
                 free()
-        q, k, v, do = inputs(4, 64)
-        check("valid_len 50 of 64", q, k, v, do, F32_TOL, valid_len=50)
-        check("valid 50 of 64 (device count)", q, k, v, do, F32_TOL,
-              valid=torch.tensor([50], dtype=torch.int32, device="cuda"))
+        # The masks, in both builds of each dtype (bf16's forward is the
+        # TMA and wgmma kernel; N = 300 refills its key ring).
         none = torch.zeros(1, dtype=torch.int32, device="cuda")
-        for sentinel in (0.0, FA.NEG_INF):
-            _, (o, lse, _), _ = check(f"fully masked, sentinel {sentinel}",
-                                      q, k, v, do, F32_TOL,
-                                      sentinel=sentinel, valid=none)
-            if not (bool((o == 0).all()) and bool((lse == sentinel).all())):
-                fail("attn", f"fully masked rows: o max {o.abs().max()}, "
-                             f"lse {lse.unique().tolist()[:4]}, expected 0 "
-                             f"and {sentinel}")
-    return main, rows
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            dname = str(dtype).replace("torch.", "")
+            q, k, v, do = inputs(4, 64, dtype)
+            check(f"{dname} valid_len 50 of 64", q, k, v, do, tol,
+                  valid_len=50)
+            check(f"{dname} valid 50 of 64 (device count)", q, k, v, do,
+                  tol, valid=torch.tensor([50], dtype=torch.int32,
+                                          device="cuda"))
+            for sentinel in (0.0, FA.NEG_INF):
+                # A row whose lse is the -1e30 sentinel has p = 1 at every
+                # key in the backward, so dq and dk/dv are sums of 64 ds
+                # of a few units each: in bf16, ds rounded to 8 bits (as
+                # the reference rounds it) lies outside 1e-2 of the float32
+                # plain version there.  bf16 holds the forward of that case
+                # (the masked rows' o and lse); float32 holds all of it.
+                _, (o, lse, _), _ = check(
+                    f"{dname} fully masked, sentinel {sentinel}", q, k, v,
+                    do, tol, sentinel=sentinel, valid=none,
+                    backward=dtype == torch.float32 or sentinel == 0.0)
+                if not (bool((o == 0).all())
+                        and bool((lse == sentinel).all())):
+                    fail("attn", f"fully masked rows: o max "
+                                 f"{o.abs().max()}, lse "
+                                 f"{lse.unique().tolist()[:4]}, expected 0 "
+                                 f"and {sentinel}")
+            q, k, v, do = inputs(2, 300, dtype)
+            check(f"{dname} [2, 300, 12, 64], valid_len 233", q, k, v, do,
+                  tol, valid_len=233)
+    return main, main_bf16, rows
 
 
 def phase_vit(gen: torch.Generator, seed: int):
@@ -2563,19 +2749,21 @@ def phase_vit(gen: torch.Generator, seed: int):
     return model
 
 
-def vit_train_config(root: str, seed: int):
+def vit_train_config(root: str, seed: int, dtype: str = "float32"):
     """The repo's ViT-B/16 recipe (recipes/README.md, section 4) on one
-    card, float32, through the flash kernels and the fused loss, without
-    the regularisers the port does not have yet (mixup, CutMix, random
-    erasing, drop-path, EMA)."""
+    card, in ``dtype`` (bfloat16: ``compute_dtype`` bf16, as the
+    reference trains), through the flash kernels and the fused loss,
+    without the regularisers the port does not have yet (mixup, CutMix,
+    random erasing, drop-path, EMA)."""
     from tpuic_torch.config import (Config, DataConfig, ModelConfig,
                                     OptimConfig, RunConfig)
     return Config(
         data=DataConfig(data_dir=root, resize_size=IMAGE,
                         batch_size=VIT_BATCH, num_workers=8,
                         shuffle_seed=seed, native=False, pack=False),
-        model=ModelConfig(name=VIT_MODEL, num_classes=1000, dtype="float32",
-                          attention="flash"),
+        model=ModelConfig(name=VIT_MODEL, num_classes=1000, dtype=dtype,
+                          compute_dtype="bf16" if dtype == "bfloat16"
+                          else "", attention="flash"),
         optim=OptimConfig(optimizer="adam", learning_rate=VIT_LR,
                           weight_decay=0.05, warmup_epochs=10,
                           milestones=(), label_smoothing=0.1,
@@ -2585,42 +2773,109 @@ def vit_train_config(root: str, seed: int):
                       seed=seed, ckpt_dir=os.path.join(root, "ckpt")))
 
 
+def _logged_losses(lines: list) -> dict:
+    """``{step: loss}`` from a ``Trainer``'s log lines."""
+    import re
+    out = {}
+    for line in lines:
+        m = re.search(r"step (\d+); Loss ([-\d.e+]+)\|", line)
+        if m:
+            out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
 def phase_vit_train(root: str, seed: int, smi: str):
-    """ViT-B/16 training through ``Trainer`` and the 3-step comparison of
-    the kernels with dense attention and the plain loss."""
+    """ViT-B/16 training through ``Trainer``, in float32 and in bf16 (K4's
+    bf16 kernels forward and backward, every attention block's input and
+    output bfloat16), launches counted per arm; the bf16 arm's logged
+    losses within BF16_LOSS_RTOL of the float32 arm's at the same steps
+    (one init, one data order); then the 3-step comparison of the kernels
+    with dense attention and the plain loss, and a bf16 arm through the
+    kernels held to BF16_LOSS_RTOL of the float32 kernels'."""
     from tpuic_torch.train.loop import Trainer
+    counts, rows, losses = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = vit_train_config(root, seed, dtype)
+        lines = []
+
+        def note(msg, lines=lines):
+            lines.append(msg)
+            log("vit-train", msg)
+
+        trainer = Trainer(cfg, log=note)
+        reset_counts()
+        probe = (attn_dtypes() if dtype == "bfloat16"
+                 else contextlib.nullcontext())
+        with probe as seen:
+            trainer.fit()
+        stats = dict(trainer.stats)
+        trainer.val_epoch(0)
+        counts[dtype] = read_counts()
+        losses[dtype] = _logged_losses(lines)
+        steps = stats["steps"]
+        val_forwards = len(trainer.val_loader)
+        want = expect(flash_attention_fwd=VIT_LAYERS * (steps
+                                                        + val_forwards),
+                      flash_attention_bwd_dq=VIT_LAYERS * steps,
+                      flash_attention_bwd_dkv=VIT_LAYERS * steps,
+                      cross_entropy_fwd=steps, cross_entropy_bwd=steps)
+        if steps != TRAIN_STEPS or counts[dtype] != want:
+            fail("vit-train", f"{dtype}: {steps} steps, launches "
+                              f"{counts[dtype]}, expected {TRAIN_STEPS} "
+                              f"steps and {want}")
+        if not all(bool(torch.isfinite(p).all())
+                   for p in trainer.model.parameters()) or not all(
+                math.isfinite(v) for v in trainer.last_val.values()):
+            fail("vit-train", f"{dtype}: non-finite state after {steps} "
+                              f"steps: val {trainer.last_val}")
+        rows[dtype] = train_row(trainer, stats, counts[dtype], VIT_BATCH,
+                                smi)
+        if dtype == "bfloat16":
+            rows[dtype]["attn_dtypes"] = check_conv_dtypes(
+                "vit-train", "bf16 arm's attention blocks", seen,
+                "bfloat16")
+            if not all(p.dtype == torch.float32
+                       for p in trainer.model.parameters()):
+                fail("vit-train", "bf16: master weights are not float32")
+        log("vit-train", json.dumps(rows[dtype]))
+        if dtype == "float32":
+            batches = first_batches(trainer)
+        del trainer
+        free()
+    logged = sorted(set(losses["float32"]) & set(losses["bfloat16"]))
+    rel = {s_: abs(losses["bfloat16"][s_] - losses["float32"][s_])
+           / abs(losses["float32"][s_]) for s_ in logged}
+    log("vit-train", "bf16 vs float32 Trainer losses: " + json.dumps(
+        {"steps": logged, "float32": losses["float32"],
+         "bfloat16": losses["bfloat16"], "rel_diff": rel,
+         "rtol": BF16_LOSS_RTOL}))
+    if not rel or max(rel.values()) > BF16_LOSS_RTOL:
+        fail("vit-train", f"bf16 and float32 Trainer losses differ by "
+                          f"{rel} (rtol {BF16_LOSS_RTOL})")
     cfg = vit_train_config(root, seed)
-    trainer = Trainer(cfg, log=lambda msg: log("vit-train", msg))
-    reset_counts()
-    trainer.fit()
-    stats = dict(trainer.stats)
-    trainer.val_epoch(0)
-    counts = read_counts()
-    steps = stats["steps"]
-    val_forwards = len(trainer.val_loader)
-    want = expect(flash_attention_fwd=VIT_LAYERS * (steps + val_forwards),
-                  flash_attention_bwd_dq=VIT_LAYERS * steps,
-                  flash_attention_bwd_dkv=VIT_LAYERS * steps,
-                  cross_entropy_fwd=steps, cross_entropy_bwd=steps)
-    if steps != TRAIN_STEPS or counts != want:
-        fail("vit-train", f"{steps} steps, launches {counts}, expected "
-                          f"{TRAIN_STEPS} steps and {want}")
-    if not all(bool(torch.isfinite(p).all())
-               for p in trainer.model.parameters()) or not all(
-            math.isfinite(v) for v in trainer.last_val.values()):
-        fail("vit-train", f"non-finite state after {steps} steps: val "
-                          f"{trainer.last_val}")
-    row = train_row(trainer, stats, counts, VIT_BATCH, smi)
-    log("vit-train", json.dumps(row))
-    batches = first_batches(trainer)
-    del trainer
-    free()
-    row["compare"] = check_compare("vit-train", compare_plain(
+    arms = compare_plain(
         cfg, batches, seed, VIT_COMPARE_LR,
-        plain_model=dataclasses.replace(cfg.model, attention="dense")))
+        plain_model=dataclasses.replace(cfg.model, attention="dense"),
+        bf16_model=vit_train_config(root, seed, "bfloat16").model,
+        probe=attn_dtypes)
+    bf16_rel = [abs(b["loss"] - k["loss"]) / abs(k["loss"])
+                for b, k in zip(arms["bf16"]["metrics"],
+                                arms["kernels"]["metrics"])]
+    bf16_attn = check_conv_dtypes("vit-train", "3-step bf16 arm's attention",
+                                  arms["bf16"].pop("conv_dtypes"),
+                                  "bfloat16")
+    row = check_compare("vit-train", arms)
+    row["bf16_loss_rel_diff"] = bf16_rel
+    row["bf16_attn_dtype"] = bf16_attn
+    log("vit-train", "3-step bf16 vs float32 through the kernels: "
+                     + json.dumps({"loss_rel_diff": bf16_rel,
+                                   "rtol": BF16_LOSS_RTOL}))
+    if max(bf16_rel) > BF16_LOSS_RTOL:
+        fail("vit-train", f"3-step bf16 and float32 losses differ by "
+                          f"{max(bf16_rel)} > {BF16_LOSS_RTOL}")
     del batches
     free()
-    return counts, row
+    return counts, {**rows, "trainer_loss_rel_diff": rel, "compare": row}
 
 
 def rows_check(model, tag: str, image: int) -> dict:
@@ -2979,6 +3234,333 @@ def phase_digits(root: str, smi: str):
     return counts, out
 
 
+def _serve_rung(eng, pool, n_requests: int, seed: int, dtype=None,
+                on_answer=None, keep_going=None):
+    """Eight closed-loop clients sending ``n_requests`` requests of 1-8
+    images of ``pool`` to ``eng`` (or, with ``keep_going``, as long as it
+    returns true), each naming the rung ``dtype`` (a callable of the
+    client's generator picks one a request).  Returns the answers
+    ``(rung, lo, n, outputs, submitted)``, the errors, the wall seconds
+    and Python's collections during the traffic."""
+    results, errors, lock = [], [], threading.Lock()
+    n_clients = 8
+
+    def requests():
+        if keep_going is None:
+            return range(n_requests // n_clients)
+        return iter(keep_going, False)
+
+    def client(tid):
+        r = np.random.default_rng(seed + 1 + tid)
+        try:
+            for _ in requests():
+                n = int(r.integers(1, 9))
+                lo = int(r.integers(0, pool.shape[0] - n + 1))
+                tag = dtype(r) if callable(dtype) else dtype
+                t_sub = time.perf_counter()
+                out = eng.submit(pool[lo:lo + n], dtype=tag).result(
+                    timeout=600)
+                with lock:
+                    results.append((tag, lo, n, out, t_sub))
+                    if on_answer is not None:
+                        on_answer(len(results))
+        except Exception as e:  # reported by the caller; the phase fails
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_clients)]
+    with gc_pauses() as pauses:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        errors.append("a client did not finish")
+    return results, errors, time.perf_counter() - t0, pauses
+
+
+def _pool_outputs(forward, pool) -> np.ndarray:
+    """A rung's probabilities of every pool image, 32 at a time (the last
+    chunk padded with zero images to 32, as the engine pads a bucket)."""
+    out = []
+    for lo in range(0, pool.shape[0], SERVE_BATCH):
+        chunk = pool[lo:lo + SERVE_BATCH]
+        x = np.zeros((SERVE_BATCH,) + chunk.shape[1:], chunk.dtype)
+        x[:chunk.shape[0]] = chunk
+        out.append(forward(torch.from_numpy(x).cuda())[0].cpu().numpy()[
+            :chunk.shape[0]])
+    return np.concatenate(out)
+
+
+def ladder_model(name: str, image: int, seed: int):
+    """``name`` at full width, 1000 classes, synthetic weights from
+    ``seed``, float32, in eval mode: the fused ResNet-50 (K3), ViT-B/16
+    with flash attention (K4), InceptionV3 as ``tpuic`` serves it."""
+    from tpuic_torch.checkpoint import init_synthetic
+    from tpuic_torch.models import create_model
+    kw = {"resnet50": dict(fused_conv_bn=True),
+          VIT_MODEL: dict(attention="flash", image_size=image)}.get(name, {})
+    return init_synthetic(create_model(name, 1000, dtype="float32", **kw),
+                          seed=seed).eval()
+
+
+def phase_ladder(name: str, image: int, seed: int, smi: str,
+                 counter=None, per_call: int = 0, swap: bool = False):
+    """The serve ladder for ``name``: the gate (each rung's top-1
+    agreement with fp32 on ``quant.eval_images(128)`` at least ``1 -
+    DEFAULT_EPSILON``, the corruption arm below it), each rung's batch-1
+    rows against batch-32 rows (RUNG_ROW_TOL), weight bytes on the card,
+    then one engine serving all three rungs, a graph per (rung, bucket):
+    per rung the client mix of ``[serve]`` (images/s, latency, spans,
+    launches per device call, answers against the rung's direct forward
+    within RUNG_SERVE_TOL).  ``swap``: one swap of the whole ladder under
+    mixed traffic, every answer one generation's."""
+    from tpuic_torch import quant
+    from tpuic_torch.serve import InferenceEngine, make_forward
+    tag, t0 = "ladder", time.perf_counter()
+    model = ladder_model(name, image, seed)
+    rungs = quant.serve_variants(model, quant.DTYPE_TAGS)
+    fwd = {t: make_forward(m, normalize=True) for t, m in rungs.items()}
+    floor = 1.0 - quant.DEFAULT_EPSILON
+    imgs = quant.eval_images(128, image)
+    agree = {t: quant.top1_agreement(fwd["fp32"], fwd[t], imgs,
+                                     device="cuda")
+             for t in quant.DTYPE_TAGS[1:]}
+    bad = quant.quantized_forward(quant.corrupt_variables(model, seed=seed))
+    corrupt = quant.top1_agreement(fwd["fp32"], make_forward(
+        bad, normalize=True), imgs, device="cuda")
+    del bad
+    free()
+    if min(agree.values()) < floor or corrupt >= floor:
+        fail(tag, f"{name}: gate agreement {agree} (floor {floor}), the "
+                  f"corruption arm {corrupt} (must fall below it)")
+    # Each rung's own forward, a row at batch 1 against batch 32: held for
+    # the rungs the engine runs at every bucket, reported for the bf16
+    # rung, which it runs at one (quant.rung_buckets).
+    rows = {}
+    for t, f in fwd.items():
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(rng.integers(
+            0, 256, (SERVE_BATCH, image, image, 3), dtype=np.uint8)).cuda()
+        big = f(x)[0]
+        rows[t] = max(float((f(x[r:r + 1])[0][0] - big[r]).abs().max())
+                      for r in (0, 17, 31))
+        if not bool(torch.isfinite(big).all()) or (
+                t != "bf16" and rows[t] > RUNG_ROW_TOL[t]):
+            fail(tag, f"{name} {t}: a row at batch 1 and in batch "
+                      f"{SERVE_BATCH} differ by {rows[t]} (bound "
+                      f"{RUNG_ROW_TOL[t]})")
+    leaves = set(quant.quantized_leaves(model))
+    leaf_bytes = {
+        "fp32": sum(p.numel() * p.element_size()
+                    for n, p in model.named_parameters() if n in leaves),
+        "int8": sum(b.numel() * b.element_size()
+                    for n, b in rungs["int8"].named_buffers()
+                    if n.endswith(("weight_q", "weight_scale")))}
+    weight_bytes = {t: quant.weight_bytes(m) for t, m in rungs.items()}
+    eng = InferenceEngine(rungs["fp32"], image_size=image,
+                          input_dtype=np.uint8, normalize=True,
+                          buckets=(1, 8, 32), variants={
+                              t: m for t, m in rungs.items()
+                              if t != "fp32"},
+                          variant_buckets=quant.rung_buckets(
+                              quant.DTYPE_TAGS, (1, 8, 32)))
+    warm = eng.warmup()
+    memory = eng.graph_memory()
+    # Served rows: an image alone and inside a request of 32, through the
+    # engine (its buckets: a pinned rung runs both at 32), against
+    # RUNG_ROW_TOL; the direct rows above are the forwards' own.
+    rng = np.random.default_rng(1)
+    x32 = rng.integers(0, 256, (SERVE_BATCH, image, image, 3),
+                       dtype=np.uint8)
+    served_rows = {}
+    for t in quant.DTYPE_TAGS:
+        big = eng.submit(x32, dtype=t).result(timeout=600)[0]
+        served_rows[t] = max(float(np.abs(eng.submit(
+            x32[r:r + 1], dtype=t).result(timeout=600)[0][0] - big[r]).max())
+            for r in (0, 17, 31))
+        if served_rows[t] > RUNG_ROW_TOL[t]:
+            fail(tag, f"{name} {t}: a served row alone and in a request of "
+                      f"{SERVE_BATCH} differ by {served_rows[t]} (bound "
+                      f"{RUNG_ROW_TOL[t]})")
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (64, image, image, 3), dtype=np.uint8)
+    refs = {t: _pool_outputs(f, pool) for t, f in fwd.items()}
+    served = {}
+    for t in quant.DTYPE_TAGS:
+        eng.stats.reset()
+        reset_counts()
+        results, errors, wall, pauses = _serve_rung(
+            eng, pool, LADDER_REQUESTS, seed, dtype=t)
+        counts = read_counts()
+        snap = eng.stats.snapshot()
+        if errors:
+            fail(tag, f"{name} {t}: client errors {errors[:3]}")
+        worst = max(float(np.abs(out[0] - refs[t][lo:lo + n]).max())
+                    for _, lo, n, out, _ in results)
+        if worst > RUNG_SERVE_TOL[t]:
+            fail(tag, f"{name} {t}: served probabilities {worst} from a "
+                      f"direct forward (bound {RUNG_SERVE_TOL[t]})")
+        launches = counts.get(counter, 0) if counter else 0
+        others = {k: v for k, v in counts.items() if k != counter and v}
+        if launches != per_call * snap["device_calls"] or others:
+            fail(tag, f"{name} {t}: {launches} {counter} launches for "
+                      f"{snap['device_calls']} device calls (expected "
+                      f"{per_call} each), other kernels {others}")
+        served[t] = {
+            "requests": len(results), "images": snap["images"],
+            "images_per_s": snap["throughput_images_per_sec"],
+            "images_per_s_wall": snap["images"] / wall,
+            "latency_ms": snap["latency_ms"], "span_ms": snap["span_ms"],
+            "device_calls": snap["device_calls"], "kernel": counter,
+            "kernel_launches": launches, "launch_counts": counts,
+            "max_abs_err_vs_direct": worst, "gc_during_traffic": pauses}
+    out = {"model": name, "image": image, "gate_agreement": agree,
+           "corruption_agreement": corrupt, "gate_floor": floor,
+           "batch1_vs_batch32": rows,
+           "served_batch1_vs_batch32": served_rows,
+           "row_bounds": RUNG_ROW_TOL,
+           "weight_bytes": weight_bytes, "quantized_leaf_bytes": leaf_bytes,
+           "warmup_s": warm, "graph_memory": memory, "served": served,
+           "card": smi}
+    if swap:
+        out["swap"] = _ladder_swap(eng, name, image, seed, pool, refs, tag)
+    eng.close()
+    out["seconds"] = time.perf_counter() - t0
+    log(tag, json.dumps(out))
+    del eng, rungs, fwd, model
+    free()
+    return out
+
+
+def _ladder_swap(eng, name, image, seed, pool, refs, tag) -> dict:
+    """One swap of the whole ladder to another seed's weights while eight
+    clients send requests of every rung: each answer must be the old
+    ladder's or the new one's for its rung (within RUNG_SERVE_TOL, the two
+    at least twice that apart), and every request submitted after the
+    swap returned the new one's."""
+    from tpuic_torch import quant
+    from tpuic_torch.serve import make_forward
+    new = quant.serve_variants(ladder_model(name, image, seed + 1),
+                               quant.DTYPE_TAGS)
+    refs_b = {t: _pool_outputs(make_forward(m, normalize=True), pool)
+              for t, m in new.items()}
+    half = threading.Event()
+    swapped, sent = {}, {"all": 0, "after": 0}
+    lock = threading.Lock()
+
+    def answered(n):
+        if n >= LADDER_REQUESTS // 3:
+            half.set()
+
+    def keep_going():
+        # Until a third of LADDER_REQUESTS went in after the swap returned.
+        with lock:
+            sent["all"] += 1
+            if "done" in swapped:
+                sent["after"] += 1
+            return (sent["after"] <= LADDER_REQUESTS // 3
+                    and sent["all"] <= 20 * LADDER_REQUESTS)
+
+    def swap_when_half():
+        half.wait(timeout=600)
+        swapped["t"] = time.perf_counter()
+        swapped["res"] = eng.swap_weights(new["fp32"], variants={
+            t: new[t] for t in quant.DTYPE_TAGS[1:]})
+        swapped["done"] = time.perf_counter()
+
+    worker = threading.Thread(target=swap_when_half)
+    worker.start()
+    results, errors, wall, _ = _serve_rung(
+        eng, pool, LADDER_REQUESTS, seed + 7,
+        dtype=lambda r: quant.DTYPE_TAGS[int(r.integers(0, 3))],
+        on_answer=answered, keep_going=keep_going)
+    worker.join(timeout=600)
+    if errors or "res" not in swapped:
+        fail(tag, f"{name} swap: errors {errors[:3]}, swap {swapped}")
+    by_gen, gap = {"A": 0, "B": 0}, float("inf")
+    for t, lo, n, out, t_sub in results:
+        a = float(np.abs(out[0] - refs[t][lo:lo + n]).max())
+        b = float(np.abs(out[0] - refs_b[t][lo:lo + n]).max())
+        gap = min(gap, float(np.abs(refs[t][lo:lo + n]
+                                    - refs_b[t][lo:lo + n]).max()))
+        gen = "A" if a <= RUNG_SERVE_TOL[t] else (
+            "B" if b <= RUNG_SERVE_TOL[t] else None)
+        if gen is None or (t_sub > swapped["done"] and gen != "B"):
+            fail(tag, f"{name} swap: a {t} request answered {a} from A and "
+                      f"{b} from B (bound {RUNG_SERVE_TOL[t]}), submitted "
+                      f"{'after' if t_sub > swapped['done'] else 'before'} "
+                      "the swap returned")
+        by_gen[gen] += 1
+    if gap <= 2 * max(RUNG_SERVE_TOL.values()) or not by_gen["B"]:
+        fail(tag, f"{name} swap: A and B lie {gap} apart, answers {by_gen}")
+    row = {**swapped["res"], "answered_by": by_gen, "least_a_b_distance":
+           gap, "requests": len(results), "wall_s": wall,
+           "graph_memory": eng.graph_memory()}
+    log(tag, f"{name} swap under traffic: " + json.dumps(row))
+    return row
+
+
+def phase_serve_cli_ladder(root: str, ckpt_dir: str, smi: str) -> dict:
+    """``python -m tpuic_torch.serve --serve-dtypes fp32,bf16,int8`` on
+    ``[ckpt]``'s checkpoint as a user runs it: CLI_IMAGES image files over
+    stdin, each request naming a rung with ``serve_dtype`` in turn, every
+    record's top-5 probabilities within that rung's RUNG_SERVE_TOL of the
+    rung's direct forward of the same decoded pixels; the start gate's
+    lines and the warmup's graph count printed."""
+    import glob
+
+    from tpuic_torch import quant
+    from tpuic_torch.serve import make_forward
+    from tpuic_torch.serve.__main__ import _load_image
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    paths = sorted(glob.glob(os.path.join(root, "val", "*", "*.png")))
+    paths = paths[::max(1, len(paths) // CLI_IMAGES)][:CLI_IMAGES]
+    tags = quant.DTYPE_TAGS
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        _serve_cmd(ckpt_dir, "--serve-dtypes", ",".join(tags)),
+        input="".join(json.dumps({"id": p, "path": p,
+                                  "serve_dtype": tags[i % 3]}) + "\n"
+                      for i, p in enumerate(paths)),
+        capture_output=True, text=True, timeout=600, env=env, cwd=here)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail("serve-cli-ladder", f"exited {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+    gate = [ln for ln in out.stderr.splitlines()
+            if "accuracy gate" in ln or "warmup" in ln]
+    for line in gate:
+        log("serve-cli-ladder", line)
+    recs = {r["id"]: r for r in map(json.loads, out.stdout.splitlines())}
+    model, names = _ckpt_model(ckpt_dir)
+    index = {v: k for k, v in names.items()}
+    rungs = quant.serve_variants(model, tags)
+    x = np.stack([_load_image(p, IMAGE) for p in paths])
+    probs = {t: _pool_outputs(make_forward(m, normalize=True), x)
+             for t, m in rungs.items()}
+    worst = {t: 0.0 for t in tags}
+    for i, p in enumerate(paths):
+        t, rec = tags[i % 3], recs.get(p)
+        if rec is None or "pred" not in rec or len(rec["topk"]) != 5:
+            fail("serve-cli-ladder", f"no answer for {p} ({t}): {rec}")
+        for name, q in rec["topk"]:
+            j = index.get(name, None if not name.isdigit() else int(name))
+            worst[t] = max(worst[t], abs(q - float(probs[t][i, j])))
+    if any(worst[t] > RUNG_SERVE_TOL[t] for t in tags):
+        fail("serve-cli-ladder", f"records against the rungs' direct "
+                                 f"forwards: {worst} (bounds "
+                                 f"{RUNG_SERVE_TOL})")
+    row = {"images": len(paths), "wall_s": wall, "tags": list(tags),
+           "max_abs_err_vs_direct": worst, "gate_lines": gate, "card": smi}
+    log("serve-cli-ladder", json.dumps(row))
+    del model, rungs
+    free()
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=320)
@@ -3030,7 +3612,7 @@ def main(argv=None) -> int:
         swap_cli = phase_swap_cli(root, ckpt_dir, serve_cli["digest"], smi)
         predicted = phase_predict(root, ckpt_dir, ckpt["best_val_accuracy"],
                                   ckpt.pop("best_top1"))
-        attn, attn_rows = phase_attn(kind, gen)
+        attn, attn_bf16, attn_rows = phase_attn(kind, gen)
         vit = phase_vit(gen, args.seed)
         # Under torch's default flags: the engine's forward turns TF32 off
         # for its call, and the ViT's patch embedding is one matmul, which
@@ -3048,6 +3630,21 @@ def main(argv=None) -> int:
         free()
         vit_counts, vit_train = phase_vit_train(root, args.seed, smi)
         took = {"to_vit_train": time.perf_counter() - t_start}
+        t0 = time.perf_counter()
+        ladder = {
+            "resnet50": phase_ladder("resnet50", IMAGE, args.seed, smi,
+                                     counter="conv_bn_relu",
+                                     per_call=len(resnet50_launches(1)),
+                                     swap=True),
+            "inceptionv3": phase_ladder("inceptionv3", INC_IMAGE, args.seed,
+                                        smi),
+            VIT_MODEL: phase_ladder(VIT_MODEL, IMAGE, args.seed, smi,
+                                    counter="flash_attention_fwd",
+                                    per_call=VIT_LAYERS)}
+        took["ladder"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_ladder = phase_serve_cli_ladder(root, ckpt_dir, smi)
+        took["serve-cli-ladder"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         inception = phase_cnn_serve("inceptionv3", INC_IMAGE, "inception",
                                     args.requests, args.seed, smi)
@@ -3095,13 +3692,39 @@ def main(argv=None) -> int:
              "tpuic/kernels/optimizer_update.py:146",
              lamb_counts["lamb_update"]),
             *((name, attn[name], csrc + "flash_attention.cu",
-               f"tpuic/kernels/flash_attention.py:{line}", vit_counts[name])
-              for name, line in zip(K4, (154, 346, 373)))):
+               f"tpuic/kernels/flash_attention.py:{line}",
+               vit_counts["float32"][name])
+              for name, line in zip(K4, (154, 346, 373))),
+            # bf16 builds: K4f's TMA and wgmma kernel at D = 64, the
+            # backward pair's and K3's bf16 builds; launches on the bf16
+            # paths (the ladder's bf16 rungs, [vit-train]'s bf16 arm).
+            *((f"{name} (bf16)", attn_bf16[name],
+               csrc + ("flash_fwd_sm90.cu" if name == K4[0]
+                       else "flash_attention.cu"),
+               f"tpuic/kernels/flash_attention.py:{line}",
+               vit_counts["bfloat16"][name] + (
+                   ladder[VIT_MODEL]["served"]["bf16"]["kernel_launches"]
+                   if name == K4[0] else 0))
+              for name, line in zip(K4, (154, 346, 373))),
+            ("conv_bn_relu (bf16 x)", {
+                "max_abs_err": summary["bf16_max_abs_err"],
+                **{k: summary["bf16"][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "over_library")},
+                f"batch{SERVE_BATCH}": summary[f"batch{SERVE_BATCH}"][
+                    "bf16"]},
+             csrc + "conv_bn_relu_sm90.cu",
+             "tpuic/kernels/conv_bn_relu.py:76",
+             ladder["resnet50"]["served"]["bf16"]["kernel_launches"])):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n, **row,
                         "status": "ok"})
         if name.startswith("cross_entropy"):
             kernels[-1]["launches_by_path"] = k1(name)
+    # K3 on the ladder's int8 and bf16 ResNet-50 rungs beside [serve]'s.
+    summary["launches_by_path"] = {
+        "serve": launches, **{f"ladder {t}": r["kernel_launches"] for t, r
+                              in ladder["resnet50"]["served"].items()}}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
@@ -3115,6 +3738,7 @@ def main(argv=None) -> int:
                        "inception": inception,
                        "inception_train": inc_train, "ref_cli": ref_cli,
                        "digits": digits, "effnet_serve": effnet,
+                       "ladder": ladder, "serve_cli_ladder": cli_ladder,
                        "k1_launches": {"train": counts, "inception_train":
                                        inc_counts, "digits": digits_counts},
                        "seconds": took},

@@ -7,16 +7,19 @@ torch-checkpoint converter, and the engine's device-resident requests.
   line, and SIGTERM drains with typed stragglers
   (tests/test_serve.py's contract).
 - Refusals: each ``tpuic`` flag whose feature is not ported is refused by
-  name (and a malformed ``--quota``); a refused swap line gets a typed
-  error line and the server keeps answering.
+  name (and a malformed ``--quota``, an unknown ``--serve-dtypes`` rung);
+  a refused swap line gets a typed error line and the server keeps
+  answering.  ``--serve-dtypes fp32,int8`` serves: a request line's
+  ``serve_dtype`` picks the int8 rung (its own forward within 1e-5), an
+  unknown one gets a typed error line.
 - Whole-CLI parity: one reference-format torch checkpoint (``module.``
   prefixed, written by ``tpuic``'s ``export_state_dict`` from a
   ``tpuic``-initialised model) served by ``tpuic``'s CLI and the port's,
   both with ``--init-from``: the same top-1 and top-k names, the
   probabilities within 1e-5.  ``tpuic``'s CLIs compute in its
-  ``ModelConfig`` default, bfloat16, and the port serves float32 only
-  (ROADMAP §1 item 3), so the reference side runs with its model factory
-  wrapped to float32; nothing of ``tpuic`` is edited.
+  ``ModelConfig`` default, bfloat16, and the port's fp32 rung serves
+  float32, so the reference side runs with its model factory wrapped to
+  float32; nothing of ``tpuic`` is edited.
 - Converter parity: the port's ``convert_resnet`` / ``convert_vit`` give
   ``tpuic``'s trees exactly, and the lenient merge leaves fresh exactly
   the leaves ``tpuic`` leaves fresh (a head of another class count).
@@ -127,12 +130,14 @@ def test_stdin_jsonl_answers_each_request(served, tmp_path, monkeypatch):
               "not json", json.dumps({"id": "miss", "path": "/nope.png"}),
               json.dumps({"id": "d", "path": served["images"][0],
                           "serve_dtype": "int8"}),
+              json.dumps({"id": "e", "path": served["images"][0],
+                          "serve_dtype": "fp8"}),
               json.dumps({"id": served["images"][1],
                           "path": served["images"][1]})]
     out = tmp_path / "out.jsonl"
     assert _cli(["--ckpt-dir", served["ckpt"], "--model", "auto",
-                 "--top-k", "2", "--out", str(out)],
-                "\n".join(lines) + "\n", monkeypatch) == 0
+                 "--top-k", "2", "--out", str(out), "--serve-dtypes",
+                 "fp32,int8"], "\n".join(lines) + "\n", monkeypatch) == 0
     recs = [json.loads(ln) for ln in out.read_text().splitlines()]
     by_id = {}
     for r in recs:
@@ -142,8 +147,19 @@ def test_stdin_jsonl_answers_each_request(served, tmp_path, monkeypatch):
     assert "swap candidate missing" in by_id["s1"][0]["error"]
     assert "bad request line" in by_id[None][0]["error"]
     assert by_id["miss"][0]["error"].startswith("decode:")
-    assert "unknown serve dtype 'int8'" in by_id["d"][0]["error"]
-    answers = [r for r in recs if "pred" in r]
+    # The int8 rung answers with its own forward (1e-5); an unknown rung
+    # gets a typed error line.
+    from tpuic_torch import quant
+    rung = by_id.pop("d")[0]
+    x = np.stack([pserve._load_image(served["images"][0], SIZE)])
+    probs, order = make_forward(quant.quantized_forward(served["model"]),
+                                normalize=True)(torch.from_numpy(x))
+    assert rung["pred"] == CLASSES[int(order[0, 0])]
+    np.testing.assert_allclose([q for _, q in rung["topk"]],
+                               probs[0].numpy()[order[0, :2].numpy()],
+                               atol=1e-5)
+    assert "unknown serve dtype 'fp8'" in by_id["e"][0]["error"]
+    answers = [r for r in recs if "pred" in r and r["id"] != "d"]
     assert len(answers) == len(served["images"]) + 1
     _check_records(answers, served, 2)
 
@@ -177,16 +193,28 @@ def test_watch_once_answers_each_file(served, tmp_path, monkeypatch):
                       (["--slo", "serve_latency:p99<=5ms"], 6),
                       (["--prom-port", "9"], 6),
                       (["--prom-host", "0.0.0.0"], 6),
-                      (["--prom-dump", "m.prom"], 6),
-                      (["--serve-dtypes", "fp32,int8"], 3)))])
-def test_unported_flag_is_refused_by_name(flag, match):
+                      (["--prom-dump", "m.prom"], 6))),
+    # The dtype ladder is ported: served, its rungs past the start gate.
+    pytest.param(["--serve-dtypes", "fp32,int8", "--resize", "32",
+                  "--buckets", "1"], None, id="--serve-dtypes"),
+    pytest.param(["--serve-dtypes", "fp32,fp8"],
+                 "--serve-dtypes: unknown dtype 'fp8'", id="fp8")])
+def test_unported_flag_is_refused_by_name(flag, match, monkeypatch, capsys):
     """Each flag whose feature is not ported is refused by name, naming
     its ROADMAP item (``--admission`` itself works, but not with
-    brownout); a malformed ``--quota`` is refused before the model
-    loads."""
+    brownout); a malformed ``--quota`` or an unknown ladder rung is
+    refused before the model loads.  ``--serve-dtypes fp32,int8`` serves
+    (an empty stdin: start, gate, exit 0)."""
+    argv = ["--device", "cpu", "--synthetic-init", "--model", "resnet18",
+            "--num-classes", "3"] + flag
+    if match is None:
+        monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+        assert pserve.main(argv) == 0
+        assert "dtype ladder rung int8: top-1 agreement" in \
+            capsys.readouterr().err
+        return
     with pytest.raises(SystemExit, match=match):
-        pserve.main(["--device", "cpu", "--synthetic-init", "--model",
-                     "resnet18", "--num-classes", "3"] + flag)
+        pserve.main(argv)
 
 
 def test_ema_checkpoint_and_fault_points_are_refused(served, tmp_path,

@@ -332,10 +332,11 @@ def test_cli_refuses_unported_settings(folder):
         main(base + ["--slo", "train_step:p99<=5ms"])
     with pytest.raises(SystemExit, match="data.pack"):
         main(base[:-4] + ["--model", "resnet18-cifar"])
-    # bfloat16 (the default) is refused for the ViT family by name.
-    with pytest.raises(SystemExit, match="model.dtype=bfloat16 for the ViT"):
+    # The ViT trains in bfloat16 (the default); its drop-path is refused
+    # by name.
+    with pytest.raises(SystemExit, match="--drop-path: not yet ported"):
         main(["--datadir", folder, "--device", "cpu", "--no-pack",
-              "--no-native", "--model", "vit-tiny"])
+              "--no-native", "--model", "vit-tiny", "--drop-path", "0.1"])
     with pytest.raises(SystemExit, match="EfficientNet training.*item 8"):
         main(["--datadir", folder, "--device", "cpu", "--no-pack",
               "--no-native", "--model", "efficientnet-b0"])

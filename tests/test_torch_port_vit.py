@@ -113,6 +113,38 @@ def test_vit_tiny_logits_match_jax(jx, attention):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_vit_tiny_bf16_logits_match_jax(jx, attention):
+    """``vit-tiny`` in bfloat16 from float32 master weights, eval: the
+    same variables and images through ``tpuic``'s bf16 ViT (flash in
+    Pallas interpret mode) and the port's (K4's plain version on the
+    CPU), within 2e-2 times max |logit| (test_torch_port_bf16.py's
+    bound), every projection computing in bfloat16."""
+    jax = jx["jax"]
+    x = _images(2, 16, batch=4)
+    jm32 = jx["models"].create_model("vit-tiny", 10, dtype="float32",
+                                     attention=attention)
+    variables = _init(jx, "vit-tiny", jm32, x[:2])
+    jm = jx["models"].create_model("vit-tiny", 10, dtype="bfloat16",
+                                   attention=attention)
+    want = _logits(jx, jm, variables, x)
+    pm = port_models.create_model("vit-tiny", 10, dtype="bfloat16",
+                                  attention=attention, image_size=16,
+                                  device="cpu")
+    load_jax_variables(pm, variables)
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+             for m in pm.modules() if isinstance(m, LayerNorm)]
+    got = _port_logits(pm, x)
+    for h in hooks:
+        h.remove()
+    assert seen and set(seen) == {torch.bfloat16}
+    assert got.dtype == np.float32 and want.dtype == np.float32
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * scale)
+    del jax
+
+
 @pytest.mark.parametrize("patch,hidden,heads,size,attention", [
     (8, 128, 2, 32, "dense"), (8, 128, 2, 32, "flash"),
     (4, 64, 4, 18, "dense")])

@@ -5,13 +5,15 @@ Sources live in ``csrc/`` and are built by ``nvcc`` at first use
 launches its kernel, or raises, for a CUDA tensor.  Ported so far:
 
 - K3, the inference fused conv + folded-BN + ReLU
-  (``tpuic/kernels/conv_bn_relu.py``): ``conv_bn_relu``;
+  (``tpuic/kernels/conv_bn_relu.py``): ``conv_bn_relu`` (bf16 activations
+  at Cin and Cout multiples of 64 on a ``wgmma`` build of their own);
 - K1, the fused weighted cross-entropy forward and backward
   (``tpuic/kernels/cross_entropy.py``): ``cross_entropy``;
 - K2, the fused LARS and LAMB updates
   (``tpuic/kernels/optimizer_update.py``): ``optimizer_update``;
 - K4, flash attention, forward and the dq and dk/dv backward
-  (``tpuic/kernels/flash_attention.py``): ``flash_attention``.
+  (``tpuic/kernels/flash_attention.py``): ``flash_attention`` (the bf16
+  forward at head dim 64 on a TMA and ``wgmma`` build of its own).
 """
 
 from tpuic_torch.kernels.conv_bn_relu import (fold_bn,  # noqa: F401

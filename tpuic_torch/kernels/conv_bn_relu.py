@@ -16,10 +16,15 @@ products a float32 product, so the result keeps float32 accuracy whatever
 ``torch.backends.cudnn.allow_tf32`` says), fed by a ring of ``cp.async``
 stages, with a deterministic split-K for the shapes whose grid would not
 fill the card.  bf16 activations with float32 weights (what
-``create_model(dtype="bfloat16")`` builds) take the same kernel; bf16
-weights, on no path of the port, are widened to float32 before the launch
-(exactly).  :func:`plan` picks the tiling from the shape; the source's note
-says what bounds the kernel and what the design does about it.
+``create_model(dtype="bfloat16")`` builds, and the serve ladder's bf16
+rung) with Cin and Cout multiples of 64 take a second build,
+``csrc/conv_bn_relu_sm90.cu``: the same implicit GEMM on ``wgmma``, w in
+bf16 parts (a float32 w split by the wrapper into hi and lo, which keep 16
+of its bits; a bf16 w, as the bf16 rung folds, its own single part); the
+stem and other bf16 shapes take the first, with bf16 weights widened to
+float32 before the launch (exactly).  :func:`plan` and :func:`plan_sm90`
+pick the tiling from the shape; the sources' notes say what bounds each
+build and what its design does about it.
 
 Public layout is the reference's: activations ``[B, H, W, Cin]`` NHWC,
 weights ``[kh, kw, Cin, Cout]`` HWIO, ``scale``/``bias`` float32
@@ -196,6 +201,51 @@ def plan(x_shape, w_shape, strides: Strides = 1, padding: Padding = 0,
     return Plan(bm, splits, gather, wgather)
 
 
+# The bf16 build (csrc/conv_bn_relu_sm90.cu): 128 pixels x 128 output
+# channels a block, stages of one tap's 64 input channels.
+SM90_BM = 128
+SM90_BN = 128
+SM90_BK = 64
+SM90_NOMINAL_BATCH = 32
+
+
+def takes_sm90(x_shape, w_shape, dtype) -> bool:
+    """Whether the wgmma build runs this call: bf16 x, Cin and Cout
+    multiples of 64 (every ResNet-50 conv but the stem)."""
+    return (dtype == torch.bfloat16 and x_shape[3] % SM90_BK == 0
+            and w_shape[3] % BN == 0)
+
+
+def plan_sm90(x_shape, w_shape, strides: Strides = 1,
+              padding: Padding = 0) -> Tuple[int, int]:
+    """The wgmma build's ``(splits, output channels a block)``:
+    128-channel blocks, or 64 where those would leave the card short of
+    two blocks an SM, then split-K slices until it has them, each keeping
+    two 64-deep stages (the 128 K values of :func:`plan`'s slices).
+    Chosen, as :func:`plan`'s, for a nominal batch whatever the call's, so
+    a row's bits do not depend on its batch: for the engine's largest
+    bucket, SM90_NOMINAL_BATCH, where a slice's partial-tile round trip
+    costs more than it wins once the grid is full."""
+    strides, padding = norm_strides(strides), norm_padding(padding)
+    _, h, w_in, cin = x_shape
+    b = SM90_NOMINAL_BATCH
+    kh, kw, _, cout = w_shape
+    (sh, sw), ((pt, pb), (pl, pr)) = strides, padding
+    ho = (h + pt + pb - kh) // sh + 1
+    wo = (w_in + pl + pr - kw) // sw + 1
+    nb = SM90_BN
+    tiles = _cdiv(b * ho * wo, SM90_BM) * _cdiv(cout, nb)
+    if tiles < TARGET_BLOCKS:
+        nb = BN
+        tiles = _cdiv(b * ho * wo, SM90_BM) * _cdiv(cout, nb)
+    stages = kh * kw * cin // SM90_BK
+    splits = 1
+    while (tiles * splits < TARGET_BLOCKS and splits < MAX_SPLITS
+           and _cdiv(stages, splits + 1) >= MIN_STAGES * BK // SM90_BK):
+        splits += 1
+    return _cdiv(stages, _cdiv(stages, splits)), nb  # no empty slice
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares ``tpuic_conv_bn_relu``'s C signature on a library built
     from ``csrc/conv_bn_relu.cu``: seven pointers, the int32 dims array,
@@ -215,12 +265,31 @@ def _lib():
     return lib
 
 
+def bind_sm90(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares ``tpuic_conv_bn_relu_sm90``'s C signature on a library
+    built from ``csrc/conv_bn_relu_sm90.cu``: eight pointers, the int32
+    dims array and the stream."""
+    fn = lib.tpuic_conv_bn_relu_sm90
+    fn.argtypes = [ctypes.c_void_p] * 10
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _lib_sm90():
+    lib = getattr(_lib_sm90, "cdll", None)
+    if lib is None:
+        from tpuic_torch.kernels import _build
+        lib = _lib_sm90.cdll = bind_sm90(_build.load("conv_bn_relu_sm90"))
+    return lib
+
+
 @functools.lru_cache(maxsize=4096)
 def _launch_spec(x_shape, w_shape, strides, padding, relu, dtype):
     """The shape-only work of a launch, once per distinct call (a serving
     or eval loop makes the same few dozen): the plan, the output shape, the
     kernel's integer arguments as an int32 array (kept alive here) and its
-    address, and the output tiles a split-K launch counts."""
+    address, the output tiles a split-K launch counts and the float32s of
+    one partial tile."""
     b, h, w_in, cin = x_shape
     kh, kw, _, cout = w_shape
     (sh, sw), ((pt, pb), (pl, pr)) = strides, padding
@@ -229,12 +298,24 @@ def _launch_spec(x_shape, w_shape, strides, padding, relu, dtype):
     if b * ho * wo >= 2 ** 31:
         raise ValueError(f"input {tuple(x_shape)} is too large for the "
                          "kernel's 32-bit pixel index")
-    pl_ = plan(x_shape, w_shape, strides, padding, dtype)
-    dims = (ctypes.c_int * 17)(b, h, w_in, cin, kh, kw, cout, ho, wo, sh,
-                               sw, pt, pl, int(bool(relu)),
-                               _DTYPE_CODE[dtype], pl_.bm, pl_.splits)
-    tiles = _cdiv(b * ho * wo, pl_.bm) * _cdiv(cout, BN)
-    return pl_, (b, ho, wo, cout), (dims, ctypes.addressof(dims)), tiles
+    if takes_sm90(x_shape, w_shape, dtype):
+        # The wgmma build: 128 pixels a block, its own slice count.
+        splits, bn = plan_sm90(x_shape, w_shape, strides, padding)
+        pl_ = Plan(SM90_BM, splits, 16, 16)
+        dims = (ctypes.c_int * 16)(b, h, w_in, cin, kh, kw, cout, ho, wo,
+                                   sh, sw, pt, pl, int(bool(relu)),
+                                   pl_.splits, bn)
+    else:
+        pl_ = plan(x_shape, w_shape, strides, padding, dtype)
+        dims = (ctypes.c_int * 17)(b, h, w_in, cin, kh, kw, cout, ho, wo, sh,
+                                   sw, pt, pl, int(bool(relu)),
+                                   _DTYPE_CODE[dtype], pl_.bm, pl_.splits)
+        bn = BN
+    tiles = _cdiv(b * ho * wo, pl_.bm) * _cdiv(cout, bn)
+    # The wgmma build keeps a 128 x 128 partial tile whatever its width.
+    tile_floats = pl_.bm * (SM90_BN if len(dims) == 16 else BN)
+    return (pl_, (b, ho, wo, cout), (dims, ctypes.addressof(dims)), tiles,
+            tile_floats)
 
 
 class _Scratch:
@@ -284,8 +365,10 @@ def fused_conv_bn_relu(x, w, scale, bias, *, strides: Strides = 1,
     float32 [Cout] from :func:`fold_bn`.  ``relu=False`` stops before the
     activation (the residual-add case).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel on the current stream with
-    the tiling of :func:`plan`, or raises.  bf16 weights (on no path of
-    the port) are widened to float32 first: exact, the same function."""
+    the tiling of :func:`plan` (bf16 x with Cin and Cout multiples of 64:
+    the wgmma build, split as :func:`plan_sm90` says; a float32 w goes in as
+    bf16 parts hi + lo, a bf16 w as it is), or raises.  The mma.sync build
+    takes a bf16 w widened to float32: exact, the same function."""
     strides, padding = norm_strides(strides), norm_padding(padding)
     _out_hw(x, w, strides, padding)
     if x.device.type == "cpu":
@@ -294,12 +377,22 @@ def fused_conv_bn_relu(x, w, scale, bias, *, strides: Strides = 1,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda_args(x, w, scale, bias)
-    if w.dtype != torch.float32:
+    sm90 = takes_sm90(x.shape, w.shape, x.dtype)
+    w_lo = None
+    if sm90:
+        # w as bf16 parts hi + lo (a bf16 w is its hi alone), each an
+        # aligned tensor: the wgmma build copies 16 bytes at a time.
+        if w.dtype != torch.bfloat16:
+            w_hi = w.to(torch.bfloat16)
+            w_lo = (w - w_hi.float()).to(torch.bfloat16)
+            w = w_hi
+        x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+    elif w.dtype != torch.float32:
         w = w.float()
     if x.numel() >= 2 ** 31:
         raise ValueError(f"input {tuple(x.shape)} is too large for the "
                          "kernel's 32-bit pixel index")
-    pl_, out_shape, (_, dims), tiles = _launch_spec(
+    pl_, out_shape, (_, dims), tiles, tile_floats = _launch_spec(
         tuple(x.shape), tuple(w.shape), strides, padding, bool(relu),
         x.dtype)
     xp, wp = x.data_ptr(), w.data_ptr()
@@ -308,7 +401,6 @@ def fused_conv_bn_relu(x, w, scale, bias, *, strides: Strides = 1,
     vec_x = int(pl_.gather == 16 and xp % 16 == 0)
     vec_w = int(pl_.wgather == 16 and wp % 16 == 0)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    fn = _lib().tpuic_conv_bn_relu
     dev = x.get_device()
     # The launch goes to x's device; the context switch costs host time, so
     # it is taken only when another device is current.
@@ -317,11 +409,18 @@ def fused_conv_bn_relu(x, w, scale, bias, *, strides: Strides = 1,
         stream = torch._C._cuda_getCurrentRawStream(dev)
         wsp = cp = None
         if pl_.splits > 1:
-            # Per tile and slice, the block's partial tile: bm x 64 float32.
+            # Per tile and slice, the block's partial tile.
             ws, counters = _SCRATCH.setdefault((dev, stream), _Scratch()).get(
-                x.device, tiles * pl_.splits * pl_.bm * BN, tiles)
+                x.device, tiles * pl_.splits * tile_floats, tiles)
             wsp, cp = ws.data_ptr(), counters.data_ptr()
-        rc = fn(xp, wp, scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        if sm90:
+            rc = _lib_sm90().tpuic_conv_bn_relu_sm90(
+                xp, wp, None if w_lo is None else w_lo.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), out.data_ptr(), wsp, cp,
+                dims, stream)
+        else:
+            rc = _lib().tpuic_conv_bn_relu(
+                xp, wp, scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
                 wsp, cp, dims, vec_x, vec_w, stream)
     if rc != 0:
         raise RuntimeError(f"conv_bn_relu kernel launch failed: CUDA error "
@@ -337,7 +436,8 @@ fused_conv_bn_relu.launches = 0
 def pack_conv_bn(weight, gamma, beta, mean, var, eps: float = 1e-5):
     """An ``nn.Conv2d`` OIHW weight and its BN leaves -> the ``(HWIO
     weight, scale, bias)`` the kernel takes.  The model does this once per
-    set of weights, not per call."""
+    set of weights, not per call.  A bf16 weight (the serve ladder's bf16
+    rung) stays bf16: the wgmma build reads it as it is."""
     w = weight.detach().permute(2, 3, 1, 0).contiguous()
     scale, bias = fold_bn(gamma.detach(), beta.detach(), mean, var, eps)
     return w, scale.contiguous(), bias.contiguous()

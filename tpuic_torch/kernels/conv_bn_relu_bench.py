@@ -202,6 +202,39 @@ def build_variants(names):
 SLEEP_CYCLES = 40_000_000
 
 
+def earlier_bf16_conv(x, w, scale, bias, strides=1, padding=0, relu=True):
+    """K3 through its mma.sync build (``csrc/conv_bn_relu.cu``) for bf16 x
+    at a shape the wrapper now runs on the wgmma build: the earlier bf16
+    design, timed beside it.  Allocates its own split-K scratch."""
+    import torch
+    from tpuic_torch.kernels import conv_bn_relu as K
+    strides, padding = K.norm_strides(strides), K.norm_padding(padding)
+    pl_ = K.plan(tuple(x.shape), tuple(w.shape), strides, padding, x.dtype)
+    b, h, wi, cin = x.shape
+    kh, kw, _, cout = w.shape
+    (sh, sw), ((pt, pb), (pl, pr)) = strides, padding
+    ho, wo = (h + pt + pb - kh) // sh + 1, (wi + pl + pr - kw) // sw + 1
+    dims = (ctypes.c_int * 17)(b, h, wi, cin, kh, kw, cout, ho, wo, sh, sw,
+                               pt, pl, int(relu), K._DTYPE_CODE[x.dtype],
+                               pl_.bm, pl_.splits)
+    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    tiles = K._cdiv(b * ho * wo, pl_.bm) * K._cdiv(cout, K.BN)
+    ws = cnt = None
+    if pl_.splits > 1:
+        ws = torch.empty(tiles * pl_.splits * pl_.bm * K.BN,
+                         device=x.device)
+        cnt = torch.zeros(tiles, dtype=torch.int32, device=x.device)
+    rc = K._lib().tpuic_conv_bn_relu(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), ctypes.addressof(dims),
+        int(pl_.gather == 16), int(pl_.wgather == 16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier bf16 K3 launch failed: CUDA error {rc}")
+    return out
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds per call over ``iters`` back-to-back calls:
     the card sleeps while the host enqueues them all, so the two events

@@ -69,8 +69,8 @@
 // - Epilogue: the C fragments times scale plus bias, the ReLU, and paired
 //   stores (float2 or two bf16), masked on the ragged M and N edges.
 //
-// Weights are float32: the wrapper widens bf16 weights (on no path of the
-// port) before the launch, which is exact, so they compute the same function.
+// Weights are float32: bf16 weights (the serve ladder's bf16 rung) are
+// widened once per fold, which is exact, so they compute the same function.
 //
 // The TPU kernel's grid of one image per step with whole-image VMEM blocks
 // does not fit 227 KB of shared memory and would leave most of the 132 SMs

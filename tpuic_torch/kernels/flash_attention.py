@@ -55,6 +55,10 @@ from tpuic_torch.kernels.counting import count_launch
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+#: The head dim of the forward's TMA and wgmma build for bfloat16
+#: (``csrc/flash_fwd_sm90.cu``); other head dims and float32 take the
+#: mma.sync build of ``csrc/flash_attention.cu``.
+SM90_HEAD_DIM = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -135,6 +139,23 @@ def _lib():
     return lib
 
 
+def bind_sm90(lib):
+    """``lib`` (a build of ``csrc/flash_fwd_sm90.cu``) with its entry
+    point's signature declared."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tpuic_flash_fwd_sm90.argtypes = [p] * 7 + [i] * 4 + [f, f, p]
+    lib.tpuic_flash_fwd_sm90.restype = ctypes.c_int
+    return lib
+
+
+def _lib_sm90():
+    lib = getattr(_lib_sm90, "cdll", None)
+    if lib is None:
+        from tpuic_torch.kernels import _build
+        lib = _lib_sm90.cdll = bind_sm90(_build.load("flash_fwd_sm90"))
+    return lib
+
+
 def _check_cuda(q, others, valid) -> None:
     """Raise on what the kernels do not take: shapes, dtypes, devices, a
     head dim that is not contiguous, a D they are not built for."""
@@ -184,6 +205,10 @@ def _launch(fn, name, q, args) -> None:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*args, stream)
+    if rc >= 10000:
+        raise RuntimeError(f"{name}: the driver refused a TMA tensor map "
+                           f"(CUresult {rc - 10000}) for q {tuple(q.shape)} "
+                           f"{q.dtype} with strides {q.stride()}")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"for q {tuple(q.shape)} {q.dtype}")
@@ -223,6 +248,14 @@ def flash_attention_fwd(q, k, v, *, valid_len: Optional[int] = None,
     b, n, h, d = q.shape
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16 and d == SM90_HEAD_DIM:
+        _launch(_lib_sm90().tpuic_flash_fwd_sm90, "flash_attention_fwd", q,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), _strides(q, k, v),
+                 *_valid_args(q, valid_len, valid), b, n, h,
+                 1.0 / math.sqrt(d), float(masked_sentinel)))
+        count_launch(flash_attention_fwd)
+        return o, lse
     _launch(_lib().tpuic_flash_fwd, "flash_attention_fwd", q,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), _strides(q, k, v),

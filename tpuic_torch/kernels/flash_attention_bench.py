@@ -1,10 +1,13 @@
-"""K4's forward (``csrc/flash_attention.cu``) on the card: design variants
-of ``flash_fwd_kernel`` timed against it as it ships.
+"""K4's forward on the card: design variants timed against it as it
+ships, float32 (``csrc/flash_attention.cu``'s ``flash_fwd_kernel``) and
+bfloat16 at D = 64 (``csrc/flash_fwd_sm90.cu``).
 
 Each variant is the shipped source with a few text substitutions, built
 into its own library under ``tpuic_torch/_build/variants/`` and launched
 through :func:`flash_attention.flash_attention_fwd`; nothing on the port's
 paths imports this module.
+
+float32 (``flash_attention.cu``):
 
 - ``shipped``: the source as it is: in float32 the warp's Q fragments
   are read from shared memory and split in every stage; four blocks an
@@ -16,13 +19,24 @@ paths imports this module.
 - ``q_in_registers_three_blocks``: the same held to three blocks an SM
   (168 registers a thread), where ptxas spills.
 
+bfloat16 at D = 64 (``flash_fwd_sm90.cu``, TMA and wgmma):
+
+- ``shipped``: the persistent kernel, two tile sets (the next item's
+  copies in flight while the current one computes).
+- ``one_tile_set``: one set, so an item's copies start once the previous
+  item is done.
+- ``mma_sync_earlier``: the earlier bf16 build, ``flash_attention.cu``'s
+  mma.sync forward (:func:`earlier_bf16_fwd`), which the wrapper no longer
+  takes at D = 64.
+
 Usage (needs an NVIDIA GPU and ``nvcc``)::
 
     python -m tpuic_torch.kernels.flash_attention_bench [--batch 64]
 
 prints the registers and spills of each variant's forward
-instantiations, then per dtype at [batch, 197, 12, 64] each variant's max abs error against the
-plain version and its device milliseconds per call (:func:`device_ms`).
+instantiations, then per dtype at [batch, 197, 12, 64] each variant's max
+abs error against the plain version and its device milliseconds per call
+(:func:`device_ms`).
 """
 
 from __future__ import annotations
@@ -55,19 +69,47 @@ VARIANTS = {
 }
 
 
-def build_variants(names):
-    """One ``nvcc`` per variant, all started together; returns ``{name:
-    (library, registers and spills of each forward instantiation)}``."""
+# name -> [(old, new), ...] of flash_fwd_sm90.cu.
+SM90_VARIANTS = {
+    "shipped": [],
+    "one_tile_set": [("constexpr int SETS = 2;", "constexpr int SETS = 1;")],
+}
+
+
+def earlier_bf16_fwd(q, k, v):
+    """``(o, lse)`` through K4f's earlier bf16 build (``flash_attention.cu``'s
+    mma.sync forward) on bf16 [B, N, H, D] CUDA tensors, all keys valid."""
+    import importlib
+    import math
+
+    import torch
+    FA = importlib.import_module("tpuic_torch.kernels.flash_attention")
+    b, n, h, d = q.shape
+    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    FA._launch(FA._lib().tpuic_flash_fwd, "earlier_bf16_fwd", q,
+               (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), FA._strides(q, k, v), None, n, b, n, h, d,
+                FA._DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d), 0.0))
+    return o, lse
+
+
+def build_variants(names, source="flash_attention.cu", table=None):
+    """One ``nvcc`` per variant of ``source``, all started together;
+    returns ``{name: (library, registers and spills of each forward
+    instantiation)}``."""
     from tpuic_torch.kernels import _build
     from tpuic_torch.kernels.conv_bn_relu_bench import variant_source
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    table = VARIANTS if table is None else table
+    stem = source[:-len(".cu")]
+    src = (_build.CSRC / source).read_text()
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        cu = out_dir / f"flash_attention_{name}.cu"
-        cu.write_text(variant_source(src, VARIANTS[name]))
-        so = out_dir / f"libflash_attention_{name}.so"
+        cu = out_dir / f"{stem}_{name}.cu"
+        cu.write_text(variant_source(src, table[name]))
+        so = out_dir / f"lib{stem}_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
              str(so), str(cu)], stdout=subprocess.PIPE,
@@ -90,6 +132,8 @@ def forward_registers(ptxas: str) -> dict:
         if m and "Compiling entry" in line:
             dtype = "float32" if m.group(1) == "f" else "bf16"
             key = f"{dtype} D={m.group(2)}"
+        elif "flash_fwd_sm90_kernel" in line and "Compiling entry" in line:
+            key = "bf16 D=64 (sm90)"
         elif key and "spill stores" in line:
             out[key] = line.split(",")[1].strip()
         elif key and "Used" in line and "registers" in line:
@@ -118,7 +162,8 @@ def main(argv=None) -> int:
     # The module, not the function the package exports under its name.
     FA = importlib.import_module("tpuic_torch.kernels.flash_attention")
     libs = build_variants(VARIANTS)
-    for name, (_, ptxas) in libs.items():
+    sm90 = build_variants(SM90_VARIANTS, "flash_fwd_sm90.cu", SM90_VARIANTS)
+    for name, (_, ptxas) in list(libs.items()) + list(sm90.items()):
         print(name, json.dumps(ptxas), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
@@ -132,16 +177,25 @@ def main(argv=None) -> int:
         row = {"shape": [b, n, h, d], "dtype": str(dtype)[6:],
                "max_abs_err": {}, "device_ms": {}}
         # Each variant twice, in turns, so a drift of the card's clock
-        # shows as a difference between a variant's two numbers.
-        for name in [*libs, *reversed(libs)]:
-            FA._lib.cdll = FA.bind(libs[name][0])
-            o, _ = FA.flash_attention_fwd(q, k, v)
+        # shows as a difference between a variant's two numbers.  bf16 at
+        # D = 64 runs the sm90 build's variants and the earlier build.
+        names = (list(libs) if dtype == torch.float32
+                 else list(sm90) + ["mma_sync_earlier"])
+        for name in names + names[::-1]:
+            fwd = lambda: FA.flash_attention_fwd(q, k, v)  # noqa: E731
+            if name == "mma_sync_earlier":
+                fwd = lambda: earlier_bf16_fwd(q, k, v)  # noqa: E731
+            elif dtype == torch.float32:
+                FA._lib.cdll = FA.bind(libs[name][0])
+            else:
+                FA._lib_sm90.cdll = FA.bind_sm90(sm90[name][0])
+            o, _ = fwd()
             torch.cuda.synchronize()
             row["max_abs_err"][name] = float((o.float() - want.float())
                                              .abs().max())
             row["device_ms"].setdefault(name, []).append(device_ms(
-                lambda: FA.flash_attention_fwd(q, k, v), iters=50))
-        FA._lib.cdll = None
+                fwd, iters=50))
+        FA._lib.cdll = FA._lib_sm90.cdll = None
         print(json.dumps(row), flush=True)
         rows.append(row)
     print(smi, flush=True)

@@ -82,7 +82,14 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x.float()).to(self.compute_dtype)
+            if self.running_mean.dtype == torch.float32:
+                return super().forward(x.float()).to(self.compute_dtype)
+            # bf16 statistics and affine (the serve ladder's bf16 rung):
+            # the same function in float32.
+            return F.batch_norm(x.float(), self.running_mean.float(),
+                                self.running_var.float(),
+                                self.weight.float(), self.bias.float(),
+                                False, 0.0, self.eps).to(self.compute_dtype)
         if self.f32_stats:
             x = x.float()
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)

@@ -56,6 +56,9 @@ def _dense(in_features: int, features: int, dtype, param_dtype,
            device) -> nn.Linear:
     lin = nn.Linear(in_features, features, dtype=param_dtype, device=device)
     lin.kernel_init = "xavier_uniform"
+    # flax boxes these kernels with partitioning metadata, so ``tpuic``'s
+    # int8 rung passes them by (``tpuic_torch.quant.quantized_leaves``).
+    lin.boxed = True
     lin.compute_dtype = dtype
     return lin
 

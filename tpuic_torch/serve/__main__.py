@@ -38,25 +38,34 @@ Admission (``--admission``, ``--quota TENANT=RPS``; a quota implies
 admission): request lines may carry ``priority``, ``deadline_ms`` and
 ``tenant``; the enqueue does not block, and a full queue, a dry quota or
 a passed deadline answers with a typed error line naming its cause.
-Without ``--admission`` those fields are ignored, as in ``tpuic``.  A
-request's ``serve_dtype`` names the ladder rung: any but ``fp32`` gets a
-typed error line.
+Without ``--admission`` those fields are ignored, as in ``tpuic``.
+
+The dtype ladder (``--serve-dtypes fp32,bf16,int8``;
+``tpuic_torch.quant``): beside fp32 the engine serves the bf16 model and
+the int8 weight-only quantization of the same checkpoint, each rung with
+its own CUDA graph per bucket.  At start every rung must agree with fp32
+on the top-1 class of at least ``1 - quant.DEFAULT_EPSILON`` of the
+pinned eval images, or the server exits nonzero.  A request's
+``serve_dtype`` names its rung (default fp32; one not configured gets a
+typed error line), and pongs and the ready file list the rungs in
+``dtypes``.
 
 Hot swap: a ``{"op": "swap", "id", "synthetic_seed": N}`` line (seeded
 weights of the served architecture) or ``{"op": "swap", "id",
 "ckpt_dir", "track"}`` line (a committed checkpoint, CRC-verified, no
 ladder) gates and flips the candidate on a worker thread while traffic
-and pings go on: a candidate that fails the integrity gate gets a typed
+and pings go on: the ladder is rebuilt from the candidate and swaps as
+one unit.  A candidate that fails the integrity gate gets a typed
 ``swap_corrupt`` line, one with non-finite outputs on the pinned eval
-images a ``swap_accuracy`` line, and a flipped one ``{"op":
+images, or a rung that disagrees with the candidate's fp32, a
+``swap_accuracy`` line, and a flipped one ``{"op":
 "swap_result", "ok": true, "generation", "digest", ...}``; ``pong`` and
 the ready file carry the new identity.
 
 Flags of ``tpuic``'s server whose features are not ported are accepted
 by the parser and refused by name when set (ROADMAP §1): brownout
 (``--brownout-*``, which couples admission to an ``--slo`` objective),
-SLOs and Prometheus (``--slo``, ``--prom-*``; item 6), and the dtype
-ladder (``--serve-dtypes`` other than fp32; item 3).  Fault points
+SLOs and Prometheus (``--slo``, ``--prom-*``; item 6).  Fault points
 (``TPUIC_FAULTS``), the supervisor's heartbeat and the flight recorder
 wait for item 11.
 """
@@ -100,10 +109,10 @@ _SWAP_LOCK = threading.Lock()
 
 
 def eval_images(n: int, size: int, seed: int = 0) -> np.ndarray:
-    """The pinned synthetic eval set (``tpuic.quant.eval_images``):
-    seeded uniform uint8 images, the same on every machine."""
-    rng = np.random.default_rng(seed)
-    return rng.integers(0, 256, (n, size, size, 3)).astype(np.uint8)
+    """The pinned synthetic eval set the gates use
+    (``tpuic_torch.quant.eval_images``)."""
+    from tpuic_torch import quant
+    return quant.eval_images(n, size, seed)
 
 
 def _load_image(path: str, size: int) -> np.ndarray:
@@ -271,6 +280,7 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                                         for s in conns.values()),
                         "digest": engine.model_digest,
                         "generation": engine.generation,
+                        "dtypes": list(engine.variant_tags()),
                         "pid": os.getpid()})
             return
         if req.get("op") == "swap":
@@ -489,13 +499,16 @@ def run_swap(engine, req: dict, log) -> dict:
     required and verified.
 
     Gates before the flip, in order: integrity (``swap_corrupt``;
-    checkpoint candidates); finite outputs on ``eval_images(128,
-    resize)`` through the standby's graphs (``swap_accuracy``); each
-    further ladder rung's top-1 agreement with the candidate's fp32 — the
-    port serves fp32 only, so that loop has no rung to check yet.  Then
-    ``engine.swap_weights``.  A refused candidate never touches
-    traffic.  Raises ``SwapRejected`` / ``ValueError``; returns the
-    ``swap_result`` record."""
+    checkpoint candidates); finite outputs on ``quant.eval_images(128,
+    resize)`` through the standby's graphs (``swap_accuracy``); the
+    ladder rebuilt from the candidate (``quant.serve_variants``), each
+    further rung finite and agreeing with the candidate's fp32 on the
+    top-1 class of at least ``1 - quant.DEFAULT_EPSILON`` of those images
+    (``swap_accuracy``).  Then ``engine.swap_weights`` of the whole
+    ladder.  A refused candidate never touches traffic.  Raises
+    ``SwapRejected`` / ``ValueError``; returns the ``swap_result``
+    record."""
+    from tpuic_torch import quant
     from tpuic_torch.checkpoint.convert import init_params
     from tpuic_torch.checkpoint.loading import load_candidate_variables
     from tpuic_torch.config import Config, DataConfig, RunConfig
@@ -533,19 +546,29 @@ def run_swap(engine, req: dict, log) -> dict:
             cand, _ = load_candidate_variables(cfg, track=track, log=log,
                                                device=engine.device)
             source = os.path.join(ckpt_dir, mcfg.name, track)
+        # Rebuild the dtype ladder FROM the candidate: it swaps as one unit.
+        rungs = quant.serve_variants(cand, tags) if len(tags) > 1 else {
+            tags[0]: cand}
         imgs = eval_images(128, resize)
-        ref = _gate_outputs(engine, cand, imgs, tags[0])
+        ref = _gate_outputs(engine, rungs[tags[0]], imgs, tags[0])
         if not np.isfinite(ref[0]).all():
             raise SwapRejected(
                 f"swap candidate {source} produced non-finite outputs on "
                 "the pinned eval set — refusing to flip it into traffic",
                 cause="swap_accuracy")
-        # tpuic's second gate: each further ladder rung built from the
-        # candidate agrees with its fp32 top-1.  The port's ladder is fp32
-        # alone, so this loop has no rung to check yet.
+        floor = 1.0 - quant.DEFAULT_EPSILON
         for tag in tags[1:]:
-            raise ValueError(f"ladder rung {tag!r} has no accuracy gate")
-        res = engine.swap_weights(cand)
+            out = _gate_outputs(engine, rungs[tag], imgs, tag)
+            agree = float(np.mean(ref[1][:, 0] == out[1][:, 0]))
+            if not np.isfinite(out[0]).all() or agree < floor:
+                raise SwapRejected(
+                    f"swap candidate {source} rung {tag!r} FAILED the "
+                    f"accuracy gate: top-1 agreement with the candidate's "
+                    f"fp32 is {agree:.4f} < {floor:.4f} on the pinned eval "
+                    f"set (epsilon {quant.DEFAULT_EPSILON})",
+                    cause="swap_accuracy")
+        res = engine.swap_weights(rungs[tags[0]], variants={
+            t: rungs[t] for t in tags[1:]})
         how = ("graphs reused" if res["reused_executables"]
                else f"{res['prewarmed']} bucket graphs captured")
         log(f"[serve] hot-swap OK: {source} -> generation "
@@ -575,14 +598,47 @@ def submit_swap(engine, req: dict, log) -> _FutFuture:
 
 
 def _parse_dtypes(spec: str) -> tuple:
-    """--serve-dtypes: fp32 is the only rung the port serves."""
+    """--serve-dtypes 'fp32,bf16,int8' -> validated ladder tags (fp32
+    always present and always the default rung)."""
+    from tpuic_torch import quant
     tags = [t.strip() for t in (spec or "fp32").split(",") if t.strip()]
-    other = [t for t in tags if t != "fp32"]
-    if other:
-        raise SystemExit(f"{_PROG}: error: --serve-dtypes {spec!r}: only "
-                         "fp32 is ported; the bf16/int8 ladder is not yet "
-                         "ported to tpuic_torch (ROADMAP §1 item 3)")
-    return ("fp32",)
+    for t in tags:
+        if t not in quant.DTYPE_TAGS:
+            raise SystemExit(f"{_PROG}: --serve-dtypes: unknown dtype {t!r} "
+                             f"(supported: {', '.join(quant.DTYPE_TAGS)})")
+    if "fp32" in tags:
+        tags.remove("fp32")
+    return tuple(dict.fromkeys(["fp32"] + tags))
+
+
+def _ladder_variants(model, tags, size: int, *, mean, std, log) -> dict:
+    """Build the ladder's rungs (``quant.serve_variants``) and run the
+    startup accuracy gate: a rung whose top-1 agreement with fp32 on the
+    pinned synthetic eval set falls below ``1 - quant.DEFAULT_EPSILON``
+    is REFUSED — a quantization bug must fail the server loudly, not
+    silently serve degraded predictions."""
+    from tpuic_torch import quant
+    from tpuic_torch.serve.engine import make_forward
+    variants = quant.serve_variants(model, tags)
+    if len(tags) > 1:
+        dev = next(model.parameters()).device
+        imgs = eval_images(128, size)
+        fwd = {t: make_forward(m.to(dev).eval(), normalize=True, mean=mean,
+                               std=std) for t, m in variants.items()}
+        floor = 1.0 - quant.DEFAULT_EPSILON
+        for tag in tags[1:]:
+            agree = quant.top1_agreement(fwd["fp32"], fwd[tag], imgs,
+                                         device=dev)
+            if agree < floor:
+                raise SystemExit(
+                    f"{_PROG}: dtype ladder rung {tag!r} FAILED the "
+                    f"accuracy gate: top-1 agreement with fp32 is "
+                    f"{agree:.4f} < {floor:.4f} on the pinned eval set "
+                    f"(epsilon {quant.DEFAULT_EPSILON}) — refusing to "
+                    "serve a quantization that moves predictions")
+            log(f"dtype ladder rung {tag}: top-1 agreement "
+                f"{agree:.4f} >= {floor:.4f} (accuracy gate OK)")
+    return variants
 
 
 def build_engine(args):
@@ -644,16 +700,28 @@ def build_engine(args):
                 else _resolved_model_config(cfg)[0])
         how = ""
     dc = DataConfig()
+    # The dtype ladder (--serve-dtypes): bf16/int8 rungs of the same
+    # weights behind the startup accuracy gate; request lines pick one
+    # with "serve_dtype".
+    tags = _parse_dtypes(args.serve_dtypes)
+    variants = _ladder_variants(model, tags, resize, mean=dc.mean,
+                                std=dc.std, log=log)
     # Raw uint8 in, normalised inside the forward (4x fewer bytes to the
     # device than float32).
+    from tpuic_torch import quant
     engine = InferenceEngine(model, image_size=resize, input_dtype=np.uint8,
                              normalize=True, mean=dc.mean, std=dc.std,
                              buckets=buckets, max_wait_ms=args.max_wait_ms,
-                             queue_size=args.queue_size, device=args.device)
+                             queue_size=args.queue_size, device=args.device,
+                             variants={t: m for t, m in variants.items()
+                                       if t != "fp32"},
+                             variant_buckets=quant.rung_buckets(tags,
+                                                                buckets))
     t = engine.warmup()
+    n = sum(len(v) if isinstance(v, dict) else 1 for v in t.values())
     made = ("captured {} bucket CUDA graphs" if engine.device.type == "cuda"
             else "ran {} buckets eagerly")
-    log(f"{how}warmup {made.format(len(t))}: {t}")
+    log(f"{how}warmup {made.format(n)}: {t}")
     _swap_context(engine, mcfg=mcfg, resize=resize, mean=dc.mean,
                   std=dc.std, ckpt_dir=args.ckpt_dir, track=args.track)
     return engine, resize, num_classes, model_name
@@ -674,8 +742,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="padding-bucket ladder (comma list); on the card "
                         "one CUDA graph per bucket")
     p.add_argument("--serve-dtypes", default="fp32",
-                   help="dtype ladder: only fp32 is ported (ROADMAP §1 "
-                        "item 3)")
+                   help="dtype ladder (comma list of fp32, bf16, int8; "
+                        "fp32 is always served and the default): each "
+                        "rung must pass the startup accuracy gate; request "
+                        "lines pick one with \"serve_dtype\"")
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--queue-size", type=int, default=256)
     p.add_argument("--compile-cache-dir", default="~/.cache/tpuic/xla",

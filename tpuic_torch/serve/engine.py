@@ -44,11 +44,19 @@ with few, large, fixed-shape calls:
 - **Device-resident requests**: ``submit`` also takes a torch tensor on
   the engine's device (a ``Loader`` batch, say).  It is copied device to
   device into the static input and never bounces through the host.
-- **Generations and hot swap**: the served weights are a *slot* — a
-  model with its forward, its graphs and their memory pool.
-  ``swap_weights`` writes a candidate into a standby slot (a second copy
-  of the model with graphs of its own, built off-path at the first
-  swap), folds K3's weights into the tensors those graphs read, and flips
+- **The dtype ladder** (``variants``): beside the default rung (the
+  model given, ``fp32``) the engine may serve other representations of
+  the same weights — ``tpuic_torch.quant.serve_variants``'s ``bf16`` and
+  ``int8`` modules — each with its own forward and its own graph per
+  bucket, sharing the bucket ladder, the queue and the batcher.  A request
+  names its rung (``submit(dtype=...)``); a device batch holds requests of
+  one rung, so a rung boundary closes a batch as an overflow does.
+- **Generations and hot swap**: the served weights are a *slot* — every
+  rung's model with its forward and its graphs, and their memory pool.
+  ``swap_weights`` writes a candidate ladder (one candidate per rung: the
+  ladder swaps as one unit) into a standby slot (a second copy of every
+  rung with graphs of its own, built off-path at the first swap), folds
+  K3's weights into the tensors those graphs read, and flips
   the live slot between two batches: the batcher reads the live slot
   once per dispatch, so a batch runs all old or all new weights, and
   nothing queued is dropped or re-run.  The old slot becomes the
@@ -101,8 +109,6 @@ from tpuic_torch.serve.admission import (DEFAULT_PRIORITY, PRIORITIES,
 from tpuic_torch.serve.metrics import ServeStats
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
-#: The dtype ladder's rungs: float32 weights only so far.
-VARIANTS = ("fp32",)
 
 
 def default_buckets(max_batch: int) -> tuple:
@@ -303,32 +309,62 @@ class _BucketGraph:
         self.pool_bytes = pool_bytes
 
 
-class _Slot:
-    """One set of served weights: the model (None for a bare
-    ``forward_fn``), its forward, on the card a CUDA graph per bucket in a
-    memory pool of the slot's own and the stream a swap's work on it runs
-    on; the ``(module, folded weights)`` pairs its graphs read, recorded
-    at its first capture; its generation and digest once it has served;
-    the event of the last batch dispatched with it; the captures made for
-    it since it last went live; and the candidate last written into it
-    while it stood by (None once it is flipped live or a write fails)."""
+class _Rung:
+    """One rung of a slot's dtype ladder: the model (None for a bare
+    ``forward_fn``), its forward, on the card a CUDA graph per bucket; the
+    ``(module, folded weights)`` pairs its graphs read, recorded at its
+    first capture; and the candidate last written into it while its slot
+    stood by (None once the slot is flipped live or a write fails)."""
 
-    __slots__ = ("model", "forward", "graphs", "pool", "stream", "folded",
-                 "generation", "digest", "last_event", "captures",
-                 "staged")
+    __slots__ = ("model", "forward", "graphs", "folded", "staged")
 
-    def __init__(self, model, forward, stream=None) -> None:
+    def __init__(self, model, forward) -> None:
         self.model = model
         self.forward = forward
         self.graphs = {}
+        self.folded: Optional[tuple] = None
+        self.staged = None
+
+
+class _Slot:
+    """One set of served weights: a rung per ladder tag, the default
+    rung's first; their graphs' memory pool, of the slot's own, and the
+    stream a swap's work on it runs on; its generation and digest once it
+    has served; the event of the last batch dispatched with it; and the
+    captures made for it since it last went live.  ``model``, ``graphs``
+    and ``folded`` are the default rung's."""
+
+    __slots__ = ("rungs", "pool", "stream", "generation", "digest",
+                 "last_event", "captures")
+
+    def __init__(self, rungs: dict, stream=None) -> None:
+        self.rungs = rungs
         self.pool = None
         self.stream = stream
-        self.folded: Optional[tuple] = None
         self.generation = 0
         self.digest: Optional[str] = None
         self.last_event = None
         self.captures = 0
-        self.staged = None
+
+    @property
+    def _default(self) -> _Rung:
+        return next(iter(self.rungs.values()))
+
+    @property
+    def model(self):
+        return self._default.model
+
+    @property
+    def graphs(self) -> dict:
+        return self._default.graphs
+
+    @property
+    def folded(self):
+        return self._default.folded
+
+    @folded.setter
+    def folded(self, value) -> None:
+        self._default.folded = value
 
 
 class InferenceEngine:
@@ -356,11 +392,22 @@ class InferenceEngine:
         False to exercise queue semantics deterministically.
     device : where the model runs; ``None`` means the card, and raises
         when there is none.
+    variants, default_variant : the dtype ladder (``tpuic``'s
+        parameters of the same names): ``model`` is the rung
+        ``default_variant`` (``"fp32"``), and ``variants`` maps each other
+        tag to its module — ``tpuic_torch.quant.serve_variants``'s
+        ``bf16`` and ``int8`` rungs of the same weights — which the engine
+        places on ``device`` in eval mode and serves through
+        ``make_forward`` (TF32 off) with a graph per bucket of its own.
+    variant_buckets : ``{tag: buckets}``, a rung that runs only the
+        buckets named (a subset of ``buckets`` holding the largest):
+        ``quant.rung_buckets`` pins the bf16 rung to the largest, so a
+        row's bf16 arithmetic does not depend on the batch it rides in.
 
     Identity (the socket transport's ``pong`` and ready file carry it):
     ``generation`` (0 at boot, +1 per swap), ``model_digest``
-    (``checkpoint.variables_digest`` of the live weights) and
-    ``variant_tags()`` (``("fp32",)``: no dtype ladder yet).
+    (``checkpoint.variables_digest`` of the default rung's live weights)
+    and ``variant_tags()`` (the default rung first).
     """
 
     def __init__(self, model=None, variables=None, *, image_size: int,
@@ -370,7 +417,9 @@ class InferenceEngine:
                  normalize: bool = False, mean=None, std=None,
                  forward_fn=None, stats: Optional[ServeStats] = None,
                  admission=None, autostart: bool = True,
-                 device=None) -> None:
+                 device=None, variants: Optional[dict] = None,
+                 default_variant: str = "fp32",
+                 variant_buckets: Optional[dict] = None) -> None:
         if not buckets:
             raise ValueError("need at least one padding bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -396,10 +445,31 @@ class InferenceEngine:
         elif variables is not None:
             raise ValueError("variables given without a model")
         self._forward_kw = dict(normalize=normalize, mean=mean, std=std)
-        self._gen = _Slot(model, forward_fn if forward_fn is not None
-                          else make_forward(model, **self._forward_kw),
-                          torch.cuda.Stream(self.device)
+        self.default_variant = str(default_variant)
+        rungs = {self.default_variant: _Rung(
+            model, forward_fn if forward_fn is not None
+            else make_forward(model, **self._forward_kw))}
+        for tag, rung_model in (variants or {}).items():
+            tag = str(tag)
+            if tag == self.default_variant:
+                continue  # the constructor's model IS the default rung
+            if model is None or not isinstance(rung_model, torch.nn.Module):
+                raise ValueError(f"ladder rung {tag!r} needs a model, as "
+                                 "the default rung does")
+            rung_model.to(self.device).eval()
+            rungs[tag] = _Rung(rung_model, make_forward(rung_model,
+                                                        **self._forward_kw))
+        self._gen = _Slot(rungs, torch.cuda.Stream(self.device)
                           if self.device.type == "cuda" else None)
+        self._rung_buckets = {}
+        for tag in rungs:
+            own = tuple(sorted({int(b) for b in (variant_buckets or {}).get(
+                tag, self.buckets)}))
+            if not set(own) <= set(self.buckets) or own[-1] != self.max_batch:
+                raise ValueError(f"buckets {own} of rung {tag!r} must be "
+                                 f"some of {self.buckets}, the largest "
+                                 "among them")
+            self._rung_buckets[tag] = own
         self._standby: Optional[_Slot] = None
         # One swap at a time; the batcher holds _flip for the read of the
         # live slot and the launch with it, a swap for the flip.
@@ -445,8 +515,17 @@ class InferenceEngine:
         return gen.digest
 
     def variant_tags(self) -> tuple:
-        """The dtype ladder's tags: float32 weights only so far."""
-        return VARIANTS
+        """The dtype ladder's tags, the default rung first."""
+        return tuple(self._gen.rungs)
+
+    def _variant(self, variant: Optional[str]) -> str:
+        """``variant`` checked against the ladder; None is the default
+        rung."""
+        tag = self.default_variant if variant is None else str(variant)
+        if tag not in self._gen.rungs:
+            raise ValueError(f"unknown serve dtype {tag!r}; configured: "
+                             f"{sorted(self._gen.rungs)}")
+        return tag
 
     @property
     def _graphs(self) -> dict:
@@ -495,61 +574,75 @@ class InferenceEngine:
         self.close()
 
     # -- buckets / warmup ----------------------------------------------
-    def bucket_for(self, n: int) -> int:
-        """Smallest bucket >= n (the shape the device will actually see)."""
-        for b in self.buckets:
+    def bucket_for(self, n: int, variant: Optional[str] = None) -> int:
+        """Smallest bucket >= n of rung ``variant`` (the default rung's
+        when None): the shape the device will actually see."""
+        for b in self._rung_buckets[self._variant(variant)]:
             if b >= n:
                 return b
         raise ValueError(f"request of {n} rows exceeds max bucket "
                          f"{self.max_batch}")
 
     def warmup(self) -> dict:
-        """Make every bucket ready and return ``{bucket: secs}``, each
-        recorded through ``stats.record_compile`` (``compiles`` counts the
-        buckets).  On a CUDA device a bucket runs once eagerly, is
-        captured into its graph and replayed once, from its pinned staging
-        buffer, to the end of its readback; on the CPU it runs once
-        eagerly.  The first run builds the kernels and folds the model's
-        weights."""
-        timings = {}
-        for b in self.buckets:
-            t0 = time.perf_counter()
-            if self.device.type == "cuda":
-                with self._flip:
-                    gen = self._gen
-                    self._graph_for(gen, b, record=False)
-                    buf, ev = self._pinned(b)
-                    buf.zero_()
-                    launched = self._launch(gen, [(0, buf)], b, ev)
-            else:
-                batch = np.zeros((b, self.image_size, self.image_size,
-                                  self.channels), self.input_dtype)
-                launched = self._launch(self._gen,
-                                        [(0, torch.from_numpy(batch))], b)
-            self._readback(launched)
-            timings[b] = round(time.perf_counter() - t0, 3)
-            self.stats.record_compile(b, timings[b])
+        """Make every (rung, bucket) ready and return ``{bucket: secs}``
+        for a single-rung engine, ``{variant: {bucket: secs}}`` for a
+        ladder (``tpuic``'s shapes), each recorded through
+        ``stats.record_compile`` (``compiles`` counts them).  On a CUDA
+        device a bucket runs once eagerly, is captured into its graph and
+        replayed once, from its pinned staging buffer, to the end of its
+        readback; on the CPU it runs once eagerly.  The first run builds
+        the kernels and folds the model's weights."""
+        per_variant = {}
+        for tag in self._gen.rungs:
+            timings = per_variant[tag] = {}
+            for b in self._rung_buckets[tag]:
+                t0 = time.perf_counter()
+                if self.device.type == "cuda":
+                    with self._flip:
+                        gen = self._gen
+                        self._graph_for(gen, b, tag, record=False)
+                        buf, ev = self._pinned(b)
+                        buf.zero_()
+                        launched = self._launch(gen, [(0, buf)], b, ev, tag)
+                else:
+                    batch = np.zeros((b, self.image_size, self.image_size,
+                                      self.channels), self.input_dtype)
+                    launched = self._launch(
+                        self._gen, [(0, torch.from_numpy(batch))], b,
+                        variant=tag)
+                self._readback(launched)
+                timings[b] = round(time.perf_counter() - t0, 3)
+                self.stats.record_compile(b, timings[b])
         self._gen.captures = 0
         # The stats snapshot carries the served model's identity.
         self.stats.note_identity(self.model_digest or "", self.generation)
-        return timings
+        if len(per_variant) == 1:
+            return per_variant[self.default_variant]
+        return per_variant
 
     def graph_memory(self) -> dict:
         """Device bytes the captured graphs hold, over the live slot and
         the standby (``slots``): their pools' segments (what the captures
-        added to the reserved memory), their static inputs, and the K3
-        split-K scratch baked into them; and the page-locked host bytes of
-        the staging buffers, by bucket."""
+        added to the reserved memory; ``pool_bytes_by_variant`` splits
+        them by rung), their static inputs, and the K3 split-K scratch
+        baked into them; and the page-locked host bytes of the staging
+        buffers, by bucket."""
         slots = [s for s in (self._gen, self._standby) if s is not None]
-        graphs = [g for s in slots for g in s.graphs.values()]
+        graphs = [(tag, g) for s in slots for tag, r in s.rungs.items()
+                  for g in r.graphs.values()]
+        by_variant = {}
+        for tag, g in graphs:
+            by_variant[tag] = by_variant.get(tag, 0) + g.pool_bytes
         return {"buckets": sorted(self._gen.graphs),
-                "slots": sum(1 for s in slots if s.graphs),
-                "pool_bytes": sum(g.pool_bytes for g in graphs),
+                "slots": sum(1 for s in slots
+                             if any(r.graphs for r in s.rungs.values())),
+                "pool_bytes": sum(g.pool_bytes for _, g in graphs),
+                "pool_bytes_by_variant": by_variant,
                 "static_input_bytes": sum(
                     g.static_in.numel() * g.static_in.element_size()
-                    for g in graphs),
+                    for _, g in graphs),
                 "scratch_bytes": sum(t.numel() * t.element_size()
-                                     for g in graphs for t in g.scratch),
+                                     for _, g in graphs for t in g.scratch),
                 "pinned_bytes": {str(b): sum(
                     buf.numel() * buf.element_size() for buf, _ in bufs)
                     for b, (bufs, _) in sorted(self._staging.items())}}
@@ -582,8 +675,8 @@ class InferenceEngine:
         bucket of an attached ``AdmissionController``, which may reject
         with a typed ``AdmissionRejected`` (also a ``queue.Full``).  With
         a controller attached a full queue raises ``AdmissionRejected``
-        (cause ``queue_full``) too.  ``dtype`` names the ladder rung:
-        ``None`` or ``"fp32"``.
+        (cause ``queue_full``) too.  ``dtype`` names the ladder rung
+        (``None``: the default rung); an unknown one raises ``ValueError``.
 
         The engine BORROWS the array or tensor until the future resolves
         (no defensive copy): callers reusing a staging buffer must copy.
@@ -616,10 +709,7 @@ class InferenceEngine:
         # The SLA fields are validated before admission: a malformed one
         # failing after admit() would have spent a quota token.
         priority_index(priority)
-        variant = VARIANTS[0] if dtype is None else str(dtype)
-        if variant not in VARIANTS:
-            raise ValueError(f"unknown serve dtype {variant!r}; "
-                             f"configured: {sorted(VARIANTS)}")
+        variant = self._variant(dtype)
         if deadline_ms is not None:
             deadline_ms = float(deadline_ms)
         if self.admission is not None:
@@ -674,13 +764,14 @@ class InferenceEngine:
         return self._queue.qsize()
 
     # -- device side ---------------------------------------------------
-    def _capture(self, slot: _Slot, bucket: int) -> _BucketGraph:
-        """Capture bucket ``bucket``'s forward of ``slot`` into a CUDA
-        graph in the slot's pool.  Raises ``RuntimeError`` naming the
-        bucket when the run before it or the capture fails: the card has
-        no eager fallback."""
+    def _capture(self, slot: _Slot, bucket: int, tag: str) -> _BucketGraph:
+        """Capture bucket ``bucket``'s forward of ``slot``'s rung ``tag``
+        into a CUDA graph in the slot's pool.  Raises ``RuntimeError``
+        naming the bucket when the run before it or the capture fails: the
+        card has no eager fallback."""
         from tpuic_torch.kernels import conv_bn_relu
         dev = self.device
+        rung = slot.rungs[tag]
         static_in = torch.zeros(
             (bucket, self.image_size, self.image_size, self.channels),
             dtype=self._torch_dtype, device=dev)
@@ -704,11 +795,11 @@ class InferenceEngine:
             # makes the forward's device constants, none of which a
             # capture may do.
             with torch.cuda.stream(stream):
-                _as_tuple(slot.forward(static_in))
+                _as_tuple(rung.forward(static_in))
             stream.synchronize()
             if slot.pool is None:
-                # Hazard, memory: one pool for every bucket's graph of a
-                # slot.  That is safe because a slot's graphs never run
+                # Hazard, memory: one pool for every graph of a slot,
+                # every rung's.  That is safe because a slot's graphs never run
                 # at once and each is used as one unit: the copy into a
                 # static input, the replay and the copy out of the static
                 # outputs go back to back on one stream (the batcher's,
@@ -739,41 +830,44 @@ class InferenceEngine:
                     # the eager run, under ``no_tf32``'s process-wide
                     # lock.
                     with counting.tally() as launches:
-                        outputs = _as_tuple(slot.forward(static_in))
+                        outputs = _as_tuple(rung.forward(static_in))
                 finally:
                     graph.capture_end()
             pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of bucket {bucket} "
-                               f"failed: {e}") from e
+                               f"({tag}) failed: {e}") from e
         scratch = conv_bn_relu._SCRATCH.pop(key, None)
         scratch = (tuple(t for t in (scratch.ws, scratch.counters)
                          if t is not None) if scratch is not None else ())
         # The graph also bakes in the addresses of K3's folded weights.
-        # The slot's first capture records them, a swap folds new weights
+        # The rung's first capture records them, a swap folds new weights
         # into these same tensors (``_write``), and every later capture
-        # must read them too.
+        # must read them too.  (The int8 rung folds inside its forward:
+        # it keeps none.)
         folded = tuple((m, m._packed) for m in (
-            slot.model.modules() if slot.model is not None else ())
+            rung.model.modules() if rung.model is not None else ())
             if getattr(m, "_packed", None) is not None)
-        if slot.folded is None:
-            slot.folded = folded
+        if rung.folded is None:
+            rung.folded = folded
         elif [(id(m), id(t)) for m, t in folded] != [
-                (id(m), id(t)) for m, t in slot.folded]:
-            raise RuntimeError(f"CUDA graph of bucket {bucket} reads folded "
-                               f"weights that the slot's other graphs do "
-                               f"not")
+                (id(m), id(t)) for m, t in rung.folded]:
+            raise RuntimeError(f"CUDA graph of bucket {bucket} ({tag}) reads "
+                               f"folded weights that the rung's other "
+                               f"graphs do not")
         slot.captures += 1
         return _BucketGraph(graph, static_in, outputs,
                             tuple(launches.items()), scratch, pool_bytes)
 
-    def _graph_for(self, slot: _Slot, bucket: int,
+    def _graph_for(self, slot: _Slot, bucket: int, tag: Optional[str] = None,
                    record: bool = True) -> _BucketGraph:
-        g = slot.graphs.get(bucket)
+        tag = self.default_variant if tag is None else tag
+        graphs = slot.rungs[tag].graphs
+        g = graphs.get(bucket)
         if g is None:
             # A bucket not warmed is captured at its first use, once.
             t0 = time.perf_counter()
-            g = slot.graphs[bucket] = self._capture(slot, bucket)
+            g = graphs[bucket] = self._capture(slot, bucket, tag)
             if record:
                 self.stats.record_compile(
                     bucket, round(time.perf_counter() - t0, 3))
@@ -788,11 +882,11 @@ class InferenceEngine:
 
     def replay(self, bucket: int, x: Optional[torch.Tensor] = None):
         """Copy ``x`` ([bucket, S, S, C] on the card; None keeps the
-        static input as it is) into the live slot's static input of
-        bucket ``bucket``, replay its graph on the current stream and
-        return the static outputs, which the next replay of the bucket
-        overwrites.  Adds the graph's launches to each kernel's
-        counter."""
+        static input as it is) into the default rung's static input of
+        bucket ``bucket`` in the live slot, replay its graph on the
+        current stream and return the static outputs, which the next
+        replay of the bucket overwrites.  Adds the graph's launches to
+        each kernel's counter."""
         g = self._graph_for(self._gen, bucket)
         if x is not None:
             g.static_in.copy_(x)
@@ -817,15 +911,17 @@ class InferenceEngine:
         ev.synchronize()  # returns at once for an event never recorded
         return buf, ev
 
-    def _launch(self, slot: _Slot, parts, bucket: int, staged=None):
+    def _launch(self, slot: _Slot, parts, bucket: int, staged=None,
+                variant: Optional[str] = None):
         """The copy in, the forward and the device->host copy with
-        ``slot``, all enqueued on the current stream; returns ``(host
-        tensors, event)`` where the event marks the copy's end (``None``
-        on the CPU).  ``parts`` are ``(row offset, tensor)`` pieces of the
-        batch, on the host (page-locked on the card) or on the engine's
-        device; rows past the last piece are padding (zeros).  ``staged``
-        is the event of the staging buffer the host pieces came from,
-        recorded after their copies."""
+        ``slot``'s rung ``variant`` (the default rung when None), all
+        enqueued on the current stream; returns ``(host tensors, event)``
+        where the event marks the copy's end (``None`` on the CPU).
+        ``parts`` are ``(row offset, tensor)`` pieces of the batch, on the
+        host (page-locked on the card) or on the engine's device; rows
+        past the last piece are padding (zeros).  ``staged`` is the event
+        of the staging buffer the host pieces came from, recorded after
+        their copies."""
         rows = sum(t.shape[0] for _, t in parts)
         if self.device.type != "cuda":
             if len(parts) == 1 and rows == bucket:
@@ -835,8 +931,10 @@ class InferenceEngine:
                                 dtype=parts[0][1].dtype)
                 for off, t in parts:
                     x[off:off + t.shape[0]] = t
-            return _as_tuple(slot.forward(x.to(self.device))), None
-        g = self._graph_for(slot, bucket)
+            tag = self.default_variant if variant is None else variant
+            return _as_tuple(slot.rungs[tag].forward(
+                x.to(self.device))), None
+        g = self._graph_for(slot, bucket, variant)
         stream = torch.cuda.current_stream(self.device)
         for off, t in parts:
             g.static_in[off:off + t.shape[0]].copy_(t, non_blocking=True)
@@ -861,23 +959,23 @@ class InferenceEngine:
         return tuple(t.numpy() for t in host)
 
     # -- hot swap ------------------------------------------------------
-    def _candidate(self, variables, variants) -> object:
-        """The fp32 rung of a swap: the tag set must equal the ladder's
-        (the ladder swaps as one unit)."""
+    def _candidate(self, variables, variants) -> dict:
+        """A swap's candidates by rung: the tag set must equal the
+        ladder's (the ladder swaps as one unit)."""
         staged = {}
         if variables is not None:
-            staged[VARIANTS[0]] = variables
+            staged[self.default_variant] = variables
         for tag, spec in (variants or {}).items():
             tag = str(tag)
             if tag in staged:
                 raise ValueError(f"duplicate swap rung {tag!r}")
             staged[tag] = spec
-        if set(staged) != set(VARIANTS):
+        if set(staged) != set(self._gen.rungs):
             raise ValueError(
                 f"swap must replace the dtype ladder as one unit: "
-                f"configured rungs {sorted(VARIANTS)}, swap covers "
+                f"configured rungs {sorted(self._gen.rungs)}, swap covers "
                 f"{sorted(staged)}")
-        return staged[VARIANTS[0]]
+        return staged
 
     @staticmethod
     def _same_shapes(a: torch.nn.Module, b: torch.nn.Module) -> bool:
@@ -890,16 +988,17 @@ class InferenceEngine:
         return (torch.cuda.stream(slot.stream) if slot.stream is not None
                 else contextlib.nullcontext())
 
-    def _write(self, slot: _Slot, cand) -> None:
+    def _write(self, rung: _Rung, cand) -> None:
         """Write ``cand`` (a ``tpuic`` variables tree, a ``state_dict`` or
-        a model) into ``slot``'s model in place, then fold K3's weights
-        into the tensors its graphs read (``slot.folded``).  Loading drops
+        a model) into ``rung``'s model in place, then fold K3's weights
+        into the tensors its graphs read (``rung.folded``).  Loading drops
         a model's folded weights, and the next fold would build new
         tensors while the graphs go on reading the old ones: the old
-        weights, with no error."""
-        model = slot.model
-        slot.staged = None
-        with self._stream_ctx(slot), torch.no_grad():
+        weights, with no error.  Runs on the current stream (the standby
+        slot's)."""
+        model = rung.model
+        rung.staged = None
+        with torch.no_grad():
             try:
                 if isinstance(cand, torch.nn.Module):
                     model.load_state_dict(cand.state_dict())
@@ -915,46 +1014,55 @@ class InferenceEngine:
                 # A load that fails has dropped them too (torch checks the
                 # keys after it wrote those that match): the graphs' fold
                 # targets go back either way.
-                for m, packed in slot.folded or ():
+                for m, packed in rung.folded or ():
                     m._packed = packed
-            for m, packed in slot.folded or ():
+            for m, packed in rung.folded or ():
                 m._packed = None
                 _copy_into(packed, m.packed_weights())
                 m._packed = packed
-        slot.staged = cand
+        rung.staged = cand
 
-    def _new_slot(self, model) -> _Slot:
-        return _Slot(model, make_forward(model, **self._forward_kw)
-                     if model is not None else None,
+    def _new_slot(self, models: dict) -> _Slot:
+        return _Slot({tag: _Rung(m, make_forward(m, **self._forward_kw))
+                      for tag, m in models.items()},
                      torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
 
-    def _load(self, cand, *, new_shapes: bool) -> _Slot:
-        """The slot that holds ``cand`` once it returns (its work on the
-        device done): the standby with ``cand`` written into it (made at
-        the first swap from a copy of the live model, its graphs captured
-        then), or — for a model of other shapes, when ``new_shapes`` —
-        a new slot around that model, captured off-path.  Call under the
-        swap lock."""
+    def _load(self, cands: dict, *, new_shapes: bool) -> _Slot:
+        """The slot that holds ``cands`` (``{tag: candidate}``) once it
+        returns (its work on the device done): the standby with each
+        candidate written into its rung (made at the first swap from a
+        copy of every live rung, its graphs captured then), or — for
+        models of other shapes, when ``new_shapes`` — a new slot around
+        those models, one a rung, captured off-path.  Call under the swap
+        lock."""
         live = self._gen
         if live.model is None:
             raise ValueError("swap needs an engine built from a model; this "
                              "one serves a bare forward_fn")
-        if isinstance(cand, torch.nn.Module) and not self._same_shapes(
-                cand, live.model):
+        reshaped = [tag for tag, c in cands.items()
+                    if isinstance(c, torch.nn.Module) and not
+                    self._same_shapes(c, live.rungs[tag].model)]
+        if reshaped:
             if not new_shapes:
                 raise ValueError(
                     "candidate model is not shaped like the serving model: "
                     "gate it through swap_weights, which captures a new "
                     "slot for it")
-            slot = self._new_slot(cand.to(self.device).eval())
+            if not all(isinstance(cands.get(t), torch.nn.Module)
+                       for t in live.rungs):
+                raise ValueError(
+                    f"rungs {reshaped} of the swap are shaped unlike the "
+                    "serving ladder: every rung then needs a model")
+            slot = self._new_slot({t: cands[t].to(self.device).eval()
+                                   for t in live.rungs})
             if slot.stream is not None:
                 slot.stream.wait_stream(torch.cuda.current_stream(
                     self.device))
         else:
             slot = self._standby
             if slot is None:
-                slot = self._standby = self._new_slot(None)
+                slot = self._standby = self._new_slot({})
             elif slot.last_event is not None:
                 # The last batch dispatched with this slot before it went
                 # standby must be done before its weights change.
@@ -964,17 +1072,21 @@ class InferenceEngine:
                 # the caller's stream.
                 slot.stream.wait_stream(torch.cuda.current_stream(
                     self.device))
-            if slot.model is None:
-                with self._stream_ctx(slot):
-                    slot.model = copy.deepcopy(live.model)
-                slot.forward = make_forward(slot.model, **self._forward_kw)
-            if slot.staged is not cand:
-                # A gate's candidate_outputs wrote it already.
-                self._write(slot, cand)
+            with self._stream_ctx(slot):
+                if not slot.rungs:
+                    slot.rungs.update(self._new_slot(
+                        {t: copy.deepcopy(r.model)
+                         for t, r in live.rungs.items()}).rungs)
+                for tag, cand in cands.items():
+                    rung = slot.rungs[tag]
+                    if rung.staged is not cand:
+                        # A gate's candidate_outputs wrote it already.
+                        self._write(rung, cand)
         if self.device.type == "cuda":
             with torch.cuda.stream(slot.stream):
-                for b in self.buckets:
-                    self._graph_for(slot, b)
+                for tag in slot.rungs:
+                    for b in self._rung_buckets[tag]:
+                        self._graph_for(slot, b, tag)
             slot.stream.synchronize()
         return slot
 
@@ -983,34 +1095,37 @@ class InferenceEngine:
         """Atomically replace the serving weights: no drain, no dropped
         request.
 
-        ``variables`` is the new fp32 rung: a ``tpuic`` variables tree
+        ``variables`` is the new default rung: a ``tpuic`` variables tree
         (numpy leaves), a port ``state_dict`` or a model; ``variants``
-        maps other ladder tags to theirs.  The tag set must equal the
-        configured ladder, ``{"fp32"}`` (``ValueError`` otherwise).
+        maps the other ladder tags to theirs (the rung's module or its
+        ``state_dict``: ``tpuic_torch.quant.serve_variants`` of the new
+        float32 model).  The tag set must equal the configured ladder
+        (``ValueError`` otherwise): the ladder swaps as one unit.
 
-        A candidate shaped like the serving model is written into the
-        standby slot, whose graphs then read it: ``reused_executables``
-        is true when no bucket was captured for it (every swap after the
-        first); ``prewarmed`` counts the captures made since the slot
-        last served.  A model of other shapes gets a new slot, captured
-        off-path; the old one is freed once its last batch has run.  A
-        candidate object that ``candidate_outputs`` was just given is
-        already in the standby and is not written again: the engine
-        borrows it, unchanged, from the one call to the other.  The flip
-        is one reference assignment between two batches: a batch runs all
-        old or all new weights, and in-flight and queued requests resolve,
-        none re-run.  One swap at a time.  Returns ``{generation, digest,
+        A ladder shaped like the serving one is written into the standby
+        slot, whose graphs then read it: ``reused_executables`` is true
+        when no (rung, bucket) was captured for it (every swap after the
+        first); ``prewarmed`` counts the captures made since the slot last
+        served.  Models of other shapes get a new slot, captured off-path;
+        the old one is freed once its last batch has run.  A candidate
+        object that ``candidate_outputs`` was just given is already in the
+        standby and is not written again: the engine borrows it,
+        unchanged, from the one call to the other.  The flip is one
+        reference assignment between two batches: a batch runs all old or
+        all new weights, and in-flight and queued requests resolve, none
+        re-run.  One swap at a time.  Returns ``{generation, digest,
         reused_executables, prewarmed, duration_s, batcher_hold_s}``, the
         last the host time the flip held the batcher."""
         from tpuic_torch.checkpoint.loading import variables_digest
         t0 = time.perf_counter()
         with self._swap_lock:
-            cand = self._candidate(variables, variants)
-            slot = self._load(cand, new_shapes=True)
+            cands = self._candidate(variables, variants)
+            slot = self._load(cands, new_shapes=True)
             # The digest reads the weights off the batcher's stream.
             with self._stream_ctx(slot):
                 slot.digest = variables_digest(slot.model)
-            slot.staged = None
+            for rung in slot.rungs.values():
+                rung.staged = None
             with self._flip:
                 t_flip = time.perf_counter()
                 old = self._gen
@@ -1038,35 +1153,34 @@ class InferenceEngine:
 
     def candidate_outputs(self, variables, images, *,
                           variant: Optional[str] = None):
-        """The forward's outputs on ``images`` with ``variables`` in place
-        of the serving weights, without touching what traffic sees: the
-        candidate is written into the standby slot and its graphs replay
-        on the slot's stream — the same graphs, and so the same bits,
-        that serve it after a swap.  Raises ``ValueError`` for an unknown
-        rung, and for a model shaped unlike the serving one (swap_weights
-        captures those).  Returns numpy arrays with ``images``' rows."""
-        variant = VARIANTS[0] if variant is None else str(variant)
-        if variant not in VARIANTS:
-            raise ValueError(f"unknown serve dtype {variant!r}; "
-                             f"configured: {sorted(VARIANTS)}")
+        """The outputs of rung ``variant`` (the default rung when None)
+        on ``images`` with ``variables`` in place of its serving weights,
+        without touching what traffic sees: the candidate is written into
+        the standby slot's rung and its graphs replay on the slot's
+        stream — the same graphs, and so the same bits, that serve it
+        after a swap.  Raises ``ValueError`` for an unknown rung, and for
+        a model shaped unlike the serving one (swap_weights captures
+        those).  Returns numpy arrays with ``images``' rows."""
+        variant = self._variant(variant)
         arr = np.asarray(images, self.input_dtype)
         if arr.ndim == 3:
             arr = arr[None]
         chunks = []
         with self._swap_lock:
-            slot = self._load(variables, new_shapes=False)
+            slot = self._load({variant: variables}, new_shapes=False)
+            rung = slot.rungs[variant]
             for lo in range(0, arr.shape[0], self.max_batch):
                 chunk = arr[lo:lo + self.max_batch]
                 n = chunk.shape[0]
-                bucket = self.bucket_for(n)
+                bucket = self.bucket_for(n, variant)
                 if slot.stream is None:
                     x = np.zeros((bucket,) + chunk.shape[1:], chunk.dtype)
                     x[:n] = chunk
-                    out = _as_tuple(slot.forward(torch.from_numpy(x)))
+                    out = _as_tuple(rung.forward(torch.from_numpy(x)))
                     chunks.append(tuple(t[:n].numpy() for t in out))
                     continue
                 with torch.cuda.stream(slot.stream):
-                    g = self._graph_for(slot, bucket)
+                    g = self._graph_for(slot, bucket, variant)
                     g.static_in[:n].copy_(torch.from_numpy(
                         np.ascontiguousarray(chunk)))
                     g.static_in[n:].zero_()
@@ -1098,9 +1212,10 @@ class InferenceEngine:
     def _gather(self, idle_timeout: float):
         """One coalescing decision: requests (highest priority class
         first, FIFO within a class) until max_batch rows or max_wait_ms
-        after the batch opened.  A request that would overflow max_batch
-        is held and leads the next batch, whatever its class.  Expired
-        deadlines are shed here, at pop time."""
+        after the batch opened.  A request that would overflow max_batch,
+        or that names another rung than the batch's, is held and leads the
+        next batch, whatever its class.  Expired deadlines are shed here,
+        at pop time."""
         first, self._held = self._held, None
         if first is not None and self._maybe_shed(first):
             first = None
@@ -1127,7 +1242,10 @@ class InferenceEngine:
             nxt.t_gather = time.monotonic()
             if self._maybe_shed(nxt):
                 continue
-            if rows + nxt.n > self.max_batch:
+            if rows + nxt.n > self.max_batch or nxt.variant != first.variant:
+                # A device batch runs ONE rung's graph, so a rung boundary
+                # closes the batch as an overflow does: the request is
+                # held and leads the next batch.
                 self._held = nxt
                 break
             reqs.append(nxt)
@@ -1145,7 +1263,8 @@ class InferenceEngine:
         gets the exception on ITS future and is dropped from the batch —
         its batchmates still dispatch and resolve.  The survivors may then
         fit a smaller bucket (rows packed contiguously from 0)."""
-        bucket = self.bucket_for(sum(r.n for r in reqs))
+        variant = reqs[0].variant  # _gather keeps a batch to one rung
+        bucket = self.bucket_for(sum(r.n for r in reqs), variant)
         on_card = self.device.type == "cuda"
         n_hosts = sum(not isinstance(r.images, torch.Tensor) for r in reqs)
         buf = ev = batch = None
@@ -1186,7 +1305,8 @@ class InferenceEngine:
                       for (o, t), r in zip(parts, ok)])
         self.device_requests += len(ok) - hosts
         self.host_requests += hosts
-        return ok, self.bucket_for(off), parts, ev if hosts else None
+        return (ok, self.bucket_for(off, variant), parts,
+                ev if hosts else None)
 
     def _dispatch(self, reqs):
         """Pad to bucket, then launch.  Returns the in-flight batch (None
@@ -1207,7 +1327,8 @@ class InferenceEngine:
         # this batch's event (the slot's last) has completed.
         with self._flip:
             gen = self._gen
-            launched = self._launch(gen, parts, bucket, used)
+            launched = self._launch(gen, parts, bucket, used,
+                                    reqs[0].variant)
             gen.last_event = launched[1]
         return reqs, launched, bucket, (t_batch, t_staged, time.monotonic())
 

@@ -132,8 +132,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"],
                    help="compute dtype of the model (parameters, optimizer "
-                        "moments and checkpoints stay float32); bfloat16 is "
-                        "refused for the ViT family so far")
+                        "moments and checkpoints stay float32)")
     p.add_argument("--compute-dtype", default="", dest="compute_dtype",
                    choices=["", "bf16", "f32"],
                    help="training compute-dtype policy: 'bf16' casts the "

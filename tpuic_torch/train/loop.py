@@ -43,10 +43,10 @@ the K4 flash-attention kernels with ``attention="flash"``.
 Not ported, and refused with ``NotImplementedError`` naming the field:
 mixup, CutMix, random erasing, EMA, ``freeze_backbone``, gradient
 accumulation, ``remat``, the packed loader (``pack``), the native decode
-core (``native``), mesh axes above 1, bf16 compute for the ViT family
-(K4's bf16 build is not redesigned yet, ROADMAP §1 item 3) and
-EfficientNet training (its stochastic depth needs the step's RNG
-plumbing, ROADMAP §1 item 8).
+core (``native``), mesh axes above 1 and EfficientNet training (its
+stochastic depth needs the step's RNG plumbing, ROADMAP §1 item 8).  The
+ViT family trains in bf16 as the others do: its flash attention runs K4's
+bf16 kernels forward and backward.
 The ViT itself refuses drop-path and the sequence-parallel attention
 impls the same way.
 Mid-epoch (preemption) saves, rollback, elastic membership, telemetry and
@@ -93,9 +93,6 @@ def unported_settings(cfg: Config) -> list:
         ("optim.ema_decay", o.ema_decay > 0),
         ("optim.freeze_backbone", o.freeze_backbone),
         ("optim.grad_accum_steps", o.grad_accum_steps > 1),
-        ("model.dtype=bfloat16 for the ViT family (K4's bf16 build is "
-         "not redesigned yet, ROADMAP §1 item 3)", m.name.startswith("vit")
-         and resolved_model_dtype(m) == "bfloat16"),
         ("model.name: EfficientNet training (stochastic depth needs the "
          "step's RNG plumbing, ROADMAP §1 item 8)",
          m.name.startswith("efficientnet")),
