@@ -196,13 +196,20 @@ non-zero at the first phase that fails:
    ``quant.eval_images(128)`` at least 1 - DEFAULT_EPSILON, a corrupted
    int8 rung below it), each rung's batch-1 row against batch 32 within
    RUNG_ROW_TOL (stated before the first run: fp32 and int8 1e-5, bf16
-   1e-2), each rung's weight bytes (int8's quantized leaves beside their
-   float32 bytes), then one engine with a graph per (rung, bucket): per
-   rung ``[serve]``'s client mix (images/s, p50/p99, spans, graph pool by
-   rung, launches per device call, answers within RUNG_SERVE_TOL of the
-   rung's direct forward); for ResNet-50 one swap of the whole ladder
-   under mixed traffic, every answer the old or the new ladder's and every
-   one submitted after the swap the new one's.
+   1e-2) wherever the engine runs the rung at every bucket (a bf16 rung
+   on cuDNN's convolutions, InceptionV3's, runs at the largest bucket
+   only: its rows are reported, and the same for EfficientNet-B3 and an
+   unfused ResNet-50), each rung's weight bytes (int8's quantized leaves
+   beside their float32 bytes), then one engine with a graph per (rung,
+   bucket): per rung ``[serve]``'s client mix in LADDER_WINDOWS windows
+   (images/s of each and their median and spread, p50/p99, spans, graph
+   pool by rung, launches per device call, answers within RUNG_SERVE_TOL
+   of the rung's direct forward) and LONE_REQUESTS one-image requests one
+   at a time (the bucket they ride, latency, device span); the bf16
+   rung's lone requests again at the serve CLI's default buckets (1, 8,
+   32, 128); for ResNet-50 one swap of the whole ladder under mixed
+   traffic, every answer the old or the new ladder's and every one
+   submitted after the swap the new one's.
 21. serve-cli-ladder — ``python -m tpuic_torch.serve --serve-dtypes
    fp32,bf16,int8`` on ``ckpt``'s checkpoint: its start gate's lines, and
    CLI_IMAGES image files over stdin naming the rungs in turn with
@@ -330,7 +337,9 @@ VIT_COMPARE_LR = 3e-5
 VIT_LAYERS = 12
 ATTN_N, ATTN_H, ATTN_D = 197, 12, 64
 ATTN_BATCHES = (8, VIT_BATCH)
-LADDER_REQUESTS = 160  # closed-loop requests a rung in [ladder]
+LADDER_REQUESTS = 320  # closed-loop requests a window in [ladder]
+LADDER_WINDOWS = 3     # windows a rung; images/s is their median
+LONE_REQUESTS = 20     # one-image requests a rung, one at a time
 # Each rung's batch-1 row against its row of a batch-32 forward, the
 # largest probability difference allowed, stated before the first run on
 # the card: fp32 and int8 compute in float32 with TF32 off (int8 widens
@@ -584,11 +593,14 @@ def kernel_row(device_name, spec, per_fwd, gen, batch):
     else:
         bf16["earlier_ms"], bf16["earlier_device_ms"] = (bf16["ms"],
                                                          bf16["device_ms"])
-    # At the rate of the products each build issues: one bf16 wgmma
-    # product for a bf16 w, two TF32 MMAs in the mma.sync build.
+    # The bound at the card's bf16 peak for every shape.  The mma.sync
+    # build (the stem) issues two TF32 MMAs a product: that rate's time
+    # stands beside the bound, not as it.
     bf16["bound_ms"], bf16["bound_by"] = bound(
+        flops_b, bytes_b, bf16_peak(device_name), hbm)
+    bf16["issue_rate_ms"] = bound(
         flops_b, bytes_b, bf16_peak(device_name) if sm90
-        else tf32_peak(device_name) / 2, hbm)
+        else tf32_peak(device_name) / 2, hbm)[0]
     del xb, wb, w_folded_b, bias_b
     with no_tf32():
         lib = library().permute(0, 2, 3, 1)
@@ -693,8 +705,8 @@ def phase_kernel(device_name: str, gen: torch.Generator):
                                        / sums[batch]["library_ms"])
         b16 = {k: sum(r["bf16"][k] * r["per_forward"] for r in fwd)
                for k in ("ms", "device_ms", "plain_ms", "library_ms",
-                         "library_device_ms", "bound_ms", "earlier_ms",
-                         "earlier_device_ms")}
+                         "library_device_ms", "bound_ms", "issue_rate_ms",
+                         "earlier_ms", "earlier_device_ms")}
         # What bounds most of the forward's bound time.
         by = {}
         for r in fwd:
@@ -3317,7 +3329,8 @@ def phase_ladder(name: str, image: int, seed: int, smi: str,
     within RUNG_SERVE_TOL).  ``swap``: one swap of the whole ladder under
     mixed traffic, every answer one generation's."""
     from tpuic_torch import quant
-    from tpuic_torch.serve import InferenceEngine, make_forward
+    from tpuic_torch.serve import (DEFAULT_BUCKETS, InferenceEngine,
+                                   make_forward)
     tag, t0 = "ladder", time.perf_counter()
     model = ladder_model(name, image, seed)
     rungs = quant.serve_variants(model, quant.DTYPE_TAGS)
@@ -3335,22 +3348,11 @@ def phase_ladder(name: str, image: int, seed: int, smi: str,
     if min(agree.values()) < floor or corrupt >= floor:
         fail(tag, f"{name}: gate agreement {agree} (floor {floor}), the "
                   f"corruption arm {corrupt} (must fall below it)")
-    # Each rung's own forward, a row at batch 1 against batch 32: held for
-    # the rungs the engine runs at every bucket, reported for the bf16
-    # rung, which it runs at one (quant.rung_buckets).
-    rows = {}
-    for t, f in fwd.items():
-        rng = np.random.default_rng(1)
-        x = torch.from_numpy(rng.integers(
-            0, 256, (SERVE_BATCH, image, image, 3), dtype=np.uint8)).cuda()
-        big = f(x)[0]
-        rows[t] = max(float((f(x[r:r + 1])[0][0] - big[r]).abs().max())
-                      for r in (0, 17, 31))
-        if not bool(torch.isfinite(big).all()) or (
-                t != "bf16" and rows[t] > RUNG_ROW_TOL[t]):
-            fail(tag, f"{name} {t}: a row at batch 1 and in batch "
-                      f"{SERVE_BATCH} differ by {rows[t]} (bound "
-                      f"{RUNG_ROW_TOL[t]})")
+    # Each rung's own forward, a row at batch 1 against batch 32: held to
+    # RUNG_ROW_TOL for every rung the engine runs at every bucket; for a
+    # rung it pins to its largest bucket (rows_follow_batch) reported.
+    rows = {t: _rung_rows(tag, name, t, rungs[t], f, image)
+            for t, f in fwd.items()}
     leaves = set(quant.quantized_leaves(model))
     leaf_bytes = {
         "fp32": sum(p.numel() * p.element_size()
@@ -3363,14 +3365,13 @@ def phase_ladder(name: str, image: int, seed: int, smi: str,
                           input_dtype=np.uint8, normalize=True,
                           buckets=(1, 8, 32), variants={
                               t: m for t, m in rungs.items()
-                              if t != "fp32"},
-                          variant_buckets=quant.rung_buckets(
-                              quant.DTYPE_TAGS, (1, 8, 32)))
+                              if t != "fp32"})
     warm = eng.warmup()
     memory = eng.graph_memory()
+    buckets = {t: eng.bucket_for(1, t) for t in quant.DTYPE_TAGS}
     # Served rows: an image alone and inside a request of 32, through the
-    # engine (its buckets: a pinned rung runs both at 32), against
-    # RUNG_ROW_TOL; the direct rows above are the forwards' own.
+    # engine, against RUNG_ROW_TOL (0 by construction for a pinned rung:
+    # both ride bucket 32).
     rng = np.random.default_rng(1)
     x32 = rng.integers(0, 256, (SERVE_BATCH, image, image, 3),
                        dtype=np.uint8)
@@ -3389,36 +3390,47 @@ def phase_ladder(name: str, image: int, seed: int, smi: str,
     refs = {t: _pool_outputs(f, pool) for t, f in fwd.items()}
     served = {}
     for t in quant.DTYPE_TAGS:
-        eng.stats.reset()
         reset_counts()
-        results, errors, wall, pauses = _serve_rung(
-            eng, pool, LADDER_REQUESTS, seed, dtype=t)
+        windows, calls = [], 0
+        for _ in range(LADDER_WINDOWS):
+            # The same requests each window: the windows differ by timing.
+            eng.stats.reset()
+            results, errors, wall, pauses = _serve_rung(
+                eng, pool, LADDER_REQUESTS, seed, dtype=t)
+            snap = eng.stats.snapshot()
+            if errors:
+                fail(tag, f"{name} {t}: client errors {errors[:3]}")
+            worst = max(float(np.abs(out[0] - refs[t][lo:lo + n]).max())
+                        for _, lo, n, out, _ in results)
+            if worst > RUNG_SERVE_TOL[t]:
+                fail(tag, f"{name} {t}: served probabilities {worst} from "
+                          f"a direct forward (bound {RUNG_SERVE_TOL[t]})")
+            calls += snap["device_calls"]
+            windows.append({
+                "requests": len(results), "images": snap["images"],
+                "images_per_s": snap["throughput_images_per_sec"],
+                "images_per_s_wall": snap["images"] / wall,
+                "latency_ms": snap["latency_ms"], "span_ms": snap["span_ms"],
+                "device_calls": snap["device_calls"],
+                "max_abs_err_vs_direct": worst,
+                "gc_during_traffic": pauses})
         counts = read_counts()
-        snap = eng.stats.snapshot()
-        if errors:
-            fail(tag, f"{name} {t}: client errors {errors[:3]}")
-        worst = max(float(np.abs(out[0] - refs[t][lo:lo + n]).max())
-                    for _, lo, n, out, _ in results)
-        if worst > RUNG_SERVE_TOL[t]:
-            fail(tag, f"{name} {t}: served probabilities {worst} from a "
-                      f"direct forward (bound {RUNG_SERVE_TOL[t]})")
         launches = counts.get(counter, 0) if counter else 0
         others = {k: v for k, v in counts.items() if k != counter and v}
-        if launches != per_call * snap["device_calls"] or others:
+        if launches != per_call * calls or others:
             fail(tag, f"{name} {t}: {launches} {counter} launches for "
-                      f"{snap['device_calls']} device calls (expected "
-                      f"{per_call} each), other kernels {others}")
+                      f"{calls} device calls (expected {per_call} each), "
+                      f"other kernels {others}")
+        rates = sorted(r["images_per_s"] for r in windows)
         served[t] = {
-            "requests": len(results), "images": snap["images"],
-            "images_per_s": snap["throughput_images_per_sec"],
-            "images_per_s_wall": snap["images"] / wall,
-            "latency_ms": snap["latency_ms"], "span_ms": snap["span_ms"],
-            "device_calls": snap["device_calls"], "kernel": counter,
+            "images_per_s": rates[len(rates) // 2],
+            "images_per_s_spread": (rates[-1] - rates[0]) / rates[0],
+            "windows": windows, "device_calls": calls, "kernel": counter,
             "kernel_launches": launches, "launch_counts": counts,
-            "max_abs_err_vs_direct": worst, "gc_during_traffic": pauses}
+            "lone": _lone_requests(eng, pool, t)}
     out = {"model": name, "image": image, "gate_agreement": agree,
            "corruption_agreement": corrupt, "gate_floor": floor,
-           "batch1_vs_batch32": rows,
+           "batch1_vs_batch32": rows, "bucket_of_one_image": buckets,
            "served_batch1_vs_batch32": served_rows,
            "row_bounds": RUNG_ROW_TOL,
            "weight_bytes": weight_bytes, "quantized_leaf_bytes": leaf_bytes,
@@ -3427,10 +3439,79 @@ def phase_ladder(name: str, image: int, seed: int, smi: str,
     if swap:
         out["swap"] = _ladder_swap(eng, name, image, seed, pool, refs, tag)
     eng.close()
+    del eng
+    free()
+    # A lone bf16 request at the serve CLI's default buckets.
+    cli = InferenceEngine(rungs["bf16"], image_size=image,
+                          input_dtype=np.uint8, normalize=True,
+                          buckets=DEFAULT_BUCKETS, default_variant="bf16")
+    cli.warmup()
+    out["bf16_lone_at_cli_buckets"] = {
+        "buckets": list(DEFAULT_BUCKETS), **_lone_requests(cli, pool,
+                                                           "bf16")}
+    cli.close()
     out["seconds"] = time.perf_counter() - t0
     log(tag, json.dumps(out))
-    del eng, rungs, fwd, model
+    del cli, rungs, fwd, model
     free()
+    return out
+
+
+def _rung_rows(tag: str, name: str, t: str, rung, f, image: int) -> dict:
+    """Rung ``t``'s forward ``f``: the largest probability difference
+    between a row at batch 1 and the same row in a batch of 32 (rows 0,
+    17, 31).  The phase fails on a non-finite output, or where the engine
+    runs the rung at every bucket and the rows differ beyond
+    RUNG_ROW_TOL."""
+    from tpuic_torch.serve.engine import rows_follow_batch
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(
+        0, 256, (SERVE_BATCH, image, image, 3), dtype=np.uint8)).cuda()
+    big = f(x)[0]
+    diff = max(float((f(x[r:r + 1])[0][0] - big[r]).abs().max())
+               for r in (0, 17, 31))
+    pinned = rows_follow_batch(t, rung)
+    if not bool(torch.isfinite(big).all()) or (
+            not pinned and diff > RUNG_ROW_TOL[t]):
+        fail(tag, f"{name} {t}: a row at batch 1 and in batch "
+                  f"{SERVE_BATCH} differ by {diff} (bound "
+                  f"{RUNG_ROW_TOL[t]}), served at every bucket")
+    return {"diff": diff, "max_prob": float(big.max()),
+            "largest_bucket_only": pinned}
+
+
+def _lone_requests(eng, pool, t: str) -> dict:
+    """LONE_REQUESTS one-image requests of rung ``t``, one at a time:
+    the bucket they ride, their latency and device span (ms)."""
+    eng.stats.reset()
+    for i in range(LONE_REQUESTS):
+        eng.submit(pool[i:i + 1], dtype=t).result(timeout=600)
+    snap = eng.stats.snapshot()
+    return {"bucket": eng.bucket_for(1, t), "batch_hist": snap["batch_hist"],
+            "latency_ms": snap["latency_ms"],
+            "device_span_ms": snap["span_ms"].get("device")}
+
+
+def bf16_rows_by_family(smi: str) -> dict:
+    """The bf16 rung's batch-1 rows against batch 32 (``_rung_rows``) of
+    the families ``[ladder]`` does not serve: EfficientNet-B3 and
+    ResNet-50 unfused (cuDNN's convolutions, pinned by the engine)."""
+    from tpuic_torch import quant
+    from tpuic_torch.checkpoint import init_synthetic
+    from tpuic_torch.models import create_model
+    from tpuic_torch.serve import make_forward
+    out = {}
+    for label, name, image, kw in (
+            ("efficientnet-b3", EFF_MODEL, EFF_IMAGE, {}),
+            ("resnet50 unfused", "resnet50", IMAGE, {})):
+        model = init_synthetic(create_model(name, 1000, dtype="float32",
+                                            **kw), seed=0).eval()
+        rung = quant.bf16_variables(model)
+        out[label] = _rung_rows("ladder", label, "bf16", rung,
+                                make_forward(rung, normalize=True), image)
+        del model, rung
+        free()
+    log("ladder", f"bf16 rows by family: {json.dumps(out)} | {smi}")
     return out
 
 
@@ -3451,17 +3532,17 @@ def _ladder_swap(eng, name, image, seed, pool, refs, tag) -> dict:
     lock = threading.Lock()
 
     def answered(n):
-        if n >= LADDER_REQUESTS // 3:
+        if n >= SWAP_REQUESTS // 3:
             half.set()
 
     def keep_going():
-        # Until a third of LADDER_REQUESTS went in after the swap returned.
+        # Until a third of SWAP_REQUESTS went in after the swap returned.
         with lock:
             sent["all"] += 1
             if "done" in swapped:
                 sent["after"] += 1
-            return (sent["after"] <= LADDER_REQUESTS // 3
-                    and sent["all"] <= 20 * LADDER_REQUESTS)
+            return (sent["after"] <= SWAP_REQUESTS // 3
+                    and sent["all"] <= 20 * SWAP_REQUESTS)
 
     def swap_when_half():
         half.wait(timeout=600)
@@ -3473,7 +3554,7 @@ def _ladder_swap(eng, name, image, seed, pool, refs, tag) -> dict:
     worker = threading.Thread(target=swap_when_half)
     worker.start()
     results, errors, wall, _ = _serve_rung(
-        eng, pool, LADDER_REQUESTS, seed + 7,
+        eng, pool, SWAP_REQUESTS, seed + 7,
         dtype=lambda r: quant.DTYPE_TAGS[int(r.integers(0, 3))],
         on_answer=answered, keep_going=keep_going)
     worker.join(timeout=600)
@@ -3641,6 +3722,7 @@ def main(argv=None) -> int:
             VIT_MODEL: phase_ladder(VIT_MODEL, IMAGE, args.seed, smi,
                                     counter="flash_attention_fwd",
                                     per_call=VIT_LAYERS)}
+        ladder["bf16_rows_by_family"] = bf16_rows_by_family(smi)
         took["ladder"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cli_ladder = phase_serve_cli_ladder(root, ckpt_dir, smi)
@@ -3710,7 +3792,8 @@ def main(argv=None) -> int:
                 "max_abs_err": summary["bf16_max_abs_err"],
                 **{k: summary["bf16"][k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library_device_ms", "over_library")},
+                    "issue_rate_ms", "library_ms", "library_device_ms",
+                    "over_library")},
                 f"batch{SERVE_BATCH}": summary[f"batch{SERVE_BATCH}"][
                     "bf16"]},
              csrc + "conv_bn_relu_sm90.cu",

@@ -8,9 +8,10 @@
   (1e-6: the same function, padded to its bucket).
 - ``submit(dtype=...)`` picks the rung; a tag not configured (or
   unknown, ``fp8``) is refused at submit; a rung boundary closes a batch
-  the way an overflow does; ``quant.rung_buckets`` runs the bf16 rung at
-  the largest bucket only (a lone row then equals its row in a full
-  request, bit for bit).
+  the way an overflow does; a bf16 rung whose convolutions run on cuDNN
+  runs at the largest bucket only (a lone row then equals its row in a
+  full request, bit for bit), and ``rows_follow_batch`` says which
+  backbones those are.
 - ``swap_weights`` replaces the whole ladder as one unit: afterwards each
   rung answers with the new weights' rung; a swap that misses a tag (or
   adds one) is refused and changes nothing.
@@ -30,6 +31,7 @@ from tpuic_torch import quant
 from tpuic_torch.checkpoint import init_params
 from tpuic_torch.models import create_model
 from tpuic_torch.serve import InferenceEngine, make_forward
+from tpuic_torch.serve.engine import rows_follow_batch
 from tpuic_torch.serve import __main__ as pserve
 from tpuic_torch.serve.admission import SwapRejected
 
@@ -38,15 +40,15 @@ CLASSES = 10
 TAGS = quant.DTYPE_TAGS
 
 
-def _model(seed, device="cpu"):
+def _model(seed, device="cpu", fused=True):
     return init_params(create_model("resnet18-cifar", CLASSES,
-                                    dtype="float32", fused_conv_bn=True,
+                                    dtype="float32", fused_conv_bn=fused,
                                     device=device), seed,
                        device=device).eval()
 
 
-def _engine(seed=0, tags=TAGS, device="cpu", **kw):
-    rungs = quant.serve_variants(_model(seed, device), tags)
+def _engine(seed=0, tags=TAGS, device="cpu", fused=True, **kw):
+    rungs = quant.serve_variants(_model(seed, device, fused), tags)
     return InferenceEngine(rungs["fp32"], image_size=SIZE,
                            input_dtype=np.uint8, normalize=True,
                            buckets=(1, 2, 4), max_wait_ms=1.0, device=device,
@@ -92,16 +94,15 @@ def test_each_rung_and_bucket_serves_after_warmup_with_no_new_compile():
 
 
 def test_the_bf16_rung_runs_at_the_largest_bucket():
-    """``quant.rung_buckets`` pins the bf16 rung to the largest bucket: it
-    warms that one bucket, a one-image bf16 request rides it, and its row
-    equals the same row inside a full request bit for bit; fp32 keeps every
-    bucket.  A rung's bucket set must hold the largest."""
-    pins = quant.rung_buckets(TAGS, (1, 2, 4))
-    assert pins == {"bf16": (4,)}
-    eng, _ = _engine(variant_buckets=pins)
+    """A bf16 rung whose convolutions run on cuDNN (an unfused ResNet
+    here) runs at the largest bucket only: it warms that one bucket, a
+    one-image bf16 request rides it, and its row equals the same row
+    inside a full request bit for bit; fp32 and int8 keep every bucket."""
+    eng, _ = _engine(fused=False)
     try:
         t = eng.warmup()
-        assert sorted(t["bf16"]) == [4] and sorted(t["fp32"]) == [1, 2, 4]
+        assert sorted(t["bf16"]) == [4]
+        assert sorted(t["fp32"]) == sorted(t["int8"]) == [1, 2, 4]
         assert eng.bucket_for(1, "bf16") == 4 and eng.bucket_for(1) == 1
         imgs = quant.eval_images(4, SIZE)
         full = eng.submit(imgs, dtype="bf16").result(60)[0]
@@ -111,8 +112,23 @@ def test_the_bf16_rung_runs_at_the_largest_bucket():
         np.testing.assert_array_equal(one[0], full[2])
     finally:
         eng.close()
-    with pytest.raises(ValueError, match="the largest among them"):
-        _engine(variant_buckets={"bf16": (1, 2)})
+
+
+@pytest.mark.parametrize("name, kw, pinned", [
+    ("resnet18-cifar", {"fused_conv_bn": True}, False),   # K3
+    ("resnet18-cifar", {}, True),                         # cuDNN
+    ("vit-tiny", {"attention": "flash"}, False),          # cuBLAS, K4f
+    ("efficientnet-b0", {}, True),
+    ("inceptionv3", {}, True),
+])
+def test_rows_follow_batch_by_backbone(name, kw, pinned):
+    """Which rungs the engine pins to its largest bucket: the bf16 rung of
+    a backbone whose convolutions run on cuDNN, never fp32 or int8."""
+    model = create_model(name, CLASSES, dtype="float32", device="cpu",
+                         **kw).eval()
+    rungs = quant.serve_variants(model, TAGS)
+    assert [rows_follow_batch(t, m) for t, m in rungs.items()] == \
+        [False, pinned, False]
 
 
 def test_unknown_serve_dtype_is_refused_at_submit():

@@ -12,9 +12,9 @@ Three rungs, each a module the engine serves beside the others
   rounded to bfloat16, what ``tpuic``'s ``bf16_variables`` does to the
   tree): half the weight bytes, and bf16 on the tensor cores — cuDNN and
   cuBLAS for InceptionV3, EfficientNet and the ViT's matmuls, K3 with bf16
-  activations for the ResNet family, K4's bf16 forward for the ViT.  The
-  engine runs it at its largest bucket only (:func:`rung_buckets`), so a
-  row's answer does not depend on its batchmates' count.
+  activations for the ResNet family, K4's bf16 forward for the ViT.
+  Where cuDNN runs its convolutions the engine runs it at its largest
+  bucket only (``serve/engine.py:rows_follow_batch``).
 - **int8**: weight-only absmax quantization per output channel
   (:func:`absmax_quantize`: ``scale_c = absmax_c / 127``, ``q =
   round(w / scale)``, round half to even as ``jnp.round``) of the leaves
@@ -214,17 +214,6 @@ def serve_variants(model: nn.Module, tags: Iterable[str]
             raise ValueError(f"unknown serve dtype {tag!r}; "
                              f"supported: {DTYPE_TAGS}")
     return out
-
-
-def rung_buckets(tags: Iterable[str], buckets: Iterable[int]) -> dict:
-    """The engine's ``variant_buckets`` for a ladder: the bf16 rung runs
-    every batch at the largest bucket.  cuDNN and cuBLAS choose their bf16
-    algorithms by batch, so a row's bf16 probabilities would move with the
-    bucket it rides in (InceptionV3 by up to 1.45e-2 on the card); at one
-    batch a row's arithmetic is its own.  fp32 and int8 compute in float32
-    with TF32 off and keep every bucket."""
-    return {"bf16": (max(int(b) for b in buckets),)} if "bf16" in tags \
-        else {}
 
 
 def corrupt_variables(model: nn.Module, seed: int = 0,

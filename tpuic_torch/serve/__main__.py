@@ -708,15 +708,12 @@ def build_engine(args):
                                 std=dc.std, log=log)
     # Raw uint8 in, normalised inside the forward (4x fewer bytes to the
     # device than float32).
-    from tpuic_torch import quant
     engine = InferenceEngine(model, image_size=resize, input_dtype=np.uint8,
                              normalize=True, mean=dc.mean, std=dc.std,
                              buckets=buckets, max_wait_ms=args.max_wait_ms,
                              queue_size=args.queue_size, device=args.device,
                              variants={t: m for t, m in variants.items()
-                                       if t != "fp32"},
-                             variant_buckets=quant.rung_buckets(tags,
-                                                                buckets))
+                                       if t != "fp32"})
     t = engine.warmup()
     n = sum(len(v) if isinstance(v, dict) else 1 for v in t.values())
     made = ("captured {} bucket CUDA graphs" if engine.device.type == "cuda"

@@ -50,7 +50,9 @@ with few, large, fixed-shape calls:
   ``int8`` modules — each with its own forward and its own graph per
   bucket, sharing the bucket ladder, the queue and the batcher.  A request
   names its rung (``submit(dtype=...)``); a device batch holds requests of
-  one rung, so a rung boundary closes a batch as an overflow does.
+  one rung, so a rung boundary closes a batch as an overflow does.  A
+  bf16 rung whose convolutions run on cuDNN runs at the largest bucket
+  only (``rows_follow_batch``), so its rows do not move with the batch.
 - **Generations and hot swap**: the served weights are a *slot* — every
   rung's model with its forward and its graphs, and their memory pool.
   ``swap_weights`` writes a candidate ladder (one candidate per rung: the
@@ -103,6 +105,7 @@ from tpuic_torch.checkpoint.convert import load_jax_variables
 from tpuic_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from tpuic_torch.device import resolve_device
 from tpuic_torch.kernels import counting, no_tf32
+from tpuic_torch.models.vit import ViT
 from tpuic_torch.serve.admission import (DEFAULT_PRIORITY, PRIORITIES,
                                          AdmissionRejected, DeadlineExceeded,
                                          priority_index)
@@ -159,6 +162,24 @@ def make_forward(model, *, normalize: bool = False, mean=None, std=None):
             return probs, order
 
     return forward
+
+
+def rows_follow_batch(tag: str, model) -> bool:
+    """Whether rung ``tag`` of ``model`` would compute a row otherwise at
+    another batch.  ``fp32`` and ``int8`` compute in float32 with TF32 off,
+    and their rows keep to 1e-5.  In bf16 cuDNN picks its convolution
+    algorithms by batch, and each layer rounds its output to 8 mantissa
+    bits, so a row of a backbone whose convolutions run on cuDNN moves
+    with its bucket (InceptionV3's beyond the bf16 rung's 1e-2;
+    ``chip_smoke.py``'s ``[ladder]`` measures it per family).  The ViT
+    (cuBLAS and K4f) and the fused ResNet (K3, split-K planned at a fixed
+    batch) keep their rows.  The engine runs such a rung at its largest
+    bucket only, so a request's rows do not depend on its company."""
+    if tag != "bf16":
+        return False
+    backbone = getattr(model, "backbone", model)
+    return not (isinstance(backbone, ViT)
+                or getattr(backbone, "fused_inference", False))
 
 
 class _Request:
@@ -399,10 +420,8 @@ class InferenceEngine:
         ``bf16`` and ``int8`` rungs of the same weights — which the engine
         places on ``device`` in eval mode and serves through
         ``make_forward`` (TF32 off) with a graph per bucket of its own.
-    variant_buckets : ``{tag: buckets}``, a rung that runs only the
-        buckets named (a subset of ``buckets`` holding the largest):
-        ``quant.rung_buckets`` pins the bf16 rung to the largest, so a
-        row's bf16 arithmetic does not depend on the batch it rides in.
+        A rung whose rows would move with their batch runs at the
+        largest bucket only (:func:`rows_follow_batch`).
 
     Identity (the socket transport's ``pong`` and ready file carry it):
     ``generation`` (0 at boot, +1 per swap), ``model_digest``
@@ -418,8 +437,7 @@ class InferenceEngine:
                  forward_fn=None, stats: Optional[ServeStats] = None,
                  admission=None, autostart: bool = True,
                  device=None, variants: Optional[dict] = None,
-                 default_variant: str = "fp32",
-                 variant_buckets: Optional[dict] = None) -> None:
+                 default_variant: str = "fp32") -> None:
         if not buckets:
             raise ValueError("need at least one padding bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -461,15 +479,9 @@ class InferenceEngine:
                                                         **self._forward_kw))
         self._gen = _Slot(rungs, torch.cuda.Stream(self.device)
                           if self.device.type == "cuda" else None)
-        self._rung_buckets = {}
-        for tag in rungs:
-            own = tuple(sorted({int(b) for b in (variant_buckets or {}).get(
-                tag, self.buckets)}))
-            if not set(own) <= set(self.buckets) or own[-1] != self.max_batch:
-                raise ValueError(f"buckets {own} of rung {tag!r} must be "
-                                 f"some of {self.buckets}, the largest "
-                                 "among them")
-            self._rung_buckets[tag] = own
+        self._rung_buckets = {
+            tag: self.buckets[-1:] if rows_follow_batch(tag, r.model)
+            else self.buckets for tag, r in rungs.items()}
         self._standby: Optional[_Slot] = None
         # One swap at a time; the batcher holds _flip for the read of the
         # live slot and the launch with it, a swap for the flip.
