@@ -297,6 +297,23 @@ def test_expired_deadline_sheds_at_pop_batchmates_resolve():
     assert snap["requests"] == 3
 
 
+def test_cancelled_request_is_dropped_at_pop():
+    """A request whose future its caller cancelled never joins a batch:
+    no device call runs for it, and its batchmates resolve."""
+    eng = _engine(autostart=False, max_wait_ms=0.0)
+    gone = eng.submit(_imgs(value=7))
+    kept = eng.submit(_imgs(value=2))
+    assert gone.cancel()
+    batch = eng._gather(0.01)
+    assert [r.future for r in batch] == [kept]
+    eng.start()
+    eng._resolve(eng._dispatch(batch))
+    assert kept.result(timeout=30)[0][0] == 2 * SIZE * SIZE * 3
+    eng.close()
+    snap = eng.stats.snapshot()
+    assert snap["device_calls"] == 1 and snap["rejected_by"] == {}
+
+
 def test_estimated_service_feeds_the_shedder():
     """After traffic the span ledger gives a positive estimate, and a
     deadline inside it sheds although it has not yet passed at pop."""

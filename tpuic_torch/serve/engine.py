@@ -1207,7 +1207,12 @@ class InferenceEngine:
         """Pop-time deadline shed: True when ``req``'s deadline has passed
         or will within ``stats.estimated_service_s()``; its future then
         gets a typed ``DeadlineExceeded``.  Shedding happens strictly
-        before batch membership, so batchmates are untouched."""
+        before batch membership, so batchmates are untouched.  True also
+        for a request whose caller cancelled its future (the serve CLI's
+        drain does): it costs no device work, and a close after a drain
+        does not wait on it."""
+        if req.future.cancelled():
+            return True
         if req.deadline is None:
             return False
         if time.monotonic() + self.stats.estimated_service_s() \
