@@ -124,6 +124,19 @@ non-zero at the first phase that fails:
    byte of ``latest``'s payload flipped the restore must fall back to
    ``best``, bit for bit.  The payload's bytes and the host and disk
    seconds to snapshot, commit and restore are reported.
+11b. ddp   — data-parallel training through ``python -m tpuic_torch.train``
+   started with the ``TPUIC_*`` trio, at ``train``'s recipe (ResNet-50,
+   224 px, 1000 classes, LARS 4.8 with its warmup, global batch 128,
+   fused loss and optimizer, ``--fused-conv-bn``) for one epoch of
+   DDP_STEPS steps on ``train``'s first images, then its val pass: arm 1 a
+   one-process NCCL group (DDP around the model); arm 2 two processes
+   sharing the card over gloo with CUDA tensors (NCCL refuses two ranks on
+   one device), batch 64 each, SyncBN's and the loss normalizer's
+   all-reduces between them.  Each process counts its own launches from 0
+   at ``fit``: K1 forward and backward and K2 LARS once a step, K3 53
+   times per val forward.  Arm 1's per-step global losses against the
+   one-process ``Trainer``'s on the same batches, and arm 2's against arm
+   1's, within rtol 1e-3 (TRAIN_LOSS_RTOL); the step ms of each.
 12. serve-cli — ``python -m tpuic_torch.serve --model auto`` as a
    subprocess on ``ckpt``'s ResNet-50 checkpoint: 48 image files of the
    synthetic folder over stdin JSONL, each record's top-5 probabilities
@@ -317,6 +330,8 @@ TRAIN_BATCH = 128
 TRAIN_STEPS = 12
 TRAIN_CLASSES = 8
 LAMB_BATCH = 32
+DDP_STEPS = 4       # [ddp]'s epoch: [train]'s first DDP_STEPS global batches
+DDP_TIMEOUT = 300.0
 CKPT_STEPS = 3
 INC_IMAGE = 299     # the reference's resize (train.py:110)
 INC_BATCH = 32
@@ -1939,6 +1954,229 @@ def phase_train(root: str, seed: int, smi: str):
     del lamb
     free()
     return counts, lamb_counts, row
+
+
+# One process of ``python -m tpuic_torch.train`` (run as ``__main__``
+# through runpy) that counts its kernel launches from 0 at ``fit`` and
+# writes them, with the epoch's timing and the val numbers, as JSON.
+# ``gloo`` joins the trio's group on the card (gloo carries CUDA tensors;
+# NCCL refuses two ranks on one device) before the CLI's ``initialize``,
+# which then keeps it.
+_DDP_RANK = r"""
+import json, os, runpy, sys
+out, backend, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+import torch
+from tpuic_torch import kernels
+from tpuic_torch.train import loop
+if backend == "gloo":
+    torch.distributed.init_process_group(
+        "gloo", init_method="tcp://" + os.environ["TPUIC_COORDINATOR_ADDRESS"],
+        world_size=int(os.environ["TPUIC_NUM_PROCESSES"]),
+        rank=int(os.environ["TPUIC_PROCESS_ID"]))
+counters = {"cross_entropy_fwd": kernels.cross_entropy_fwd,
+            "cross_entropy_bwd": kernels.cross_entropy_bwd,
+            "lars_update": kernels.lars_update,
+            "lamb_update": kernels.lamb_update,
+            "conv_bn_relu": kernels.fused_conv_bn_relu,
+            "flash_attention_fwd": kernels.flash_attention_fwd,
+            "flash_attention_bwd_dq": kernels.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": kernels.flash_attention_bwd_dkv}
+_fit = loop.Trainer.fit
+
+def fit(self, *a, **k):
+    for fn in counters.values():
+        fn.launches = 0
+    best = _fit(self, *a, **k)
+    torch.cuda.synchronize()
+    rec = {"rank": self.rank, "world": self.world,
+           "backend": torch.distributed.get_backend(),
+           "launches": {n: fn.launches for n, fn in counters.items()},
+           "stats": self.stats, "val": self.last_val,
+           "val_forwards": len(self.val_loader)}
+    with open(os.path.join(out, "rank%d.json" % self.rank), "w") as f:
+        json.dump(rec, f)
+    return best
+
+loop.Trainer.fit = fit
+sys.argv = ["python -m tpuic_torch.train"] + argv
+runpy.run_module("tpuic_torch.train", run_name="__main__", alter_sys=True)
+"""
+
+
+def ddp_folder(root: str, dst: str) -> str:
+    """``train``'s folder cut to DDP_STEPS global batches: the first
+    images of each class of its train fold, linked, and its val fold."""
+    os.makedirs(os.path.join(dst, "train"))
+    per = TRAIN_BATCH * DDP_STEPS // TRAIN_CLASSES
+    for c in sorted(os.listdir(os.path.join(root, "train"))):
+        src = os.path.join(root, "train", c)
+        os.makedirs(os.path.join(dst, "train", c))
+        for name in sorted(os.listdir(src))[:per]:
+            os.symlink(os.path.join(src, name),
+                       os.path.join(dst, "train", c, name))
+    os.symlink(os.path.join(root, "val"), os.path.join(dst, "val"))
+    return dst
+
+
+def _ddp_argv(root: str, work: str, batch: int, seed: int) -> list:
+    """``train``'s recipe as train-CLI flags, for one epoch of ``root``."""
+    return ["--datadir", root, "--model", "resnet50", "--resize",
+            str(IMAGE), "--batchsize", str(batch), "--num-classes", "1000",
+            "--optimizer", "lars", "--lr", "4.8", "--weight-decay", "1e-4",
+            "--warmup-epochs", "5", "--epochs", "1", "--label-smoothing",
+            "0.1", "--no-class-weights", "--milestones", "--fused-loss",
+            "--fused-optimizer", "--fused-conv-bn", "--dtype", "float32",
+            "--no-pack", "--no-native", "--workers", "8",
+            "--log-every-steps", "1", "--seed", str(seed), "--no-resume",
+            "--ckpt-dir", os.path.join(work, "ckpt"), "--log-dir",
+            os.path.join(work, "logs")]
+
+
+def _ddp_run(tag: str, root: str, work: str, world: int, backend: str,
+             seed: int) -> dict:
+    """One arm: ``world`` processes of the train CLI on the card, joined
+    over ``backend``; their records, per-step global losses and step ms."""
+    import socket
+    os.makedirs(work)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    argv = _ddp_argv(root, work, TRAIN_BATCH // world, seed)
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)),
+            TPUIC_COORDINATOR_ADDRESS=f"localhost:{port}",
+            TPUIC_NUM_PROCESSES=str(world), TPUIC_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _DDP_RANK, work, backend, *argv],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DDP_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(tag, f"{backend} x{world}: no end within {DDP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-12:]:
+            log(tag, f"{backend} rank {r}: {line}")
+        if p.returncode:
+            fail(tag, f"{backend} x{world}: rank {r} exited {p.returncode}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return {"recs": recs, "losses": _jsonl_losses(os.path.join(
+        work, "logs", "metrics.jsonl")), "wall_s": wall}
+
+
+def _jsonl_losses(path: str) -> list:
+    """Per-step losses from a ``MetricLogger``'s ``metrics.jsonl``."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [r["loss"] for r in sorted(recs, key=lambda r: r["step"])
+            if "loss" in r]
+
+
+def _step_ms(stats: dict) -> float:
+    """Step ms between the first and the last deferred metric read."""
+    (s0, t_0), (s1, t_1) = stats["drains"][0], stats["drains"][-1]
+    return (t_1 - t_0) / (s1 - s0) * 1e3
+
+
+def _held(tag: str, name: str, got: list, want: list) -> list:
+    if len(got) != DDP_STEPS or len(want) != DDP_STEPS:
+        fail(tag, f"{name}: {len(got)} and {len(want)} logged losses, "
+                  f"expected {DDP_STEPS}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if not all(math.isfinite(v) for v in got) or max(rel) > TRAIN_LOSS_RTOL:
+        fail(tag, f"{name}: losses {got} against {want}, relative "
+                  f"difference {max(rel)} > {TRAIN_LOSS_RTOL}")
+    return rel
+
+
+def _ddp_launches(val_forwards: int) -> dict:
+    """One process's launches in ``ddp``'s epoch: K1 both ways and K2 LARS
+    once a step, K3 53 times per val forward."""
+    return expect(cross_entropy_fwd=DDP_STEPS, cross_entropy_bwd=DDP_STEPS,
+                  lars_update=DDP_STEPS, conv_bn_relu=53 * val_forwards)
+
+
+def phase_ddp(root: str, seed: int, smi: str) -> dict:
+    """Data-parallel training through the train CLI: a one-process NCCL
+    group against the one-process ``Trainer``, and two gloo processes on
+    the card against it (see the module docstring, ``ddp``)."""
+    from tpuic_torch.train.loop import Trainer
+    tag = "ddp"
+    t_start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ddp_", dir=root)
+    data = ddp_folder(root, os.path.join(work, "data"))
+    # The one-process Trainer: the CLI's configuration, in this process.
+    from tpuic_torch.train import __main__ as train_cli
+    parser = train_cli.build_parser()
+    cfg = train_cli.config_from_args(parser.parse_args(
+        _ddp_argv(data, os.path.join(work, "one"), TRAIN_BATCH, seed)),
+        parser)
+    one = Trainer(cfg, log=lambda msg: log(tag, f"one process: {msg}"),
+                  log_dir=os.path.join(work, "one", "logs"))
+    reset_counts()
+    one.fit()
+    one_counts = read_counts()
+    one_losses = _jsonl_losses(os.path.join(work, "one", "logs",
+                                            "metrics.jsonl"))
+    row = {"steps": DDP_STEPS, "global_batch": TRAIN_BATCH,
+           "one_process": {"losses": one_losses,
+                           "step_ms": _step_ms(one.stats),
+                           "launches": one_counts,
+                           "val": {k: one.last_val[k]
+                                   for k in ("accuracy", "loss")}}}
+    want = _ddp_launches(len(one.val_loader))
+    del one
+    free()
+    if one_counts != want:
+        fail(tag, f"one process: launches {one_counts}, expected {want}")
+    arms = {}
+    for name, world, backend, ref in (("nccl", 1, "nccl", one_losses),
+                                      ("gloo", 2, "gloo", None)):
+        arm = _ddp_run(tag, data, os.path.join(work, name), world, backend,
+                       seed)
+        ref = ref if ref is not None else arms["nccl"]["losses"]
+        against = "one process" if world == 1 else "arm 1 (nccl)"
+        rel = _held(tag, f"{backend} x{world} against {against}",
+                    arm["losses"], ref)
+        for rec in arm["recs"]:
+            if rec["backend"] != backend or rec["world"] != world:
+                fail(tag, f"rank {rec['rank']}: {rec['backend']} x"
+                          f"{rec['world']}, expected {backend} x{world}")
+            per = _ddp_launches(rec["val_forwards"])
+            if rec["launches"] != per:
+                fail(tag, f"{backend} rank {rec['rank']}: launches "
+                          f"{rec['launches']}, expected {per}")
+        r0 = arm["recs"][0]
+        arms[name] = {
+            "world": world, "backend": backend,
+            "batch_per_process": TRAIN_BATCH // world,
+            "losses": arm["losses"], "loss_rel_diff": rel,
+            "against": against,
+            "step_ms": [_step_ms(r["stats"]) for r in arm["recs"]],
+            "data_wait_s": [r["stats"]["data_wait_s"] for r in arm["recs"]],
+            "launches": [r["launches"] for r in arm["recs"]],
+            "val_forwards": [r["val_forwards"] for r in arm["recs"]],
+            "val": {k: r0["val"][k] for k in ("accuracy", "loss")},
+            "wall_s": arm["wall_s"]}
+        log(tag, f"{backend} x{world}: " + json.dumps(arms[name]))
+    row.update(arms=arms, loss_rtol=TRAIN_LOSS_RTOL, card=smi,
+               phase_s=time.perf_counter() - t_start)
+    log(tag, json.dumps({k: v for k, v in row.items() if k != "arms"}))
+    return row
 
 
 def _flip_byte(path: str, offset: int = 4096) -> None:
@@ -3687,6 +3925,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         write_folder(root, args.seed)
         counts, lamb_counts, train = phase_train(root, args.seed, smi)
+        t0 = time.perf_counter()
+        ddp = phase_ddp(root, args.seed, smi)
+        t_ddp = time.perf_counter() - t0
         ckpt_dir = os.path.join(root, "ckpt_smoke")
         ckpt = phase_ckpt(root, args.seed, ckpt_dir)
         serve_cli = phase_serve_cli(root, ckpt_dir, smi)
@@ -3710,7 +3951,8 @@ def main(argv=None) -> int:
         del vit
         free()
         vit_counts, vit_train = phase_vit_train(root, args.seed, smi)
-        took = {"to_vit_train": time.perf_counter() - t_start}
+        took = {"to_vit_train": time.perf_counter() - t_start,
+                "ddp": t_ddp}
         t0 = time.perf_counter()
         ladder = {
             "resnet50": phase_ladder("resnet50", IMAGE, args.seed, smi,
@@ -3748,6 +3990,12 @@ def main(argv=None) -> int:
     took["total"] = time.perf_counter() - t_start
     log("timing", json.dumps(took))
 
+    def ddp_counts(name):
+        """``name``'s launches on the ``ddp`` paths, by process."""
+        return {f"ddp {arm} rank {r}": c[name]
+                for arm, a in ddp["arms"].items()
+                for r, c in enumerate(a["launches"])}
+
     def k1(name):
         """K1's launches on each training path, each counted from 0 just
         before its path ran; ``launches`` stays ``[train]``'s."""
@@ -3755,7 +4003,7 @@ def main(argv=None) -> int:
             f"{tag} {dtype}": c[name]
             for tag, per in (("inception-train", inc_counts),
                              ("digits", digits_counts))
-            for dtype, c in per.items()}}
+            for dtype, c in per.items()}, **ddp_counts(name)}
 
     csrc = "tpuic_torch/kernels/csrc/"
     kernels = [summary]
@@ -3804,16 +4052,21 @@ def main(argv=None) -> int:
                         "status": "ok"})
         if name.startswith("cross_entropy"):
             kernels[-1]["launches_by_path"] = k1(name)
-    # K3 on the ladder's int8 and bf16 ResNet-50 rungs beside [serve]'s.
+        if name == "lars_update":
+            kernels[-1]["launches_by_path"] = {
+                "train": counts[name], **ddp_counts(name)}
+    # K3 on the ladder's int8 and bf16 ResNet-50 rungs and the ddp val
+    # passes beside [serve]'s.
     summary["launches_by_path"] = {
         "serve": launches, **{f"ladder {t}": r["kernel_launches"] for t, r
-                              in ladder["resnet50"]["served"].items()}}
+                              in ladder["resnet50"]["served"].items()},
+        **ddp_counts("conv_bn_relu")}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
                        "shapes": rows,
                        "serve": snap, "xent": xent_rows, "train": train,
-                       "swap": swap, "admission": admission,
+                       "swap": swap, "admission": admission, "ddp": ddp,
                        "ckpt": ckpt, "serve_cli": serve_cli,
                        "swap_cli": swap_cli, "predict": predicted,
                        "attn": attn_rows, "vit_serve": vit_snap,

@@ -28,6 +28,9 @@ import torch
 
 from tpuic_torch.serve import admission as padm
 from tpuic_torch.serve.engine import InferenceEngine, _PriorityQueue
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 SIZE = 4
 

@@ -37,6 +37,9 @@ from tpuic_torch.data.synthetic import make_synthetic_imagefolder
 from tpuic_torch.train.loop import Trainer
 from tpuic_torch.train.optimizer import make_optimizer
 from tpuic_torch.train.state import create_train_state
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 
 @pytest.fixture(scope="module")

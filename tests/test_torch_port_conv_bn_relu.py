@@ -27,6 +27,9 @@ from tpuic_torch.kernels import (fold_bn, fused_conv_bn_from_params,
                                  fused_conv_bn_relu, fused_conv_bn_relu_plain,
                                  no_tf32)
 from tpuic_torch.kernels.conv_bn_relu import norm_padding, plan
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 CASES = [
     # (h, w, cin, cout, k, stride, pad, relu) — tests/test_kernels.py CASES

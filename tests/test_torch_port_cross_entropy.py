@@ -23,6 +23,9 @@ from tpuic_torch.kernels.cross_entropy import (cross_entropy_bwd,
                                                cross_entropy_fwd_plain,
                                                fused_weighted_cross_entropy)
 from tpuic_torch.train.loss import classification_loss, weighted_cross_entropy
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 B = 37  # not a multiple of 8: the Pallas side pads the batch
 

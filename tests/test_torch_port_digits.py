@@ -22,9 +22,13 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from tpuic_torch.data import digits
+from _torch_threads import TORCH_THREADS, subprocess_env
+
+torch.set_num_threads(TORCH_THREADS)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,7 +83,7 @@ def test_digits_recipe_runs_one_epoch_on_cpu(tmp_path):
     digits.write_digits_folder(data)
     # Two threads a process: the suite runs several test processes on
     # the same cores, and a full thread pool each only oversubscribes.
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    env = subprocess_env(PYTHONPATH=ROOT)
     out = subprocess.run(
         [sys.executable, "-m", "tpuic_torch.train", "--datadir", data,
          "--ckpt-dir", ckpt, "--device", "cpu", "--epochs", "1",

@@ -35,6 +35,9 @@ from tpuic_torch.checkpoint import torch_convert as ptc
 from tpuic_torch.models import efficientnet as peff
 from tpuic_torch.models.classifier import Classifier
 from tpuic_torch.models.layers import Conv
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 CLASSES = 7
 SIZE = 64

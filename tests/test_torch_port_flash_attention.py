@@ -21,6 +21,9 @@ import pytest
 import torch
 
 from tpuic_torch.kernels import no_tf32
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 # tpuic_torch.kernels re-exports the function under the module's name.
 FA = importlib.import_module("tpuic_torch.kernels.flash_attention")

@@ -8,12 +8,16 @@ every port file finds no import statement naming them.
 
 import ast
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+from _torch_threads import TORCH_THREADS, subprocess_env
+
+torch.set_num_threads(TORCH_THREADS)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "tpuic_torch"
@@ -30,8 +34,7 @@ def _forbidden(name: str) -> bool:
 
 
 def _run(code: str) -> dict:
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT)
+    env = subprocess_env(PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

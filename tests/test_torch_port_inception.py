@@ -41,6 +41,9 @@ from tpuic_torch.checkpoint import torch_convert as ptc
 from tpuic_torch.train.optimizer import make_optimizer
 from tpuic_torch.train.state import create_train_state
 from tpuic_torch.train.step import make_train_step
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 CLASSES = 7
 WEIGHTS = (3.0, 3.0, 10.0, 1.0, 4.0, 4.0, 5.0)

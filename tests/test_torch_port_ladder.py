@@ -34,6 +34,9 @@ from tpuic_torch.serve import InferenceEngine, make_forward
 from tpuic_torch.serve.engine import rows_follow_batch
 from tpuic_torch.serve import __main__ as pserve
 from tpuic_torch.serve.admission import SwapRejected
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 SIZE = 32
 CLASSES = 10
@@ -211,7 +214,7 @@ def _corrupting(monkeypatch):
 
 
 _ARGS = ["--device", "cpu", "--synthetic-init", "--model", "resnet18",
-         "--num-classes", "3", "--resize", str(SIZE), "--buckets", "1,2"]
+         "--num-classes", "3", "--resize", str(SIZE), "--buckets", "1,32"]
 
 
 def test_cli_start_gate_refuses_a_corrupted_rung(monkeypatch):

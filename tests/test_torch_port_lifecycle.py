@@ -51,6 +51,9 @@ from tpuic_torch.serve import __main__ as pserve
 from tpuic_torch.serve.admission import SwapRejected
 from tpuic_torch.train.optimizer import make_optimizer
 from tpuic_torch.train.state import create_train_state
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 MODEL, CLASSES, SIZE = "resnet18-cifar", 10, 16
 OCFG = pcfg.OptimConfig(optimizer="sgd", class_weights=(), milestones=())

@@ -27,6 +27,9 @@ from tpuic_torch.checkpoint import init_synthetic, load_jax_variables
 from tpuic_torch.kernels import fused_conv_bn_relu
 from tpuic_torch.models.classifier import Classifier
 from tpuic_torch.models.resnet import Bottleneck, ResNet, s2d_stem_kernel
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 
 def _images(seed, size, batch=2):

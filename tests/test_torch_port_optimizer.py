@@ -34,6 +34,9 @@ from tpuic_torch.kernels.optimizer_update import (LeafTable, lamb_debias,
                                                   lars_update_plain)
 from tpuic_torch.train import optimizer as port_opt
 from tpuic_torch.train import schedule as port_sched
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 LEAF_TOL = dict(rtol=1e-5, atol=1e-7)
 # w + update: the update's own tolerance, taken at its scale (~0.1).

@@ -35,6 +35,9 @@ from tpuic_torch.data.synthetic import make_synthetic_imagefolder
 from tpuic_torch.predict import main as predict_main
 from tpuic_torch.predict import resolve_model_auto, run_predict
 from tpuic_torch.train.loop import Trainer
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 SIZE = 32
 CLASSES = ("ant", "bee", "cicada")

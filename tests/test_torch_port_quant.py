@@ -34,6 +34,9 @@ from tpuic_torch import quant
 from tpuic_torch.checkpoint import init_params, load_jax_variables
 from tpuic_torch.checkpoint.convert import _port_name
 from tpuic_torch.serve.engine import make_forward
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 CLASSES = 10
 BF16_TOL = 2e-2

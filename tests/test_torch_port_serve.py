@@ -21,6 +21,9 @@ from tpuic_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from tpuic_torch.models import create_model
 from tpuic_torch.serve.engine import (InferenceEngine, _Request,
                                       default_buckets, make_forward)
+from _torch_threads import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 SIZE = 16
 

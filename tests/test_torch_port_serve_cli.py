@@ -55,6 +55,9 @@ from tpuic_torch.serve import __main__ as pserve
 from tpuic_torch.serve import wire
 from tpuic_torch.train.optimizer import make_optimizer
 from tpuic_torch.train.state import create_train_state
+from _torch_threads import TORCH_THREADS, subprocess_env
+
+torch.set_num_threads(TORCH_THREADS)
 
 ROOT = Path(__file__).resolve().parent.parent
 SIZE = 32
@@ -330,7 +333,7 @@ def test_listen_sigterm_drains_with_typed_stragglers(served, tmp_path):
     answered, a request still queued when the drain window closes gets a
     typed error line (never a silent drop), and the server exits 0."""
     ready_file = tmp_path / "ready.json"
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = subprocess_env(PYTHONPATH=str(ROOT))
     env.pop("TPUIC_FAULTS", None)
     proc = subprocess.Popen(
         [sys.executable, "-m", "tpuic_torch.serve", "--device", "cpu",

@@ -34,6 +34,9 @@ from tpuic_torch.models.layers import BatchNorm
 from tpuic_torch.train.optimizer import make_optimizer, make_schedule
 from tpuic_torch.train.state import create_train_state
 from tpuic_torch.train.step import make_eval_step, make_train_step
+from _torch_threads import TORCH_THREADS, subprocess_env
+
+torch.set_num_threads(TORCH_THREADS)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = 7
@@ -299,7 +302,7 @@ def test_loader_batches_bitwise_tpuic(jx, folder):
 
 
 def _cli(args, timeout=240, threads=None):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = subprocess_env(PYTHONPATH=ROOT)
     if threads:  # the suite's processes share the cores
         env["OMP_NUM_THREADS"] = str(threads)
     return subprocess.run([sys.executable, "-m", "tpuic_torch.train",

@@ -37,6 +37,9 @@ from tpuic_torch.models.vit import ViT
 from tpuic_torch.train.optimizer import make_optimizer, make_schedule
 from tpuic_torch.train.state import create_train_state
 from tpuic_torch.train.step import make_train_step
+from _torch_threads import TORCH_THREADS, subprocess_env
+
+torch.set_num_threads(TORCH_THREADS)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = 7
@@ -347,7 +350,7 @@ def folder(tmp_path_factory):
 
 
 def _cli(args, timeout=240):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = subprocess_env(PYTHONPATH=ROOT)
     return subprocess.run([sys.executable, "-m", "tpuic_torch.train",
                            *args], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=timeout)

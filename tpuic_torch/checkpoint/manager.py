@@ -43,8 +43,17 @@ protocol:
   ladder: the hot-swap gate's read (``loading.load_candidate_variables``),
   where falling back to another rung would serve weights nobody named.
 
+- **Several processes** (``tpuic/checkpoint/manager.py:190``,
+  ``:275-289``, ``:331-341``, ``:370``): every process holds the same
+  state (data parallelism), so process 0 alone writes the payload, the
+  manifest, the sidecars and the rotation, and every process meets a
+  commit barrier after each save, so none reads a track process 0 is
+  still renaming.  Commits are synchronous then (no ``async_commit``).
+  On resume every process walks the ladder, and all of them check that
+  they restored the same epoch and step.
+
 Not ported: the fault point ``ckpt_kill``, the ``checkpoint_commit``
-telemetry event, the multi-host commit barrier and EMA parameters.
+telemetry event and EMA parameters.
 """
 
 from __future__ import annotations
@@ -59,8 +68,10 @@ import zlib
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tpuic_torch.checkpoint.convert import _invalidate
+from tpuic_torch.runtime import distributed
 
 # The resume keys, as tpuic writes them: completed steps of the saved epoch
 # at a mid-epoch flush, and the loader geometry that offset is valid for;
@@ -202,7 +213,9 @@ class CheckpointManager:
         self.root = os.path.abspath(os.path.join(ckpt_dir, name))
         self.save_period = save_period
         self.log = log
-        self._async_commit = bool(async_commit)
+        self.rank = distributed.process_index()
+        self.world = distributed.process_count()
+        self._async_commit = bool(async_commit) and self.world == 1
         self._commit_thread: Optional[threading.Thread] = None
         self._commit_error: Optional[BaseException] = None
         #: Host seconds and bytes of the last save: ``snapshot_s`` on the
@@ -215,7 +228,8 @@ class CheckpointManager:
         self.last_restore_meta: Optional[Tuple[int, int]] = None
         self.last_restore_step_in_epoch: Optional[int] = None
         self.last_restore_geometry: Optional[Tuple[int, int, int]] = None
-        os.makedirs(self.root, exist_ok=True)
+        if self.rank == 0:
+            os.makedirs(self.root, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def wait(self) -> None:
@@ -264,10 +278,20 @@ class CheckpointManager:
             bytes=sum(size for size, _ in manifest["files"].values()),
             commit_s=time.perf_counter() - t0)
 
+    def _commit_barrier(self) -> None:
+        """Every process waits here after each save until process 0's
+        rotation has landed (``tpuic``'s ``_commit_barrier``); free in one
+        process."""
+        if self.world > 1:
+            dist.barrier()
+
     def _save(self, track: str, state, epoch: int, best_score: float,
               step_in_epoch: int = -1, global_batch: int = -1,
               data_seed: int = -1, data_len: int = -1) -> None:
         self.wait()  # one save in flight; also orders best and latest
+        if self.rank != 0:
+            self._commit_barrier()
+            return
         t0 = time.perf_counter()
         payload = snapshot(state)
         pending = {"epoch": int(epoch), "best_score": float(best_score),
@@ -280,6 +304,7 @@ class CheckpointManager:
                           "snapshot_s": time.perf_counter() - t0}
         if not self._async_commit:
             self._commit(track, payload, pending)
+            self._commit_barrier()
             return
 
         def _bg() -> None:
@@ -420,7 +445,23 @@ class CheckpointManager:
         ladders through that track and its ``.prev`` only.  Returns
         ``(state, start_epoch, best_score)``: ``(state, 0, 0.0)`` when no
         checkpoint exists; raises ``RuntimeError`` when every rung
-        fails."""
+        fails, or when the processes of a group restored different
+        saves."""
+        out = self._restore_ladder(state, track, resume_cap)
+        if self.world > 1:
+            got = torch.tensor([out[1], int(state.step)], dtype=torch.int64,
+                               device=state.step.device)
+            every = [torch.empty_like(got) for _ in range(self.world)]
+            dist.all_gather(every, got)
+            if any(not torch.equal(t, every[0]) for t in every):
+                raise RuntimeError(
+                    "the processes restored different checkpoints (start "
+                    "epoch, step by process: "
+                    f"{[t.tolist() for t in every]})")
+        return out
+
+    def _restore_ladder(self, state, track: Optional[str],
+                        resume_cap: Optional[int]):
         self.wait()
         t0 = time.perf_counter()
         self.last_restore_rung = None

@@ -219,16 +219,27 @@ class RunConfig:
     max_steps: int = 0
     # Write and commit a checkpoint on a background thread, after its
     # tensors were copied to the host on the caller's thread; False
-    # commits before the save returns.
+    # commits before the save returns.  Several processes always commit
+    # before the save returns.
     async_checkpoint: bool = True
+    # Name the misclassified val images each epoch
+    # (Trainer.last_misclassified and a logged count), every process's
+    # rows gathered to every process: the reference's all_gather of
+    # per-sample results (ddp_utils.py:16-56).
+    collect_misclassified: bool = False
+    # Per-class val metrics: the [C, C] confusion matrix summed over the
+    # processes; balanced and worst-class accuracy logged, the matrix and
+    # per-class rows written beside the metrics JSONL.
+    per_class_metrics: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh axes.  The port trains on one device: an axis above 1,
-    ``fsdp`` or ``zero1`` makes the Trainer raise."""
+    """Device-mesh axes.  The port's data axis is its processes, one card
+    each: ``data`` must be 0 (all of them) or their number.  ``seq`` or
+    ``model`` above 1, ``fsdp`` or ``zero1`` makes the Trainer raise."""
 
-    data: int = 0  # 0 => all devices / (seq * model)
+    data: int = 0  # 0 => all processes
     seq: int = 1
     model: int = 1
     fsdp: bool = False

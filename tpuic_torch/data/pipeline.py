@@ -15,8 +15,22 @@
   overlaps the step that runs meanwhile.  The current stream waits for
   the copy before the batch is used.
 
+- **Per-process shard** (``tpuic/data/pipeline.py:133-176``,
+  ``:290-310``): with ``process_count`` processes each materialises
+  ``local_batch = global_batch / process_count`` rows of every global
+  batch, rank ``r`` the rows ``order[b * global_batch + r * local_batch :
+  ... + local_batch]``.  The order is global and every row draws its
+  augmentation from its own ``(seed, epoch, index)``, so rank ``r``'s rows
+  are bit for bit the rows the one-process run puts there.  A train
+  loader drops the last partial *global* batch; a val loader pads it with
+  mask-0 rows on every rank, so every rank takes the same number of
+  steps and collectives.  ``batch.indices`` is the whole global batch's
+  order and ``image_ids`` the local rows'.  Both arguments default to the
+  process group's (``tpuic_torch.runtime.distributed``), and the shard
+  math is pure in them, so one process can simulate N ranks.
+
 ``tpuic``'s packed uint8 path and its device-side augmentation are not
-ported; neither is multi-host sharding (one process, one device).
+ported.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import torch
 
 from tpuic_torch.data.folder import ImageFolderDataset
 from tpuic_torch.device import resolve_device
+from tpuic_torch.runtime import distributed
 
 
 class Batch(dict):
@@ -58,13 +73,15 @@ def _epoch_indices(n: int, epoch: int, seed: int, shuffle: bool,
 
 
 class Loader:
-    """Iterates batches of ``dataset`` on ``device`` (``None`` = the card)."""
+    """Iterates this process's shard of every global batch of ``dataset``
+    on ``device`` (``None`` = the card)."""
 
     def __init__(self, dataset: ImageFolderDataset, global_batch: int,
                  shuffle: Optional[bool] = None, seed: int = 0,
                  num_workers: int = 6, prefetch: int = 2,
                  drop_last: bool = False, augment: Optional[bool] = None,
-                 device=None) -> None:
+                 device=None, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None) -> None:
         self.dataset = dataset
         self.global_batch = int(global_batch)
         self.shuffle = dataset.train if shuffle is None else shuffle
@@ -76,6 +93,13 @@ class Loader:
         self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
         self.device = resolve_device(device)
+        self.process_index = (distributed.process_index()
+                              if process_index is None else int(process_index))
+        self.process_count = (distributed.process_count()
+                              if process_count is None else int(process_count))
+        if self.global_batch % self.process_count:
+            raise ValueError("global batch must divide across processes")
+        self.local_batch = self.global_batch // self.process_count
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -100,7 +124,7 @@ class Loader:
         n_batches = len(order) // self.global_batch
         if self.drop_last and n % self.global_batch:
             n_batches -= 1
-        gb = self.global_batch
+        gb, lb = self.global_batch, self.local_batch
         size = self.dataset.resize_size
         pin = self.device.type == "cuda"
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -121,14 +145,15 @@ class Loader:
                     if stop.is_set():
                         break
                     gidx = order[b * gb:(b + 1) * gb]
+                    lo = b * gb + self.process_index * lb
                     futs = [pool.submit(self._load_one, i, epoch)
-                            for i in gidx]
-                    imgs = np.empty((gb, size, size, 3), np.float32)
-                    labels = np.zeros((gb,), np.int32)
-                    ids = [""] * gb
+                            for i in order[lo:lo + lb]]
+                    imgs = np.empty((lb, size, size, 3), np.float32)
+                    labels = np.zeros((lb,), np.int32)
+                    ids = [""] * lb
                     for pos, f in enumerate(futs):
                         imgs[pos], labels[pos], ids[pos] = f.result()
-                    mask = (np.arange(b * gb, (b + 1) * gb)
+                    mask = (np.arange(lo, lo + lb)
                             < n_valid).astype(np.float32)
                     host = [torch.from_numpy(a) for a in (imgs, labels, mask)]
                     if pin:

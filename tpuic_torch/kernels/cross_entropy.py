@@ -14,7 +14,9 @@ Its forward runs :func:`cross_entropy_fwd` (per-row ``w * nll`` and
 ``w``) and keeps the normalisation ``sum(w * nll) / max(sum(w), 1e-12)``
 as torch ops outside the kernel; its backward runs
 :func:`cross_entropy_bwd` with ``scale = g / max(sum(w), 1e-12)`` passed
-as a device tensor, so a step reads nothing back to the host.
+as a device tensor, so a step reads nothing back to the host.  A
+data-parallel step passes the global batch's ``sum(w)`` in place of the
+local one, as ``tpuic`` passes its global scale into ``_bwd_kernel``.
 
 Each wrapper takes its plain version (``cross_entropy_fwd_plain``,
 ``cross_entropy_bwd_plain``, the Pallas kernels' arithmetic in plain
@@ -179,11 +181,11 @@ def _canonicalize(logits, labels, class_weights, mask):
 
 class _FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, cw, mask, label_smoothing):
+    def forward(ctx, logits, labels, cw, mask, label_smoothing, weight_sum):
         logits = logits.contiguous()
         wnll, w = cross_entropy_fwd(logits, labels, cw, mask,
                                     label_smoothing)
-        sum_w = torch.sum(w)
+        sum_w = torch.sum(w) if weight_sum is None else weight_sum.float()
         ctx.save_for_backward(logits, labels, cw, mask, sum_w)
         ctx.label_smoothing = label_smoothing
         return torch.sum(wnll) / torch.clamp(sum_w, min=1e-12)
@@ -194,17 +196,20 @@ class _FusedCrossEntropy(torch.autograd.Function):
         scale = (g / torch.clamp(sum_w, min=1e-12)).float()
         dlogits = cross_entropy_bwd(logits, labels, cw, mask, scale,
                                     ctx.label_smoothing)
-        return dlogits, None, None, None, None
+        return dlogits, None, None, None, None, None
 
 
 def fused_weighted_cross_entropy(logits, labels,
                                  class_weights: Optional[torch.Tensor] = None,
                                  mask: Optional[torch.Tensor] = None,
-                                 label_smoothing: float = 0.0):
+                                 label_smoothing: float = 0.0,
+                                 weight_sum: Optional[torch.Tensor] = None):
     """Drop-in fused equivalent of ``weighted_cross_entropy``
     (``tpuic_torch/train/loss.py``): a 0-d float32 loss whose gradient
-    with respect to ``logits`` runs the backward kernel."""
+    with respect to ``logits`` runs the backward kernel.  ``weight_sum``
+    replaces this batch's ``sum(w)`` in the forward's divisor and in the
+    backward's ``scale``: the global batch's, in a data-parallel step."""
     labels, cw, m = _canonicalize(logits, labels, class_weights, mask)
     return _FusedCrossEntropy.apply(logits, labels, cw, m,
-                                    float(label_smoothing))
+                                    float(label_smoothing), weight_sum)
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -68,7 +69,16 @@ class BatchNorm(nn.BatchNorm2d):
     (``tpuic/models/layers.py:44-60``, the ``--bn-bf16-stats``
     experiment): in train mode the batch mean and ``E[x^2] - E[x]^2`` are
     taken in the compute dtype and the centring happens there too; the
-    affine and the running statistics stay float32."""
+    affine and the running statistics stay float32.
+
+    **SyncBN.**  Under ``tpuic``'s sharded train step flax takes *global*
+    batch statistics, the reference's ``SyncBatchNorm``.  In a process
+    group of more than one process, a train-mode forward does the same:
+    :func:`_global_moments` all-reduces each channel's sums and count,
+    with gradients, so every rank normalises with the statistics of the
+    global batch and writes the same running buffers.
+    ``nn.SyncBatchNorm`` is not used: it writes the unbiased variance
+    into ``running_var``."""
 
     def __init__(self, features: int, *, momentum: float = 0.9,
                  eps: float = 1e-5, dtype=torch.float32,
@@ -90,11 +100,12 @@ class BatchNorm(nn.BatchNorm2d):
                                 self.running_var.float(),
                                 self.weight.float(), self.bias.float(),
                                 False, 0.0, self.eps).to(self.compute_dtype)
-        if self.f32_stats:
-            x = x.float()
+        x = x.float() if self.f32_stats else x.to(self.compute_dtype)
+        if _sync_world() > 1:
+            mean, var = _global_moments(x)
+        elif self.f32_stats:
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         else:
-            x = x.to(self.compute_dtype)
             mean = x.mean(dim=(0, 2, 3))
             var = torch.clamp(torch.square(x).mean(dim=(0, 2, 3))
                               - torch.square(mean), min=0.0)
@@ -106,6 +117,30 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y.to(self.compute_dtype)
+
+
+def _sync_world() -> int:
+    """The process group's size (1 without one): BN's batch is global."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _global_moments(x: torch.Tensor):
+    """Per-channel mean and biased variance of ``x`` [N, C, H, W] over the
+    batches of every process: flax's ``E[x^2] - E[x]^2``, clipped at 0.
+    Each rank's means (in ``x``'s dtype, as the one-process path takes
+    them) are weighted by its count and summed in float32 by one
+    all-reduce, whose backward all-reduces the gradients."""
+    from torch.distributed.nn.functional import all_reduce
+    c = x.shape[1]
+    n = float(x.numel() // c)
+    mean = x.mean(dim=(0, 2, 3))
+    meansq = torch.square(x).mean(dim=(0, 2, 3))
+    local = torch.cat([mean.float() * n, meansq.float() * n,
+                       torch.full((1,), n, device=x.device)])
+    total = all_reduce(local)
+    mean = (total[:c] / total[-1]).to(x.dtype)
+    meansq = (total[c:2 * c] / total[-1]).to(x.dtype)
+    return mean, torch.clamp(meansq - torch.square(mean), min=0.0)
 
 
 def batch_norm(features: int, *, momentum: float = 0.9, eps: float = 1e-5,

@@ -5,8 +5,10 @@ serve CLI polls it between requests, stops accepting, drains what is in
 flight for ``--drain-timeout`` seconds and exits 0.  The handler only
 records; the loop acts, so no work runs inside a signal handler.
 
-``tpuic``'s ``agree()`` (a cross-host OR of the latch) is not copied: the
-port runs one process until distributed training is ported.
+``tpuic``'s ``agree()`` (a cross-host OR of the latch) is not copied yet:
+it comes with the Trainer's preemption handling (ROADMAP §1 item 11), and
+in the port it must be a collective (an all-reduce of the latch over the
+process group), so every process flushes at the same step.
 """
 
 from __future__ import annotations

@@ -27,6 +27,23 @@ ported)::
       --optimizer adam --lr 3e-4 --weight-decay 0.05 --warmup-epochs 10 \\
       --label-smoothing 0.1 --clip-grad-norm 1.0 --no-class-weights \\
       --fused-loss --dtype float32 --no-pack --no-native
+
+Data parallel, one process a card (the reference's ``python -m
+torch.distributed.launch --nproc_per_node=4 train.py``): start one process
+per card with the ``TPUIC_COORDINATOR_ADDRESS`` / ``TPUIC_NUM_PROCESSES``
+/ ``TPUIC_PROCESS_ID`` trio that ``tpuic``'s ``train.py`` reads, and the
+same flags.  ``--batchsize`` is per process (the global batch is it times
+the processes, as in ``tpuic``); process 0 alone logs and writes the
+checkpoints.  Two processes on two cards::
+
+  for r in 0 1; do
+    TPUIC_COORDINATOR_ADDRESS=localhost:29500 TPUIC_NUM_PROCESSES=2 \\
+    TPUIC_PROCESS_ID=$r python -m tpuic_torch.train --datadir D \\
+        --model resnet50 --resize 224 --batchsize 64 ... &
+  done; wait
+
+Each process joins NCCL on ``cuda:{rank % cards}``; with ``--device cpu``
+they join gloo on the CPU instead.
 """
 
 from __future__ import annotations
@@ -43,12 +60,9 @@ _NOT_PORTED = (
     ("--init-from", dict(default="")),
     ("--device-cache-mb", dict(type=int, default=4096)),
     ("--cache-dir", dict(default="")),
-    ("--collect-misclassified", dict(action="store_true")),
-    ("--per-class-metrics", dict(action="store_true")),
     ("--remat-policy", dict(default="dots")),
     ("--drop-path", dict(type=float, default=0.0)),
     ("--profile-dir", dict(default="")),
-    ("--log-dir", dict(default="")),
     ("--skip-threshold", dict(type=int, default=10)),
     ("--no-rollback", dict(action="store_true")),
     ("--rewarm-steps", dict(type=int, default=0)),
@@ -146,6 +160,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accumulate BatchNorm batch statistics in the "
                         "compute dtype instead of float32 (ResNet family; "
                         "a bandwidth experiment)")
+    p.add_argument("--fused-conv-bn", action="store_true",
+                   help="validate through the fused conv+BN+ReLU kernel K3 "
+                        "(ModelConfig.fused_conv_bn; ResNet family)")
     p.add_argument("--fused-optimizer", action="store_true",
                    help="the fused multi-tensor LARS/LAMB kernel K2 "
                         "(tpuic_torch/kernels/optimizer_update.py)")
@@ -158,6 +175,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-skip-guard", action="store_true")
     p.add_argument("--steps", type=int, default=0,
                    help="stop after this many optimizer steps (0 = no cap)")
+    p.add_argument("--collect-misclassified", action="store_true",
+                   help="name every misclassified val image each epoch "
+                        "(gathered from every process)")
+    p.add_argument("--per-class-metrics", action="store_true",
+                   help="per-class val accuracy: the confusion matrix and "
+                        "per_class.jsonl go under --log-dir")
+    p.add_argument("--log-dir", default="",
+                   help="metrics.jsonl (and the per-class files) on "
+                        "process 0")
     for flag, kw in _NOT_PORTED:
         p.add_argument(flag, help="not yet ported to tpuic_torch", **kw)
     return p
@@ -193,6 +219,7 @@ def config_from_args(args: argparse.Namespace,
                           dtype=args.dtype, remat=args.remat,
                           attention=args.attention,
                           bn_f32_stats=not args.bn_bf16_stats,
+                          fused_conv_bn=args.fused_conv_bn,
                           compute_dtype=args.compute_dtype),
         optim=OptimConfig(optimizer=args.optimizer, learning_rate=args.lr,
                           milestones=tuple(args.milestones), gamma=args.gamma,
@@ -216,7 +243,9 @@ def config_from_args(args: argparse.Namespace,
                       resume=not args.no_resume,
                       log_every_steps=args.log_every_steps, seed=args.seed,
                       max_steps=args.steps,
-                      async_checkpoint=not args.no_async_checkpoint),
+                      async_checkpoint=not args.no_async_checkpoint,
+                      collect_misclassified=args.collect_misclassified,
+                      per_class_metrics=args.per_class_metrics),
         mesh=MeshConfig(model=args.model_axis, seq=args.seq_axis,
                         fsdp=args.fsdp, zero1=args.zero1),
     )
@@ -226,13 +255,21 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     cfg = config_from_args(args, parser)
+    from tpuic_torch.metrics.logging import host0_print
+    from tpuic_torch.runtime.distributed import initialize, shutdown
     from tpuic_torch.train.loop import Trainer
+    info = initialize(device=args.device)
+    host0_print(f"[tpuic_torch] {info.process_count} process(es)")
     try:
-        trainer = Trainer(cfg, device=args.device)
-    except NotImplementedError as e:
-        _fail(str(e))
-    best = trainer.fit()
-    print(f"[tpuic_torch] done; best val accuracy {best:.4f}")
+        try:
+            trainer = Trainer(cfg, device=args.device,
+                              log_dir=args.log_dir or None)
+        except NotImplementedError as e:
+            _fail(str(e))
+        best = trainer.fit()
+        host0_print(f"[tpuic_torch] done; best val accuracy {best:.4f}")
+    finally:
+        shutdown()
     return 0
 
 

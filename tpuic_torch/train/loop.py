@@ -1,4 +1,5 @@
-"""Epoch loop (``tpuic/train/loop.py``): ``Trainer`` on one device.
+"""Epoch loop (``tpuic/train/loop.py``): ``Trainer`` on one card, or on
+one card per process of a process group.
 
 ``Trainer(cfg, device=None)`` builds the train and val ``Loader``s, the
 model (``create_model_from_config`` with flax's default initialisation
@@ -25,6 +26,25 @@ per epoch and returns the best val accuracy.
   and ``fit()`` starts at the epoch after it, so a resumed run continues
   the uninterrupted one bit for bit (the batches and their augmentation
   are functions of the seed, the epoch and the index).
+- **Data parallel** (``tpuic/train/loop.py:276-314``): in a process
+  group (``tpuic_torch.runtime.distributed.initialize``) of N processes
+  the global batch is ``data.batch_size x N``; each process loads its
+  shard of it (``data/pipeline.py``) and the train step is data-parallel
+  (``train/step.py``).  ``mesh.data`` must be 0 (all processes) or N.
+  Process 0 alone logs (``host0_print``), writes ``log_dir``'s
+  ``metrics.jsonl`` (``metrics/logging.py``) and the checkpoints and
+  their sidecars; every process restores the same track on resume.
+- **Validation counts are global**: each process sums its shard's
+  ``correct``, ``count``, ``loss_num`` and ``loss_den`` on the device
+  and one all-reduce a val pass adds them up.  ``run.collect_misclassified``
+  names every misclassified val image on every process: the per-row
+  ``wrong`` vectors of the pass go through one ``all_gather`` and map to
+  image ids through the global order (``batch.indices``), as ``tpuic``'s
+  replicated ``wrong`` does (``tpuic/train/loop.py:817-905``).
+  ``run.per_class_metrics`` all-reduces the [C, C] confusion matrix and
+  logs ``val_balanced_acc`` and ``val_worst_class_acc``, and writes
+  ``confusion_e{epoch}.npy`` and ``per_class.jsonl`` under the logger's
+  root.
 - ``self.stats`` keeps host-side timing of the last epoch: steps, wall
   seconds, seconds spent waiting for the loader, and ``drains``, the
   (step, host time) at which each deferred read returned: the device had
@@ -43,14 +63,18 @@ the K4 flash-attention kernels with ``attention="flash"``.
 Not ported, and refused with ``NotImplementedError`` naming the field:
 mixup, CutMix, random erasing, EMA, ``freeze_backbone``, gradient
 accumulation, ``remat``, the packed loader (``pack``), the native decode
-core (``native``), mesh axes above 1 and EfficientNet training (its
+core (``native``), the ``seq`` and ``model`` axes above 1, ``fsdp``,
+``zero1`` (ROADMAP §1 item 12) and EfficientNet training (its
 stochastic depth needs the step's RNG plumbing, ROADMAP §1 item 8).  The
 ViT family trains in bf16 as the others do: its flash attention runs K4's
 bf16 kernels forward and backward.
 The ViT itself refuses drop-path and the sequence-parallel attention
 impls the same way.
 Mid-epoch (preemption) saves, rollback, elastic membership, telemetry and
-profiling are later items.
+profiling are later items (ROADMAP §1 items 6, 9 and 11).  A
+preemption's mid-epoch save across processes needs ``tpuic``'s
+``agree()`` (``tpuic/train/loop.py:593-615``) as a collective: every
+process must take the same decision at the same step.
 """
 
 from __future__ import annotations
@@ -62,14 +86,18 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from tpuic_torch.checkpoint import CheckpointManager, init_params
 from tpuic_torch.config import Config, resolve_compute_dtype
 from tpuic_torch.data.folder import ImageFolderDataset
 from tpuic_torch.data.pipeline import Loader
 from tpuic_torch.device import resolve_device
+from tpuic_torch.metrics.logging import MetricLogger, host0_print
 from tpuic_torch.metrics.meters import AverageMeter
 from tpuic_torch.models import create_model_from_config
+from tpuic_torch.runtime import distributed
 from tpuic_torch.train.optimizer import make_optimizer, make_schedule
 from tpuic_torch.train.state import create_train_state
 from tpuic_torch.train.step import make_eval_step, make_train_step
@@ -99,7 +127,6 @@ def unported_settings(cfg: Config) -> list:
         ("model.remat", m.remat),
         ("data.pack", d.pack),
         ("data.native", d.native),
-        ("mesh.data", mesh.data > 1),
         ("mesh.seq", mesh.seq > 1),
         ("mesh.model", mesh.model > 1),
         ("mesh.fsdp", mesh.fsdp),
@@ -109,34 +136,54 @@ def unported_settings(cfg: Config) -> list:
     return [name for name, on in checks if on]
 
 
+def _silent(msg: str) -> None:
+    pass
+
+
 class Trainer:
     def __init__(self, cfg: Config, device=None,
-                 log: Callable[[str], None] = print) -> None:
+                 log: Optional[Callable[[str], None]] = None,
+                 log_dir: Optional[str] = None) -> None:
+        """``log`` (default ``host0_print``) takes process 0's console
+        lines; ``log_dir`` turns on ``MetricLogger`` there (``tpuic``'s
+        ``Trainer(cfg, log_dir=...)``)."""
         bad = unported_settings(cfg)
         if bad:
             raise NotImplementedError(
                 f"not yet ported to tpuic_torch: {', '.join(bad)}")
+        self.rank = distributed.process_index()
+        self.world = distributed.process_count()
+        if cfg.mesh.data not in (0, self.world):
+            raise ValueError(
+                f"mesh.data is {cfg.mesh.data} but {self.world} process(es) "
+                "train: the data axis is one process a card (0 = all)")
         self.device = resolve_device(device)
-        self.log = log
+        self.log = (log or host0_print) if self.rank == 0 else _silent
+        self.logger = MetricLogger(log_dir)
         d = cfg.data
+        global_batch = d.batch_size * self.world
+        shard = dict(process_index=self.rank, process_count=self.world)
         self.train_ds = ImageFolderDataset(d.data_dir, "train", d.resize_size,
                                            d)
         self.val_ds = ImageFolderDataset(d.data_dir, "val", d.resize_size, d,
                                          class_to_idx=self.train_ds.class_to_idx)
-        self.train_loader = Loader(self.train_ds, d.batch_size,
+        self.train_loader = Loader(self.train_ds, global_batch,
                                    seed=d.shuffle_seed,
                                    num_workers=d.num_workers,
                                    prefetch=d.prefetch, drop_last=True,
                                    augment=None if d.augment else False,
-                                   device=self.device)
+                                   device=self.device, **shard)
         if self.train_loader.steps_per_epoch() == 0:
             raise ValueError(
-                f"train fold has {len(self.train_ds)} images but the batch "
-                f"is {d.batch_size}: every epoch would train zero steps "
-                "(the partial batch is dropped)")
-        self.val_loader = Loader(self.val_ds, d.resolved_val_batch_size(),
+                f"train fold has {len(self.train_ds)} images but the "
+                f"global batch is {global_batch} ({d.batch_size} x "
+                f"{self.world} processes): every epoch would train zero "
+                "steps (the partial batch is dropped)")
+        self.val_loader = Loader(self.val_ds,
+                                 d.resolved_val_batch_size() * self.world,
                                  shuffle=False, num_workers=d.num_workers,
-                                 prefetch=d.prefetch, device=self.device)
+                                 prefetch=d.prefetch, device=self.device,
+                                 **shard)
         num_classes = cfg.model.num_classes or self.train_ds.num_classes
         mcfg = dataclasses.replace(cfg.model, num_classes=num_classes,
                                    dtype=resolved_model_dtype(cfg.model))
@@ -161,31 +208,39 @@ class Trainer:
             cfg.run.seed, device=self.device)
         steps = max(1, self.train_loader.steps_per_epoch())
         self.schedule = make_schedule(cfg.optim, steps, cfg.run.epochs,
-                                      global_batch=d.batch_size)
+                                      global_batch=global_batch)
         tx = make_optimizer(cfg.optim, steps, cfg.run.epochs,
-                            global_batch=d.batch_size)
+                            global_batch=global_batch)
         self.state = create_train_state(self.model, tx)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.log(f"[model] {mcfg.name}: {n_params / 1e6:.1f}M params, "
-                 f"{num_classes} classes, batch {d.batch_size}, "
+                 f"{num_classes} classes, batch {d.batch_size}"
+                 + (f" x {self.world} processes" if self.world > 1 else "")
+                 + ", "
                  f"optimizer {tx.kind}, on {self.device}, {mcfg.dtype} "
                  "compute")
         self.train_step = make_train_step(cfg.optim, mcfg,
                                           lr_schedule=self.schedule,
                                           device=self.device)
-        self.eval_step = make_eval_step(cfg.optim, mcfg, device=self.device)
+        self.eval_step = make_eval_step(
+            cfg.optim, mcfg, device=self.device,
+            per_sample=cfg.run.collect_misclassified,
+            per_class=cfg.run.per_class_metrics)
         self.ckpt = CheckpointManager(cfg.run.ckpt_dir, mcfg.name,
                                       cfg.run.save_period,
                                       async_commit=cfg.run.async_checkpoint,
                                       log=self.log)
         # Sidecars: the resolved config (inferred class count, derived
         # class weights) and the class names, for loading and serving.
-        with open(os.path.join(self.ckpt.root, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(dataclasses.replace(cfg, model=mcfg)),
-                      f, indent=2, default=str)
-        with open(os.path.join(self.ckpt.root, "class_to_idx.json"),
-                  "w") as f:
-            json.dump(self.train_ds.class_to_idx, f, indent=2)
+        if self.rank == 0:
+            with open(os.path.join(self.ckpt.root, "config.json"),
+                      "w") as f:
+                json.dump(dataclasses.asdict(
+                    dataclasses.replace(cfg, model=mcfg)), f, indent=2,
+                    default=str)
+            with open(os.path.join(self.ckpt.root, "class_to_idx.json"),
+                      "w") as f:
+                json.dump(self.train_ds.class_to_idx, f, indent=2)
         self.start_epoch = 0
         self.best_score = 0.0
         if cfg.run.resume:
@@ -208,6 +263,7 @@ class Trainer:
         # The read returns once the device has finished step ``step_num``.
         self._drains.append((step_num, time.perf_counter()))
         losses.update(vals["loss"], 1)
+        self.logger.write(step_num, **vals)
         msg = (f"Epoch: {epoch}; step {step_num}; Loss {losses.val:.4f}|"
                f"({losses.avg:.4f}); acc {vals['accuracy']:.4f}; "
                f"lr {vals.get('lr', 0.0):.6g}")
@@ -263,25 +319,87 @@ class Trainer:
         return losses.avg
 
     def val_epoch(self, epoch: int) -> float:
-        """Reference val_epoch (train.py:78-97): exact val accuracy x100 and
-        the exact weighted val CE, from per-batch device sums read once at
-        the end."""
-        sums = None
+        """Reference val_epoch (train.py:78-97): exact global val accuracy
+        x100 and the exact global weighted val CE, from per-batch device
+        sums read once at the end (module docstring)."""
+        collect = self.cfg.run.collect_misclassified
+        per_class = self.cfg.run.per_class_metrics
+        sums, wrongs, orders = None, [], []
         for batch in self.val_loader.epoch(epoch):
             m = self.eval_step(self.state, {k: batch[k] for k in
                                             ("image", "label", "mask")})
+            if collect:
+                wrongs.append(m.pop("wrong"))
+                orders.append(batch.indices)
             sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+        if self.world > 1:
+            flat = torch.cat([v.reshape(-1).float() for v in sums.values()])
+            dist.all_reduce(flat)
+            sums = dict(zip(sums, (t.reshape(v.shape) for t, v in zip(
+                flat.split([v.numel() for v in sums.values()]),
+                sums.values()))))
+        confusion = (sums.pop("confusion").double().cpu().numpy()
+                     if per_class else None)
         vals = {k: float(v) for k, v in sums.items()}
         score = 100.0 * vals["correct"] / max(vals["count"], 1.0)
         val_loss = vals["loss_num"] / max(vals["loss_den"], 1e-12)
+        extra = {}
+        if collect:
+            self.last_misclassified = self._misclassified(wrongs, orders)
+            extra["n_misclassified"] = len(self.last_misclassified)
         top5 = ""
         if "correct5" in vals:
-            top5 = (f"; Top-5 "
-                    f"{100.0 * vals['correct5'] / max(vals['count'], 1.0):.4f}")
+            extra["val_top5"] = 100.0 * vals["correct5"] / max(
+                vals["count"], 1.0)
+            top5 = f"; Top-5 {extra['val_top5']:.4f}"
+        if per_class:
+            extra.update(self._per_class(confusion, epoch))
         self.log(f"Epoch: {epoch}; Val Accuracy {score:.4f}{top5}; "
                  f"Val Loss {val_loss:.4f}")
-        self.last_val = {"accuracy": score, "loss": val_loss, **vals}
+        self.logger.write(int(self.state.step), val_accuracy=score,
+                          val_loss=val_loss, **extra)
+        self.last_val = {"accuracy": score, "loss": val_loss, **vals,
+                         **extra}
         return score
+
+    def _misclassified(self, wrongs: list, orders: list) -> list:
+        """Image ids of every misclassified val row of the pass, in the
+        global order: the [steps, local batch] ``wrong`` of each process
+        gathered into [steps, global batch], whose columns index the
+        global batch's ``batch.indices``."""
+        if not wrongs:
+            return []
+        wrong = torch.stack(wrongs)
+        if self.world > 1:
+            parts = [torch.empty_like(wrong) for _ in range(self.world)]
+            dist.all_gather(parts, wrong)
+            wrong = torch.stack(parts, dim=1).reshape(len(wrongs), -1)
+        ds = self.val_loader.dataset
+        return [ds.image_id(int(orders[b][pos])) for b, pos in
+                zip(*np.nonzero(wrong.cpu().numpy() > 0.5))]
+
+    def _per_class(self, confusion: np.ndarray, epoch: int) -> dict:
+        """Balanced and worst-class val accuracy from the global confusion
+        matrix, which goes with its per-class rows to the logger's root."""
+        self.last_confusion = confusion
+        support = confusion.sum(axis=1)
+        cls_acc = np.divide(np.diag(confusion), support,
+                            out=np.zeros_like(support), where=support > 0)
+        present = support > 0
+        out = {}
+        if present.any():
+            out["val_balanced_acc"] = 100.0 * cls_acc[present].mean()
+            out["val_worst_class_acc"] = 100.0 * cls_acc[present].min()
+        if self.logger.root is not None:
+            np.save(os.path.join(self.logger.root,
+                                 f"confusion_e{epoch}.npy"), confusion)
+            with open(os.path.join(self.logger.root, "per_class.jsonl"),
+                      "a") as f:
+                f.write(json.dumps({
+                    "epoch": epoch,
+                    "acc": [round(100.0 * a, 2) for a in cls_acc],
+                    "support": [int(s) for s in support]}) + "\n")
+        return out
 
     def fit(self, epochs: Optional[int] = None) -> float:
         """Train from ``start_epoch`` up to ``epochs`` (default

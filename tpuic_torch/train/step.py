@@ -28,6 +28,26 @@ Optimizer moments and checkpoints stay float32.  ``optim.loss_scale`` is static
 loss scaling: the backward runs on ``loss * loss_scale`` and the
 gradients are divided by it before the norm, the guard and the update.
 
+**Data parallel** (``tpuic/train/step.py:1-23``: one program over the
+sharded global batch).  When the step is built in a process group
+(``tpuic_torch.runtime.distributed.initialize``), each process runs it on
+its shard and the forward and backward go through
+``DistributedDataParallel`` around ``state.model``, built at the first
+step; ``state.model`` stays the bare module, so the weight carriers, the
+checkpoint and the eval forward never see DDP's ``module.`` prefix.
+- The loss is this rank's share of the global-batch loss
+  (``classification_loss(..., data_parallel=True)``), so DDP's mean of
+  the gradients is the global batch's gradient; BN takes global batch
+  statistics (``models/layers.py``), so ``broadcast_buffers`` is off and
+  the running buffers are equal on every rank by construction.
+- ``loss`` and ``accuracy`` are the global batch's (one all-reduce a
+  step); ``grad_norm`` is taken after DDP's all-reduce, so it too is
+  global, and the skip guard takes the same decision on every rank.
+- DDP copies each all-reduced bucket back into ``p.grad`` (no
+  ``gradient_as_bucket_view``), and the step zeroes the gradients in
+  place, so they keep their addresses from step to step and the K2
+  kernels' leaf table is built once.
+
 ``batch`` is ``{"image": [B, H, W, 3] float32, "label": [B] int32,
 "mask": [B] float32}`` on the model's device.  Mixup, CutMix, random
 erasing and remat are not ported (the Trainer refuses them).
@@ -38,6 +58,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from tpuic_torch.config import ModelConfig, OptimConfig, resolve_compute_dtype
 from tpuic_torch.metrics.meters import accuracy, topk_accuracy
@@ -60,17 +82,28 @@ def _masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor]):
     return torch.sum(values * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
+def _ddp(model: torch.nn.Module) -> DistributedDataParallel:
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        broadcast_buffers=False)
+
+
 def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
                     lr_schedule: Optional[Callable] = None,
                     device=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; see the module
     docstring.  ``device`` places the class-weight vector once, so the
-    step makes no host-to-device copy of its own."""
+    step makes no host-to-device copy of its own.  Built in a process
+    group, the step is data-parallel."""
     class_weights = _class_weights(optim_cfg, device)
     impl = "fused" if optim_cfg.fused_loss else "reference"
     guard = bool(optim_cfg.skip_nonfinite)
     bf16 = resolve_compute_dtype(model_cfg) == "bf16"
     loss_scale = float(optim_cfg.loss_scale or 1.0)
+    parallel = dist.is_initialized()
+    world = dist.get_world_size() if parallel else 1
+    wrapper = {}
 
     def train_step(state: TrainState, batch):
         images, labels = batch["image"], batch["label"]
@@ -92,16 +125,35 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
             torch._foreach_zero_(grads)
         if bf16:
             images = images.to(torch.bfloat16)
-        out = model(images)
+        forward = model
+        if parallel:
+            if wrapper.get("module") is not model:
+                wrapper.update(module=model, ddp=_ddp(model))
+            forward = wrapper["ddp"]
+        out = forward(images)
         if bf16:  # the loss is taken on float32 logits
             out = (tuple(t.float() for t in out) if isinstance(out, tuple)
                    else out.float())
         loss = classification_loss(
             out, labels, class_weights=class_weights, mask=mask,
             aux_weight=model_cfg.aux_loss_weight,
-            label_smoothing=optim_cfg.label_smoothing, impl=impl)
+            label_smoothing=optim_cfg.label_smoothing, impl=impl,
+            data_parallel=parallel)
         (loss * loss_scale if loss_scale != 1.0 else loss).backward()
         logits = (out[0] if isinstance(out, tuple) else out).detach()
+        loss = loss.detach()
+        if world > 1:
+            # The global batch's loss and accuracy: the mean of the ranks'
+            # shares, and the ratio of summed counts.
+            m = (torch.ones_like(labels, dtype=torch.float32)
+                 if mask is None else mask.float())
+            sums = torch.stack([loss, torch.sum(accuracy(logits, labels)
+                                                * m), torch.sum(m)])
+            dist.all_reduce(sums)
+            loss = sums[0] / world
+            correct = sums[1] / torch.clamp(sums[2], min=1.0)
+        else:
+            correct = _masked_mean(accuracy(logits, labels), mask)
         grads = [p.grad for p in params]
         if loss_scale != 1.0:
             torch._foreach_mul_(grads, 1.0 / loss_scale)
@@ -125,9 +177,8 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
                     state.skip_count + 1))
                 metrics["skipped"] = 1.0 - finite.float()
                 metrics["skip_count"] = state.skip_count.clone()
-            metrics["loss"] = loss.detach()
-            metrics["accuracy"] = _masked_mean(accuracy(logits, labels),
-                                               mask)
+            metrics["loss"] = loss
+            metrics["accuracy"] = correct
             metrics["grad_norm"] = grad_norm
         return state, metrics
 
@@ -135,14 +186,22 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
 
 
 def make_eval_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
-                   device=None) -> Callable:
+                   device=None, per_sample: bool = False,
+                   per_class: bool = False) -> Callable:
     """``eval_step(state, batch) -> metrics``: 0-d device tensors
     ``correct`` (sum of 0/1 over valid rows), ``count`` (sum of the mask),
     ``loss_num`` (sum of w * nll), ``loss_den`` (sum of w), and ``correct5``
     when there are more than five classes.  Summed over batches and divided
     on the host they give the exact val accuracy and weighted CE.  The
     forward runs in eval mode, through the K3 kernel when the model was
-    built with ``fused_conv_bn``."""
+    built with ``fused_conv_bn``.
+
+    ``per_sample=True`` adds ``wrong``, the [B] 0/1 misclassification
+    vector (0 on padded rows); ``per_class=True`` adds ``confusion``, the
+    [C, C] count matrix (rows the true class, columns the predicted), as
+    ``tpuic/train/step.py:492-557``.  Every value is this process's
+    batch's: the Trainer sums them over the processes once a val pass
+    (``train/loop.py``)."""
     class_weights = _class_weights(optim_cfg, device)
 
     @torch.no_grad()
@@ -169,6 +228,16 @@ def make_eval_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
                "loss_num": loss * loss_den, "loss_den": loss_den}
         if logits.shape[-1] > 5:
             out["correct5"] = torch.sum(topk_accuracy(logits, labels, 5) * m)
+        if per_sample:
+            out["wrong"] = (1.0 - acc) * m
+        if per_class:
+            n_cls = logits.shape[-1]
+            classes = torch.arange(n_cls, device=logits.device)
+            oh_true = (classes[None, :] == labels.long()[:, None]).float() \
+                * m[:, None]
+            oh_pred = (classes[None, :]
+                       == torch.argmax(logits, dim=-1)[:, None]).float()
+            out["confusion"] = oh_true.T @ oh_pred
         return out
 
     return eval_step
