@@ -200,7 +200,28 @@ non-zero at the first phase that fails:
    BF16_LOSS_RTOL (2e-2) of the float32 arm's.  Then 3 steps from one
    state through the kernels, through dense attention and the plain loss
    (TF32 off: the per-step losses agree within rtol 1e-3), and through the
-   kernels in bf16 (within BF16_LOSS_RTOL of the float32 kernels').
+   kernels in bf16 (within BF16_LOSS_RTOL of the float32 kernels').  Then
+   the recipe arm: section 4's regularisers (mixup 0.2, CutMix 1.0, random
+   erasing 0.25, drop-path 0.1, EMA 0.9999) in bf16 for 12 steps and a val
+   pass on the EMA weights: K4 as above, K1 twice a step (the mixed loss's
+   two terms), step ms beside the plain-recipe bf16 arm's; 3 steps through
+   the kernels against 3 through dense attention and the plain loss with
+   the same draws (float32, TF32 off, rtol 1e-3); and two steps with
+   ``--remat --remat-policy dots`` against two without: losses and
+   gradient norms within REMAT_RTOL (1e-6, stated before the first run),
+   K4's forward 24 a step under remat (12 run again in the backward).
+   accum (inside ``train``) — the same ResNet-50 LARS recipe at batch 64
+   with ``grad_accum_steps`` 2 for 4 micro-steps through the kernels and
+   through the plain loss and LARS: the parameters still on the
+   micro-steps between updates, within ACCUM_RTOL (1e-3) of the plain
+   arm's after each update, K2a launched on every micro-step with its gate
+   open on 2.
+   effnet-train — recipes/README.md section 3: EfficientNet-B0 at 224 px,
+   SGD 0.4, bf16, batch 128, stochastic depth 0.2 (9 draw sites), the
+   fused loss, 12 steps and a val pass: step ms, data-wait share, K1 once
+   each way a step, every convolution of the first step bfloat16; 3 steps
+   through K1 against 3 through the plain loss with the same draws
+   (float32, TF32 off, rtol 1e-3).
 20. ladder — the serve dtype ladder (``tpuic_torch.quant``: fp32, bf16,
    int8) for ResNet-50 (224 px, K3 on every rung), InceptionV3 (299 px,
    no kernel) and ViT-B/16 (224 px, K4f on every rung, its bf16 build on
@@ -260,23 +281,31 @@ non-zero at the first phase that fails:
    (1,438 train, 359 val), the train CLI's ``main`` with the recipe of
    ``perf/convergence_digits.json`` (``resnet18-cifar``, 32 px, batch 128,
    SGD lr 0.05, 3 warmup epochs of a 40-epoch cosine, wd 5e-4, no
-   augmentation, no class weights, the fused loss), once in float32 and
-   once in bf16: per-epoch val top-1, each arm's best at least DIGITS_BOUND
-   (350/359 = 97.49%, stated before the first run), K1 once forward and
-   once backward a step, each convolution of the first step in the arm's
-   dtype.  Predict scores each ``best`` in float32 through K3, as served:
-   it may disagree with the ``Trainer``'s own forward on at most
-   DIGITS_PREDICT_LIMIT (3) images, and in the float32 arm its accuracy
-   equals the ``Trainer``'s.
+   augmentation, no class weights, the fused loss), in float32 (its bf16
+   arm was cut when ``digits-vit`` joined the run: the time limit):
+   per-epoch val top-1, the best at least DIGITS_BOUND (350/359 = 97.49%,
+   stated before the first run), K1 once forward and once backward a
+   step, each convolution of the first step float32.  Predict scores
+   ``best`` in float32 through K3, as served: it may disagree with the
+   ``Trainer``'s own forward on at most DIGITS_PREDICT_LIMIT (3) images,
+   and its accuracy equals the ``Trainer``'s.
+   digits-vit — ``tpuic``'s ViT digits run (``tpuic_vit-tiny``: vit-tiny,
+   32 px, batch 128, Adam wd 5e-4, lr 1e-3 with 3 warmup epochs of a
+   120-epoch cosine, mixup 0.2, CutMix 0.5, no augmentation, float32) with
+   ``--attention flash``: its best at least DIGITS_VIT_BOUND (305/359 =
+   84.96%, stated before the first run), K1 twice a step, K4 2 a step and
+   2 a val forward; predict within DIGITS_PREDICT_LIMIT images of the
+   ``Trainer``'s forward; then 3 epochs with ``--ema-decay 0.99``, whose
+   ``best`` predict and the serve CLI score within 1e-5 of a direct
+   forward of its ``ema_params``.
 26. effnet-serve — ``inception``'s checks and serving for EfficientNet-B3
    at 300x300, 1000 classes, seeded synthetic weights.
 
 Every launch count is set to 0 just before a path runs and read just after
 it.  Cuts: ResNet-50 trains in float32 (bf16 runs the ViT-B/16,
-InceptionV3 and digits training phases); bf16 and int8 serving run in
-``ladder``; no mixup, CutMix, random erasing, EMA or drop-path; one
-card.  ``timing`` prints each new phase's
-seconds and the run's total.
+InceptionV3 and EfficientNet-B0 training phases); bf16 and int8 serving
+run in ``ladder``; ``digits`` in float32 only; one card.  ``timing``
+prints each new phase's seconds and the run's total.
 
 The second-to-last lines are the per-kernel JSON summary (K1's
 ``launches`` are ``[train]``'s; its ``launches_by_path`` gives each
@@ -340,6 +369,9 @@ EFF_IMAGE = 300     # EfficientNet-B3's published resolution
 REF_WEIGHTS = (3.0, 3.0, 10.0, 1.0, 4.0, 4.0, 5.0)  # train.py:157-158
 BF16_LOSS_RTOL = 2e-2
 DIGITS_EPOCHS = 40
+# [digits] runs float32 only since [digits-vit] joined the run: the time
+# limit.  Its bf16 arm's earlier bests are in PERF.md.
+DIGITS_DTYPES = ("float32",)
 DIGITS_BOUND = 100.0 * 350 / 359  # at most 3 val images below 98.33
 # Val images on which predict (float32, as served) may score a run's best
 # otherwise than its Trainer's own forward, stated before the first run.
@@ -350,6 +382,33 @@ VIT_BATCH = 64
 VIT_LR = 3e-4
 VIT_COMPARE_LR = 3e-5
 VIT_LAYERS = 12
+# recipes/README.md section 4's regularisers ([vit-train]'s recipe arm).
+VIT_RECIPE = dict(mixup_alpha=0.2, cutmix_alpha=1.0, random_erase=0.25,
+                  ema_decay=0.9999)
+# A remat arm's loss and gradient norm against the same step without
+# remat, stated before the first run (bitwise on the CPU).
+REMAT_RTOL = 1e-6
+BREAKDOWN_STEPS = 10      # steps a turn in step_breakdown
+BREAKDOWN_TOP = 8         # kernels listed by device time
+EFF_TRAIN_MODEL = "efficientnet-b0"
+EFF_TRAIN_LR = 0.4        # recipes/README.md section 3
+EFF_COMPARE_LR = 0.04     # a tenth of the peak, as COMPARE_LR
+EFF_SITES = 9             # B0's blocks with a residual: drop-path sites
+ACCUM_BATCH = 64
+ACCUM_K = 2
+ACCUM_MICRO = 4
+# Parameters after each real update against the plain arm's: the largest
+# difference of a tensor over its largest magnitude, stated before the
+# first run.
+ACCUM_RTOL = 1e-3
+DIGITS_VIT_EPOCHS = 120
+# tpuic's ViT digits run (perf/convergence_digits.json, tpuic_vit-tiny)
+# reached 317/359; the port's draws are its own: at most 12 images below,
+# stated before the first run.
+DIGITS_VIT_BOUND = 100.0 * 305 / 359
+DIGITS_VIT_EMA_EPOCHS = 3
+DIGITS_VIT_SERVED = 16    # val image files the serve CLI scores
+EMA_SERVE_TOL = 1e-5
 ATTN_N, ATTN_H, ATTN_D = 197, 12, 64
 ATTN_BATCHES = (8, VIT_BATCH)
 LADDER_REQUESTS = 320  # closed-loop requests a window in [ladder]
@@ -1796,9 +1855,12 @@ def compare_plain(cfg, batches, seed: int, lr: float, plain_model=None,
         ocfg = dataclasses.replace(cfg.optim, learning_rate=lr,
                                    warmup_epochs=0, milestones=(),
                                    fused_loss=fused, fused_optimizer=fused)
-        state = create_train_state(model, make_optimizer(ocfg))
+        state = create_train_state(model, make_optimizer(ocfg),
+                                   ema=ocfg.ema_decay > 0)
+        # One seed for every arm: a recipe's draws (mixup, CutMix,
+        # erasing, drop-path) are the same in each.
         step = make_train_step(ocfg, mcfg, lr_schedule=make_schedule(
-            ocfg, 1, 1), device="cuda")
+            ocfg, 1, 1), device="cuda", seed=cfg.run.seed)
         metrics, times = [], []
         seen_by = ((probe or conv_dtypes)() if arm == "bf16"
                    else contextlib.nullcontext())
@@ -1888,6 +1950,89 @@ def first_batches(trainer, k: int = 3) -> list:
     return batches
 
 
+def phase_accum(cfg, batches, seed: int, smi: str) -> dict:
+    """``[train]``'s ResNet-50 LARS recipe at batch ACCUM_BATCH with
+    ``grad_accum_steps`` ACCUM_K for ACCUM_MICRO micro-steps (``[train]``'s
+    first two batches of 128, halved), through the kernels (K1, K2a) and
+    through the plain loss and LARS, from one state (float32, TF32 off):
+    the parameters do not move on the micro-steps between updates, and
+    after each real update they lie within ACCUM_RTOL of the plain arm's
+    (each tensor's largest difference over its largest magnitude).  K2a
+    launches every micro-step, its gate open on the real updates only:
+    ACCUM_MICRO launches, ``gradient_step`` ACCUM_MICRO / ACCUM_K."""
+    from tpuic_torch.checkpoint import init_params
+    from tpuic_torch.kernels import no_tf32
+    from tpuic_torch.models import create_model_from_config
+    from tpuic_torch.train.optimizer import make_optimizer, make_schedule
+    from tpuic_torch.train.state import create_train_state
+    from tpuic_torch.train.step import make_train_step
+    micro = [{k: v[i * ACCUM_BATCH:(i + 1) * ACCUM_BATCH]
+              for k, v in b.items()}
+             for b in batches[:ACCUM_MICRO * ACCUM_BATCH // TRAIN_BATCH]
+             for i in range(TRAIN_BATCH // ACCUM_BATCH)]
+    arms, updates = {}, {}
+    for arm, fused in (("kernels", True), ("plain", False)):
+        model = init_params(create_model_from_config(
+            cfg.model, image_size=cfg.data.resize_size), seed, device="cuda")
+        ocfg = dataclasses.replace(cfg.optim, learning_rate=COMPARE_LR,
+                                   warmup_epochs=0, milestones=(),
+                                   fused_loss=fused, fused_optimizer=fused,
+                                   grad_accum_steps=ACCUM_K)
+        state = create_train_state(model, make_optimizer(ocfg))
+        step = make_train_step(ocfg, cfg.model, lr_schedule=make_schedule(
+            ocfg, 1, 1), device="cuda", seed=cfg.run.seed)
+        params = list(model.parameters())
+        moved, times, snaps = [], [], []
+        reset_counts()
+        with no_tf32(), deterministic_cudnn():
+            for i, batch in enumerate(micro):
+                before = [p.detach().clone() for p in params]
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                moved.append(any(not torch.equal(a, b)
+                                 for a, b in zip(params, before)))
+                if (i + 1) % ACCUM_K == 0:
+                    snaps.append([p.detach().clone() for p in params])
+                del before
+        launches = read_counts()
+        arms[arm] = {"moved": moved, "step_ms": times,
+                     "launches": launches, "loss": float(m["loss"]),
+                     "gradient_step": int(state.opt_state.gradient_step),
+                     "count": int(state.opt_state.count)}
+        updates[arm] = snaps
+        del model, state, step, params
+        free()
+    worst = [max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                  1e-30)
+                 for a, b in zip(k, p))
+             for k, p in zip(updates["kernels"], updates["plain"])]
+    del updates
+    free()
+    gate = [(i + 1) % ACCUM_K == 0 for i in range(ACCUM_MICRO)]
+    k = arms["kernels"]
+    row = {"batch": ACCUM_BATCH, "grad_accum_steps": ACCUM_K,
+           "micro_steps": ACCUM_MICRO, "gate_open": gate,
+           "update_rel_diff": worst, "rtol": ACCUM_RTOL, **arms,
+           "card": smi}
+    log("accum", json.dumps(row))
+    want = expect(cross_entropy_fwd=ACCUM_MICRO,
+                  cross_entropy_bwd=ACCUM_MICRO, lars_update=ACCUM_MICRO)
+    if (k["moved"] != gate or arms["plain"]["moved"] != gate
+            or k["launches"] != want
+            or not (k["gradient_step"] == k["count"]
+                    == ACCUM_MICRO // ACCUM_K)
+            or max(worst) > ACCUM_RTOL
+            or not all(math.isfinite(a["loss"]) for a in arms.values())):
+        fail("accum", f"moved {k['moved']} / {arms['plain']['moved']} "
+                      f"(expected {gate}), launches {k['launches']} "
+                      f"(expected {want}), gradient_step "
+                      f"{k['gradient_step']}, count {k['count']}, update "
+                      f"differences {worst} (rtol {ACCUM_RTOL})")
+    return row
+
+
 def phase_train(root: str, seed: int, smi: str):
     """The training path through ``Trainer``, the kernel-vs-plain 3-step
     comparison and the LAMB run; returns launch counts and the row."""
@@ -1929,6 +2074,7 @@ def phase_train(root: str, seed: int, smi: str):
     free()
     row["compare"] = check_compare("train", compare_plain(cfg, batches, seed,
                                                           COMPARE_LR))
+    row["accum"] = phase_accum(cfg, batches, seed, smi)
     del batches
     free()
 
@@ -2999,26 +3145,30 @@ def phase_vit(gen: torch.Generator, seed: int):
     return model
 
 
-def vit_train_config(root: str, seed: int, dtype: str = "float32"):
+def vit_train_config(root: str, seed: int, dtype: str = "float32",
+                     recipe: bool = False):
     """The repo's ViT-B/16 recipe (recipes/README.md, section 4) on one
     card, in ``dtype`` (bfloat16: ``compute_dtype`` bf16, as the
-    reference trains), through the flash kernels and the fused loss,
-    without the regularisers the port does not have yet (mixup, CutMix,
-    random erasing, drop-path, EMA)."""
+    reference trains), through the flash kernels and the fused loss;
+    with ``recipe`` its regularisers too (mixup 0.2, CutMix 1.0, random
+    erasing 0.25, drop-path 0.1, EMA 0.9999), else without them (the
+    plain-recipe arm)."""
     from tpuic_torch.config import (Config, DataConfig, ModelConfig,
                                     OptimConfig, RunConfig)
+    extra = VIT_RECIPE if recipe else {}
     return Config(
         data=DataConfig(data_dir=root, resize_size=IMAGE,
                         batch_size=VIT_BATCH, num_workers=8,
                         shuffle_seed=seed, native=False, pack=False),
         model=ModelConfig(name=VIT_MODEL, num_classes=1000, dtype=dtype,
                           compute_dtype="bf16" if dtype == "bfloat16"
-                          else "", attention="flash"),
+                          else "", attention="flash",
+                          drop_path=0.1 if recipe else 0.0),
         optim=OptimConfig(optimizer="adam", learning_rate=VIT_LR,
                           weight_decay=0.05, warmup_epochs=10,
                           milestones=(), label_smoothing=0.1,
                           grad_clip_norm=1.0, class_weights=(),
-                          fused_loss=True),
+                          fused_loss=True, **extra),
         run=RunConfig(epochs=300, max_steps=TRAIN_STEPS, log_every_steps=4,
                       seed=seed, ckpt_dir=os.path.join(root, "ckpt")))
 
@@ -3126,6 +3276,249 @@ def phase_vit_train(root: str, seed: int, smi: str):
     del batches
     free()
     return counts, {**rows, "trainer_loss_rel_diff": rel, "compare": row}
+
+
+def remat_check(cfg, batches, seed: int) -> dict:
+    """Two steps of ``cfg``'s recipe from one state with and without
+    ``--remat --remat-policy dots`` (float32, TF32 off, the same draws):
+    each step's loss and gradient norm within REMAT_RTOL; launches of
+    each arm (under remat K4f's forward runs again in the backward, as
+    the Pallas call does under ``jax.checkpoint``), the second step's ms
+    (the first sets up the selective checkpoint's dispatch mode) and peak
+    memory."""
+    from tpuic_torch.checkpoint import init_params
+    from tpuic_torch.kernels import no_tf32
+    from tpuic_torch.models import create_model_from_config
+    from tpuic_torch.train.optimizer import make_optimizer, make_schedule
+    from tpuic_torch.train.state import create_train_state
+    from tpuic_torch.train.step import make_train_step
+    arms = {}
+    for arm, on in (("no_remat", False), ("remat_dots", True)):
+        mcfg = dataclasses.replace(cfg.model, remat=on, remat_policy="dots")
+        ocfg = dataclasses.replace(cfg.optim, learning_rate=VIT_COMPARE_LR,
+                                   warmup_epochs=0, milestones=())
+        model = init_params(create_model_from_config(
+            mcfg, image_size=cfg.data.resize_size), seed, device="cuda")
+        state = create_train_state(model, make_optimizer(ocfg),
+                                   ema=ocfg.ema_decay > 0)
+        step = make_train_step(ocfg, mcfg, lr_schedule=make_schedule(
+            ocfg, 1, 1), device="cuda", seed=cfg.run.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        metrics = []
+        with no_tf32(), deterministic_cudnn():
+            for batch in batches[:2]:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                metrics.append({k: float(m[k]) for k in ("loss",
+                                                         "grad_norm")})
+        arms[arm] = {"metrics": metrics, "step_ms": ms,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": read_counts()}
+        del model, state, step
+        free()
+    p, r = arms["no_remat"], arms["remat_dots"]
+    rel = max(abs(b[k] - a[k]) / abs(a[k])
+              for a, b in zip(p["metrics"], r["metrics"])
+              for k in ("loss", "grad_norm"))
+    row = {**arms, "max_rel_diff": rel, "rtol": REMAT_RTOL}
+    want = dict(p["launches"], flash_attention_fwd=4 * VIT_LAYERS)
+    if rel > REMAT_RTOL or r["launches"] != want or \
+            p["launches"]["flash_attention_fwd"] != 2 * VIT_LAYERS:
+        fail("vit-train", f"remat dots: {json.dumps(row)}; expected the "
+                          f"launches {want}")
+    return row
+
+
+def step_breakdown(cfgs: dict, batches, seed: int) -> dict:
+    """Each config of ``cfgs`` ({arm: Config}) stepped on the same cached
+    batches (no loader) in turns, A B B A: per arm the host clock over
+    BREAKDOWN_STEPS steps after two warm-up steps (ms a step, the median
+    of its two turns), then a ``torch.profiler`` trace of 3 steps: the
+    card's busy ms a step (the sum of the kernels' device time), the
+    idle share ``1 - busy / step``, the kernels taking the most device
+    time, and the kernels launched a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tpuic_torch.checkpoint import init_params
+    from tpuic_torch.models import create_model_from_config
+    from tpuic_torch.train.optimizer import make_optimizer, make_schedule
+    from tpuic_torch.train.state import create_train_state
+    from tpuic_torch.train.step import make_train_step
+    names = list(cfgs)
+    out = {a: {"step_ms": []} for a in names}
+    for arm in names + names[::-1]:
+        cfg = cfgs[arm]
+        model = init_params(create_model_from_config(
+            cfg.model, image_size=cfg.data.resize_size), seed, device="cuda")
+        state = create_train_state(model, make_optimizer(cfg.optim),
+                                   ema=cfg.optim.ema_decay > 0)
+        step = make_train_step(cfg.optim, cfg.model, lr_schedule=make_schedule(
+            cfg.optim, 1, 1), device="cuda", seed=cfg.run.seed)
+        for b in batches[:2]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(BREAKDOWN_STEPS):
+            state, _ = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / BREAKDOWN_STEPS * 1e3
+        out[arm]["step_ms"].append(ms)
+        if "busy_ms" not in out[arm]:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for b in batches[:3]:
+                    state, _ = step(state, b)
+                torch.cuda.synchronize()
+            # The kernels themselves (an operator's row repeats the
+            # device time of the kernels it launched).
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in events) / 3e3
+            top = sorted(events, key=lambda e: -e.self_device_time_total)
+            out[arm].update(
+                busy_ms=busy or None,
+                kernels_a_step=sum(e.count for e in events) // 3,
+                top=[[e.key[:48], e.self_device_time_total / 3e3,
+                      e.count // 3] for e in top[:BREAKDOWN_TOP]
+                     if e.self_device_time_total])
+        del model, state, step
+        free()
+    for arm in names:
+        o = out[arm]
+        o["median_step_ms"] = statistics.median(o["step_ms"])
+        o["idle_share"] = (1.0 - o["busy_ms"] / o["median_step_ms"]
+                           if o["busy_ms"] else None)
+    return out
+
+
+def phase_vit_recipe(root: str, seed: int, smi: str, plain: dict):
+    """ViT-B/16 with recipes/README.md section 4's regularisers (mixup
+    0.2, CutMix 1.0, random erasing 0.25, drop-path 0.1, EMA 0.9999) in
+    bf16 through ``Trainer`` for 12 steps, then a val pass on the EMA
+    weights: launches (K4 as the plain recipe's, K1 twice a step: the
+    mixed loss's two terms), step ms beside the plain-recipe bf16 arm's
+    (``plain``) on this card and ``step_breakdown`` of the two on cached
+    batches; then 3 steps through the kernels against 3 through dense
+    attention and the plain loss with the same draws (float32, TF32 off,
+    loss rtol 1e-3), and ``remat_check``."""
+    from tpuic_torch.train.loop import Trainer
+    cfg = vit_train_config(root, seed, "bfloat16", recipe=True)
+    trainer = Trainer(cfg, log=lambda msg: log("vit-train", "recipe: "
+                                               + msg))
+    reset_counts()
+    trainer.fit()
+    stats = dict(trainer.stats)
+    trainer.val_epoch(0)
+    counts = read_counts()
+    steps = stats["steps"]
+    val_forwards = len(trainer.val_loader)
+    want = expect(flash_attention_fwd=VIT_LAYERS * (steps + val_forwards),
+                  flash_attention_bwd_dq=VIT_LAYERS * steps,
+                  flash_attention_bwd_dkv=VIT_LAYERS * steps,
+                  cross_entropy_fwd=2 * steps, cross_entropy_bwd=2 * steps)
+    st = trainer.state
+    if steps != TRAIN_STEPS or counts != want:
+        fail("vit-train", f"recipe: {steps} steps, launches {counts}, "
+                          f"expected {TRAIN_STEPS} steps and {want}")
+    if st.ema_params is None or not all(
+            bool(torch.isfinite(t).all())
+            for t in list(trainer.model.parameters()) + st.ema_params) \
+            or not all(math.isfinite(v) for v in trainer.last_val.values()):
+        fail("vit-train", f"recipe: no EMA or a non-finite state after "
+                          f"{steps} steps: val {trainer.last_val}")
+    row = train_row(trainer, stats, counts, VIT_BATCH, smi)
+    row.update(recipe=dict(VIT_RECIPE, drop_path=0.1),
+               drop_path_sites=len(trainer.model.drop_path_rates()),
+               plain_recipe_step_ms=plain["step_ms"],
+               over_plain_recipe=row["step_ms"] / plain["step_ms"])
+    log("vit-train", "recipe: " + json.dumps(row))
+    batches = first_batches(trainer)
+    del trainer, st
+    free()
+    row["breakdown"] = step_breakdown(
+        {"plain_recipe": vit_train_config(root, seed, "bfloat16"),
+         "recipe": cfg}, batches, seed)
+    log("vit-train", "recipe breakdown (cached batches, A B B A): "
+                     + json.dumps(row["breakdown"]))
+    fcfg = vit_train_config(root, seed, "float32", recipe=True)
+    row["compare"] = check_compare("vit-train", compare_plain(
+        fcfg, batches, seed, VIT_COMPARE_LR,
+        plain_model=dataclasses.replace(fcfg.model, attention="dense")))
+    row["remat"] = remat_check(fcfg, batches, seed)
+    log("vit-train", "recipe remat dots: " + json.dumps(row["remat"]))
+    del batches
+    free()
+    return counts, row
+
+
+def eff_train_config(root: str, seed: int, dtype: str = "bfloat16"):
+    """recipes/README.md section 3 on one card: EfficientNet-B0 at 224 px,
+    SGD 0.4 with 5 warmup epochs of 90, no class weights, bf16
+    (``compute_dtype``), batch 128, the fused loss; stochastic depth 0.2
+    (``tpuic``'s, always on)."""
+    from tpuic_torch.config import (Config, DataConfig, ModelConfig,
+                                    OptimConfig, RunConfig)
+    return Config(
+        data=DataConfig(data_dir=root, resize_size=IMAGE,
+                        batch_size=TRAIN_BATCH, num_workers=8,
+                        shuffle_seed=seed, native=False, pack=False),
+        model=ModelConfig(name=EFF_TRAIN_MODEL, num_classes=1000,
+                          dtype=dtype, compute_dtype="bf16"
+                          if dtype == "bfloat16" else ""),
+        optim=OptimConfig(optimizer="sgd", learning_rate=EFF_TRAIN_LR,
+                          warmup_epochs=5, milestones=(), class_weights=(),
+                          fused_loss=True),
+        run=RunConfig(epochs=90, max_steps=TRAIN_STEPS, log_every_steps=4,
+                      seed=seed, ckpt_dir=os.path.join(root, "ckpt")))
+
+
+def phase_effnet_train(root: str, seed: int, smi: str):
+    """EfficientNet-B0 training with stochastic depth 0.2 through
+    ``Trainer`` (``eff_train_config``) for 12 steps and a val pass: step
+    ms, data-wait share, K1 once forward and once backward a step and no
+    other kernel (the model has none, as in ``tpuic``), EFF_SITES draw
+    sites, every convolution of the first step bfloat16; then 3 steps
+    through K1 against 3 through the plain loss with the same
+    stochastic-depth draws (float32, TF32 off, loss rtol 1e-3)."""
+    from tpuic_torch.train.loop import Trainer
+    cfg = eff_train_config(root, seed)
+    trainer = Trainer(cfg, log=lambda msg: log("effnet-train", msg))
+    reset_counts()
+    with conv_dtypes() as seen:
+        trainer.fit()
+    stats = dict(trainer.stats)
+    trainer.val_epoch(0)
+    counts = read_counts()
+    steps = stats["steps"]
+    want = expect(cross_entropy_fwd=steps, cross_entropy_bwd=steps)
+    sites = len(trainer.model.drop_path_rates())
+    if steps != TRAIN_STEPS or counts != want or sites != EFF_SITES:
+        fail("effnet-train", f"{steps} steps, launches {counts}, {sites} "
+                             f"drop-path sites; expected {TRAIN_STEPS}, "
+                             f"{want}, {EFF_SITES}")
+    if not all(bool(torch.isfinite(p).all())
+               for p in trainer.model.parameters()) or not all(
+            math.isfinite(v) for v in trainer.last_val.values()):
+        fail("effnet-train", f"non-finite state after {steps} steps: val "
+                             f"{trainer.last_val}")
+    row = train_row(trainer, stats, counts, TRAIN_BATCH, smi)
+    row["conv_out_dtype"] = check_conv_dtypes("effnet-train", "bf16", seen,
+                                              "bfloat16")
+    row["drop_path_sites"] = sites
+    log("effnet-train", json.dumps(row))
+    batches = first_batches(trainer)
+    del trainer
+    free()
+    row["compare"] = check_compare("effnet-train", compare_plain(
+        eff_train_config(root, seed, "float32"), batches, seed,
+        EFF_COMPARE_LR))
+    del batches
+    free()
+    return counts, row
 
 
 def rows_check(model, tag: str, image: int) -> dict:
@@ -3340,20 +3733,21 @@ def _trainer_forward(root: str, ckpt_dir: str, batch: int,
 
 def against_trainer(tag: str, arm: str, root: str, ckpt_dir: str,
                     batch: int, best: float, limit: int,
-                    k3: bool) -> dict:
+                    kernel: str = "") -> dict:
     """Predict's CLI on ``best`` (float32 through the kernels, as the serve
     CLI serves every checkpoint) against the ``Trainer``'s own forward,
     which must score ``best`` exactly: the two may disagree on at most
     ``limit`` val images, and their accuracies lie at most ``limit``
-    images apart.  ``k3``: predict's forward launches K3 and nothing
-    else (the ResNet family), else no kernel."""
-    cli_out = os.path.join(root, f"predict_{arm}.csv")
-    own_out = os.path.join(root, f"trainer_forward_{arm}.csv")
+    images apart.  ``kernel``: the one counter predict's forward launches
+    (``conv_bn_relu`` for the ResNet family, ``flash_attention_fwd`` for
+    a ViT), else none."""
+    cli_out = os.path.join(root, f"predict_{tag}_{arm}.csv")
+    own_out = os.path.join(root, f"trainer_forward_{tag}_{arm}.csv")
     reset_counts()
     summary = _predict(root, ckpt_dir, batch, tag, cli_out)
     launched = read_counts()
-    want = expect(conv_bn_relu=launched["conv_bn_relu"]) if k3 else expect()
-    if launched != want or (k3 and not launched["conv_bn_relu"]):
+    want = expect(**{kernel: launched[kernel]}) if kernel else expect()
+    if launched != want or (kernel and not launched[kernel]):
         fail(tag, f"{arm}: predict launched {launched}")
     own = _trainer_forward(root, ckpt_dir, batch, own_out)
     if round(own.get("accuracy", -1.0), 4) != best:
@@ -3411,7 +3805,7 @@ def phase_ref_cli(root: str, seed: int, smi: str) -> dict:
                         f"defaults: {lines[:3]}")
     best = float(lines[-1].split("best val accuracy ")[1])
     scored = against_trainer("ref-cli", "bfloat16", data, ckpt, 4, best,
-                             REF_PREDICT_LIMIT, k3=False)
+                             REF_PREDICT_LIMIT)
     row = {"command": " ".join(cmd[1:]), "wall_s": wall,
            "trainer_best": best, **scored, "card": smi}
     log("ref-cli", json.dumps(row))
@@ -3442,7 +3836,7 @@ def phase_digits(root: str, smi: str):
     data = os.path.join(root, "digits")
     counts_written = write_digits_folder(data)
     out, counts = {}, {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in DIGITS_DTYPES:
         ckpt = os.path.join(root, f"digits_ckpt_{dtype}")
         reset_counts()
         with conv_dtypes() as seen:
@@ -3465,7 +3859,8 @@ def phase_digits(root: str, smi: str):
             fail("digits", f"{dtype}: exit {rc}, {len(curve)} val passes, "
                            f"launches {counts[dtype]}, expected {want}")
         scored = against_trainer("digits", dtype, data, ckpt, 128, best,
-                                 DIGITS_PREDICT_LIMIT, k3=True)
+                                 DIGITS_PREDICT_LIMIT,
+                                 kernel="conv_bn_relu")
         row = {"dtype": dtype, "val_top1_per_epoch": curve, "best": best,
                "bound": DIGITS_BOUND, "steps": steps, "wall_s": wall,
                "launches": counts[dtype], "conv_out_dtype": conv_out,
@@ -3482,6 +3877,170 @@ def phase_digits(root: str, smi: str):
         out[dtype] = row
     out["images"] = counts_written
     return counts, out
+
+
+DIGITS_VIT_ARGS = ["--model", "vit-tiny", "--attention", "flash",
+                   "--resize", "32", "--batchsize", "128", "--optimizer",
+                   "adam", "--lr", "1e-3", "--warmup-epochs", "3",
+                   "--weight-decay", "5e-4", "--milestones", "--mixup",
+                   "0.2", "--cutmix", "0.5", "--no-augment",
+                   "--no-class-weights", "--fused-loss", "--dtype",
+                   "float32", "--no-pack", "--no-native",
+                   "--log-every-steps", "11"]
+
+
+def _ema_model(ckpt_dir: str):
+    """The ``best`` save under ``ckpt_dir`` as served (float32, flash),
+    holding its ``ema_params``, straight from the payload."""
+    from tpuic_torch.models import create_model_from_config
+    from tpuic_torch.predict import resolve_model_auto, serving_model_config
+    saved = resolve_model_auto(ckpt_dir)
+    payload = torch.load(os.path.join(ckpt_dir, saved["name"], "best",
+                                      "state.pt"), map_location="cuda",
+                         weights_only=True)
+    model = create_model_from_config(
+        serving_model_config(saved["name"], saved["num_classes"]),
+        image_size=saved["resize_size"])
+    model.load_state_dict(payload["model"])
+    ema = payload["ema_params"]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(ema[name])
+    return model.eval(), saved["resize_size"]
+
+
+def _serve_cli_records(ckpt_dir: str, paths: list, out: str) -> list:
+    """``python -m tpuic_torch.serve``'s ``main`` in this process over
+    ``paths`` on stdin (``--model auto``), its records."""
+    import io
+    from tpuic_torch.serve import __main__ as serve_cli
+    lines = "".join(json.dumps({"id": p, "path": p}) + "\n" for p in paths)
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(lines)
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = serve_cli.main(["--ckpt-dir", ckpt_dir, "--model", "auto",
+                                 "--buckets", "1,8,16", "--out", out])
+    finally:
+        sys.stdin = stdin
+    if rc != 0:
+        fail("digits-vit", f"the serve CLI exited {rc}")
+    with open(out) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def ema_served(data: str, ckpt_dir: str) -> dict:
+    """Predict and the serve CLI on an EMA run's ``best`` both score its
+    ``ema_params``: every row's probability within EMA_SERVE_TOL of a
+    direct forward of them (predict: the val fold through the same
+    loader; the serve CLI: DIGITS_VIT_SERVED val files, decoded as it
+    decodes them)."""
+    from tpuic_torch.config import DataConfig
+    from tpuic_torch.data.folder import ImageFolderDataset
+    from tpuic_torch.data.pipeline import Loader
+    from tpuic_torch.serve import __main__ as serve_cli
+    from tpuic_torch.serve import make_forward
+    model, size = _ema_model(ckpt_dir)
+    out = os.path.join(data, "predict_ema.csv")
+    summary = _predict(data, ckpt_dir, 128, "digits-vit", out)
+    ds = ImageFolderDataset(data, "val", size, DataConfig(
+        resize_size=size, pack=False, native=False))
+    loader = Loader(ds, 128, shuffle=False, augment=False, device="cuda")
+    forward = make_forward(model)
+    direct = []
+    for batch in loader.epoch(0):
+        probs, order = forward(batch["image"])
+        for i in range(int(batch["mask"].sum())):
+            j = int(order[i, 0])
+            direct.append((batch.image_ids[i], j, float(probs[i, j])))
+    import csv
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    names = {i: c for c, i in ds.class_to_idx.items()}
+    predict_err = max(abs(float(r["prob"]) - p) for r, (_, _, p)
+                      in zip(rows, direct))
+    predict_same = sum(r["image_id"] == d and r["pred"] == names[j]
+                       for r, (d, j, _) in zip(rows, direct))
+    paths = [ds.samples[i][0] for i in range(DIGITS_VIT_SERVED)]
+    recs = _serve_cli_records(ckpt_dir, paths,
+                              os.path.join(data, "serve_ema.jsonl"))
+    x = torch.from_numpy(np.stack([serve_cli._load_image(p, size)
+                                   for p in paths])).cuda()
+    probs, order = make_forward(model, normalize=True)(x)
+    probs = probs.cpu().numpy()
+    serve_err = max(abs(r["prob"] - float(probs[i, order[i, 0]]))
+                    for i, r in enumerate(recs))
+    row = {"predict_rows": len(rows), "predict_top1_equal": predict_same,
+           "predict_max_abs_err": predict_err,
+           "predict_accuracy": summary["accuracy"],
+           "served": len(recs), "serve_max_abs_err": serve_err,
+           "tol": EMA_SERVE_TOL}
+    if (len(rows) != len(direct) or predict_same != len(rows)
+            or len(recs) != len(paths) or max(predict_err, serve_err)
+            > EMA_SERVE_TOL):
+        fail("digits-vit", f"EMA serving: {json.dumps(row)}")
+    return row
+
+
+def phase_digits_vit(root: str, smi: str):
+    """``tpuic``'s ViT digits run (``perf/convergence_digits.json``,
+    ``tpuic_vit-tiny``) through the train CLI's ``main``: vit-tiny at 32
+    px, batch 128, Adam with wd 5e-4, lr 1e-3 warmup-cosine over 3 of
+    DIGITS_VIT_EPOCHS epochs, mixup 0.2, CutMix 0.5, no augmentation,
+    float32, ``--attention flash`` (K4 trains it; ``tpuic``'s run used
+    dense attention, the same function), on the digits split ``[digits]``
+    wrote.  Its best val top-1 must reach DIGITS_VIT_BOUND (stated before
+    the first run); launches: K1 twice a step (the mixed loss), K4's
+    forward 2 a step and 2 a val forward (depth 2), its backward pair 2 a
+    step.  Predict scores ``best`` (no EMA) within DIGITS_PREDICT_LIMIT
+    images of the ``Trainer``'s forward.  Then DIGITS_VIT_EMA_EPOCHS
+    epochs with ``--ema-decay 0.99``: predict and the serve CLI score its
+    ``ema_params`` (``ema_served``)."""
+    data = os.path.join(root, "digits")
+    ckpt = os.path.join(root, "digits_vit_ckpt")
+    reset_counts()
+    rc, lines, wall = _train_cli(["--datadir", data, "--ckpt-dir", ckpt,
+                                  "--epochs", str(DIGITS_VIT_EPOCHS),
+                                  *DIGITS_VIT_ARGS])
+    counts = read_counts()
+    for line in lines:
+        if line.startswith(("[model]", "[tpuic_torch]")):
+            log("digits-vit", line)
+    curve = [float(ln.split("Val Accuracy ")[1].split(";")[0])
+             for ln in lines if "Val Accuracy" in ln]
+    steps = max((int(ln.split("; step ")[1].split(";")[0])
+                 for ln in lines if ln.startswith("Epoch: ")
+                 and "; step " in ln), default=0)
+    best = max(curve) if curve else 0.0
+    val_forwards = -(-359 // 128) * len(curve)
+    want = expect(cross_entropy_fwd=2 * steps, cross_entropy_bwd=2 * steps,
+                  flash_attention_fwd=2 * (steps + val_forwards),
+                  flash_attention_bwd_dq=2 * steps,
+                  flash_attention_bwd_dkv=2 * steps)
+    if rc != 0 or len(curve) != DIGITS_VIT_EPOCHS or counts != want:
+        fail("digits-vit", f"exit {rc}, {len(curve)} val passes, launches "
+                           f"{counts}, expected {want}")
+    scored = against_trainer("digits-vit", "float32", data, ckpt, 128, best,
+                             DIGITS_PREDICT_LIMIT,
+                             kernel="flash_attention_fwd")
+    row = {"val_top1_per_epoch": curve, "best": best,
+           "bound": DIGITS_VIT_BOUND, "tpuic_best": 100.0 * 317 / 359,
+           "steps": steps, "wall_s": wall, "launches": counts, **scored,
+           "card": smi}
+    log("digits-vit", json.dumps(row))
+    if best < DIGITS_VIT_BOUND:
+        fail("digits-vit", f"best val top-1 {best} < {DIGITS_VIT_BOUND}")
+    ema_ckpt = os.path.join(root, "digits_vit_ema_ckpt")
+    rc, lines, ema_wall = _train_cli([
+        "--datadir", data, "--ckpt-dir", ema_ckpt, "--epochs",
+        str(DIGITS_VIT_EMA_EPOCHS), "--ema-decay", "0.99",
+        *DIGITS_VIT_ARGS])
+    if rc != 0:
+        fail("digits-vit", f"the EMA run exited {rc}")
+    row["ema"] = {"epochs": DIGITS_VIT_EMA_EPOCHS, "decay": 0.99,
+                  "wall_s": ema_wall, **ema_served(data, ema_ckpt)}
+    log("digits-vit", "EMA: " + json.dumps(row["ema"]))
+    return counts, row
 
 
 def _serve_rung(eng, pool, n_requests: int, seed: int, dtype=None,
@@ -3954,6 +4513,13 @@ def main(argv=None) -> int:
         took = {"to_vit_train": time.perf_counter() - t_start,
                 "ddp": t_ddp}
         t0 = time.perf_counter()
+        recipe_counts, vit_train["recipe"] = phase_vit_recipe(
+            root, args.seed, smi, vit_train["bfloat16"])
+        took["vit-train-recipe"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eff_counts, eff_train = phase_effnet_train(root, args.seed, smi)
+        took["effnet-train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         ladder = {
             "resnet50": phase_ladder("resnet50", IMAGE, args.seed, smi,
                                      counter="conv_bn_relu",
@@ -3984,6 +4550,9 @@ def main(argv=None) -> int:
         digits_counts, digits = phase_digits(root, smi)
         took["digits"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        dvit_counts, digits_vit = phase_digits_vit(root, smi)
+        took["digits-vit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         effnet = phase_cnn_serve(EFF_MODEL, EFF_IMAGE, "effnet-serve",
                                  args.requests, args.seed, smi)
         took["effnet-serve"] = time.perf_counter() - t0
@@ -3996,6 +4565,9 @@ def main(argv=None) -> int:
                 for arm, a in ddp["arms"].items()
                 for r, c in enumerate(a["launches"])}
 
+    accum = train["accum"]
+    remat = vit_train["recipe"]["remat"]
+
     def k1(name):
         """K1's launches on each training path, each counted from 0 just
         before its path ran; ``launches`` stays ``[train]``'s."""
@@ -4003,7 +4575,25 @@ def main(argv=None) -> int:
             f"{tag} {dtype}": c[name]
             for tag, per in (("inception-train", inc_counts),
                              ("digits", digits_counts))
-            for dtype, c in per.items()}, **ddp_counts(name)}
+            for dtype, c in per.items()}, **ddp_counts(name),
+            "vit-train float32": vit_counts["float32"][name],
+            "vit-train bfloat16": vit_counts["bfloat16"][name],
+            "vit-train recipe (bf16, 2 a step)": recipe_counts[name],
+            "vit-train remat dots": remat["remat_dots"]["launches"][name],
+            "effnet-train": eff_counts[name],
+            "accum": accum["kernels"]["launches"][name],
+            "digits-vit (2 a step)": dvit_counts[name]}
+
+    def k4(name):
+        """K4's launches on each training path."""
+        return {"vit-train float32": vit_counts["float32"][name],
+                "vit-train bfloat16": vit_counts["bfloat16"][name],
+                "vit-train recipe (bf16)": recipe_counts[name],
+                "vit-train no remat (2 steps)":
+                    remat["no_remat"]["launches"][name],
+                "vit-train remat dots (2 steps)":
+                    remat["remat_dots"]["launches"][name],
+                "digits-vit": dvit_counts[name]}
 
     csrc = "tpuic_torch/kernels/csrc/"
     kernels = [summary]
@@ -4054,7 +4644,11 @@ def main(argv=None) -> int:
             kernels[-1]["launches_by_path"] = k1(name)
         if name == "lars_update":
             kernels[-1]["launches_by_path"] = {
-                "train": counts[name], **ddp_counts(name)}
+                "train": counts[name], **ddp_counts(name),
+                "accum (gate open on 2 of 4)":
+                    accum["kernels"]["launches"][name]}
+        if name.split(" ")[0] in K4:
+            kernels[-1]["launches_by_path"] = k4(name.split(" ")[0])
     # K3 on the ladder's int8 and bf16 ResNet-50 rungs and the ddp val
     # passes beside [serve]'s.
     summary["launches_by_path"] = {
@@ -4073,10 +4667,14 @@ def main(argv=None) -> int:
                        "vit_swap": vit_swap, "vit_train": vit_train,
                        "inception": inception,
                        "inception_train": inc_train, "ref_cli": ref_cli,
-                       "digits": digits, "effnet_serve": effnet,
+                       "digits": digits, "digits_vit": digits_vit,
+                       "effnet_train": eff_train, "effnet_serve": effnet,
                        "ladder": ladder, "serve_cli_ladder": cli_ladder,
                        "k1_launches": {"train": counts, "inception_train":
-                                       inc_counts, "digits": digits_counts},
+                                       inc_counts, "digits": digits_counts,
+                                       "vit_recipe": recipe_counts,
+                                       "effnet_train": eff_counts,
+                                       "digits_vit": dvit_counts},
                        "seconds": took},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -19,8 +19,10 @@
 - ``convert_efficientnet`` of an efficientnet_pytorch-layout state dict
   gives the same tree in both packages, and the variant is detected
   alike.
-- Stochastic depth is not ported: a train-mode forward at a rate above 0
-  raises, and the ``Trainer`` refuses EfficientNet by name.
+- Stochastic depth (0.2 by default, as ``tpuic``'s): its draw sites
+  and rates, and a train-mode forward that needs the step's masks
+  (``test_torch_port_recipe_effnet.py`` holds three train steps with
+  them against ``tpuic``).
 
 JAX and ``tpuic`` are imported inside fixtures.
 """
@@ -215,13 +217,30 @@ def test_convert_efficientnet_matches_tpuic(variant):
     load_jax_variables(pm, got)  # strict: every tensor written
 
 
-def test_stochastic_depth_is_refused_in_train_mode():
+def test_stochastic_depth_takes_the_steps_masks_in_train_mode():
+    """B0's 16 blocks: the 9 with a residual are draw sites, at
+    ``0.2 * bi / 16`` for block ``bi``; eval mode draws nothing, a
+    train-mode forward needs the masks, and an all-dropped mask leaves
+    each site's block the identity."""
     pm = port_models.create_model("efficientnet-b0", CLASSES,
                                   dtype="float32", device="cpu")
-    assert pm.backbone.drop_path_rate == 0.2  # tpuic's default
+    eff = pm.backbone
+    assert eff.drop_path_rate == 0.2  # tpuic's default
+    blocks = [getattr(eff, n) for n in eff._blocks]
+    assert len(blocks) == 16
+    want = [0.2 * bi / 16 for bi, b in enumerate(blocks) if b.residual]
+    assert pm.drop_path_rates() == want and len(want) == 9
     pm.eval()
     with torch.no_grad():
         assert pm(torch.from_numpy(_images(2))).shape == (2, CLASSES)
     pm.train()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="pass drop_masks"):
         pm(torch.from_numpy(_images(2)))
+    with torch.no_grad():
+        assert pm(torch.from_numpy(_images(2)), drop_masks=torch.ones(
+            9, 2, dtype=torch.bool)).shape == (2, CLASSES)
+        x = torch.randn(2, 24, 8, 8)
+        site = blocks[2]  # block1_1: 24 -> 24, stride 1
+        assert site.drops
+        torch.testing.assert_close(site(x, torch.zeros(2, dtype=torch.bool)),
+                                   x)

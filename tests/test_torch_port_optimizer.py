@@ -312,12 +312,17 @@ def test_trajectory_matches_tpuic(jx, name, fused, lr, clip):
     assert int(ps.count) == 5
 
 
-def test_unported_optimizer_options_raise():
-    with pytest.raises(NotImplementedError, match="grad_accum_steps"):
-        port_opt.make_optimizer(dataclasses.replace(OCFG, grad_accum_steps=2))
-    with pytest.raises(NotImplementedError, match="freeze_backbone"):
-        port_opt.make_optimizer(dataclasses.replace(OCFG,
-                                                    freeze_backbone=True))
+def test_optimizer_options_build_and_unknown_optimizer_raises():
+    """Accumulation and freeze_backbone are the optimizer's
+    (test_torch_port_accum.py holds them against tpuic): the state gains
+    the accumulator and its counters, the optimizer says it freezes."""
+    tx = port_opt.make_optimizer(dataclasses.replace(OCFG,
+                                                     grad_accum_steps=2))
+    st = tx.init([torch.zeros(3)])
+    assert tx.accum_steps == 2 and len(st.acc) == 1
+    assert int(st.mini_step) == int(st.gradient_step) == 0
+    assert port_opt.make_optimizer(dataclasses.replace(
+        OCFG, freeze_backbone=True)).freeze_backbone
     with pytest.raises(ValueError, match="unknown optimizer"):
         port_opt.make_optimizer(dataclasses.replace(OCFG, optimizer="rmsprop"))
 

@@ -9,8 +9,8 @@
   the same ``pred`` column, ``prob`` within 1e-5, the same accuracy.
 - Edge cases: an unlabeled flat fold; a fold with no train tree;
   ``--model auto`` and its ambiguity error; a missing checkpoint; the
-  wrong model for a checkpoint; ``--no-pack`` required; an EMA-trained
-  checkpoint refused.
+  wrong model for a checkpoint; ``--no-pack`` required; an EMA sidecar
+  over a save without ``ema_params`` scoring the parameters.
 - ``--model auto`` on an InceptionV3 and an EfficientNet-B0 checkpoint:
   each row is a direct eval forward's (1e-5); a bf16 run's checkpoint is
   scored in float32, as the serve CLI serves it, each row a float32
@@ -119,16 +119,25 @@ def test_cli_model_auto_limit_and_refusals(trained, tmp_path):
                     two / name / "config.json")
     with pytest.raises(ValueError, match="pass --model"):
         resolve_model_auto(str(two))
-    # An EMA-trained checkpoint: tpuic would score its EMA weights.
+    # A sidecar that says EMA over a save without ema_params: the EMA
+    # restarts at the restored parameters (tpuic's rule), so predict
+    # scores them (test_torch_port_ema.py scores a real EMA save).
     ema = tmp_path / "ema"
     shutil.copytree(ckpt, ema)
     side = ema / "resnet18" / "config.json"
     saved = json.loads(side.read_text())
     saved["optim"]["ema_decay"] = 0.99
     side.write_text(json.dumps(saved))
-    with pytest.raises(SystemExit, match="ema_decay.*item 8"):
-        predict_main(["--datadir", root, "--ckpt-dir", str(ema),
-                      "--no-pack", "--device", "cpu"])
+    assert resolve_model_auto(str(ema))["ema_decay"] == 0.99
+    rows = {}
+    for tag, d in (("raw", ckpt), ("ema", str(ema))):
+        out = str(tmp_path / f"{tag}.csv")
+        assert predict_main(["--datadir", root, "--ckpt-dir", d, "--out",
+                             out, "--no-pack", "--device", "cpu"]) == 0
+        with open(out) as f:
+            rows[tag] = [(r["image_id"], r["pred"], r["prob"])
+                         for r in csv.DictReader(f)]
+    assert rows["ema"] == rows["raw"] and len(rows["raw"]) == 15
 
 
 def test_missing_and_mismatched_checkpoints_raise(trained, tmp_path):

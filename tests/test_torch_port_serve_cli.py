@@ -220,17 +220,61 @@ def test_unported_flag_is_refused_by_name(flag, match, monkeypatch, capsys):
         pserve.main(argv)
 
 
-def test_ema_checkpoint_and_fault_points_are_refused(served, tmp_path,
-                                                     monkeypatch):
+def _ema_checkpoint(served, ckpt: str) -> torch.nn.Module:
+    """``served``'s save with ``ema_params`` of other weights (a second
+    seeded init) and a sidecar saying ``ema_decay`` 0.999; returns a model
+    holding those EMA weights and the save's BN statistics."""
     import shutil
-    ckpt = tmp_path / "ema"
     shutil.copytree(served["ckpt"], ckpt)
-    side = ckpt / "resnet18" / "config.json"
-    cfg = json.loads(side.read_text())
+    model = init_params(create_model("resnet18", 3, dtype="float32",
+                                     fused_conv_bn=True, device="cpu"), 1,
+                        device="cpu")
+    other = init_params(create_model("resnet18", 3, dtype="float32",
+                                     device="cpu"), 5, device="cpu")
+    state = create_train_state(model, make_optimizer(pcfg.OptimConfig(
+        optimizer="sgd", class_weights=(), milestones=())), ema=True)
+    state.ema_params = [p.detach().clone() for p in other.parameters()]
+    mgr = CheckpointManager(ckpt, "resnet18", async_commit=False,
+                            log=lambda m: None)
+    mgr.save_best(state, 1, 60.0)
+    mgr.wait()
+    side = os.path.join(mgr.root, "config.json")
+    with open(side) as f:
+        cfg = json.load(f)
     cfg["optim"]["ema_decay"] = 0.999
-    side.write_text(json.dumps(cfg))
-    with pytest.raises(SystemExit, match="ema_decay.*item 8"):
-        pserve.main(["--device", "cpu", "--ckpt-dir", str(ckpt)])
+    with open(side, "w") as f:
+        json.dump(cfg, f)
+    with torch.no_grad():
+        for p, e in zip(model.parameters(), state.ema_params):
+            p.copy_(e)
+    return model.eval()
+
+
+def test_ema_checkpoint_serves_its_ema_and_fault_points_are_refused(
+        served, tmp_path, monkeypatch):
+    """``tpuic`` serves an EMA-trained checkpoint's EMA weights, at start
+    and as a swap candidate: records within 1e-5 of a direct forward of
+    ``ema_params``."""
+    ckpt = str(tmp_path / "ema")
+    ema_model = _ema_checkpoint(served, ckpt)
+    lines = [json.dumps({"id": p, "path": p}) for p in served["images"]]
+    out = tmp_path / "out.jsonl"
+    assert _cli(["--ckpt-dir", ckpt, "--model", "auto", "--top-k", "2",
+                 "--out", str(out)], "\n".join(lines) + "\n",
+                monkeypatch) == 0
+    recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+    _check_records(recs, dict(served, model=ema_model), 2)
+    # Swapped to from the raw save, it flips to the EMA weights' digest.
+    from tpuic_torch.checkpoint import variables_digest
+    out = tmp_path / "swap.jsonl"
+    assert _cli(["--ckpt-dir", served["ckpt"], "--model", "auto",
+                 "--out", str(out)],
+                json.dumps({"op": "swap", "id": "s", "ckpt_dir": ckpt})
+                + "\n", monkeypatch) == 0
+    result = json.loads(out.read_text().splitlines()[0])
+    assert result["ok"] is True
+    assert result["digest"] == variables_digest(ema_model) != \
+        variables_digest(served["model"])
     monkeypatch.setenv("TPUIC_FAULTS", "flood#10")
     with pytest.raises(SystemExit, match="TPUIC_FAULTS.*item 11"):
         pserve.main(["--device", "cpu", "--ckpt-dir", served["ckpt"]])

@@ -327,22 +327,50 @@ def test_cli_trains_on_cpu(folder, tmp_path):
 
 def test_cli_refuses_unported_settings(folder):
     from tpuic_torch.train.__main__ import main
+    from tpuic_torch.train.loop import unported_settings
     base = ["--datadir", folder, "--device", "cpu", "--dtype", "float32",
             "--no-pack", "--no-native", "--model", "resnet18-cifar"]
-    with pytest.raises(SystemExit, match="--mixup|mixup_alpha"):
-        main(base + ["--mixup", "0.2"])
     with pytest.raises(SystemExit, match="--slo: not yet ported"):
         main(base + ["--slo", "train_step:p99<=5ms"])
     with pytest.raises(SystemExit, match="data.pack"):
         main(base[:-4] + ["--model", "resnet18-cifar"])
-    # The ViT trains in bfloat16 (the default); its drop-path is refused
-    # by name.
-    with pytest.raises(SystemExit, match="--drop-path: not yet ported"):
-        main(["--datadir", folder, "--device", "cpu", "--no-pack",
-              "--no-native", "--model", "vit-tiny", "--drop-path", "0.1"])
-    with pytest.raises(SystemExit, match="EfficientNet training.*item 8"):
-        main(["--datadir", folder, "--device", "cpu", "--no-pack",
-              "--no-native", "--model", "efficientnet-b0"])
+    # Item 8's recipe features are ported: no field of theirs is refused.
+    cfg = pcfg.Config(
+        model=pcfg.ModelConfig(name="efficientnet-b0", remat=True,
+                               drop_path=0.1),
+        optim=pcfg.OptimConfig(mixup_alpha=0.2, cutmix_alpha=1.0,
+                               random_erase=0.25, ema_decay=0.9999,
+                               grad_accum_steps=4, freeze_backbone=True),
+        data=pcfg.DataConfig(pack=False, native=False))
+    assert unported_settings(cfg) == []
+
+
+@pytest.mark.parametrize("recipe", [
+    # recipes/README.md section 4 (ViT-B/16), on vit-tiny at 16 px.
+    ["--model", "vit-tiny", "--attention", "flash", "--resize", "16",
+     "--optimizer", "adam", "--lr", "3e-4", "--weight-decay", "0.05",
+     "--warmup-epochs", "10", "--label-smoothing", "0.1", "--mixup", "0.2",
+     "--cutmix", "1.0", "--random-erase", "0.25", "--drop-path", "0.1",
+     "--clip-grad-norm", "1.0", "--ema-decay", "0.9999",
+     "--dtype", "bfloat16"],
+    # Section 3 (EfficientNet-B0), at 32 px.
+    ["--model", "efficientnet-b0", "--resize", "32", "--optimizer", "sgd",
+     "--lr", "0.4", "--warmup-epochs", "5", "--dtype", "bfloat16"],
+    # Section 5's accumulation, freeze and remat, on resnet18-cifar.
+    ["--model", "resnet18-cifar", "--resize", "16", "--optimizer", "lars",
+     "--lr", "4.8", "--weight-decay", "1e-4", "--fused-optimizer",
+     "--grad-accum-steps", "2", "--freeze-backbone", "--remat",
+     "--remat-policy", "dots", "--dtype", "float32"],
+], ids=["vit-section4", "effnet-section3", "accum-freeze-remat"])
+def test_cli_runs_the_recipe_flags_on_cpu(folder, tmp_path, capsys, recipe):
+    from tpuic_torch.train.__main__ import main
+    assert main(["--datadir", folder, "--device", "cpu", "--no-pack",
+                 "--no-native", "--no-class-weights", "--batchsize", "4",
+                 "--epochs", "2", "--steps", "2", "--workers", "2",
+                 "--log-every-steps", "1", "--ckpt-dir",
+                 str(tmp_path), *recipe]) == 0
+    out = capsys.readouterr().out
+    assert "step budget (2) reached" in out and "Epoch: 0; step 2;" in out
 
 
 def test_cli_reference_defaults_run_on_cpu(tmp_path):

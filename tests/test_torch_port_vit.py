@@ -11,7 +11,8 @@
 - Two AdamW steps of ``vit-tiny`` with ``attention="flash"``, the fused
   loss, clipping and label smoothing, against ``tpuic``'s step from the
   same weights and batches, at test_torch_port_train.py's tolerances.
-- The CLI and the Trainer's refusals, flax's init distributions.
+- The CLI and the Trainer's refusals (``ring`` attention), drop-path
+  through the CLI, flax's init distributions.
 
 JAX and ``tpuic`` are imported inside fixtures, so the ``cuda`` test of
 this file runs where JAX is not installed.
@@ -323,8 +324,10 @@ def test_unported_vit_settings_raise():
     with pytest.raises(ValueError, match="unknown attention impl"):
         port_models.create_model("vit-tiny", 3, attention="sparse",
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="drop_path"):
-        port_models.create_model("vit-tiny", 3, drop_path=0.1, device="cpu")
+    # drop_path is ported: the model has its draw sites.
+    assert port_models.create_model("vit-tiny", 3, drop_path=0.1,
+                                    device="cpu").drop_path_rates() == [
+        0.1, 0.1]
     with pytest.raises(ValueError, match="built for 16x16"):
         port_models.create_model("vit-tiny", 3, image_size=16,
                                  device="cpu")(torch.zeros(1, 32, 32, 3))
@@ -372,15 +375,20 @@ def test_cli_trains_vit_with_flash_on_cpu(folder, tmp_path):
     assert "step budget (2) reached" in out.stdout
 
 
-def test_cli_refuses_unported_attention_and_drop_path(folder):
+def test_cli_refuses_ring_attention_and_trains_with_drop_path(folder,
+                                                             tmp_path,
+                                                             capsys):
     from tpuic_torch.train.__main__ import main
     base = ["--datadir", folder, "--device", "cpu", "--dtype", "float32",
             "--no-pack", "--no-native", "--model", "vit-tiny", "--resize",
             "16"]
     with pytest.raises(SystemExit, match="'ring' is not yet ported"):
         main(base + ["--attention", "ring"])
-    with pytest.raises(SystemExit, match="--drop-path: not yet ported"):
-        main(base + ["--drop-path", "0.1"])
+    assert main(base + ["--drop-path", "0.1", "--steps", "1", "--batchsize",
+                        "4", "--no-class-weights", "--milestones",
+                        "--workers", "2", "--log-every-steps", "1",
+                        "--ckpt-dir", str(tmp_path)]) == 0
+    assert "Epoch: 0; step 1;" in capsys.readouterr().out
 
 
 @pytest.mark.cuda

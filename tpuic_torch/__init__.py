@@ -17,8 +17,10 @@ there it keeps as its own copy.
                                port; initialisation; the port's own
                                checkpoints
 - ``tpuic_torch.data``       — ImageFolder decode/augment and the Loader
-- ``tpuic_torch.train``      — loss, optimizers, schedules, steps, the
-                               Trainer and ``python -m tpuic_torch.train``
+- ``tpuic_torch.train``      — loss, optimizers, schedules, steps and
+                               their draws (mixup, CutMix, erasing,
+                               drop-path), the Trainer and
+                               ``python -m tpuic_torch.train``
 - ``tpuic_torch.serve``      — the dynamic-batching inference engine (one
                                CUDA graph per padding bucket) and
                                ``python -m tpuic_torch.serve``

@@ -3,7 +3,7 @@ states, flax-default init for training, synthetic init for serving; and
 the port's own checkpoints (best/latest tracks, the restore ladder)."""
 
 from tpuic_torch.checkpoint.convert import (init_params,  # noqa: F401
-                                            init_synthetic,
+                                            init_synthetic, load_jax_ema,
                                             load_jax_opt_state,
                                             load_jax_variables)
 from tpuic_torch.checkpoint.loading import (  # noqa: F401

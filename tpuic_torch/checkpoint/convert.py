@@ -26,7 +26,12 @@ Reading the tree needs no JAX.
 
 ``load_jax_opt_state(opt_state, params_order)`` carries a ``tpuic``
 optimizer state (numpy leaves) into the port's ``OptState``, by the same
-leaf mapping, so both packages can continue from one mid-training state.
+leaf mapping, so both packages can continue from one mid-training state:
+``optax.MultiSteps``' ``acc_grads``, ``mini_step`` and ``gradient_step``
+(gradient accumulation) and ``optax.multi_transform``'s partitioned
+state (``freeze_backbone``: moments for the head's leaves only, the
+backbone's ``MaskedNode``) included.  ``load_jax_ema(model, ema_params)``
+carries ``TrainState.ema_params`` by the variables' naming.
 
 ``init_params(model, seed)`` draws flax's default initialisation (what a
 ``tpuic`` Trainer starts from) for training; ``init_synthetic`` draws
@@ -60,6 +65,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         path = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, Mapping):
             out.update(_flatten(v, path))
+        elif isinstance(v, tuple) and not v:
+            continue  # optax's MaskedNode: a leaf another partition owns
         else:
             out[path] = np.asarray(getattr(v, "value", v))
     return out
@@ -258,27 +265,31 @@ def init_params(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
     return model
 
 
-_MOMENTS = ("trace", "mu", "nu")
+_MOMENTS = ("trace", "mu", "nu", "acc_grads")
+_STEPS = ("mini_step", "gradient_step")
 
 
-def _collect_opt_state(node, path: str, counts: list, moments: dict) -> None:
+def _collect_opt_state(node, path: str, counts: list, moments: dict,
+                       steps: dict) -> None:
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         for f in node._fields:
             v, sub = getattr(node, f), f"{path}{f}"
             if f == "count":
                 counts.append((sub, np.asarray(v)))
+            elif f in _STEPS:
+                steps[f] = int(np.asarray(v))
             elif f in _MOMENTS:
                 if f in moments:
                     raise KeyError(f"{sub}: a second '{f}' tree")
                 moments[f] = v
             else:
-                _collect_opt_state(v, sub + "/", counts, moments)
+                _collect_opt_state(v, sub + "/", counts, moments, steps)
     elif isinstance(node, (tuple, list)):
         for i, v in enumerate(node):
-            _collect_opt_state(v, f"{path}{i}/", counts, moments)
+            _collect_opt_state(v, f"{path}{i}/", counts, moments, steps)
     elif isinstance(node, Mapping):
         for k, v in node.items():
-            _collect_opt_state(v, f"{path}{k}/", counts, moments)
+            _collect_opt_state(v, f"{path}{k}/", counts, moments, steps)
     elif node is not None:
         raise KeyError(f"{path or '<root>'}: optimizer-state leaf the port "
                        "does not carry")
@@ -292,15 +303,21 @@ def load_jax_opt_state(opt_state, params_order: Sequence[str], device=None):
     ``FusedLarsState(count, trace)``, ``FusedLambState(count, mu, nu)`` or
     an optax chain of ``ScaleByAdamState`` / ``TraceState`` /
     ``ScaleByScheduleState`` / empty states (adam, adamw, sgd, lars, lamb,
-    with or without clipping).  ``params_order`` names the port
-    parameters in ``model.named_parameters()`` order; every moment tree
-    must map onto exactly those names.  Strict: a leaf the port does not
-    carry, counts that disagree, or a missing or extra parameter raise."""
+    with or without clipping), under ``MultiStepsState`` and
+    ``MultiTransformState`` / ``MaskedState`` wrappers.  ``params_order``
+    names the parameters the port's optimizer updates, in
+    ``model.named_parameters()`` order (the head's alone under
+    ``freeze_backbone``); every moment tree must map onto exactly those
+    names.  ``acc_grads`` covers every parameter in ``tpuic``: a frozen
+    parameter's accumulator must be zero and is dropped.  Strict: a leaf
+    the port does not carry, counts that disagree, or a missing or extra
+    parameter raise."""
     from tpuic_torch.train.optimizer import OptState
     dev = resolve_device(device)
     counts: list = []
     moments: dict = {}
-    _collect_opt_state(opt_state, "", counts, moments)
+    steps: dict = {}
+    _collect_opt_state(opt_state, "", counts, moments, steps)
     if not counts:
         raise KeyError("optimizer state has no 'count'")
     values = {int(c) for _, c in counts}
@@ -316,11 +333,48 @@ def load_jax_opt_state(opt_state, params_order: Sequence[str], device=None):
                 raise KeyError(f"{name}/{path}: '{port}' written twice")
             by_name[port] = torch.tensor(np.ascontiguousarray(
                 _to_port_layout(arr)), dtype=torch.float32, device=dev)
+        if name == "acc_grads":
+            for extra in set(by_name) - set(order):
+                if bool(by_name.pop(extra).any()):
+                    raise ValueError(f"acc_grads/{extra}: a parameter the "
+                                     "port does not train has a nonzero "
+                                     "accumulator")
         if set(by_name) != set(order):
             missing = sorted(set(order) - set(by_name))
             extra = sorted(set(by_name) - set(order))
             raise KeyError(f"'{name}' does not match the parameters: "
                            f"missing {missing[:5]}, extra {extra[:5]}")
-        lists[name] = [by_name[n] for n in order]
+        lists["acc" if name == "acc_grads" else name] = [
+            by_name[n] for n in order]
     count = torch.tensor(values.pop(), dtype=torch.int32, device=dev)
-    return OptState(count=count, **lists)
+    step_tensors = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+                    for k, v in steps.items()}
+    return OptState(count=count, **lists, **step_tensors)
+
+
+def load_jax_ema(model: nn.Module, ema_params: Mapping,
+                 device=None) -> List[torch.Tensor]:
+    """A ``tpuic`` ``TrainState.ema_params`` tree (numpy leaves, the
+    ``params`` collection's layout) -> the port's ``ema_params``: one
+    float32 tensor per ``model.parameters()`` entry, by
+    :func:`load_jax_variables`' naming.  Strict: every parameter once."""
+    dev = resolve_device(device)
+    names = [n for n, _ in model.named_parameters()]
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    by_name = {}
+    for path, arr in _flatten(ema_params).items():
+        port = _port_name("params", path)
+        src = _to_port_layout(arr)
+        if port not in shapes or port in by_name:
+            raise KeyError(f"ema_params/{path}: no single parameter "
+                           f"'{port}'")
+        if tuple(src.shape) != shapes[port]:
+            raise ValueError(f"ema_params/{path}: shape {arr.shape} does "
+                             f"not fit '{port}' {shapes[port]}")
+        by_name[port] = torch.tensor(np.ascontiguousarray(src),
+                                     dtype=torch.float32, device=dev)
+    missing = sorted(set(names) - set(by_name))
+    if missing:
+        raise KeyError(f"ema_params lacks {len(missing)} parameters, "
+                       f"first: {missing[:5]}")
+    return [by_name[n] for n in names]

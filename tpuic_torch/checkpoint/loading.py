@@ -6,7 +6,12 @@ Restoring weights to serve is stricter than the trainer's lenient resume:
   a fresh initialisation;
 - a partial key-intersection restore is an error too: fresh tensors in
   the forward mean the wrong model or class count;
-- the model comes back on its device, in eval mode.
+- the model comes back on its device, in eval mode;
+- with ``cfg.optim.ema_decay`` above 0 (the run's sidecar, read by
+  predict and the serve CLI) the model holds the checkpoint's
+  ``ema_params``, the weights ``tpuic`` scores and serves
+  (``tpuic/checkpoint/loading.py:78``, ``:182``); a checkpoint without
+  them gives its parameters.
 
 The run's ``config.json`` sidecar (written by the ``Trainer`` beside the
 tracks) gives the architecture the run trained: the class count it
@@ -31,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpuic_torch.checkpoint.convert import _invalidate
 from tpuic_torch.checkpoint.manager import CheckpointManager
 
 #: Sidecar fields that fix the architecture a run trained.
@@ -53,6 +59,16 @@ def _resolved_model_config(cfg) -> Tuple[object, Optional[int]]:
             for k in ARCH_FIELDS if k in model}
     size = saved.get("data", {}).get("resize_size", cfg.data.resize_size)
     return dataclasses.replace(cfg.model, **arch), int(size)
+
+
+def _inference_params(state) -> None:
+    """Write ``state.ema_params`` (when the state keeps them) into its
+    model: ``tpuic``'s ``inference_params``."""
+    if state.ema_params is not None:
+        with torch.no_grad():
+            torch._foreach_copy_(list(state.model.parameters()),
+                                 state.ema_params)
+        _invalidate(state.model)
 
 
 def load_inference_variables(cfg, *, track: str = "best", device=None,
@@ -86,8 +102,10 @@ def load_inference_variables(cfg, *, track: str = "best", device=None,
     model = init_params(create_model_from_config(mcfg, device=device,
                                                  image_size=size), 0,
                         device=device)
-    state = create_train_state(model, make_optimizer(cfg.optim))
+    state = create_train_state(model, make_optimizer(cfg.optim),
+                               ema=cfg.optim.ema_decay > 0)
     _, _, best = mgr.restore_into(state, track=track)
+    _inference_params(state)
     loaded, total = mgr.last_restore_loaded or (0, 0)
     if loaded < total:
         raise ValueError(
@@ -141,13 +159,15 @@ def load_candidate_variables(cfg, *, track: str = "best", log=print,
     # No initialisation: the restore writes every tensor, or the load is
     # refused below.
     model = create_model_from_config(mcfg, device=device, image_size=size)
-    state = create_train_state(model, make_optimizer(cfg.optim))
+    state = create_train_state(model, make_optimizer(cfg.optim),
+                               ema=cfg.optim.ema_decay > 0)
     try:
         _, _, best = mgr.restore_exact(state, track)
     except Exception as e:
         raise SwapRejected(
             f"swap candidate {mgr.root}/{track} failed to restore: "
             f"{type(e).__name__}: {e}", cause="swap_corrupt") from e
+    _inference_params(state)
     loaded, total = mgr.last_restore_loaded
     if loaded < total:
         raise ValueError(

@@ -11,9 +11,11 @@ protocol:
   ``save_latest`` is unconditional and records the resume keys
   (``RESUME_META_KEYS``; -1 at an epoch boundary).
 - **Payload.** One file, ``{track}/state.pt``: the model's
-  ``state_dict`` (parameters and BN buffers), the ``OptState`` tensors,
-  ``step`` and ``skip_count``, and ``meta`` (``epoch``, ``best_score``,
-  the resume keys and ``step``).  Only tensors, dicts, lists, ints, floats
+  ``state_dict`` (parameters and BN buffers), the ``OptState`` tensors
+  (gradient accumulation's ``acc``, ``mini_step`` and ``gradient_step``
+  among them), ``step`` and ``skip_count``, ``ema_params`` (by parameter
+  name) when the run keeps an EMA, and ``meta`` (``epoch``,
+  ``best_score``, the resume keys and ``step``).  Only tensors, dicts, lists, ints, floats
   and strings: ``torch.load(..., weights_only=True)`` reads it back.
 - **Snapshot, then write.** The port's step updates parameters and
   optimizer state in place, so a save first copies every tensor to the
@@ -37,7 +39,10 @@ protocol:
   corrupt: ``RuntimeError``.
 - **Lenient restore** (train.py:143-148): a key intersection over
   ``state_dict`` names with equal shapes.  The optimizer state, ``step``
-  and ``skip_count`` are restored only when every model tensor was.
+  and ``skip_count`` are restored only when every model tensor was.  An
+  EMA run restores ``ema_params`` by the same intersection; from a
+  checkpoint without one it restarts the EMA at the restored parameters
+  (``tpuic/checkpoint/manager.py:736-769``).
 
 - **Exact restore.** ``restore_exact`` reads one named track with no
   ladder: the hot-swap gate's read (``loading.load_candidate_variables``),
@@ -52,8 +57,8 @@ protocol:
   On resume every process walks the ladder, and all of them check that
   they restored the same epoch and step.
 
-Not ported: the fault point ``ckpt_kill``, the ``checkpoint_commit``
-telemetry event and EMA parameters.
+Not ported: the fault point ``ckpt_kill`` and the ``checkpoint_commit``
+telemetry event.
 """
 
 from __future__ import annotations
@@ -83,7 +88,8 @@ GEOMETRY_META_KEYS = ("global_batch", "data_seed", "data_len")
 ENV_RESUME_STEP = "TPUIC_RESUME_STEP"
 PAYLOAD = "state.pt"
 _MANIFEST_VERSION = 1
-_OPT_FIELDS = ("trace", "mu", "nu")
+_OPT_FIELDS = ("trace", "mu", "nu", "acc")
+_OPT_COUNTERS = ("count", "mini_step", "gradient_step")
 
 
 def lenient_restore(current: Mapping[str, torch.Tensor],
@@ -164,21 +170,30 @@ def snapshot(state) -> Dict[str, Any]:
     "skip_count"}``."""
     flat = {f"model/{k}": v for k, v in state.model.state_dict().items()}
     opt = state.opt_state
-    flat["opt/count"] = opt.count
+    for field in _OPT_COUNTERS:
+        if getattr(opt, field) is not None:
+            flat[f"opt/{field}"] = getattr(opt, field)
     for field in _OPT_FIELDS:
         for i, t in enumerate(getattr(opt, field) or ()):
             flat[f"opt/{field}/{i}"] = t
     flat["step"], flat["skip_count"] = state.step, state.skip_count
+    names = [n for n, _ in state.model.named_parameters()]
+    if state.ema_params is not None:
+        for n, t in zip(names, state.ema_params):
+            flat[f"ema/{n}"] = t
     host = _host_copies(flat)
     out = {"model": {k[6:]: v for k, v in host.items()
                      if k.startswith("model/")},
-           "opt_state": {"count": host["opt/count"]},
+           "opt_state": {f: host[f"opt/{f}"] for f in _OPT_COUNTERS
+                         if f"opt/{f}" in host},
            "step": host["step"], "skip_count": host["skip_count"]}
     for field in _OPT_FIELDS:
         seq = getattr(opt, field)
         if seq is not None:
             out["opt_state"][field] = [host[f"opt/{field}/{i}"]
                                        for i in range(len(seq))]
+    if state.ema_params is not None:
+        out["ema_params"] = {n: host[f"ema/{n}"] for n in names}
     return out
 
 
@@ -187,6 +202,12 @@ def _copy_opt_state(opt, saved: Mapping) -> bool:
     lengths, shapes and dtypes all match; else leave it and return
     False."""
     pairs = [(opt.count, saved.get("count"))]
+    for field in _OPT_COUNTERS[1:]:
+        live, got = getattr(opt, field), saved.get(field)
+        if (live is None) != (got is None):
+            return False
+        if live is not None:
+            pairs.append((live, got))
     for field in _OPT_FIELDS:
         live, got = getattr(opt, field), saved.get(field)
         if (live is None) != (got is None):
@@ -202,6 +223,20 @@ def _copy_opt_state(opt, saved: Mapping) -> bool:
         for d, s in pairs:
             d.copy_(s)
     return True
+
+
+def _restore_ema(state, saved: Optional[Mapping]) -> None:
+    """``state.ema_params`` from a payload's ``ema_params`` by parameter
+    name (equal shapes); each one the payload lacks, and all of them
+    after a payload without an EMA, restarts at the restored
+    parameter."""
+    saved = saved or {}
+    with torch.no_grad():
+        for (name, p), e in zip(state.model.named_parameters(),
+                                state.ema_params):
+            got = saved.get(name)
+            e.copy_(got if got is not None and got.shape == e.shape
+                    else p.detach())
 
 
 class CheckpointManager:
@@ -551,6 +586,8 @@ class CheckpointManager:
         model.load_state_dict(merged)
         _invalidate(model)
         self.last_restore_loaded = (n_loaded, n_total)
+        if state.ema_params is not None:
+            _restore_ema(state, payload.get("ema_params"))
         full = False
         if n_loaded == n_total:
             full = _copy_opt_state(state.opt_state,

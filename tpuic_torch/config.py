@@ -81,8 +81,10 @@ class ModelConfig:
     # (bf16), the ``--bn-bf16-stats`` bandwidth experiment.  ResNet family
     # only; InceptionV3 and EfficientNet keep float32 statistics.
     bn_f32_stats: bool = True
-    # Rematerialization: not ported; the Trainer refuses True, so
-    # remat_policy is carried for the config's shape only.
+    # Rematerialization (models/remat.py): 'dots' recomputes the whole
+    # forward but the matrix products' and convolutions' outputs;
+    # 'attention', 'blocks' and 'gelu' recompute the ViT's dense attention
+    # core, each encoder block, or each mlp_up + GELU.
     remat: bool = False
     remat_policy: str = "dots"
     # Inception aux-logits loss weight (reference train.py:52).
@@ -97,7 +99,8 @@ class ModelConfig:
     # kernels, tpuic_torch/kernels/flash_attention.py); the ViT refuses
     # the sequence-parallel rest, which are not ported.  CNNs ignore it.
     attention: str = "dense"
-    # Stochastic depth of the ViT family: not ported; the ViT refuses > 0.
+    # Stochastic depth of the ViT family: the rate of the last block, a
+    # linear ramp from 0 (EfficientNet keeps its own 0.2).
     drop_path: float = 0.0
     # Training compute-dtype policy ('' | 'bf16' | 'f32'), see
     # resolve_compute_dtype.  '' leaves ``dtype`` in charge; 'bf16' forces
@@ -162,12 +165,12 @@ class OptimConfig:
     base_batch_size: int = 0
     warmup_epochs: int = 0
     grad_clip_norm: float = 0.0
-    # Gradient accumulation: not ported; the Trainer refuses > 1.
+    # Gradient accumulation over K micro-steps (optax.MultiSteps).
     grad_accum_steps: int = 1
     label_smoothing: float = 0.0
-    # Parameter EMA: not ported; the Trainer refuses > 0.
+    # Parameter EMA: validation, best selection and serving score it.
     ema_decay: float = 0.0
-    # Head-only fine-tuning: not ported; the Trainer refuses True.
+    # Head-only fine-tuning: the backbone gets no gradient and no update.
     freeze_backbone: bool = False
     # Fused weighted cross-entropy kernel K1
     # (tpuic_torch/kernels/cross_entropy.py) in the train step.

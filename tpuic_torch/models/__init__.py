@@ -55,11 +55,13 @@ def create_backbone(name: str, num_classes: int = 0, *,
                     bn_momentum: float = 0.9, bn_eps: float = 1e-5,
                     attention: str = "dense", bn_f32_stats: bool = True,
                     drop_path: float = 0.0, fused_conv_bn: bool = False,
-                    image_size: Optional[int] = None,
+                    image_size: Optional[int] = None, remat_policy: str = "",
                     device=None) -> Tuple[torch.nn.Module, bool]:
     """``(backbone, has_aux)``.  ``num_classes`` sizes InceptionV3's aux
     head; ``image_size`` sizes the ViT's position embedding (default 224);
-    CNNs ignore it, as they ignore ``attention`` and ``drop_path``."""
+    CNNs ignore it, as they ignore ``attention``, ``drop_path`` and the
+    ViT-only ``remat_policy`` values (``attention``, ``gelu``,
+    ``blocks``)."""
     if name not in _REGISTRY:
         if name in NOT_YET_PORTED:
             raise ValueError(f"model '{name}' is not yet ported to "
@@ -75,7 +77,7 @@ def create_backbone(name: str, num_classes: int = 0, *,
                    bn_momentum=bn_momentum, bn_eps=bn_eps,
                    attention=attention, bn_f32_stats=bn_f32_stats,
                    drop_path=drop_path, fused_conv_bn=fused_conv_bn,
-                   image_size=image_size,
+                   image_size=image_size, remat_policy=remat_policy,
                    device=resolve_device(device)), has_aux
 
 
@@ -84,19 +86,24 @@ def create_model(name: str, num_classes: int, *, head_widths=(128, 64, 32),
                  bn_momentum: float = 0.9, bn_eps: float = 1e-5,
                  attention: str = "dense", bn_f32_stats: bool = True,
                  drop_path: float = 0.0, fused_conv_bn: bool = False,
-                 image_size: Optional[int] = None,
+                 image_size: Optional[int] = None, remat_policy: str = "",
                  device=None) -> Classifier:
     """The ``tpuic.models.create_model`` counterpart, built on ``device``
-    (``None`` = the card)."""
+    (``None`` = the card).  ``remat_policy`` ('' = no remat) is
+    ``models/remat.py``'s: ``dots`` on the ``Classifier``, the others in
+    the ViT."""
     device = resolve_device(device)
     backbone, has_aux = create_backbone(
         name, num_classes, dtype=dtype, param_dtype=param_dtype,
         bn_momentum=bn_momentum, bn_eps=bn_eps, attention=attention,
         bn_f32_stats=bn_f32_stats, drop_path=drop_path,
-        fused_conv_bn=fused_conv_bn, image_size=image_size, device=device)
-    return Classifier(backbone, num_classes, tuple(head_widths),
-                      has_aux=has_aux, dtype=_dtype(dtype),
-                      param_dtype=_dtype(param_dtype), device=device)
+        fused_conv_bn=fused_conv_bn, image_size=image_size,
+        remat_policy=remat_policy, device=device)
+    model = Classifier(backbone, num_classes, tuple(head_widths),
+                       has_aux=has_aux, dtype=_dtype(dtype),
+                       param_dtype=_dtype(param_dtype), device=device)
+    model.remat_dots = remat_policy == "dots"
+    return model
 
 
 def create_model_from_config(cfg: ModelConfig, device=None,
@@ -109,14 +116,17 @@ def create_model_from_config(cfg: ModelConfig, device=None,
                         bn_f32_stats=cfg.bn_f32_stats,
                         drop_path=cfg.drop_path,
                         fused_conv_bn=cfg.fused_conv_bn,
-                        image_size=image_size, device=device)
+                        image_size=image_size,
+                        remat_policy=cfg.remat_policy if cfg.remat else "",
+                        device=device)
 
 
 def _cnn(factory, **extra):
     def make(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps,
              attention, bn_f32_stats, drop_path, fused_conv_bn, image_size,
-             device):
+             remat_policy, device):
         del num_classes, attention, drop_path, image_size  # ViT/aux only
+        del remat_policy  # 'dots' is the Classifier's
         return factory(dtype=dtype, param_dtype=param_dtype,
                        bn_momentum=bn_momentum, bn_eps=bn_eps,
                        bn_f32_stats=bn_f32_stats,
@@ -127,12 +137,12 @@ def _cnn(factory, **extra):
 def _eff(variant):
     def make(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps,
              attention, bn_f32_stats, drop_path, fused_conv_bn, image_size,
-             device):
+             remat_policy, device):
         # eps 1e-3 and float32 statistics whatever the config says; the
         # stochastic depth stays tpuic's default 0.2, as tpuic's factory
         # never overrides it.
         del (num_classes, bn_eps, attention, bn_f32_stats, drop_path,
-             fused_conv_bn, image_size)
+             fused_conv_bn, image_size, remat_policy)
         return _effnet.efficientnet(variant, dtype=dtype,
                                     param_dtype=param_dtype,
                                     bn_momentum=bn_momentum, device=device)
@@ -140,10 +150,11 @@ def _eff(variant):
 
 
 def _inc(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps, attention,
-         bn_f32_stats, drop_path, fused_conv_bn, image_size, device):
+         bn_f32_stats, drop_path, fused_conv_bn, image_size, remat_policy,
+         device):
     # eps 1e-3 and float32 statistics; the aux head is num_classes wide.
     del (bn_eps, attention, bn_f32_stats, drop_path, fused_conv_bn,
-         image_size)
+         image_size, remat_policy)
     return _inception.InceptionV3(aux_classes=num_classes, dtype=dtype,
                                   param_dtype=param_dtype,
                                   bn_momentum=bn_momentum, device=device)
@@ -152,13 +163,15 @@ def _inc(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps, attention,
 def _vit_factory(ctor):
     def make(*, num_classes, dtype, param_dtype, bn_momentum, bn_eps,
              attention, bn_f32_stats, drop_path, fused_conv_bn, image_size,
-             device):
+             remat_policy, device):
         del num_classes, bn_momentum, bn_eps, bn_f32_stats  # no BN
         del fused_conv_bn  # ResNet-only
         return ctor(dtype=dtype, param_dtype=param_dtype,
                     attention=attention, drop_path=drop_path,
                     image_size=224 if image_size is None else image_size,
-                    device=device)
+                    remat_core=remat_policy == "attention",
+                    remat_mlp=remat_policy == "gelu",
+                    remat_blocks=remat_policy == "blocks", device=device)
     return make
 
 

@@ -12,11 +12,15 @@ and swish activations, under the flax module names (``stem_conv``,
   efficientnet_pytorch package do; depthwise convs are ``groups=mid``.
 - The SE width is ``max(1, int(in_features * 0.25))`` of the *block's
   input*; its two 1x1 convs carry a bias.  BN eps is 1e-3.
-- ``drop_path_rate`` is ``tpuic``'s stochastic depth (0.2 by default):
-  the per-sample drop needs the train step's RNG plumbing, which is not
-  ported (ROADMAP §1 item 8), so a train-mode forward with a rate above
-  0 raises.  Eval mode (serving, predict) and train-mode BN at rate 0
-  are ported.
+- ``drop_path_rate`` is ``tpuic``'s stochastic depth (0.2 by default,
+  ``tpuic/models/efficientnet.py:117-128``, ``:155-164``): block ``bi``
+  (counted over the whole network) drops its residual branch per sample
+  at the rate ``drop_path_rate * bi / total_blocks`` and scales a
+  survivor by ``1 / keep``, wherever the block has a residual (stride 1,
+  ``in == out``) and the rate is above 0: one draw site each, in block
+  order (``drop_path_rates``).  The module takes the masks
+  (``drop_masks``, ``[sites, B]`` bool, from the train step's generator)
+  and draws nothing itself; a train-mode forward needs them.
 
 Images come in NHWC ``[B, H, W, 3]``; the backbone returns float32 pooled
 features ``[B, num_features]``.
@@ -34,6 +38,7 @@ from torch import nn
 
 from tpuic_torch.device import resolve_device
 from tpuic_torch.models.layers import Conv, batch_norm
+from tpuic_torch.models.vit import check_drop_masks
 
 # (expand_ratio, channels, num_blocks, stride, kernel): the B0 base.
 _BASE_BLOCKS: Tuple[Tuple[int, int, int, int, int], ...] = (
@@ -91,7 +96,7 @@ class SqueezeExcite(nn.Module):
 class MBConv(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  expand_ratio: int, strides: int, kernel: int,
-                 se_ratio: float = 0.25,
+                 drop_rate: float = 0.0, se_ratio: float = 0.25,
                  bn_momentum: float = 0.9, bn_eps: float = 1e-3, *,
                  dtype=torch.float32, param_dtype=torch.float32,
                  device=None) -> None:
@@ -100,6 +105,7 @@ class MBConv(nn.Module):
         bn = partial(batch_norm, momentum=bn_momentum, eps=bn_eps, **kw)
         mid = in_features * expand_ratio
         self.residual = strides == 1 and in_features == out_features
+        self.drop_rate = float(drop_rate)
         if expand_ratio != 1:
             self.expand_conv = Conv(in_features, mid, 1, **kw)
             self.expand_bn = bn(mid)
@@ -111,13 +117,23 @@ class MBConv(nn.Module):
         self.project_conv = Conv(mid, out_features, 1, **kw)
         self.project_bn = bn(out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def drops(self) -> bool:
+        """Whether this block is a drop-path draw site."""
+        return self.residual and self.drop_rate > 0.0
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """``mask`` [B] bool: the stochastic-depth draw of a train-mode
+        forward (None: no drop)."""
         y = x
         if hasattr(self, "expand_conv"):
             y = F.silu(self.expand_bn(self.expand_conv(y)))
         y = F.silu(self.dw_bn(self.dw_conv(y)))
         y = self.project_bn(self.project_conv(self.se(y)))
         if self.residual:
+            if mask is not None:
+                keep = 1.0 - self.drop_rate
+                y = y * mask.to(y.dtype)[:, None, None, None] / keep
             y = y + x
         return y
 
@@ -140,14 +156,18 @@ class EfficientNet(nn.Module):
         self.stem_bn = bn(stem)
         in_f = stem
         self._blocks = []
+        total = sum(_round_repeats(r, depth_mult)
+                    for _, _, r, _, _ in _BASE_BLOCKS)
         for si, (expand, ch, repeats, stride, kernel) in \
                 enumerate(_BASE_BLOCKS):
             out_f = _round_filters(ch, width_mult)
             for r in range(_round_repeats(repeats, depth_mult)):
                 name = f"block{si}_{r}"
+                drop = self.drop_path_rate * len(self._blocks) / max(1, total)
                 setattr(self, name, MBConv(
                     in_f, out_f, expand, stride if r == 0 else 1, kernel,
-                    bn_momentum=bn_momentum, bn_eps=bn_eps, **kw))
+                    drop_rate=drop, bn_momentum=bn_momentum, bn_eps=bn_eps,
+                    **kw))
                 self._blocks.append(name)
                 in_f = out_f
         head = _round_filters(1280, width_mult)
@@ -155,17 +175,25 @@ class EfficientNet(nn.Module):
         self.head_bn = bn(head)
         self.num_features = head
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.drop_path_rate > 0.0:
-            raise NotImplementedError(
-                f"EfficientNet training with stochastic depth "
-                f"(drop_path_rate {self.drop_path_rate}) is not yet ported "
-                "to tpuic_torch: it needs the train step's RNG plumbing "
-                "(ROADMAP §1 item 8)")
+    def drop_path_rates(self) -> list:
+        """The drop rate of each draw site, in block order."""
+        return [b.drop_rate for b in (getattr(self, n) for n in self._blocks)
+                if b.drops]
+
+    def forward(self, x: torch.Tensor, drop_masks=None) -> torch.Tensor:
+        """``drop_masks``: ``[sites, B]`` bool, one row per entry of
+        ``drop_path_rates()``; required in train mode, ignored in eval
+        mode."""
+        masks = check_drop_masks(self, drop_masks, x.shape[0])
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # NCHW view
         x = F.silu(self.stem_bn(self.stem_conv(x)))
+        site = 0
         for name in self._blocks:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            m = None
+            if masks is not None and block.drops:
+                m, site = masks[site], site + 1
+            x = block(x, m)
         x = F.silu(self.head_bn(self.head_conv(x)))
         return x.mean(dim=(2, 3)).float()
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from tpuic_torch.device import resolve_device
 from tpuic_torch.kernels.conv_bn_relu import Padding, norm_padding
+from tpuic_torch.models.remat import recomputing
 
 
 class MLPHead(nn.Module):
@@ -112,10 +113,12 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
             + self.bias.view(1, -1, 1, 1)
-        with torch.no_grad():
-            m = self.flax_momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if not recomputing():  # a remat backward updates nothing twice
+            with torch.no_grad():
+                m = self.flax_momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y.to(self.compute_dtype)
 
 

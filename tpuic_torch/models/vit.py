@@ -17,7 +17,19 @@ feature ``[B, hidden]`` after the final LayerNorm.
   ``"flash"`` runs the K4 kernels (``kernels/flash_attention.py``) on
   strided views of the qkv projection, forward and backward.  The
   sequence-parallel impls (``ring``, ``ring-flash``, ``ulysses``,
-  ``ulysses-flash``) and ``drop_path > 0`` raise ``NotImplementedError``.
+  ``ulysses-flash``) raise ``NotImplementedError``.
+- Drop-path (stochastic depth, ``tpuic/models/vit.py:183-199``,
+  ``:286-297``): block ``i`` drops each residual branch per sample at
+  the rate ``drop_path * i / max(1, depth - 1)``, and a survivor is
+  scaled by ``1 / max(keep, 1e-6)``: two draw sites a block (attention,
+  then MLP) wherever the rate is above 0, in block order
+  (``drop_path_rates``).  The module takes the masks (``drop_masks``,
+  ``[sites, B]`` bool, from the train step's generator) and draws
+  nothing itself; a train-mode forward with a rate above 0 needs them.
+- Remat (``remat_core``, ``remat_mlp``, ``remat_blocks``:
+  ``ModelConfig.remat_policy`` ``attention``, ``gelu``, ``blocks``;
+  ``models/remat.py``) recomputes in the backward the dense attention
+  core, each ``mlp_up`` + GELU, or each block, saving nothing.
 - Every ``Linear`` of the backbone is marked ``kernel_init =
   "xavier_uniform"``, flax's init for the ViT's Dense layers
   (``checkpoint.init_params`` reads it).
@@ -38,6 +50,7 @@ from tpuic_torch.config import ATTENTION_IMPLS
 from tpuic_torch.device import resolve_device
 from tpuic_torch.kernels.flash_attention import flash_attention
 from tpuic_torch.models.layers import LayerNorm
+from tpuic_torch.models.remat import checkpointed
 
 PORTED_ATTENTION = ("dense", "flash")
 
@@ -72,14 +85,15 @@ class MultiHeadAttention(nn.Module):
     """``qkv`` projection, per-head attention, ``out`` projection."""
 
     def __init__(self, hidden: int, num_heads: int, attention: str = "dense",
-                 *, dtype=torch.float32, param_dtype=torch.float32,
-                 device=None) -> None:
+                 *, remat_core: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None) -> None:
         super().__init__()
         check_attention(attention)
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} is not a multiple of "
                              f"{num_heads} heads")
         self.num_heads, self.attention = num_heads, attention
+        self.remat_core = remat_core
         self.qkv = _dense(hidden, 3 * hidden, dtype, param_dtype, device)
         self.out = _dense(hidden, hidden, dtype, param_dtype, device)
 
@@ -92,35 +106,63 @@ class MultiHeadAttention(nn.Module):
                    for t in qkv.split(d, dim=-1))
         if self.attention == "flash":
             out = flash_attention(q, k, v)
+        elif self.remat_core and self.training:
+            out = checkpointed(_dense_core, q, k, v)
         else:
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
-                1.0 / math.sqrt(hd))
-            probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+            out = _dense_core(q, k, v)
         return _apply(self.out, out.reshape(b, n, d))
+
+
+def _dense_core(q, k, v):
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
+        1.0 / math.sqrt(q.shape[-1]))
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _drop(y: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """``y * (mask / max(keep, 1e-6))`` per sample (``tpuic``'s
+    ``_residual``)."""
+    keep = 1.0 - rate
+    return y * (mask.to(y.dtype)[:, None, None] / max(keep, 1e-6))
 
 
 class EncoderBlock(nn.Module):
     """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))`` with an
-    exact-erf GELU (``MlpUpGelu``)."""
+    exact-erf GELU (``MlpUpGelu``); in train mode at ``drop_path`` > 0
+    each branch is dropped per sample by the ``masks`` pair
+    (attention's, MLP's)."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: int = 4,
-                 attention: str = "dense", *, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None) -> None:
+                 attention: str = "dense", *, drop_path: float = 0.0,
+                 remat_core: bool = False, remat_mlp: bool = False,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None) -> None:
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.drop_path = float(drop_path)
+        self.remat_mlp = remat_mlp
         self.ln1 = LayerNorm(hidden, **kw)
-        self.attn = MultiHeadAttention(hidden, num_heads, attention, **kw)
+        self.attn = MultiHeadAttention(hidden, num_heads, attention,
+                                       remat_core=remat_core, **kw)
         self.ln2 = LayerNorm(hidden, **kw)
         self.mlp_up = _dense(hidden, hidden * mlp_ratio, dtype, param_dtype,
                              device)
         self.mlp_down = _dense(hidden * mlp_ratio, hidden, dtype,
                                param_dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        y = F.gelu(_apply(self.mlp_up, self.ln2(x)), approximate="none")
-        return x + _apply(self.mlp_down, y)
+    def _up_gelu(self, y: torch.Tensor) -> torch.Tensor:
+        return F.gelu(_apply(self.mlp_up, y), approximate="none")
+
+    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
+        y = self.attn(self.ln1(x))
+        x = x + (y if masks is None else _drop(y, masks[0], self.drop_path))
+        y = self.ln2(x)
+        y = (checkpointed(self._up_gelu, y) if self.remat_mlp
+             and self.training else self._up_gelu(y))
+        y = _apply(self.mlp_down, y)
+        return x + (y if masks is None else _drop(y, masks[1],
+                                                  self.drop_path))
 
 
 def same_padding(size: int, patch: int):
@@ -138,15 +180,13 @@ class ViT(nn.Module):
                  num_heads: int = 12, mlp_ratio: int = 4, *,
                  image_size: int = 224, attention: str = "dense",
                  moe_experts: int = 0, drop_path: float = 0.0,
-                 dtype=torch.float32, param_dtype=torch.float32,
-                 device=None) -> None:
+                 remat_core: bool = False, remat_mlp: bool = False,
+                 remat_blocks: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None) -> None:
         super().__init__()
         if moe_experts:
             raise NotImplementedError("ViT MoE blocks (tpuic/models/moe.py) "
                                       "are not yet ported to tpuic_torch")
-        if drop_path > 0:
-            raise NotImplementedError("drop_path > 0 is not yet ported to "
-                                      "tpuic_torch")
         check_attention(attention)
         device = resolve_device(device)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
@@ -161,11 +201,21 @@ class ViT(nn.Module):
                                             device=device))
         self.pos_embed = nn.Parameter(torch.zeros(
             1, side * side + 1, hidden, dtype=param_dtype, device=device))
+        self.remat_blocks = remat_blocks
+        self.block_rates = [drop_path * i / max(1, depth - 1)
+                            if drop_path else 0.0 for i in range(depth)]
         for i in range(depth):
             setattr(self, f"block{i}", EncoderBlock(
-                hidden, num_heads, mlp_ratio, attention, **kw))
+                hidden, num_heads, mlp_ratio, attention,
+                drop_path=self.block_rates[i], remat_core=remat_core,
+                remat_mlp=remat_mlp, **kw))
         self.ln_final = LayerNorm(hidden, **kw)
         self.num_features = hidden
+
+    def drop_path_rates(self) -> list:
+        """The drop rate of each draw site, in draw order: attention's,
+        then the MLP's, for every block whose rate is above 0."""
+        return [r for r in self.block_rates if r > 0 for _ in range(2)]
 
     def embed_patches(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC ``[B, H, W, C]`` -> ``[B, N, hidden]`` tokens in (row, col)
@@ -186,18 +236,47 @@ class ViT(nn.Module):
         weight = conv.weight.to(x.dtype).reshape(self.hidden, -1)
         return F.linear(x, weight, conv.bias.to(x.dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_masks=None) -> torch.Tensor:
+        """``drop_masks``: ``[sites, B]`` bool, one row per entry of
+        ``drop_path_rates()``; required in train mode when it is not
+        empty, ignored in eval mode."""
         b, h, w, _ = x.shape
         if (h, w) != (self.image_size, self.image_size):
             raise ValueError(f"images are {h}x{w}; this ViT was built for "
                              f"{self.image_size}x{self.image_size}")
+        masks = check_drop_masks(self, drop_masks, b)
         dt = self.compute_dtype
         x = self.embed_patches(x.to(dt))
         cls = self.cls.to(dt).expand(b, 1, self.hidden)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        site = 0
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            m = None
+            if masks is not None and self.block_rates[i] > 0:
+                m, site = masks[site:site + 2], site + 2
+            if self.remat_blocks and self.training:
+                x = checkpointed(block, x, m)
+            else:
+                x = block(x, m)
         return self.ln_final(x)[:, 0].float()
+
+
+def check_drop_masks(module: nn.Module, drop_masks, batch: int):
+    """``drop_masks`` for a forward of ``module`` (None in eval mode or
+    when it has no site), after checking its shape."""
+    sites = len(module.drop_path_rates())
+    if not module.training or not sites:
+        return None
+    if drop_masks is None:
+        raise ValueError(
+            f"{type(module).__name__} drops paths in train mode "
+            f"({sites} draw sites): pass drop_masks, the train step's "
+            "draws (tpuic_torch.train.augment.draw_drop_masks)")
+    if tuple(drop_masks.shape) != (sites, batch):
+        raise ValueError(f"drop_masks is {tuple(drop_masks.shape)}; "
+                         f"expected {(sites, batch)}")
+    return drop_masks
 
 
 def vit_b16(**kw) -> ViT:

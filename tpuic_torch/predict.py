@@ -78,16 +78,6 @@ def sidecar_ema(ckpt_dir: str, model_name: str) -> float:
         return 0.0
 
 
-def refuse_ema(ema_decay: float, prog: str) -> None:
-    """``tpuic`` serves and scores an EMA-trained checkpoint with its EMA
-    weights; the port has no EMA yet, and must not use the raw ones."""
-    if ema_decay > 0:
-        raise SystemExit(
-            f"{prog}: the checkpoint was trained with ema_decay "
-            f"{ema_decay}; its EMA weights are what tpuic scores, and EMA "
-            "is not yet ported to tpuic_torch (ROADMAP §1 item 8)")
-
-
 def run_predict(cfg, *, fold: str, track: str, top_k: int,
                 out_path: Optional[str], limit: int = 0,
                 device=None) -> dict:
@@ -257,8 +247,9 @@ def main(argv=None) -> int:
                          "loader is not yet ported to tpuic_torch (ROADMAP "
                          "§1 item 7)")
 
-    from tpuic_torch.config import Config, DataConfig, RunConfig
+    from tpuic_torch.config import Config, DataConfig, OptimConfig, RunConfig
     model, num_classes, resize = args.model, args.num_classes, args.resize
+    ema_decay = 0.0
     if model == "auto":
         if args.init_from:
             raise SystemExit(f"{prog}: --model auto needs a port "
@@ -267,14 +258,16 @@ def main(argv=None) -> int:
         saved = resolve_model_auto(args.ckpt_dir)
         model = saved["name"]
         num_classes = num_classes or saved["num_classes"]
-        refuse_ema(saved["ema_decay"], prog)
+        ema_decay = saved["ema_decay"]  # EMA checkpoints score with EMA
         if resize is None:  # explicit --resize always wins
             resize = saved["resize_size"]
         print(f"[predict] auto-resolved model '{model}' "
               f"(num_classes={num_classes}, resize={resize}) from "
               f"{args.ckpt_dir}")
     elif not args.init_from:
-        refuse_ema(sidecar_ema(args.ckpt_dir, model), prog)
+        # Explicit --model: this model's sidecar still says whether the
+        # checkpoint scores its EMA weights (the ones 'best' was picked on).
+        ema_decay = sidecar_ema(args.ckpt_dir, model)
     if resize is None:
         resize = 299  # the reference's hard-coded size (train.py:110)
     cfg = Config(
@@ -283,6 +276,7 @@ def main(argv=None) -> int:
                         val_batch_size=args.batchsize, pack=False,
                         native=False),
         model=serving_model_config(model, num_classes),
+        optim=OptimConfig(ema_decay=ema_decay),
         run=RunConfig(ckpt_dir=args.ckpt_dir, init_from=args.init_from),
     )
     summary = run_predict(cfg, fold=args.fold, track=args.track,

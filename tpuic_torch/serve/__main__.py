@@ -511,7 +511,7 @@ def run_swap(engine, req: dict, log) -> dict:
     from tpuic_torch import quant
     from tpuic_torch.checkpoint.convert import init_params
     from tpuic_torch.checkpoint.loading import load_candidate_variables
-    from tpuic_torch.config import Config, DataConfig, RunConfig
+    from tpuic_torch.config import Config, DataConfig, OptimConfig, RunConfig
     from tpuic_torch.models import create_model_from_config
     from tpuic_torch.predict import sidecar_ema
     from tpuic_torch.serve.admission import SwapRejected
@@ -536,13 +536,11 @@ def run_swap(engine, req: dict, log) -> dict:
                 raise ValueError(
                     "swap line needs 'ckpt_dir' (or 'synthetic_seed')")
             track = str(req.get("track") or ctx["track"] or "best")
-            if sidecar_ema(ckpt_dir, mcfg.name) > 0:
-                raise ValueError(
-                    f"swap candidate {ckpt_dir} was trained with EMA, whose "
-                    "weights tpuic serves; EMA is not yet ported to "
-                    "tpuic_torch (ROADMAP §1 item 8)")
+            # An EMA-trained candidate serves its EMA weights.
             cfg = Config(data=DataConfig(data_dir=".", resize_size=resize),
-                         model=mcfg, run=RunConfig(ckpt_dir=ckpt_dir))
+                         model=mcfg, optim=OptimConfig(
+                             ema_decay=sidecar_ema(ckpt_dir, mcfg.name)),
+                         run=RunConfig(ckpt_dir=ckpt_dir))
             cand, _ = load_candidate_variables(cfg, track=track, log=log,
                                                device=engine.device)
             source = os.path.join(ckpt_dir, mcfg.name, track)
@@ -647,9 +645,9 @@ def build_engine(args):
     from tpuic_torch.checkpoint.convert import init_params
     from tpuic_torch.checkpoint.loading import (_resolved_model_config,
                                                 load_inference_variables)
-    from tpuic_torch.config import Config, DataConfig, RunConfig
+    from tpuic_torch.config import Config, DataConfig, OptimConfig, RunConfig
     from tpuic_torch.models import create_model_from_config
-    from tpuic_torch.predict import (refuse_ema, resolve_model_auto,
+    from tpuic_torch.predict import (resolve_model_auto,
                                      serving_model_config, sidecar_ema)
     from tpuic_torch.serve import InferenceEngine
 
@@ -673,25 +671,27 @@ def build_engine(args):
             device=args.device)
         how = f"synthetic init ({model_name}); "
     else:
+        ema_decay = 0.0
         if model_name == "auto":
             saved = resolve_model_auto(args.ckpt_dir)
             model_name = saved["name"]
             num_classes = num_classes or saved["num_classes"]
-            refuse_ema(saved["ema_decay"], _PROG)
+            ema_decay = saved["ema_decay"]
             if resize is None:
                 resize = saved["resize_size"]
             log(f"auto-resolved model '{model_name}' (num_classes="
                 f"{num_classes}, resize={resize})")
         elif not args.init_from:
-            # An EMA-trained checkpoint is served with its EMA weights in
-            # tpuic; the port must not serve the raw ones instead.
-            refuse_ema(sidecar_ema(args.ckpt_dir, model_name), _PROG)
+            # An EMA-trained checkpoint serves its EMA weights (the ones
+            # 'best' was picked on), as in tpuic.
+            ema_decay = sidecar_ema(args.ckpt_dir, model_name)
         resize = 299 if resize is None else resize
         if num_classes <= 0:
             raise SystemExit(f"{_PROG}: --num-classes required (or --model "
                              "auto with a config.json sidecar)")
         cfg = Config(data=DataConfig(data_dir=".", resize_size=resize),
                      model=serving_model_config(model_name, num_classes),
+                     optim=OptimConfig(ema_decay=ema_decay),
                      run=RunConfig(ckpt_dir=args.ckpt_dir,
                                    init_from=args.init_from))
         model = load_inference_variables(cfg, track=args.track,

@@ -19,14 +19,27 @@ Other recipes name what they change, e.g.::
       --fused-loss --fused-optimizer --dtype float32 --no-pack --no-native
 
 ViT-B/16 through the flash-attention kernels (recipes/README.md, section
-4, without mixup, CutMix, random erasing, drop-path and EMA, which are not
-ported)::
+4: mixup, CutMix, random erasing, drop-path and EMA)::
 
   python -m tpuic_torch.train --datadir /data/imagenet --model vit-b16 \\
       --attention flash --resize 224 --batchsize 64 --epochs 300 \\
       --optimizer adam --lr 3e-4 --weight-decay 0.05 --warmup-epochs 10 \\
-      --label-smoothing 0.1 --clip-grad-norm 1.0 --no-class-weights \\
-      --fused-loss --dtype float32 --no-pack --no-native
+      --label-smoothing 0.1 --mixup 0.2 --cutmix 1.0 --random-erase 0.25 \\
+      --drop-path 0.1 --clip-grad-norm 1.0 --ema-decay 0.9999 \\
+      --no-class-weights --fused-loss --no-pack --no-native
+
+EfficientNet-B0 (section 3; stochastic depth 0.2 always, as in
+``tpuic``)::
+
+  python -m tpuic_torch.train --datadir /data/imagenet \\
+      --model efficientnet-b0 --resize 224 --batchsize 128 --epochs 350 \\
+      --optimizer sgd --lr 0.4 --no-class-weights --no-pack --no-native
+
+``--grad-accum-steps K`` accumulates K micro-steps' gradients before one
+update (section 5 reaches a global batch of 4096 that way),
+``--freeze-backbone`` trains the head alone, and ``--remat
+[--remat-policy dots|attention|blocks|gelu]`` recomputes activations in
+the backward.
 
 Data parallel, one process a card (the reference's ``python -m
 torch.distributed.launch --nproc_per_node=4 train.py``): start one process
@@ -60,8 +73,6 @@ _NOT_PORTED = (
     ("--init-from", dict(default="")),
     ("--device-cache-mb", dict(type=int, default=4096)),
     ("--cache-dir", dict(default="")),
-    ("--remat-policy", dict(default="dots")),
-    ("--drop-path", dict(type=float, default=0.0)),
     ("--profile-dir", dict(default="")),
     ("--skip-threshold", dict(type=int, default=10)),
     ("--no-rollback", dict(action="store_true")),
@@ -171,7 +182,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-axis", type=int, default=1)
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--zero1", action="store_true")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute activations in the backward "
+                        "(models/remat.py)")
+    p.add_argument("--remat-policy", default="dots",
+                   choices=["dots", "attention", "blocks", "gelu"],
+                   help="what --remat recomputes: 'dots' all but the "
+                        "matrix products' and convolutions' outputs; the "
+                        "ViT's dense attention core, each encoder block, "
+                        "or each mlp_up + GELU")
+    p.add_argument("--drop-path", type=float, default=0.0,
+                   help="stochastic-depth rate of a ViT's last block "
+                        "(a linear ramp from 0)")
     p.add_argument("--no-skip-guard", action="store_true")
     p.add_argument("--steps", type=int, default=0,
                    help="stop after this many optimizer steps (0 = no cap)")
@@ -217,6 +239,8 @@ def config_from_args(args: argparse.Namespace,
                         native=not args.no_native),
         model=ModelConfig(name=args.model, num_classes=args.num_classes,
                           dtype=args.dtype, remat=args.remat,
+                          remat_policy=args.remat_policy,
+                          drop_path=args.drop_path,
                           attention=args.attention,
                           bn_f32_stats=not args.bn_bf16_stats,
                           fused_conv_bn=args.fused_conv_bn,

@@ -60,16 +60,24 @@ the K4 flash-attention kernels with ``attention="flash"``.
   and its default is the reference's bfloat16.  Parameters, optimizer
   moments and checkpoints stay float32 (``train/step.py``).
 
+- **The recipe features** (ROADMAP §1 item 8): mixup, CutMix, random
+  erasing, drop-path and EfficientNet's stochastic depth draw from the
+  train step's generator, reseeded from ``(run.seed, step)`` where
+  ``step`` is the global micro-step ``epoch * steps_per_epoch + i``
+  (``train/step.py``, ``train/augment.py``); parameter EMA
+  (``optim.ema_decay``) is what the val pass scores and so what picks
+  ``best`` (``TrainState.inference_weights``, whose folds K3 rebuilds
+  from the EMA weights at every pass), and the checkpoints carry it;
+  gradient accumulation, ``freeze_backbone`` and ``remat`` are the
+  optimizer's and the model's (``train/optimizer.py``,
+  ``models/remat.py``).  Every model family trains, EfficientNet
+  included, in float32 and bf16.
+
 Not ported, and refused with ``NotImplementedError`` naming the field:
-mixup, CutMix, random erasing, EMA, ``freeze_backbone``, gradient
-accumulation, ``remat``, the packed loader (``pack``), the native decode
-core (``native``), the ``seq`` and ``model`` axes above 1, ``fsdp``,
-``zero1`` (ROADMAP §1 item 12) and EfficientNet training (its
-stochastic depth needs the step's RNG plumbing, ROADMAP §1 item 8).  The
-ViT family trains in bf16 as the others do: its flash attention runs K4's
-bf16 kernels forward and backward.
-The ViT itself refuses drop-path and the sequence-parallel attention
-impls the same way.
+the packed loader (``pack``), the native decode core (``native``), the
+``seq`` and ``model`` axes above 1, ``fsdp``, ``zero1`` (ROADMAP §1 item
+12) and ``run.init_from``.  The ViT refuses the sequence-parallel
+attention impls the same way.
 Mid-epoch (preemption) saves, rollback, elastic membership, telemetry and
 profiling are later items (ROADMAP §1 items 6, 9 and 11).  A
 preemption's mid-epoch save across processes needs ``tpuic``'s
@@ -113,18 +121,8 @@ def resolved_model_dtype(m) -> str:
 
 def unported_settings(cfg: Config) -> list:
     """``Config`` fields set to a feature the port does not have yet."""
-    o, m, d, mesh = cfg.optim, cfg.model, cfg.data, cfg.mesh
+    d, mesh = cfg.data, cfg.mesh
     checks = [
-        ("optim.mixup_alpha", o.mixup_alpha > 0),
-        ("optim.cutmix_alpha", o.cutmix_alpha > 0),
-        ("optim.random_erase", o.random_erase > 0),
-        ("optim.ema_decay", o.ema_decay > 0),
-        ("optim.freeze_backbone", o.freeze_backbone),
-        ("optim.grad_accum_steps", o.grad_accum_steps > 1),
-        ("model.name: EfficientNet training (stochastic depth needs the "
-         "step's RNG plumbing, ROADMAP §1 item 8)",
-         m.name.startswith("efficientnet")),
-        ("model.remat", m.remat),
         ("data.pack", d.pack),
         ("data.native", d.native),
         ("mesh.seq", mesh.seq > 1),
@@ -211,7 +209,8 @@ class Trainer:
                                       global_batch=global_batch)
         tx = make_optimizer(cfg.optim, steps, cfg.run.epochs,
                             global_batch=global_batch)
-        self.state = create_train_state(self.model, tx)
+        self.state = create_train_state(self.model, tx,
+                                        ema=cfg.optim.ema_decay > 0)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.log(f"[model] {mcfg.name}: {n_params / 1e6:.1f}M params, "
                  f"{num_classes} classes, batch {d.batch_size}"
@@ -221,7 +220,8 @@ class Trainer:
                  "compute")
         self.train_step = make_train_step(cfg.optim, mcfg,
                                           lr_schedule=self.schedule,
-                                          device=self.device)
+                                          device=self.device,
+                                          seed=cfg.run.seed)
         self.eval_step = make_eval_step(
             cfg.optim, mcfg, device=self.device,
             per_sample=cfg.run.collect_misclassified,
@@ -284,14 +284,17 @@ class Trainer:
         t0 = time.perf_counter()
         it = iter(self.train_loader.epoch(epoch))
         step = 0
+        first = epoch * self.train_loader.steps_per_epoch()
         while True:
             tw = time.perf_counter()
             batch = next(it, None)
             wait += time.perf_counter() - tw
             if batch is None:
                 break
+            # The step's draws are keyed by the global micro-step.
             self.state, metrics = self.train_step(
-                self.state, {k: batch[k] for k in ("image", "label", "mask")})
+                self.state, {k: batch[k] for k in ("image", "label", "mask")},
+                step=first + step)
             step += 1
             self._steps_done += 1
             if step % log_every == 0 or step == n_steps:
@@ -325,13 +328,16 @@ class Trainer:
         collect = self.cfg.run.collect_misclassified
         per_class = self.cfg.run.per_class_metrics
         sums, wrongs, orders = None, [], []
-        for batch in self.val_loader.epoch(epoch):
-            m = self.eval_step(self.state, {k: batch[k] for k in
-                                            ("image", "label", "mask")})
-            if collect:
-                wrongs.append(m.pop("wrong"))
-                orders.append(batch.indices)
-            sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+        # The EMA weights when the recipe keeps them, with the current BN
+        # statistics (tpuic's inference_params).
+        with self.state.inference_weights():
+            for batch in self.val_loader.epoch(epoch):
+                m = self.eval_step(self.state, {k: batch[k] for k in
+                                                ("image", "label", "mask")})
+                if collect:
+                    wrongs.append(m.pop("wrong"))
+                    orders.append(batch.indices)
+                sums = m if sums is None else {k: sums[k] + m[k] for k in m}
         if self.world > 1:
             flat = torch.cat([v.reshape(-1).float() for v in sums.values()])
             dist.all_reduce(flat)

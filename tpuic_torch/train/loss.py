@@ -19,6 +19,12 @@ the mean of those over ranks is the global loss, and the mean of their
 gradients its gradient.  A per-rank mean would weight each rank's
 samples by that rank's own ``sum(w)``, a different gradient whenever
 class weights or labels differ between ranks.
+
+**Mixup / CutMix** (``tpuic/train/step.py:346-356``): the loss is
+``lam * L(y) + (1 - lam) * L(y_perm)``, each term with its own
+normaliser: class weights follow the labels, so ``L(y_perm)``'s global
+``sum(w)`` is not ``L(y)``'s.  In a data-parallel step the two sums go
+through one all-reduce, stacked.
 """
 
 from __future__ import annotations
@@ -90,15 +96,19 @@ def classification_loss(outputs, labels, *, class_weights=None, mask=None,
                         aux_weight: float = 0.4,
                         label_smoothing: float = 0.0,
                         impl: str = "reference",
-                        data_parallel: bool = False) -> torch.Tensor:
+                        data_parallel: bool = False,
+                        mix=None) -> torch.Tensor:
     """Main loss, plus the inception aux term when ``outputs`` is a tuple
     (reference train.py:48-56).  ``impl='fused'`` runs the K1 kernels
     (``tpuic_torch/kernels/cross_entropy.py``), same numerics.
 
+    ``mix=(labels_mix, lam)``: ``lam * loss(labels) + (1 - lam) *
+    loss(labels_mix)`` (mixup, CutMix), each with its own ``sum(w)``.
+
     ``data_parallel=True`` in a process group of more than one process:
     this rank's share of the global-batch loss (module docstring), one
-    all-reduce of ``sum(w)`` serving the main and the aux logits, which
-    share labels and mask."""
+    all-reduce of the ``sum(w)`` of each label set serving the main and
+    the aux logits, which share labels and mask."""
     if impl not in LOSS_IMPLS:
         raise ValueError(f"unknown loss impl '{impl}'; available: {LOSS_IMPLS}")
     if impl == "fused":
@@ -109,20 +119,27 @@ def classification_loss(outputs, labels, *, class_weights=None, mask=None,
 
     world = dist.get_world_size() if (data_parallel
                                       and dist.is_initialized()) else 1
-    weight_sum = None
+    label_sets = [labels] if mix is None else [labels, mix[0]]
+    weight_sums = [None] * len(label_sets)
     if world > 1:
         logits = outputs[0] if isinstance(outputs, tuple) else outputs
-        weight_sum = _weight_sum(labels, logits.shape[-1], class_weights,
-                                 mask, impl)
-        dist.all_reduce(weight_sum)
+        sums = torch.stack([_weight_sum(y, logits.shape[-1], class_weights,
+                                        mask, impl) for y in label_sets])
+        dist.all_reduce(sums)
+        weight_sums = list(sums.unbind())
 
-    def ce(logits):
-        return ce_fn(logits, labels, class_weights, mask, label_smoothing,
-                     weight_sum)
+    def loss_for(y, weight_sum):
+        def ce(logits):
+            return ce_fn(logits, y, class_weights, mask, label_smoothing,
+                         weight_sum)
 
-    if isinstance(outputs, tuple):
-        logits, aux_logits = outputs
-        loss = ce(logits) + aux_weight * ce(aux_logits)
-    else:
-        loss = ce(outputs)
+        if isinstance(outputs, tuple):
+            logits, aux_logits = outputs
+            return ce(logits) + aux_weight * ce(aux_logits)
+        return ce(outputs)
+
+    loss = loss_for(labels, weight_sums[0])
+    if mix is not None:
+        lam = mix[1]
+        loss = lam * loss + (1.0 - lam) * loss_for(mix[0], weight_sums[1])
     return loss * world if world > 1 else loss

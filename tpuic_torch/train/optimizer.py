@@ -24,6 +24,26 @@ carrier (``tpuic_torch.checkpoint.load_jax_opt_state``) fills it from a
 state in place, and only where the 0-d bool tensor ``finite`` is true:
 the train step's non-finite guard, applied on the device.  ``count``
 advances by ``finite``.
+
+**Gradient accumulation** (``grad_accum_steps`` K > 1,
+``tpuic/train/optimizer.py:242-248``: ``optax.MultiSteps``).  The state
+gains ``acc`` (one float32 tensor per parameter), ``mini_step`` and
+``gradient_step`` (0-d int32).  Each micro-step folds its gradients into
+the running mean ``acc + (g - acc) / (mini_step + 1)``, and the inner
+optimizer steps on that mean (clipping included, on the mean's norm)
+every micro-step, gated by ``finite & emit`` where ``emit`` is
+``mini_step == K - 1``: on the other micro-steps it computes and its
+result is discarded, as ``MultiSteps`` does, so nothing is read back to
+the host.  After an emitting micro-step ``acc`` is zero.  ``count``
+advances once per real update, and the schedule runs in micro-step time:
+``lr(count) = micro(count * K)`` (``:165-185``).  A non-finite
+micro-step changes nothing.
+
+**freeze_backbone** (``:227-241``): the optimizer's parameters are the
+head's only.  ``create_train_state`` turns the backbone's
+``requires_grad`` off, so its backward is not computed (``tpuic``'s
+``stop_gradient``), it gets no update and no weight decay, and K2's leaf
+table holds the head's leaves; BN statistics still update in train mode.
 """
 
 from __future__ import annotations
@@ -84,12 +104,17 @@ def rewarm_scale(start_step: int, rewarm_steps: int) -> sched.Schedule:
 @dataclasses.dataclass
 class OptState:
     """``count``: updates applied (0-d int32); ``trace`` (sgd, lars) or
-    ``mu``/``nu`` (adam, lamb): one float32 tensor per parameter."""
+    ``mu``/``nu`` (adam, lamb): one float32 tensor per parameter; under
+    gradient accumulation ``acc`` (the running mean of the micro-steps'
+    gradients), ``mini_step`` and ``gradient_step`` (0-d int32)."""
 
     count: torch.Tensor
     trace: Optional[List[torch.Tensor]] = None
     mu: Optional[List[torch.Tensor]] = None
     nu: Optional[List[torch.Tensor]] = None
+    acc: Optional[List[torch.Tensor]] = None
+    mini_step: Optional[torch.Tensor] = None
+    gradient_step: Optional[torch.Tensor] = None
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -120,17 +145,23 @@ class Optimizer:
     def __init__(self, kind: str, lr: Callable, *, weight_decay: float = 0.0,
                  momentum: float = 0.9, trust_coefficient: float = 0.001,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 clip_norm: float = 0.0) -> None:
+                 clip_norm: float = 0.0, accum_steps: int = 1,
+                 freeze_backbone: bool = False) -> None:
         if kind not in self.KINDS:
             raise ValueError(f"unknown optimizer kind '{kind}'; available: "
                              f"{self.KINDS}")
-        self.kind, self.lr = kind, lr
+        self.kind = kind
+        self.accum_steps = max(1, int(accum_steps))
+        self.freeze_backbone = bool(freeze_backbone)
+        k = self.accum_steps
+        self.lr = lr if k == 1 else (lambda t: lr(t * k))
         self.weight_decay = float(weight_decay)
         self.momentum = float(momentum)
         self.trust_coefficient = float(trust_coefficient)
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.clip_norm = float(clip_norm)
         self._table = K2.LeafTable()
+        self._mean: Optional[List[torch.Tensor]] = None
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         dev = params[0].device
@@ -142,8 +173,14 @@ class Optimizer:
 
         count = torch.zeros((), dtype=torch.int32, device=dev)
         if self.kind in ("sgd", "lars", "fused_lars"):
-            return OptState(count, trace=zeros())
-        return OptState(count, mu=zeros(), nu=zeros())
+            state = OptState(count, trace=zeros())
+        else:
+            state = OptState(count, mu=zeros(), nu=zeros())
+        if self.accum_steps > 1:
+            state.acc = zeros()
+            state.mini_step = count.clone()
+            state.gradient_step = count.clone()
+        return state
 
     @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor],
@@ -151,7 +188,43 @@ class Optimizer:
                finite: torch.Tensor,
                grad_norm: Optional[torch.Tensor] = None) -> None:
         """One step in place where ``finite``; ``grad_norm`` (the global
-        norm of ``grads``) saves recomputing it for clipping."""
+        norm of ``grads``) saves recomputing it for clipping.  Under
+        accumulation, one micro-step (module docstring); ``grad_norm``
+        is then the micro-step's and clipping takes the mean's."""
+        if self.accum_steps > 1:
+            self._accumulate(params, grads, state, finite)
+            return
+        self._step(params, grads, state, finite, grad_norm)
+
+    def emits(self, state: OptState) -> torch.Tensor:
+        """0-d bool: whether the next finite micro-step is a real update
+        (always true without accumulation)."""
+        if self.accum_steps == 1:
+            return torch.ones((), dtype=torch.bool, device=state.count.device)
+        return state.mini_step == self.accum_steps - 1
+
+    def _accumulate(self, params, grads, state, finite) -> None:
+        n = state.mini_step
+        # The mean goes into buffers kept from step to step, so the K2
+        # kernels' leaf table (keyed on its pointers) is built once.
+        if self._mean is None or len(self._mean) != len(state.acc):
+            self._mean = [torch.empty_like(a) for a in state.acc]
+        mean = self._mean
+        diff = torch._foreach_sub(list(grads), state.acc)
+        torch._foreach_div_(diff, (n + 1).float())
+        torch._foreach_add_(diff, state.acc)
+        torch._foreach_copy_(mean, diff)
+        emit = self.emits(state)
+        gate = finite & emit
+        self._step(params, mean, state, gate, None)
+        kept = (finite & ~emit).float()
+        for a, m in zip(state.acc, mean):
+            a.copy_(torch.where(finite, m * kept, a))
+        state.mini_step.copy_(torch.where(
+            finite, (n + 1) % self.accum_steps, n))
+        state.gradient_step.add_(gate.to(torch.int32))
+
+    def _step(self, params, grads, state, finite, grad_norm) -> None:
         lr = self.lr(state.count).float()
         if self.clip_norm:
             gn = global_norm(grads) if grad_norm is None else grad_norm
@@ -229,33 +302,27 @@ class Optimizer:
 def make_optimizer(cfg: OptimConfig, steps_per_epoch: int = 1,
                    total_epochs: int = 100,
                    global_batch: int = 0) -> Optimizer:
-    """``tpuic``'s ``make_optimizer`` for one device: the schedule, the
-    optimizer kind, and gradient clipping.  Gradient accumulation and
-    ``freeze_backbone`` are not ported and raise."""
-    if cfg.grad_accum_steps > 1:
-        raise NotImplementedError("grad_accum_steps > 1 is not yet ported "
-                                  "to tpuic_torch")
-    if cfg.freeze_backbone:
-        raise NotImplementedError("freeze_backbone is not yet ported to "
-                                  "tpuic_torch")
+    """``tpuic``'s ``make_optimizer`` for one device: the schedule (in
+    micro-step time), the optimizer kind, gradient clipping, gradient
+    accumulation and ``freeze_backbone``."""
     lr = make_schedule(cfg, steps_per_epoch, total_epochs,
                        global_batch=global_batch)
     name = cfg.optimizer.lower()
-    clip = cfg.grad_clip_norm
+    kw = dict(clip_norm=cfg.grad_clip_norm,
+              accum_steps=cfg.grad_accum_steps,
+              freeze_backbone=cfg.freeze_backbone)
     wd = cfg.weight_decay
     if name == "adam":
         return Optimizer("adamw" if wd else "adam", lr, weight_decay=wd,
-                         clip_norm=clip)
+                         **kw)
     if name == "sgd":
-        return Optimizer("sgd", lr, weight_decay=wd, momentum=0.9,
-                         clip_norm=clip)
+        return Optimizer("sgd", lr, weight_decay=wd, momentum=0.9, **kw)
     if name == "lars":
         return Optimizer("fused_lars" if cfg.fused_optimizer else "lars", lr,
                          weight_decay=wd, momentum=cfg.lars_momentum,
-                         trust_coefficient=cfg.lars_trust_coefficient,
-                         clip_norm=clip)
+                         trust_coefficient=cfg.lars_trust_coefficient, **kw)
     if name == "lamb":
         return Optimizer("fused_lamb" if cfg.fused_optimizer else "lamb", lr,
                          weight_decay=wd, b1=cfg.lamb_b1, b2=cfg.lamb_b2,
-                         eps=cfg.lamb_eps, clip_norm=clip)
+                         eps=cfg.lamb_eps, **kw)
     raise ValueError(f"unknown optimizer '{cfg.optimizer}'")

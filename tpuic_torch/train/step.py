@@ -48,9 +48,35 @@ checkpoint and the eval forward never see DDP's ``module.`` prefix.
   place, so they keep their addresses from step to step and the K2
   kernels' leaf table is built once.
 
+**The step's randomness** (``tpuic/train/step.py:196-311``;
+``train/augment.py``).  ``train_step(state, batch, step=None)`` draws
+everything random from a ``torch.Generator`` on the batch's device,
+reseeded from ``(seed, step)``: ``step`` is the index the host knows,
+the ``Trainer``'s global micro-step (``epoch * steps_per_epoch +`` the
+step in the epoch, what a checkpoint saves), never the device's
+``state.step``; without it the step counts its own calls.  Every draw
+has the global batch's shape and a process takes its rows, so N
+processes draw what one does.  One difference from ``tpuic``: after a
+skipped (non-finite) step ``tpuic`` repeats that step's draws, because
+its ``state.step`` did not advance; the port draws the next index's.
+- Mixup / CutMix blend in float32 before the bf16 cast; the loss is
+  ``lam * L(y) + (1 - lam) * L(y_perm)`` (K1 runs twice per output) and
+  accuracy is taken against the original labels.  In a process group
+  the partners live on other ranks: one ``all_gather`` of the batch a
+  step (``tpuic``'s "one batch-sized exchange per step").
+- Random erasing runs after the mix, drop-path masks go to the model's
+  forward (``drop_masks``).
+
+**Parameter EMA** (``:410-424``): after each applied update,
+``e = d*e + (1-d)*p`` over every parameter (as ``e + (1-d)*(p - e)``,
+through ``_foreach`` ops); the skip guard and, under gradient
+accumulation, the micro-steps between real updates leave it as it was.
+
+**Remat** (``models/remat.py``) is the model's: ``resolve_remat_policy``
+warns here where the policy has no effect, as ``tpuic``'s step does.
+
 ``batch`` is ``{"image": [B, H, W, 3] float32, "label": [B] int32,
-"mask": [B] float32}`` on the model's device.  Mixup, CutMix, random
-erasing and remat are not ported (the Trainer refuses them).
+"mask": [B] float32}`` on the model's device.
 """
 
 from __future__ import annotations
@@ -63,6 +89,8 @@ from torch.nn.parallel import DistributedDataParallel
 
 from tpuic_torch.config import ModelConfig, OptimConfig, resolve_compute_dtype
 from tpuic_torch.metrics.meters import accuracy, topk_accuracy
+from tpuic_torch.models.remat import resolve_remat_policy
+from tpuic_torch.train import augment
 from tpuic_torch.train.loss import classification_loss
 from tpuic_torch.train.optimizer import global_norm
 from tpuic_torch.train.state import TrainState
@@ -89,13 +117,29 @@ def _ddp(model: torch.nn.Module) -> DistributedDataParallel:
         broadcast_buffers=False)
 
 
+def _gather_pool(images, labels, mask, world: int):
+    """The global batch's ``(images, labels, mask)`` on every rank: one
+    ``all_gather`` of the images and one of the labels and mask."""
+    imgs = [torch.empty_like(images) for _ in range(world)]
+    dist.all_gather(imgs, images)
+    m = (torch.ones_like(labels, dtype=torch.float32) if mask is None
+         else mask.float())
+    lm = torch.stack([labels.float(), m])
+    lms = [torch.empty_like(lm) for _ in range(world)]
+    dist.all_gather(lms, lm)
+    lm = torch.cat(lms, dim=1)
+    return (torch.cat(imgs), lm[0].to(labels.dtype),
+            None if mask is None else lm[1].to(mask.dtype))
+
+
 def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
                     lr_schedule: Optional[Callable] = None,
-                    device=None) -> Callable:
-    """``train_step(state, batch) -> (state, metrics)``; see the module
-    docstring.  ``device`` places the class-weight vector once, so the
-    step makes no host-to-device copy of its own.  Built in a process
-    group, the step is data-parallel."""
+                    device=None, seed: int = 0) -> Callable:
+    """``train_step(state, batch, step=None) -> (state, metrics)``; see
+    the module docstring.  ``device`` places the class-weight vector once,
+    so the step makes no host-to-device copy of its own; ``seed`` seeds
+    the step's draws.  Built in a process group, the step is
+    data-parallel."""
     class_weights = _class_weights(optim_cfg, device)
     impl = "fused" if optim_cfg.fused_loss else "reference"
     guard = bool(optim_cfg.skip_nonfinite)
@@ -103,14 +147,56 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
     loss_scale = float(optim_cfg.loss_scale or 1.0)
     parallel = dist.is_initialized()
     world = dist.get_world_size() if parallel else 1
+    rank = dist.get_rank() if parallel else 0
+    mixing = optim_cfg.mixup_alpha > 0 or optim_cfg.cutmix_alpha > 0
+    ema_decay = float(optim_cfg.ema_decay)
+    resolve_remat_policy(model_cfg)
     wrapper = {}
+    rng = {"next": 0}
 
-    def train_step(state: TrainState, batch):
+    def draws_for(model, dev, step: int, n: int):
+        """This step's draws (``augment.draw_step``) over a global batch
+        of ``n``, or None when the recipe draws nothing."""
+        if rng.get("model") is not model:
+            rates = getattr(model, "drop_path_rates", list)()
+            rng.update(model=model, keep=augment.site_keep(rates, dev))
+        keep = rng["keep"]
+        if not (mixing or optim_cfg.random_erase > 0 or keep is not None):
+            return None
+        if rng.get("gen") is None or rng["gen"].device != dev:
+            rng["gen"] = torch.Generator(device=dev)
+        return augment.draw_step(
+            rng["gen"], seed, step, n, mixup_alpha=optim_cfg.mixup_alpha,
+            cutmix_alpha=optim_cfg.cutmix_alpha,
+            random_erase=optim_cfg.random_erase, keep=keep, device=dev)
+
+    def train_step(state: TrainState, batch, step: Optional[int] = None,
+                   draws: Optional[augment.StepDraws] = None):
+        """``draws`` (over the global batch) replaces this step's own:
+        how a test feeds ``tpuic``'s draws to the port."""
         images, labels = batch["image"], batch["label"]
         mask = batch.get("mask")
         model = state.model
         params = state.params
         metrics = {}
+        step = rng["next"] if step is None else int(step)
+        rng["next"] = step + 1
+        b = images.shape[0]
+        offset = rank * b
+        if draws is None:
+            draws = draws_for(model, images.device, step, b * world)
+        mix = None
+        if draws is not None and draws.mix is not None:
+            pool = (_gather_pool(images, labels, mask, world)
+                    if world > 1 else None)
+            images, labels_mix, lam = augment.mix_batch(
+                images, labels, mask, draws.mix, offset, pool)
+            mix = (labels_mix, lam)
+        if draws is not None and draws.erase is not None:
+            images = augment.erase_batch(images, draws.erase, offset)
+        drop_masks = None
+        if draws is not None and draws.drop_masks is not None:
+            drop_masks = draws.drop_masks[:, offset:offset + b]
         if lr_schedule is not None:
             metrics["lr"] = lr_schedule(state.step)  # before the step
         bufs = state.bn_buffers()
@@ -130,7 +216,8 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
             if wrapper.get("module") is not model:
                 wrapper.update(module=model, ddp=_ddp(model))
             forward = wrapper["ddp"]
-        out = forward(images)
+        out = (forward(images) if drop_masks is None
+               else forward(images, drop_masks=drop_masks))
         if bf16:  # the loss is taken on float32 logits
             out = (tuple(t.float() for t in out) if isinstance(out, tuple)
                    else out.float())
@@ -138,7 +225,7 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
             out, labels, class_weights=class_weights, mask=mask,
             aux_weight=model_cfg.aux_loss_weight,
             label_smoothing=optim_cfg.label_smoothing, impl=impl,
-            data_parallel=parallel)
+            data_parallel=parallel, mix=mix)
         (loss * loss_scale if loss_scale != 1.0 else loss).backward()
         logits = (out[0] if isinstance(out, tuple) else out).detach()
         loss = loss.detach()
@@ -163,8 +250,11 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
                 finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
             else:
                 finite = torch.ones((), dtype=torch.bool, device=loss.device)
+            applied = finite & state.tx.emits(state.opt_state)
             state.tx.update(params, grads, state.opt_state, finite,
                             grad_norm=grad_norm)
+            if state.ema_params is not None:
+                _ema_update(state, ema_decay, applied)
             if old_stats is not None:
                 new_stats = torch.cat([b.reshape(-1) for b in bufs])
                 kept = torch.where(finite, new_stats, old_stats)
@@ -183,6 +273,19 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
         return state, metrics
 
     return train_step
+
+
+def _ema_update(state: TrainState, decay: float,
+                applied: torch.Tensor) -> None:
+    """``e += (1-d) * applied * (p - e)``: ``tpuic``'s ``d*e + (1-d)*p``
+    where ``applied``, ``e`` bit for bit where not (``p - e`` is finite:
+    a skipped step leaves the parameters as they were).  Three
+    multi-tensor passes, whatever the number of parameters."""
+    ema = state.ema_params
+    step = torch._foreach_sub([p.detach() for p in state.model.parameters()],
+                              ema)
+    torch._foreach_mul_(step, applied.float() * (1.0 - decay))
+    torch._foreach_add_(ema, step)
 
 
 def make_eval_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
