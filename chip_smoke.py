@@ -102,6 +102,25 @@ non-zero at the first phase that fails:
    computes a LARS or LAMB update).  Each also through
    its earlier design (``optimizer_update_bench``), held and timed the
    same way.
+9b. pack   — the default data path (``tpuic``'s ``pack`` and ``native``):
+   the native C++ core's build on this machine (or its compiler's first
+   error line, when PIL decodes instead), then a pack of a tree of
+   ``train``'s PNGs (PACK_PER_CLASS a class, linked), PACK_JPEGS JPEG
+   copies a class and one PNG cut to half its bytes: its rate in img/s,
+   what decoded the rows, and the truncated file packed as another sample
+   of its class under that sample's id and label.  Then the decode loader
+   (host threads), the streaming packed loader (uint8 rows to the card,
+   augmented there) and the resident one (the dataset on the card, a
+   batch ships its indices) at ``train``'s batch over PACK_EPOCHS
+   augmented epochs: images within PACK_TOL (1e-5, ``tpuic``'s), labels,
+   masks and ids equal; each loader's bytes to the card a batch and ms a
+   batch alone, and the resident prep's device ms beside its bytes bound.
+   Every training phase after it (and predict) runs on the packed,
+   resident path; each prints its data-wait share (and the share without
+   the epoch's first batch), and ``data-wait`` lists them all after
+   ``timing``.  ``vit-train``'s bf16 arm and ``inception-train``'s
+   float32 arm run again on the decode path (``decode_path``): step ms
+   and data-wait beside the packed path's, in the same run.
 10. train  — ``Trainer`` on a synthetic 224x224 ImageFolder written by
    ``tpuic_torch.data.synthetic``: ResNet-50, float32, batch 128, LARS lr
    4.8 / wd 1e-4 / 5 warmup epochs of a 90-epoch schedule, label smoothing
@@ -127,13 +146,16 @@ non-zero at the first phase that fails:
 11b. ddp   — data-parallel training through ``python -m tpuic_torch.train``
    started with the ``TPUIC_*`` trio, at ``train``'s recipe (ResNet-50,
    224 px, 1000 classes, LARS 4.8 with its warmup, global batch 128,
-   fused loss and optimizer, ``--fused-conv-bn``) for one epoch of
+   fused loss and optimizer, ``--fused-conv-bn``, and section 4's mixup
+   0.2, CutMix 1.0 and drop-path 0.1, which ResNet-50 takes with no
+   drop-path site) for one epoch of
    DDP_STEPS steps on ``train``'s first images, then its val pass: arm 1 a
    one-process NCCL group (DDP around the model); arm 2 two processes
    sharing the card over gloo with CUDA tensors (NCCL refuses two ranks on
    one device), batch 64 each, SyncBN's and the loss normalizer's
-   all-reduces between them.  Each process counts its own launches from 0
-   at ``fit``: K1 forward and backward and K2 LARS once a step, K3 53
+   all-reduces and the mix partners' all_gather between them.  Each
+   process counts its own launches from 0 at ``fit``: K1 forward and
+   backward twice a step (the mixed loss), K2 LARS once a step, K3 53
    times per val forward.  Arm 1's per-step global losses against the
    one-process ``Trainer``'s on the same batches, and arm 2's against arm
    1's, within rtol 1e-3 (TRAIN_LOSS_RTOL); the step ms of each.
@@ -268,7 +290,7 @@ non-zero at the first phase that fails:
    kernels in bf16 (loss within BF16_LOSS_RTOL, 2e-2, of the float32
    kernels', every convolution's output bfloat16).
 24. ref-cli — the reference's own command, ``python -m tpuic_torch.train
-   --datadir D --epochs 1 --no-pack --no-native --ckpt-dir C``, as a
+   --datadir D --epochs 1 --ckpt-dir C``, as a
    subprocess with its defaults (InceptionV3, bfloat16, Adam, batch 4, the
    class weights; the plain loss, as ``--fused-loss`` is off) on 7 classes
    at 299 px, 8 train and 4 val images a class: exit 0, ``best`` and
@@ -297,7 +319,9 @@ non-zero at the first phase that fails:
    2 a val forward; predict within DIGITS_PREDICT_LIMIT images of the
    ``Trainer``'s forward; then 3 epochs with ``--ema-decay 0.99``, whose
    ``best`` predict and the serve CLI score within 1e-5 of a direct
-   forward of its ``ema_params``.
+   forward of its ``ema_params``.  Both digits phases print their
+   seconds an epoch and its parts (steps, loader wait, val pass,
+   checkpoint saves).
 26. effnet-serve — ``inception``'s checks and serving for EfficientNet-B3
    at 300x300, 1000 classes, seeded synthetic weights.
 
@@ -360,6 +384,10 @@ TRAIN_STEPS = 12
 TRAIN_CLASSES = 8
 LAMB_BATCH = 32
 DDP_STEPS = 4       # [ddp]'s epoch: [train]'s first DDP_STEPS global batches
+# recipes/README.md section 4's mixing and drop-path on [ddp]'s arms: the
+# mix partners' all_gather and the mixed loss's normalisers across ranks.
+# ResNet-50 has no drop-path site: the flag is taken and draws nothing.
+DDP_RECIPE = ("--mixup", "0.2", "--cutmix", "1.0", "--drop-path", "0.1")
 DDP_TIMEOUT = 300.0
 CKPT_STEPS = 3
 INC_IMAGE = 299     # the reference's resize (train.py:110)
@@ -402,6 +430,10 @@ ACCUM_MICRO = 4
 # first run.
 ACCUM_RTOL = 1e-3
 DIGITS_VIT_EPOCHS = 120
+PACK_PER_CLASS = 64   # [pack]'s train images a class (linked from [train]'s)
+PACK_JPEGS = 2        # JPEG copies a class beside them
+PACK_EPOCHS = 2       # augmented epochs the three loaders are held over
+PACK_TOL = 1e-5       # tpuic's (tests/test_pack.py)
 # tpuic's ViT digits run (perf/convergence_digits.json, tpuic_vit-tiny)
 # reached 317/359; the port's draws are its own: at most 12 images below,
 # stated before the first run.
@@ -1748,7 +1780,7 @@ def train_config(root: str, seed: int):
     return Config(
         data=DataConfig(data_dir=root, resize_size=IMAGE,
                         batch_size=TRAIN_BATCH, num_workers=8,
-                        shuffle_seed=seed, native=False, pack=False),
+                        shuffle_seed=seed),
         model=ModelConfig(name="resnet50", num_classes=1000,
                           dtype="float32", fused_conv_bn=True),
         optim=OptimConfig(optimizer="lars", learning_rate=4.8,
@@ -1899,6 +1931,193 @@ def write_folder(root: str, seed: int) -> None:
                  f"{time.perf_counter() - t0:.3f} s")
 
 
+def pack_folder(root: str, dst: str) -> str:
+    """``[pack]``'s train fold: the first PACK_PER_CLASS images of each
+    class of ``train``'s (hard links), PACK_JPEGS JPEG copies of the next
+    ones a class, and a PNG cut to half its bytes in the first class (the
+    truncated file).  Returns the truncated file's path."""
+    from PIL import Image
+    victim = ""
+    for c in sorted(os.listdir(os.path.join(root, "train"))):
+        src = os.path.join(root, "train", c)
+        out = os.path.join(dst, "train", c)
+        os.makedirs(out)
+        names = sorted(os.listdir(src))
+        for name in names[:PACK_PER_CLASS]:
+            os.link(os.path.join(src, name), os.path.join(out, name))
+        for name in names[PACK_PER_CLASS:PACK_PER_CLASS + PACK_JPEGS]:
+            with Image.open(os.path.join(src, name)) as im:
+                im.convert("RGB").save(os.path.join(
+                    out, os.path.splitext(name)[0] + ".jpg"), quality=90)
+        if not victim:
+            with open(os.path.join(src, names[-1]), "rb") as f:
+                data = f.read()
+            victim = os.path.join(out, "truncated.png")
+            with open(victim, "wb") as f:
+                f.write(data[:len(data) // 2])
+    return victim
+
+
+def phase_pack(root: str, seed: int, smi: str) -> dict:
+    """The default data path: the native core's build, the pack of
+    ``pack_folder``'s tree (PNG, JPEG and one truncated file), and the
+    three loaders (decode, streaming, resident) held against each other
+    on the card over PACK_EPOCHS augmented epochs at ``train``'s batch
+    (images within PACK_TOL, labels, masks and ids equal); the truncated
+    file packed as a same-class replacement under that sample's id; each
+    loader's bytes to the card a batch and its ms a batch alone."""
+    from tpuic_torch import native
+    from tpuic_torch.config import DataConfig
+    from tpuic_torch.data.device_prep import (identity_params,
+                                              make_resident_prep,
+                                              pack_params)
+    from tpuic_torch.data.folder import ImageFolderDataset
+    from tpuic_torch.data.pack import pack_dataset
+    from tpuic_torch.data.pipeline import Loader
+    tag = "pack"
+    t0 = time.perf_counter()
+    built = native.status()
+    log(tag, f"native core: {json.dumps(built)} "
+             f"({time.perf_counter() - t0:.3f} s to build and load)")
+    data = os.path.join(root, "pack")
+    victim = pack_folder(root, data)
+    ds = ImageFolderDataset(data, "train", IMAGE, DataConfig(
+        data_dir=data, resize_size=IMAGE, shuffle_seed=seed))
+    t0 = time.perf_counter()
+    packed = pack_dataset(ds, os.path.join(data, ".tpuic_pack"),
+                          verbose=False)
+    pack_s = time.perf_counter() - t0
+    vi = [p for p, _ in ds.samples].index(victim)
+    labels = {ds.image_id(i): lb for i, (_, lb) in enumerate(ds.samples)}
+    stood_in = packed.image_id(vi)
+    honest = (packed.quarantine_count == 1 and stood_in != ds.image_id(vi)
+              and labels.get(stood_in) == ds.samples[vi][1]
+              == packed.label(vi))
+    jpegs = sum(p.endswith(".jpg") for p, _ in ds.samples)
+    kw = dict(seed=seed, drop_last=True, device="cuda", num_workers=8)
+    loaders = {"decode": Loader(ds, TRAIN_BATCH, **kw),
+               "streaming": Loader(packed, TRAIN_BATCH,
+                                   device_cache_bytes=0, **kw),
+               "resident": Loader(packed, TRAIN_BATCH, **kw)}
+    errs = {"streaming_vs_decode": 0.0, "resident_vs_decode": 0.0,
+            "resident_vs_streaming": 0.0}
+    n = 0
+    for epoch in range(PACK_EPOCHS):
+        for d, st, rs in zip(*(ld.epoch(epoch) for ld in loaders.values())):
+            for key, a, b in (("streaming_vs_decode", st, d),
+                              ("resident_vs_decode", rs, d),
+                              ("resident_vs_streaming", rs, st)):
+                errs[key] = max(errs[key], max_err(a["image"], b["image"]))
+                if not (torch.equal(a["label"], b["label"])
+                        and torch.equal(a["mask"], b["mask"])
+                        and a.image_ids == b.image_ids):
+                    fail(tag, f"{key}: labels, masks or ids differ in "
+                              f"epoch {epoch}")
+            n += 1
+    ms = {}
+    for name, ld in loaders.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k = 0
+        for b in ld.epoch(PACK_EPOCHS):
+            b["image"].sum().item()  # the batch as the step would see it
+            k += 1
+        ms[name] = (time.perf_counter() - t0) / k * 1e3
+    res = loaders["resident"]
+    idx = torch.arange(TRAIN_BATCH, device="cuda", dtype=torch.int32)
+    params = torch.from_numpy(pack_params(identity_params(
+        TRAIN_BATCH))).cuda()
+    prep = make_resident_prep()
+    prep_ms = time_ms(lambda: prep(res._data, idx, params), iters=10)
+    _, _, hbm = peaks(torch.cuda.get_device_name(0))
+    prep_bytes = TRAIN_BATCH * IMAGE * IMAGE * 3 * (1 + 4)
+    row = {"native": built, "images": len(ds), "jpeg": jpegs,
+           "pack_s": pack_s, "pack_img_per_s": len(ds) / pack_s,
+           "decoded": packed.decoded,
+           "quarantine": {"truncated": os.path.basename(victim),
+                          "packed_as": stood_in,
+                          "label": packed.label(vi),
+                          "count": packed.quarantine_count,
+                          "decode_path_count": ds.quarantine_count},
+           "batches_compared": n, "max_abs_err": errs, "tol": PACK_TOL,
+           "bytes_per_batch": {k: ld.bytes_per_batch()
+                               for k, ld in loaders.items()},
+           "resident_bytes": res.resident_bytes,
+           "ms_per_batch": ms, "resident_prep_ms": prep_ms,
+           "resident_prep_bound_ms": prep_bytes / hbm * 1e3,
+           "batch": TRAIN_BATCH, "card": smi}
+    log(tag, json.dumps(row))
+    del loaders, res, prep
+    free()
+    if not honest or n != PACK_EPOCHS * (len(ds) // TRAIN_BATCH):
+        fail(tag, f"quarantine {row['quarantine']}, {n} batches compared")
+    if max(errs.values()) > PACK_TOL:
+        fail(tag, f"loaders differ by {errs} > {PACK_TOL}")
+    return row
+
+
+def epoch_row(parts: dict) -> dict:
+    """``epoch_parts``' sums as seconds an epoch: the whole, and the
+    train loop's steps, its wait for the loader, the val pass and the
+    checkpoint saves; the data-wait share of the train loop."""
+    e = max(1, parts["epochs"])
+    return {"epoch_s": parts["fit_s"] / e,
+            "epoch_parts_s": {
+                "steps": (parts["train_s"] - parts["data_wait_s"]) / e,
+                "loader_wait": parts["data_wait_s"] / e,
+                "val": parts["val_s"] / e, "ckpt": parts["ckpt_s"] / e,
+                "rest": (parts["fit_s"] - parts["train_s"] - parts["val_s"]
+                         - parts["ckpt_s"]) / e},
+            "data_wait_share": parts["data_wait_s"]
+            / max(parts["train_s"], 1e-9)}
+
+
+@contextlib.contextmanager
+def epoch_parts():
+    """Seconds of each part of the epochs every ``Trainer`` runs inside
+    the block, summed: ``train_s`` (``train_epoch``), in it
+    ``data_wait_s`` (waiting for the loader), ``val_s`` (``val_epoch``),
+    ``ckpt_s`` (the saves' host time and the final wait for their
+    commits), ``fit_s``; and the epochs run."""
+    from tpuic_torch.checkpoint.manager import CheckpointManager
+    from tpuic_torch.train.loop import Trainer
+    parts = {"epochs": 0, "fit_s": 0.0, "train_s": 0.0, "data_wait_s": 0.0,
+             "val_s": 0.0, "ckpt_s": 0.0}
+    saved, active = [], set()
+
+    def timed(cls, name, key):
+        orig = getattr(cls, name)
+        saved.append((cls, name, orig))
+
+        def wrapper(self, *a, **k):
+            if key in active:  # a save's own wait: counted once
+                return orig(self, *a, **k)
+            active.add(key)
+            t0 = time.perf_counter()
+            try:
+                return orig(self, *a, **k)
+            finally:
+                active.discard(key)
+                parts[key] += time.perf_counter() - t0
+                if name == "train_epoch":
+                    parts["epochs"] += 1
+                    parts["data_wait_s"] += self.stats["data_wait_s"]
+        setattr(cls, name, wrapper)
+
+    for cls, name, key in ((Trainer, "fit", "fit_s"),
+                           (Trainer, "train_epoch", "train_s"),
+                           (Trainer, "val_epoch", "val_s"),
+                           (CheckpointManager, "save_best", "ckpt_s"),
+                           (CheckpointManager, "maybe_save_latest", "ckpt_s"),
+                           (CheckpointManager, "wait", "ckpt_s")):
+        timed(cls, name, key)
+    try:
+        yield parts
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+
+
 def train_row(trainer, stats: dict, counts: dict, batch: int,
               smi: str) -> dict:
     """Step time, images/s and data-wait share of ``trainer``'s epoch: the
@@ -1914,10 +2133,41 @@ def train_row(trainer, stats: dict, counts: dict, batch: int,
             "images_per_s": batch / step_ms * 1e3,
             "data_wait_s": stats["data_wait_s"],
             "data_wait_share": stats["data_wait_s"] / stats["wall_s"],
+            "first_wait_s": stats["first_wait_s"],
+            "data_wait_share_after_first": (
+                stats["data_wait_s"] - stats["first_wait_s"])
+            / (stats["wall_s"] - stats["first_wait_s"]),
             "launches": counts,
             "val_forwards": len(trainer.val_loader),
             "val": {k: trainer.last_val[k] for k in ("accuracy", "loss")},
             "card": smi}
+
+
+def decode_arm(tag: str, cfg, batch: int, smi: str) -> dict:
+    """``cfg``'s ``Trainer`` again on the decode path (``pack=False``: host
+    threads decode and augment every image), for the same steps, in the
+    same run: its step ms and data-wait beside the packed path's."""
+    from tpuic_torch.train.loop import Trainer
+    dcfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, pack=False),
+        run=dataclasses.replace(cfg.run, resume=False, ckpt_dir=os.path.join(
+            cfg.data.data_dir, f"decode_arm_{tag}")))
+    trainer = Trainer(dcfg, log=lambda msg: None)
+    trainer.fit()
+    st = dict(trainer.stats)
+    step_ms = _step_ms(st)
+    row = {"step_ms": step_ms, "images_per_s": batch / step_ms * 1e3,
+           "wall_s": st["wall_s"], "data_wait_s": st["data_wait_s"],
+           "data_wait_share": st["data_wait_s"] / st["wall_s"],
+           "first_wait_s": st["first_wait_s"],
+           "data_wait_share_after_first": (
+               st["data_wait_s"] - st["first_wait_s"])
+           / (st["wall_s"] - st["first_wait_s"])}
+    del trainer
+    free()
+    log(tag, "the same steps on the decode path (no pack): "
+             + json.dumps(row))
+    return row
 
 
 def check_compare(tag: str, arms: dict) -> dict:
@@ -2172,7 +2422,7 @@ def _ddp_argv(root: str, work: str, batch: int, seed: int) -> list:
             "--warmup-epochs", "5", "--epochs", "1", "--label-smoothing",
             "0.1", "--no-class-weights", "--milestones", "--fused-loss",
             "--fused-optimizer", "--fused-conv-bn", "--dtype", "float32",
-            "--no-pack", "--no-native", "--workers", "8",
+            *DDP_RECIPE, "--workers", "8",
             "--log-every-steps", "1", "--seed", str(seed), "--no-resume",
             "--ckpt-dir", os.path.join(work, "ckpt"), "--log-dir",
             os.path.join(work, "logs")]
@@ -2250,10 +2500,12 @@ def _held(tag: str, name: str, got: list, want: list) -> list:
 
 
 def _ddp_launches(val_forwards: int) -> dict:
-    """One process's launches in ``ddp``'s epoch: K1 both ways and K2 LARS
-    once a step, K3 53 times per val forward."""
-    return expect(cross_entropy_fwd=DDP_STEPS, cross_entropy_bwd=DDP_STEPS,
-                  lars_update=DDP_STEPS, conv_bn_relu=53 * val_forwards)
+    """One process's launches in ``ddp``'s epoch: K1 both ways twice a step
+    (the mixed loss's two terms), K2 LARS once a step, K3 53 times per val
+    forward."""
+    return expect(cross_entropy_fwd=2 * DDP_STEPS,
+                  cross_entropy_bwd=2 * DDP_STEPS, lars_update=DDP_STEPS,
+                  conv_bn_relu=53 * val_forwards)
 
 
 def phase_ddp(root: str, seed: int, smi: str) -> dict:
@@ -2279,8 +2531,12 @@ def phase_ddp(root: str, seed: int, smi: str) -> dict:
     one_losses = _jsonl_losses(os.path.join(work, "one", "logs",
                                             "metrics.jsonl"))
     row = {"steps": DDP_STEPS, "global_batch": TRAIN_BATCH,
+           "recipe": list(DDP_RECIPE),
+           "drop_path_sites": len(one.model.drop_path_rates()),
            "one_process": {"losses": one_losses,
                            "step_ms": _step_ms(one.stats),
+                           "data_wait_share": one.stats["data_wait_s"]
+                           / one.stats["wall_s"],
                            "launches": one_counts,
                            "val": {k: one.last_val[k]
                                    for k in ("accuracy", "loss")}}}
@@ -2314,6 +2570,8 @@ def phase_ddp(root: str, seed: int, smi: str) -> dict:
             "against": against,
             "step_ms": [_step_ms(r["stats"]) for r in arm["recs"]],
             "data_wait_s": [r["stats"]["data_wait_s"] for r in arm["recs"]],
+            "data_wait_share": [r["stats"]["data_wait_s"]
+                                / r["stats"]["wall_s"] for r in arm["recs"]],
             "launches": [r["launches"] for r in arm["recs"]],
             "val_forwards": [r["val_forwards"] for r in arm["recs"]],
             "val": {k: r0["val"][k] for k in ("accuracy", "loss")},
@@ -2766,7 +3024,7 @@ def phase_predict(root: str, ckpt_dir: str, val_accuracy: float,
     with contextlib.redirect_stdout(buf):
         rc = predict.main(["--datadir", root, "--ckpt-dir", ckpt_dir,
                            "--fold", "val", "--batchsize", str(TRAIN_BATCH),
-                           "--no-pack", "--top-k", "5",
+                           "--top-k", "5",
                            "--out", os.path.join(root, "predict.csv")])
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -3159,7 +3417,7 @@ def vit_train_config(root: str, seed: int, dtype: str = "float32",
     return Config(
         data=DataConfig(data_dir=root, resize_size=IMAGE,
                         batch_size=VIT_BATCH, num_workers=8,
-                        shuffle_seed=seed, native=False, pack=False),
+                        shuffle_seed=seed),
         model=ModelConfig(name=VIT_MODEL, num_classes=1000, dtype=dtype,
                           compute_dtype="bf16" if dtype == "bfloat16"
                           else "", attention="flash",
@@ -3242,6 +3500,8 @@ def phase_vit_train(root: str, seed: int, smi: str):
             batches = first_batches(trainer)
         del trainer
         free()
+    rows["bfloat16"]["decode_path"] = decode_arm(
+        "vit-train", vit_train_config(root, seed, "bfloat16"), VIT_BATCH, smi)
     logged = sorted(set(losses["float32"]) & set(losses["bfloat16"]))
     rel = {s_: abs(losses["bfloat16"][s_] - losses["float32"][s_])
            / abs(losses["float32"][s_]) for s_ in logged}
@@ -3465,7 +3725,7 @@ def eff_train_config(root: str, seed: int, dtype: str = "bfloat16"):
     return Config(
         data=DataConfig(data_dir=root, resize_size=IMAGE,
                         batch_size=TRAIN_BATCH, num_workers=8,
-                        shuffle_seed=seed, native=False, pack=False),
+                        shuffle_seed=seed),
         model=ModelConfig(name=EFF_TRAIN_MODEL, num_classes=1000,
                           dtype=dtype, compute_dtype="bf16"
                           if dtype == "bfloat16" else ""),
@@ -3586,7 +3846,7 @@ def inception_train_config(root: str, seed: int, dtype: str):
     return Config(
         data=DataConfig(data_dir=root, resize_size=INC_IMAGE,
                         batch_size=INC_BATCH, num_workers=8,
-                        shuffle_seed=seed, native=False, pack=False),
+                        shuffle_seed=seed),
         model=ModelConfig(name="inceptionv3", dtype=dtype,
                           compute_dtype="bf16" if dtype == "bfloat16"
                           else ""),
@@ -3641,6 +3901,9 @@ def phase_inception_train(root: str, seed: int, smi: str):
                                 smi)
         rows[dtype]["conv_out_dtype"] = conv_out
         log("inception-train", json.dumps(rows[dtype]))
+        if dtype == "float32":
+            rows[dtype]["decode_path"] = decode_arm(
+                "inception-train", cfg, INC_BATCH, smi)
         if dtype == "float32":
             batches = first_batches(trainer)
         del trainer
@@ -3698,7 +3961,7 @@ def _predict(root: str, ckpt_dir: str, batch: int, tag: str,
     with contextlib.redirect_stdout(buf):
         rc = importlib.import_module("tpuic_torch.predict").main(
             ["--datadir", root, "--ckpt-dir", ckpt_dir, "--fold", "val",
-             "--batchsize", str(batch), "--no-pack", "--out", out])
+             "--batchsize", str(batch), "--out", out])
     printed = buf.getvalue().strip().splitlines()
     for line in printed[:-1]:
         log(tag, line)
@@ -3721,8 +3984,7 @@ def _trainer_forward(root: str, ckpt_dir: str, batch: int,
         saved["model"]["head_widths"]))
     cfg = Config(data=DataConfig(data_dir=root,
                                  resize_size=saved["data"]["resize_size"],
-                                 batch_size=batch, val_batch_size=batch,
-                                 pack=False, native=False),
+                                 batch_size=batch, val_batch_size=batch),
                  model=ModelConfig(**model),
                  run=RunConfig(ckpt_dir=ckpt_dir))
     import io
@@ -3774,8 +4036,8 @@ def against_trainer(tag: str, arm: str, root: str, ckpt_dir: str,
 def phase_ref_cli(root: str, seed: int, smi: str) -> dict:
     """The reference program's own command on the port, with nothing
     added but its data, one epoch and a checkpoint directory:
-    ``python -m tpuic_torch.train --datadir D --epochs 1 --no-pack
-    --no-native --ckpt-dir C`` (InceptionV3 with its aux head, 299 px,
+    ``python -m tpuic_torch.train --datadir D --epochs 1 --ckpt-dir C``
+    (InceptionV3 with its aux head, 299 px,
     bfloat16, Adam, batch 4, the 7 class weights), as a user starts it.
     It must exit 0 and write ``best`` and ``latest``; predict scores
     ``best`` in float32, as served, within REF_PREDICT_LIMIT images of the
@@ -3785,15 +4047,15 @@ def phase_ref_cli(root: str, seed: int, smi: str) -> dict:
     write_ref_folder(data, seed, per_train=8, per_val=4)
     ckpt = os.path.join(root, "ref_ckpt")
     cmd = [sys.executable, "-m", "tpuic_torch.train", "--datadir", data,
-           "--epochs", "1", "--no-pack", "--no-native", "--ckpt-dir", ckpt]
+           "--epochs", "1", "--ckpt-dir", ckpt]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                          env=dict(os.environ, PYTHONPATH=here), cwd=here)
     wall = time.perf_counter() - t0
     lines = out.stdout.splitlines()
     for line in lines:
-        if line.startswith(("[model]", "[tpuic_torch]", "[ckpt]")) \
-                or "Val Accuracy" in line:
+        if line.startswith(("[model]", "[tpuic_torch]", "[ckpt]", "[pack]",
+                            "[data]")) or "Val Accuracy" in line:
             log("ref-cli", line)
     if out.returncode != 0:
         fail("ref-cli", f"exited {out.returncode}: {out.stderr[-3000:]}")
@@ -3817,7 +4079,7 @@ DIGITS_ARGS = ["--model", "resnet18-cifar", "--resize", "32", "--batchsize",
                "--warmup-epochs", "3", "--weight-decay", "5e-4",
                "--milestones", "--epochs", str(DIGITS_EPOCHS),
                "--no-augment", "--no-class-weights", "--fused-loss",
-               "--no-pack", "--no-native", "--log-every-steps", "11"]
+               "--log-every-steps", "11"]
 
 
 def phase_digits(root: str, smi: str):
@@ -3839,14 +4101,15 @@ def phase_digits(root: str, smi: str):
     for dtype in DIGITS_DTYPES:
         ckpt = os.path.join(root, f"digits_ckpt_{dtype}")
         reset_counts()
-        with conv_dtypes() as seen:
+        with conv_dtypes() as seen, epoch_parts() as parts:
             rc, lines, wall = _train_cli(["--datadir", data, "--ckpt-dir",
                                           ckpt, "--dtype", dtype,
                                           *DIGITS_ARGS])
         counts[dtype] = read_counts()
         conv_out = check_conv_dtypes("digits", dtype, seen, dtype)
         for line in lines:
-            if line.startswith(("[model]", "[tpuic_torch]")):
+            if line.startswith(("[model]", "[tpuic_torch]", "[pack]",
+                                "[data]")):
                 log("digits", f"{dtype}: {line}")
         curve = [float(ln.split("Val Accuracy ")[1].split(";")[0])
                  for ln in lines if "Val Accuracy" in ln]
@@ -3863,6 +4126,7 @@ def phase_digits(root: str, smi: str):
                                  kernel="conv_bn_relu")
         row = {"dtype": dtype, "val_top1_per_epoch": curve, "best": best,
                "bound": DIGITS_BOUND, "steps": steps, "wall_s": wall,
+               **epoch_row(parts),
                "launches": counts[dtype], "conv_out_dtype": conv_out,
                **scored, "card": smi}
         log("digits", json.dumps(row))
@@ -3885,8 +4149,7 @@ DIGITS_VIT_ARGS = ["--model", "vit-tiny", "--attention", "flash",
                    "--weight-decay", "5e-4", "--milestones", "--mixup",
                    "0.2", "--cutmix", "0.5", "--no-augment",
                    "--no-class-weights", "--fused-loss", "--dtype",
-                   "float32", "--no-pack", "--no-native",
-                   "--log-every-steps", "11"]
+                   "float32", "--log-every-steps", "11"]
 
 
 def _ema_model(ckpt_dir: str):
@@ -3999,12 +4262,13 @@ def phase_digits_vit(root: str, smi: str):
     data = os.path.join(root, "digits")
     ckpt = os.path.join(root, "digits_vit_ckpt")
     reset_counts()
-    rc, lines, wall = _train_cli(["--datadir", data, "--ckpt-dir", ckpt,
-                                  "--epochs", str(DIGITS_VIT_EPOCHS),
-                                  *DIGITS_VIT_ARGS])
+    with epoch_parts() as parts:
+        rc, lines, wall = _train_cli(["--datadir", data, "--ckpt-dir", ckpt,
+                                      "--epochs", str(DIGITS_VIT_EPOCHS),
+                                      *DIGITS_VIT_ARGS])
     counts = read_counts()
     for line in lines:
-        if line.startswith(("[model]", "[tpuic_torch]")):
+        if line.startswith(("[model]", "[tpuic_torch]", "[pack]", "[data]")):
             log("digits-vit", line)
     curve = [float(ln.split("Val Accuracy ")[1].split(";")[0])
              for ln in lines if "Val Accuracy" in ln]
@@ -4025,9 +4289,12 @@ def phase_digits_vit(root: str, smi: str):
                              kernel="flash_attention_fwd")
     row = {"val_top1_per_epoch": curve, "best": best,
            "bound": DIGITS_VIT_BOUND, "tpuic_best": 100.0 * 317 / 359,
-           "steps": steps, "wall_s": wall, "launches": counts, **scored,
-           "card": smi}
+           "steps": steps, "wall_s": wall, **epoch_row(parts),
+           "launches": counts, **scored, "card": smi}
     log("digits-vit", json.dumps(row))
+    log("digits-vit", "seconds an epoch: " + json.dumps(
+        {k: row[k] for k in ("epoch_s", "epoch_parts_s",
+                             "data_wait_share")}))
     if best < DIGITS_VIT_BOUND:
         fail("digits-vit", f"best val top-1 {best} < {DIGITS_VIT_BOUND}")
     ema_ckpt = os.path.join(root, "digits_vit_ema_ckpt")
@@ -4483,6 +4750,9 @@ def main(argv=None) -> int:
     optim = phase_optim(kind, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         write_folder(root, args.seed)
+        t0 = time.perf_counter()
+        pack = phase_pack(root, args.seed, smi)
+        t_pack = time.perf_counter() - t0
         counts, lamb_counts, train = phase_train(root, args.seed, smi)
         t0 = time.perf_counter()
         ddp = phase_ddp(root, args.seed, smi)
@@ -4511,7 +4781,7 @@ def main(argv=None) -> int:
         free()
         vit_counts, vit_train = phase_vit_train(root, args.seed, smi)
         took = {"to_vit_train": time.perf_counter() - t_start,
-                "ddp": t_ddp}
+                "pack": t_pack, "ddp": t_ddp}
         t0 = time.perf_counter()
         recipe_counts, vit_train["recipe"] = phase_vit_recipe(
             root, args.seed, smi, vit_train["bfloat16"])
@@ -4558,6 +4828,23 @@ def main(argv=None) -> int:
         took["effnet-serve"] = time.perf_counter() - t0
     took["total"] = time.perf_counter() - t_start
     log("timing", json.dumps(took))
+    # The share of each training cell's train loop spent waiting for the
+    # loader (every cell on the packed, resident path).
+    data_wait = {
+        "train": train["data_wait_share"],
+        **{f"vit-train {d}": vit_train[d]["data_wait_share"]
+           for d in ("float32", "bfloat16")},
+        "vit-train recipe": vit_train["recipe"]["data_wait_share"],
+        "effnet-train": eff_train["data_wait_share"],
+        **{f"inception-train {d}": inc_train[d]["data_wait_share"]
+           for d in ("float32", "bfloat16")},
+        "ddp one process": ddp["one_process"]["data_wait_share"],
+        **{f"ddp {a} rank {r}": w for a, arm in ddp["arms"].items()
+           for r, w in enumerate(arm["data_wait_share"])},
+        **{f"digits {d}": digits[d]["data_wait_share"]
+           for d in DIGITS_DTYPES},
+        "digits-vit": digits_vit["data_wait_share"]}
+    log("data-wait", json.dumps(data_wait))
 
     def ddp_counts(name):
         """``name``'s launches on the ``ddp`` paths, by process."""
@@ -4667,6 +4954,7 @@ def main(argv=None) -> int:
                        "vit_swap": vit_swap, "vit_train": vit_train,
                        "inception": inception,
                        "inception_train": inc_train, "ref_cli": ref_cli,
+                       "pack": pack, "data_wait": data_wait,
                        "digits": digits, "digits_vit": digits_vit,
                        "effnet_train": eff_train, "effnet_serve": effnet,
                        "ladder": ladder, "serve_cli_ladder": cli_ladder,

@@ -54,6 +54,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_tpuic():
     assert got["bad"] == []
     assert "tpuic_torch.serve.engine" in got["names"]
     assert "tpuic_torch.kernels.conv_bn_relu" in got["names"]
+    for name in ("tpuic_torch.native", "tpuic_torch.data.pack",
+                 "tpuic_torch.data.device_prep"):
+        assert name in got["names"]
 
 
 def test_package_import_is_light():

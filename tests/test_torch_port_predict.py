@@ -9,7 +9,7 @@
   the same ``pred`` column, ``prob`` within 1e-5, the same accuracy.
 - Edge cases: an unlabeled flat fold; a fold with no train tree;
   ``--model auto`` and its ambiguity error; a missing checkpoint; the
-  wrong model for a checkpoint; ``--no-pack`` required; an EMA sidecar
+  wrong model for a checkpoint; packed by default; an EMA sidecar
   over a save without ``ema_params`` scoring the parameters.
 - ``--model auto`` on an InceptionV3 and an EfficientNet-B0 checkpoint:
   each row is a direct eval forward's (1e-5); a bf16 run's checkpoint is
@@ -106,9 +106,21 @@ def test_cli_model_auto_limit_and_refusals(trained, tmp_path):
                          "--device", "cpu"]) == 0
     with open(out) as f:
         assert len(list(csv.DictReader(f))) == 5
-    with pytest.raises(SystemExit, match="--no-pack is required.*item 7"):
-        predict_main(["--datadir", root, "--ckpt-dir", ckpt,
-                      "--device", "cpu"])
+    # Without --no-pack the fold is packed (the default), and the rows
+    # are the decode path's.
+    packed = str(tmp_path / "packed.csv")
+    assert predict_main(["--datadir", root, "--ckpt-dir", ckpt, "--out",
+                         packed, "--batchsize", "4", "--limit", "5",
+                         "--device", "cpu"]) == 0
+    with open(out) as a, open(packed) as b:
+        rows = list(zip(csv.DictReader(a), csv.DictReader(b)))
+    assert len(rows) == 5
+    for x, y in rows:
+        assert (x["image_id"], x["label"], x["pred"]) == (
+            y["image_id"], y["label"], y["pred"])
+        assert abs(float(x["prob"]) - float(y["prob"])) <= 1e-5
+    assert os.path.isfile(os.path.join(root, ".tpuic_pack",
+                                       f"pack-val-{SIZE}.bin"))
     with pytest.raises(FileNotFoundError):
         resolve_model_auto(str(tmp_path / "none"))
     # Two trained models under one dir: --model auto refuses to guess.

@@ -36,12 +36,21 @@ class DataConfig:
     # ImageNet normalization stats (reference dp/loader.py:86-91).
     mean: Sequence[float] = (0.485, 0.456, 0.406)
     std: Sequence[float] = (0.229, 0.224, 0.225)
-    # tpuic's native C++ decode/prep core: not ported (the NumPy path has
-    # identical numerics); the Trainer refuses True.
+    # The native C++ decode/prep core (tpuic_torch/native) when its build
+    # is available; False takes PIL and the NumPy transforms.
     native: bool = True
-    # tpuic's packed uint8 cache + device-side augmentation: not ported;
-    # the Trainer refuses True.
+    # Packed uint8 cache (tpuic_torch/data/pack.py): decode and resize
+    # once into a memory-mapped .bin, then serve every epoch from it with
+    # the augmentation and normalisation on the loader's device
+    # (tpuic_torch/data/device_prep.py).
     pack: bool = True
+    cache_dir: str = ""  # '' => {data_dir}/.tpuic_pack
+    # Device-resident dataset: when the packed uint8 dataset fits this
+    # budget (MiB, a per-process total), the Loader uploads it once and a
+    # batch ships only [B] indices and a [B, 5] augment-parameter block;
+    # the gather, augmentation and normalisation run on the device.
+    # 0 disables (every batch streams its uint8 rows).
+    device_cache_mb: int = 4096
     # Global shuffle seed, folded with the epoch (pipeline.py).
     shuffle_seed: int = 0
     # Train-fold augmentation master switch (dp/loader.py:63-83).
@@ -54,6 +63,13 @@ class DataConfig:
     p_contrast: float = 0.05
     jitter_lo: float = 0.9
     jitter_hi: float = 1.1
+    # Sample quarantine: a sample whose decode fails is retried
+    # ``quarantine_retries`` times ``quarantine_backoff_s`` apart (a file
+    # mid-copy), then replaced by a deterministic same-class substitute,
+    # whose label and id travel with it, and counted.  False re-raises.
+    quarantine: bool = True
+    quarantine_retries: int = 1
+    quarantine_backoff_s: float = 0.05
 
     def resolved_val_batch_size(self) -> int:
         return self.val_batch_size or self.batch_size
@@ -149,7 +165,9 @@ class OptimConfig:
     # (w_c = N / (K * n_c)); overrides class_weights.
     auto_class_weights: bool = False
     weight_decay: float = 0.0
-    # Mixup / CutMix / random erasing: not ported; the Trainer refuses > 0.
+    # Mixup / CutMix (Beta(alpha, alpha) mixing of the batch with a
+    # permutation of itself) and random erasing (a probability a sample),
+    # drawn and applied inside the train step (train/step.py, augment.py).
     mixup_alpha: float = 0.0
     cutmix_alpha: float = 0.0
     random_erase: float = 0.0

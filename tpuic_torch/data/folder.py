@@ -8,16 +8,23 @@
   class subdirectories yields label -1 and ``labeled`` False.
 - Index order is sorted and deterministic; shuffling is the sampler's
   (``pipeline.py``).
-
-Decode is PIL's (``tpuic``'s ``native=False`` path), so a sample is the
-same bits as ``tpuic``'s for the same (seed, epoch, index).  A file that
-does not decode raises: ``tpuic``'s quarantine (retry, then a same-class
-substitute) is not ported.
+- **Decode**: the native core (``tpuic_torch.native``) when
+  ``cfg.native`` and its build is available, else PIL; the fused native
+  prep, else the NumPy transforms.  PNG gives the same bits either way,
+  and the same bits as ``tpuic`` for the same (seed, epoch, index).
+- **Sample quarantine** (``quarantined_decode``): a file that does not
+  decode is retried with a backoff, then replaced by a deterministic
+  same-class sample, whose label and id travel with it, and counted
+  (``quarantine_count``, ``quarantined``).  ``cfg.quarantine=False``
+  re-raises.  ``tpuic``'s ``decode_error`` fault point and its
+  ``quarantine`` bus event are not ported (ROADMAP items 11 and 6).
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +32,47 @@ from PIL import Image
 
 from tpuic_torch.config import DataConfig
 from tpuic_torch.data import transforms as T
+
+# What PIL raises for unreadable or corrupt image bytes: its
+# UnidentifiedImageError and "image file is truncated" are OSErrors,
+# decoder failures ValueErrors, and old PIL raised SyntaxError for broken
+# PNG chunks.
+_DECODE_ERRORS = (OSError, ValueError, SyntaxError)
+
+
+def quarantined_decode(dataset, index: int, decode):
+    """The quarantine policy, shared by ``load`` and the pack: try
+    ``decode(index)``; on a decode error retry ``cfg.quarantine_retries``
+    times ``cfg.quarantine_backoff_s`` apart, then, with
+    ``cfg.quarantine`` on, record the event and try up to 8 same-class
+    replacements in turn (an interrupted copy often hits neighbours too).
+
+    Returns ``(value, actual_index)``: the caller takes the replacement's
+    label and id when ``actual_index != index``.  Re-raises the original
+    error when quarantine is off or every candidate fails.  Only
+    ``_DECODE_ERRORS`` engage the policy."""
+    cfg = dataset.cfg
+    try:
+        return decode(index), index
+    except _DECODE_ERRORS:
+        for _ in range(max(0, int(cfg.quarantine_retries))):
+            time.sleep(max(0.0, float(cfg.quarantine_backoff_s)))
+            try:
+                return decode(index), index
+            except _DECODE_ERRORS:
+                continue
+        if not cfg.quarantine:
+            raise
+        dataset._record_quarantine(dataset.samples[index][0])
+        j = index
+        for _ in range(8):
+            j = dataset.quarantine_replacement(j)
+            try:
+                return decode(j), j
+            except _DECODE_ERRORS:
+                continue
+        raise  # every candidate corrupt: the original error
+
 
 _IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp"}
 
@@ -77,6 +125,11 @@ class ImageFolderDataset:
         if not samples:
             raise ValueError(f"no images under {root}")
         self.samples = samples
+        # Quarantine events in all, and per path; a lock, as loads run on
+        # the Loader's worker threads.
+        self.quarantine_count = 0
+        self.quarantined: Dict[str, int] = {}
+        self._quarantine_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self.samples)
@@ -100,15 +153,58 @@ class ImageFolderDataset:
             return np.asarray(im.convert("RGB") if im.mode not in ("RGB",)
                               else im)
 
+    def _decode_sized(self, index: int) -> np.ndarray:
+        """Sample ``index``'s pixels: the native core's decode and nearest
+        resize when ``cfg.native`` and it is built (the downstream resize
+        is then a no-op), else PIL at full size.  A corrupt file makes the
+        native decode return None and PIL raise, so the quarantine
+        engages either way."""
+        path = self.samples[index][0]
+        if self.cfg.native:
+            from tpuic_torch import native
+            if native.decode_available():
+                try:
+                    with open(path, "rb") as f:
+                        data = f.read()
+                except OSError:
+                    data = b""
+                if data:
+                    out = native.decode_resize(data, self.resize_size)
+                    if out is not None:
+                        return out
+        return self._decode(path)
+
+    def quarantine_replacement(self, index: int) -> int:
+        """The substitute for a sample that does not decode: the next
+        index (cyclic) with the same label, else the plain next index
+        (a one-sample class; its own label travels with it)."""
+        label = self.samples[index][1]
+        n = len(self.samples)
+        for off in range(1, n):
+            j = (index + off) % n
+            if self.samples[j][1] == label:
+                return j
+        return (index + 1) % n
+
+    def _record_quarantine(self, path: str) -> None:
+        with self._quarantine_lock:
+            self.quarantine_count += 1
+            self.quarantined[path] = self.quarantined.get(path, 0) + 1
+
     def load(self, index: int, rng: Optional[np.random.Generator] = None
              ) -> Tuple[np.ndarray, int, str]:
         """Decode -> RGB -> resize -> [augment] -> normalize: (HWC float32
         image, label, image_id), reference dp/loader.py:39-61 in NHWC.
         Augment decisions are drawn once (``transforms.draw_augment``) from
-        the caller's (seed, epoch, index) generator, train fold only."""
-        path, label = self.samples[index]
+        the caller's (seed, epoch, index) generator, train fold only, then
+        applied by the native prep when ``cfg.native`` and it is built,
+        else by the NumPy transforms: the same image either way.  A file
+        that does not decode goes through ``quarantined_decode``, and a
+        replacement brings its own image, label and id."""
+        img, index = quarantined_decode(self, index, self._decode_sized)
+        label = self.samples[index][1]
         c = self.cfg
-        img = T.to_rgb(self._decode(path))
+        img = T.to_rgb(img)
         if self.train and rng is not None:
             k, vflip, hflip, color, factor = T.draw_augment(
                 rng, p_vflip=c.p_vflip, p_hflip=c.p_hflip,
@@ -118,6 +214,14 @@ class ImageFolderDataset:
         else:
             k = vflip = hflip = color = 0
             factor = 1.0
+        if c.native:
+            from tpuic_torch import native
+            out = native.prep_image(
+                np.ascontiguousarray(img), self.resize_size, rot_k=k,
+                vflip=vflip, hflip=hflip, color_op=color, factor=factor,
+                mean=c.mean, std=c.std)
+            if out is not None:
+                return out, label, self.image_id(index)
         img = T.resize_nearest(img, self.resize_size)
         img = T.apply_augment(img, k, vflip, hflip, color, factor)
         img = T.normalize(img, c.mean, c.std)

@@ -8,9 +8,9 @@ a reference torch checkpoint through ``--init-from``), run the fold
 through the serving engine and write per-image predictions to CSV.
 
     python -m tpuic_torch.predict --datadir /data/x --model resnet50 \\
-        --ckpt-dir dtmodel/cp --no-pack            # best track by default
+        --ckpt-dir dtmodel/cp                      # best track by default
     python -m tpuic_torch.predict --datadir /data/x --model resnet50 \\
-        --init-from best_model --fold val --out preds.csv --top-k 3 --no-pack
+        --init-from best_model --fold val --out preds.csv --top-k 3
 
 Output CSV columns: image_id, label (ground-truth class name, '' when the
 fold carries none), pred (top-1 class name), prob (softmax of top-1), then
@@ -22,10 +22,13 @@ The fold goes through ``tpuic_torch.serve.InferenceEngine`` with
 ``default_buckets(batch size)`` and no coalescing wait: on the card each
 bucket is one CUDA graph, full batches reach the engine as the
 ``Loader``'s tensors on the card (no host bounce), and the tail batch
-submits only its valid rows.  ``--device cpu`` runs on the CPU.
-``--no-pack`` is required: the packed loader is not ported (ROADMAP §1
-item 7).  Every checkpoint is scored in float32 through the kernels, as
-the serve CLI serves it (``serving_model_config``), a bf16 run's too.
+submits only its valid rows.  ``--device cpu`` runs on the CPU.  The
+fold is packed first (``tpuic/predict.py:95-98``: the uint8 cache under
+``{datadir}/.tpuic_pack``, normalised on the device, the native decode
+core when it builds), and the log names the decoder; ``--no-pack``
+decodes each image on host threads instead.  Every checkpoint is scored
+in float32 through the kernels, as the serve CLI serves it
+(``serving_model_config``), a bf16 run's too.
 """
 
 from __future__ import annotations
@@ -94,10 +97,6 @@ def run_predict(cfg, *, fold: str, track: str, top_k: int,
     from tpuic_torch.device import resolve_device
     from tpuic_torch.serve import InferenceEngine, default_buckets
 
-    if cfg.data.pack:
-        raise NotImplementedError("data.pack: the packed loader is not yet "
-                                  "ported to tpuic_torch (ROADMAP §1 item "
-                                  "7); pass --no-pack")
     device = resolve_device(device)
     d = cfg.data
     # class_to_idx=None derives the canonical mapping from the train fold
@@ -107,6 +106,10 @@ def run_predict(cfg, *, fold: str, track: str, top_k: int,
     ds = ImageFolderDataset(d.data_dir, fold, d.resize_size, d,
                             allow_unlabeled=True)
     has_labels = ds.labeled
+    if d.pack:
+        from tpuic_torch.data.pack import pack_folds
+        ds, = pack_folds((ds,), d, lambda m: print("[predict]", m,
+                                                   flush=True))
     num_classes = cfg.model.num_classes or ds.num_classes
     if num_classes <= 0:
         raise ValueError("--num-classes is required for an unlabeled fold "
@@ -235,17 +238,13 @@ def main(argv=None) -> int:
     p.add_argument("--limit", type=int, default=0,
                    help="stop after N rows (smoke runs)")
     p.add_argument("--no-pack", action="store_true",
-                   help="required: the packed loader is not yet ported "
-                        "(ROADMAP §1 item 7)")
+                   help="decode each image on host threads instead of "
+                        "packing the fold into the uint8 cache")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs on "
                         "the CPU)")
     args = p.parse_args(argv)
     prog = "python -m tpuic_torch.predict"
-    if not args.no_pack:
-        raise SystemExit(f"{prog}: error: --no-pack is required: the packed "
-                         "loader is not yet ported to tpuic_torch (ROADMAP "
-                         "§1 item 7)")
 
     from tpuic_torch.config import Config, DataConfig, OptimConfig, RunConfig
     model, num_classes, resize = args.model, args.num_classes, args.resize
@@ -273,8 +272,8 @@ def main(argv=None) -> int:
     cfg = Config(
         data=DataConfig(data_dir=args.datadir, resize_size=resize,
                         batch_size=args.batchsize,
-                        val_batch_size=args.batchsize, pack=False,
-                        native=False),
+                        val_batch_size=args.batchsize,
+                        pack=not args.no_pack),
         model=serving_model_config(model, num_classes),
         optim=OptimConfig(ema_decay=ema_decay),
         run=RunConfig(ckpt_dir=args.ckpt_dir, init_from=args.init_from),

@@ -8,7 +8,7 @@ the defaults are the reference's (InceptionV3 with its aux head at 299
 px, bfloat16 compute, Adam at 0.5e-5, MultiStepLR [50, 80], batch 4, the
 reference's 7 class weights), and they run as they are::
 
-  python -m tpuic_torch.train --datadir /data/folder --no-pack --no-native
+  python -m tpuic_torch.train --datadir /data/folder
 
 Other recipes name what they change, e.g.::
 
@@ -16,7 +16,7 @@ Other recipes name what they change, e.g.::
       --resize 224 --batchsize 128 --num-classes 1000 --optimizer lars \\
       --lr 4.8 --weight-decay 1e-4 --warmup-epochs 5 --epochs 90 \\
       --label-smoothing 0.1 --no-class-weights --milestones \\
-      --fused-loss --fused-optimizer --dtype float32 --no-pack --no-native
+      --fused-loss --fused-optimizer --dtype float32
 
 ViT-B/16 through the flash-attention kernels (recipes/README.md, section
 4: mixup, CutMix, random erasing, drop-path and EMA)::
@@ -26,20 +26,30 @@ ViT-B/16 through the flash-attention kernels (recipes/README.md, section
       --optimizer adam --lr 3e-4 --weight-decay 0.05 --warmup-epochs 10 \\
       --label-smoothing 0.1 --mixup 0.2 --cutmix 1.0 --random-erase 0.25 \\
       --drop-path 0.1 --clip-grad-norm 1.0 --ema-decay 0.9999 \\
-      --no-class-weights --fused-loss --no-pack --no-native
+      --no-class-weights --fused-loss
 
 EfficientNet-B0 (section 3; stochastic depth 0.2 always, as in
 ``tpuic``)::
 
   python -m tpuic_torch.train --datadir /data/imagenet \\
       --model efficientnet-b0 --resize 224 --batchsize 128 --epochs 350 \\
-      --optimizer sgd --lr 0.4 --no-class-weights --no-pack --no-native
+      --optimizer sgd --lr 0.4 --no-class-weights
 
 ``--grad-accum-steps K`` accumulates K micro-steps' gradients before one
 update (section 5 reaches a global batch of 4096 that way),
 ``--freeze-backbone`` trains the head alone, and ``--remat
 [--remat-policy dots|attention|blocks|gelu]`` recomputes activations in
 the backward.
+
+The data path is ``tpuic``'s default: each fold is decoded once (the
+native C++ core, or PIL where it does not build) into a uint8 cache
+under ``--cache-dir`` (``{datadir}/.tpuic_pack``), and the augmentation
+and normalisation run on the device.  A packed dataset within
+``--device-cache-mb`` (4096 MiB) stays on the device, and a batch ships
+its indices; a larger one (ImageNet-1k at 224 px is 193 GB) streams its
+uint8 rows, a quarter of the float32 bytes.  ``--no-pack`` decodes every
+epoch on host threads, ``--no-native`` with PIL and NumPy, and
+``--no-quarantine`` lets a file that does not decode abort the run.
 
 Data parallel, one process a card (the reference's ``python -m
 torch.distributed.launch --nproc_per_node=4 train.py``): start one process
@@ -71,13 +81,10 @@ from tpuic_torch.config import (ATTENTION_IMPLS, Config, DataConfig,
 # train.py flags whose features are not ported: (flag, argparse kwargs).
 _NOT_PORTED = (
     ("--init-from", dict(default="")),
-    ("--device-cache-mb", dict(type=int, default=4096)),
-    ("--cache-dir", dict(default="")),
     ("--profile-dir", dict(default="")),
     ("--skip-threshold", dict(type=int, default=10)),
     ("--no-rollback", dict(action="store_true")),
     ("--rewarm-steps", dict(type=int, default=0)),
-    ("--no-quarantine", dict(action="store_true")),
     ("--metrics-jsonl", dict(default="")),
     ("--trace-dir", dict(default="")),
     ("--trace-threshold", dict(type=float, default=3.0)),
@@ -151,9 +158,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "(tpuic_torch/kernels/cross_entropy.py)")
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--no-native", action="store_true",
-                   help="required: the native decode core is not ported")
+                   help="decode with PIL and augment with NumPy instead of "
+                        "the native C++ core (the same PNG bits)")
     p.add_argument("--no-pack", action="store_true",
-                   help="required: the packed loader is not ported")
+                   help="decode every epoch instead of packing each fold "
+                        "once into a uint8 cache augmented on the device")
+    p.add_argument("--cache-dir", default="",
+                   help="where the packed folds go (default "
+                        "{datadir}/.tpuic_pack)")
+    p.add_argument("--device-cache-mb", type=int, default=4096,
+                   help="keep a packed dataset that fits this budget (MiB "
+                        "a process, train first, val the rest) resident "
+                        "on the device; 0 streams every batch")
+    p.add_argument("--no-quarantine", action="store_true",
+                   help="let a sample that does not decode abort the run "
+                        "instead of serving a same-class replacement")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"],
                    help="compute dtype of the model (parameters, optimizer "
@@ -236,7 +255,9 @@ def config_from_args(args: argparse.Namespace,
                         val_batch_size=args.val_batchsize,
                         prefetch=args.prefetch, pack=not args.no_pack,
                         augment=not args.no_augment,
-                        native=not args.no_native),
+                        native=not args.no_native, cache_dir=args.cache_dir,
+                        device_cache_mb=args.device_cache_mb,
+                        quarantine=not args.no_quarantine),
         model=ModelConfig(name=args.model, num_classes=args.num_classes,
                           dtype=args.dtype, remat=args.remat,
                           remat_policy=args.remat_policy,

@@ -46,7 +46,8 @@ per epoch and returns the best val accuracy.
   ``confusion_e{epoch}.npy`` and ``per_class.jsonl`` under the logger's
   root.
 - ``self.stats`` keeps host-side timing of the last epoch: steps, wall
-  seconds, seconds spent waiting for the loader, and ``drains``, the
+  seconds, seconds spent waiting for the loader (and for its first batch
+  alone, which includes the loader's start), and ``drains``, the
   (step, host time) at which each deferred read returned: the device had
   finished that step then.
 
@@ -73,10 +74,21 @@ the K4 flash-attention kernels with ``attention="flash"``.
   ``models/remat.py``).  Every model family trains, EfficientNet
   included, in float32 and bf16.
 
+- **The packed data path** (``tpuic/train/loop.py:69-81``, ``:275-314``;
+  ``data.pack``, the default): both folds are packed once into
+  ``data.cache_dir`` (``{data_dir}/.tpuic_pack`` by default) and every
+  epoch is served from the cache, augmented and normalised on the
+  device; the device-cache budget (``data.device_cache_mb``) is a
+  per-process total, which the train loader claims first and the val
+  loader gets the rest of.  Process 0 logs which decoder packed each
+  fold and, when the native core did not build, the compiler's first
+  error line.  A sample that does not decode is quarantined
+  (``data/folder.py``), and each epoch that served replacements logs a
+  ``[quarantine]`` line.
+
 Not ported, and refused with ``NotImplementedError`` naming the field:
-the packed loader (``pack``), the native decode core (``native``), the
-``seq`` and ``model`` axes above 1, ``fsdp``, ``zero1`` (ROADMAP §1 item
-12) and ``run.init_from``.  The ViT refuses the sequence-parallel
+the ``seq`` and ``model`` axes above 1, ``fsdp``, ``zero1`` (ROADMAP §1
+item 12) and ``run.init_from``.  The ViT refuses the sequence-parallel
 attention impls the same way.
 Mid-epoch (preemption) saves, rollback, elastic membership, telemetry and
 profiling are later items (ROADMAP §1 items 6, 9 and 11).  A
@@ -100,6 +112,7 @@ import torch.distributed as dist
 from tpuic_torch.checkpoint import CheckpointManager, init_params
 from tpuic_torch.config import Config, resolve_compute_dtype
 from tpuic_torch.data.folder import ImageFolderDataset
+from tpuic_torch.data.pack import pack_folds
 from tpuic_torch.data.pipeline import Loader
 from tpuic_torch.device import resolve_device
 from tpuic_torch.metrics.logging import MetricLogger, host0_print
@@ -121,10 +134,8 @@ def resolved_model_dtype(m) -> str:
 
 def unported_settings(cfg: Config) -> list:
     """``Config`` fields set to a feature the port does not have yet."""
-    d, mesh = cfg.data, cfg.mesh
+    mesh = cfg.mesh
     checks = [
-        ("data.pack", d.pack),
-        ("data.native", d.native),
         ("mesh.seq", mesh.seq > 1),
         ("mesh.model", mesh.model > 1),
         ("mesh.fsdp", mesh.fsdp),
@@ -136,6 +147,13 @@ def unported_settings(cfg: Config) -> list:
 
 def _silent(msg: str) -> None:
     pass
+
+
+def loader_mode(loader) -> str:
+    """How a loader feeds its device, for the log."""
+    if loader.resident:
+        return f"resident ({loader.resident_bytes / 1e6:.2f} MB)"
+    return "streaming" if loader.packed else "decode"
 
 
 class Trainer:
@@ -165,12 +183,17 @@ class Trainer:
                                            d)
         self.val_ds = ImageFolderDataset(d.data_dir, "val", d.resize_size, d,
                                          class_to_idx=self.train_ds.class_to_idx)
+        if d.pack:
+            self.train_ds, self.val_ds = pack_folds(
+                (self.train_ds, self.val_ds), d, self.log)
+        cache_total = int(d.device_cache_mb) << 20
         self.train_loader = Loader(self.train_ds, global_batch,
                                    seed=d.shuffle_seed,
                                    num_workers=d.num_workers,
                                    prefetch=d.prefetch, drop_last=True,
                                    augment=None if d.augment else False,
-                                   device=self.device, **shard)
+                                   device=self.device,
+                                   device_cache_bytes=cache_total, **shard)
         if self.train_loader.steps_per_epoch() == 0:
             raise ValueError(
                 f"train fold has {len(self.train_ds)} images but the "
@@ -181,7 +204,14 @@ class Trainer:
                                  d.resolved_val_batch_size() * self.world,
                                  shuffle=False, num_workers=d.num_workers,
                                  prefetch=d.prefetch, device=self.device,
+                                 device_cache_bytes=max(
+                                     0, cache_total
+                                     - self.train_loader.resident_bytes),
                                  **shard)
+        if d.pack:
+            self.log("[data] " + ", ".join(
+                f"{fold} {loader_mode(ld)}" for fold, ld in
+                (("train", self.train_loader), ("val", self.val_loader))))
         num_classes = cfg.model.num_classes or self.train_ds.num_classes
         mcfg = dataclasses.replace(cfg.model, num_classes=num_classes,
                                    dtype=resolved_model_dtype(cfg.model))
@@ -253,6 +283,7 @@ class Trainer:
                          f"{self.start_epoch} replays from its first step "
                          "(step-exact resume is not ported)")
         self.stats = {}
+        self._quarantine_seen = 0
         self._steps_done = 0
         self._steps_exhausted = False
 
@@ -280,7 +311,7 @@ class Trainer:
         n_steps = len(self.train_loader)
         pending = None
         metrics = None
-        wait = 0.0
+        wait, first_wait = 0.0, 0.0
         t0 = time.perf_counter()
         it = iter(self.train_loader.epoch(epoch))
         step = 0
@@ -289,6 +320,8 @@ class Trainer:
             tw = time.perf_counter()
             batch = next(it, None)
             wait += time.perf_counter() - tw
+            if step == 0:
+                first_wait = wait
             if batch is None:
                 break
             # The step's draws are keyed by the global micro-step.
@@ -318,7 +351,18 @@ class Trainer:
         if pending is not None:
             self._drain(pending, losses, epoch)
         self.stats = {"steps": step, "wall_s": time.perf_counter() - t0,
-                      "data_wait_s": wait, "drains": self._drains}
+                      "data_wait_s": wait, "first_wait_s": first_wait,
+                      "drains": self._drains}
+        # Samples the data layer replaced this epoch (tpuic/train/
+        # loop.py:761-768): a corrupt file is visible without being fatal.
+        q = self.train_loader.quarantine_count
+        if q > self._quarantine_seen:
+            delta = q - self._quarantine_seen
+            self._quarantine_seen = q
+            self.log(f"[quarantine] epoch {epoch}: {delta} sample load(s) "
+                     f"served a replacement (total {q})")
+            self.logger.write(self._steps_done, quarantined=delta,
+                              quarantined_total=q)
         return losses.avg
 
     def val_epoch(self, epoch: int) -> float:

@@ -19,14 +19,16 @@ it on the device).
 
 The bf16 tier (``ModelConfig.compute_dtype='bf16'``,
 ``tpuic/train/step.py:158-166``, ``:313-320``, ``:345-348``,
-``:376-388``): the batch is cast once to bf16 at the step entry (the
-port augments in the ``Loader``, before the step); the model, which the
-Trainer built with ``dtype=bfloat16``, computes in bf16 from its float32
-master parameters, so autograd accumulates float32 gradients; the
-outputs are cast to float32 before the loss, so K1 sees float32 logits.
-Optimizer moments and checkpoints stay float32.  ``optim.loss_scale`` is static
-loss scaling: the backward runs on ``loss * loss_scale`` and the
-gradients are divided by it before the norm, the guard and the update.
+``:376-388``): the batch is cast once to bf16 after the step's own
+augments (mixup, CutMix and erasing blend in float32 inside the step,
+below; the ``Loader``'s rot90, flips and jitter come before it); the
+model, which the Trainer built with ``dtype=bfloat16``, computes in
+bf16 from its float32 master parameters, so autograd accumulates
+float32 gradients; the outputs are cast to float32 before the loss, so
+K1 sees float32 logits.  Optimizer moments and checkpoints stay
+float32.  ``optim.loss_scale`` is static loss scaling: the backward
+runs on ``loss * loss_scale`` and the gradients are divided by it before
+the norm, the guard and the update.
 
 **Data parallel** (``tpuic/train/step.py:1-23``: one program over the
 sharded global batch).  When the step is built in a process group
