@@ -158,7 +158,14 @@ non-zero at the first phase that fails:
    backward twice a step (the mixed loss), K2 LARS once a step, K3 53
    times per val forward.  Arm 1's per-step global losses against the
    one-process ``Trainer``'s on the same batches, and arm 2's against arm
-   1's, within rtol 1e-3 (TRAIN_LOSS_RTOL); the step ms of each.
+   1's, within rtol 1e-3 (TRAIN_LOSS_RTOL); the step ms of each.  Then the
+   MoE arm: vit-tiny-moe at 32 px (4 experts in block 1) with drop-path
+   0.1, flash attention, the fused loss and LAMB, through the same three
+   runs (the one-process ``Trainer``, one NCCL process, two gloo ranks):
+   the drop-path masks and the aux loss's one all-reduce a step across
+   ranks, each arm's losses within TRAIN_LOSS_RTOL of the one-process
+   run's, and every process's launches (K1 and K2b once a step, K4 2 a
+   step and 2 a val forward).
 12. serve-cli — ``python -m tpuic_torch.serve --model auto`` as a
    subprocess on ``ckpt``'s ResNet-50 checkpoint: 48 image files of the
    synthetic folder over stdin JSONL, each record's top-5 probabilities
@@ -180,7 +187,9 @@ non-zero at the first phase that fails:
    exactly, every batch reaches the engine as a tensor on the card, and
    K3 launches 53 times per device call.
 15. attn  — the flash-attention kernels (K4: forward, dq, dk/dv) at the
-   ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64], on strided
+   ViT-B/16 shapes [8, 197, 12, 64] and [64, 197, 12, 64] and
+   ViT-S/16-MoE's [64, 197, 6, 64] (its summary under MOE_SHAPE_KEY in
+   each K4 row), on strided
    q/k/v views of one qkv projection, against their plain versions
    (float32, TF32 off, atol/rtol 1e-4; bfloat16 at 1e-2); in float32 the
    forward and the backward again with TF32 allowed, which must give the
@@ -324,6 +333,41 @@ non-zero at the first phase that fails:
    checkpoint saves).
 26. effnet-serve — ``inception``'s checks and serving for EfficientNet-B3
    at 300x300, 1000 classes, seeded synthetic weights.
+27. moe-train — ViT-S/16-MoE (hidden 384, 12 blocks, 6 heads, 8 experts
+   in blocks 1, 3, ..., 11, capacity 31 of 197 tokens) at 224 px, batch
+   64, through ``python -m tpuic_torch.train``'s ``main``: flash
+   attention, the fused loss, LAMB through K2b, drop-path 0.1, one epoch
+   of ``train``'s folder (24 steps) and its val pass, in float32 and in
+   bf16, with ``--metrics-jsonl``, ``--trace-dir`` (a window forced by
+   ``TPUIC_TRACE`` over steps 2-4), ``--trace-analyze``, ``--prom-dump``
+   and ``--slo``.  Launches: K4 12 a step and 12 a val forward (dq and
+   dk/dv 12 a step), K1 and K2b once a step.  Printed: the logged aux
+   losses, each MoE block's expert token shares and dropped share on the
+   first batch under the trained weights, the step ms (median over the
+   steps outside the window), goodput and the window's op-class
+   waterfall; then 3 steps through the kernels against 3 through dense
+   attention, the plain loss and the plain LAMB on the same batches
+   (float32, TF32 off, rtol 1e-3).
+28. moe-serve — ViT-S/16-MoE (synthetic weights, flash attention) served
+   on the fp32 and bf16 rungs by one engine: a row alone against the same
+   row in a request of 32 within RUNG_ROW_TOL (fp32: [vit-serve]'s 1e-5;
+   routing groups are per image), MOE_REQUESTS closed-loop requests a
+   rung (images/s, p50/p99), answers within RUNG_SERVE_TOL of the rung's
+   direct forward, K4f 12 times a device call.
+29. telemetry — InceptionV3 (bf16, as the reference trains) at batch 32,
+   two epochs of TEL_STEPS steps through the train CLI (a subprocess)
+   with every telemetry flag on, then again with none.  The JSONL holds
+   ``step``, ``epoch``, ``eval``, ``goodput``, ``checkpoint_commit``,
+   ``memory``, ``trace`` and ``profile`` events, the final goodput
+   report's buckets sum to its wall time, the prom file has the train
+   rows, ``--profile-dir`` traced epoch 0 and the forced window was
+   analyzed (its op-class waterfall and device idle share printed).  Its
+   cudaStreamSynchronize and cudaDeviceSynchronize calls a step equal
+   those of a window of the script's own over global steps TEL_WINDOW of
+   the off run.  Printed: epoch 1's step ms after the on run's windows
+   against the off run's before its window, and the telemetry's own host
+   cost on the card (a memory sample, and a step's ``step_end`` with a
+   run's default subscribers).
 
 Every launch count is set to 0 just before a path runs and read just after
 it.  Cuts: ResNet-50 trains in float32 (bf16 runs the ViT-B/16,
@@ -442,7 +486,9 @@ DIGITS_VIT_EMA_EPOCHS = 3
 DIGITS_VIT_SERVED = 16    # val image files the serve CLI scores
 EMA_SERVE_TOL = 1e-5
 ATTN_N, ATTN_H, ATTN_D = 197, 12, 64
-ATTN_BATCHES = (8, VIT_BATCH)
+MOE_HEADS = 6     # ViT-S/16-MoE's heads of D = 64: K4 at [64, 197, 6, 64]
+# (batch, heads) of [attn]'s timed shapes: ViT-B/16's two, ViT-S/16-MoE's.
+ATTN_SHAPES = ((8, ATTN_H), (VIT_BATCH, ATTN_H), (VIT_BATCH, MOE_HEADS))
 LADDER_REQUESTS = 320  # closed-loop requests a window in [ladder]
 LADDER_WINDOWS = 3     # windows a rung; images/s is their median
 LONE_REQUESTS = 20     # one-image requests a rung, one at a time
@@ -2429,15 +2475,16 @@ def _ddp_argv(root: str, work: str, batch: int, seed: int) -> list:
 
 
 def _ddp_run(tag: str, root: str, work: str, world: int, backend: str,
-             seed: int) -> dict:
+             seed: int, argv_of=None) -> dict:
     """One arm: ``world`` processes of the train CLI on the card, joined
-    over ``backend``; their records, per-step global losses and step ms."""
+    over ``backend`` (flags ``argv_of(root, work, batch, seed)``, default
+    ``_ddp_argv``); their records, per-step global losses and step ms."""
     import socket
     os.makedirs(work)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    argv = _ddp_argv(root, work, TRAIN_BATCH // world, seed)
+    argv = (argv_of or _ddp_argv)(root, work, TRAIN_BATCH // world, seed)
     procs = []
     t0 = time.perf_counter()
     for r in range(world):
@@ -2470,16 +2517,18 @@ def _ddp_run(tag: str, root: str, work: str, world: int, backend: str,
     for r in range(world):
         with open(os.path.join(work, f"rank{r}.json")) as f:
             recs.append(json.load(f))
-    return {"recs": recs, "losses": _jsonl_losses(os.path.join(
-        work, "logs", "metrics.jsonl")), "wall_s": wall}
+    logged = os.path.join(work, "logs", "metrics.jsonl")
+    return {"recs": recs, "losses": _jsonl_losses(logged),
+            "aux": _jsonl_losses(logged, "moe_aux"), "wall_s": wall}
 
 
-def _jsonl_losses(path: str) -> list:
-    """Per-step losses from a ``MetricLogger``'s ``metrics.jsonl``."""
+def _jsonl_losses(path: str, key: str = "loss") -> list:
+    """Per-step ``key`` values (the loss by default) from a
+    ``MetricLogger``'s ``metrics.jsonl``."""
     with open(path) as f:
         recs = [json.loads(line) for line in f]
-    return [r["loss"] for r in sorted(recs, key=lambda r: r["step"])
-            if "loss" in r]
+    return [r[key] for r in sorted(recs, key=lambda r: r["step"])
+            if key in r]
 
 
 def _step_ms(stats: dict) -> float:
@@ -2488,14 +2537,15 @@ def _step_ms(stats: dict) -> float:
     return (t_1 - t_0) / (s1 - s0) * 1e3
 
 
-def _held(tag: str, name: str, got: list, want: list) -> list:
+def _held(tag: str, name: str, got: list, want: list,
+          rtol: float = TRAIN_LOSS_RTOL) -> list:
     if len(got) != DDP_STEPS or len(want) != DDP_STEPS:
-        fail(tag, f"{name}: {len(got)} and {len(want)} logged losses, "
+        fail(tag, f"{name}: {len(got)} and {len(want)} logged values, "
                   f"expected {DDP_STEPS}")
     rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
-    if not all(math.isfinite(v) for v in got) or max(rel) > TRAIN_LOSS_RTOL:
-        fail(tag, f"{name}: losses {got} against {want}, relative "
-                  f"difference {max(rel)} > {TRAIN_LOSS_RTOL}")
+    if not all(math.isfinite(v) for v in got) or max(rel) > rtol:
+        fail(tag, f"{name}: {got} against {want}, relative "
+                  f"difference {max(rel)} > {rtol}")
     return rel
 
 
@@ -2577,9 +2627,89 @@ def phase_ddp(root: str, seed: int, smi: str) -> dict:
             "val": {k: r0["val"][k] for k in ("accuracy", "loss")},
             "wall_s": arm["wall_s"]}
         log(tag, f"{backend} x{world}: " + json.dumps(arms[name]))
+    row["moe"] = ddp_moe(data, work, seed)
     row.update(arms=arms, loss_rtol=TRAIN_LOSS_RTOL, card=smi,
                phase_s=time.perf_counter() - t_start)
-    log(tag, json.dumps({k: v for k, v in row.items() if k != "arms"}))
+    log(tag, json.dumps({k: v for k, v in row.items()
+                         if k not in ("arms", "moe")}))
+    return row
+
+
+def _ddp_moe_argv(root: str, work: str, batch: int, seed: int) -> list:
+    """``[ddp]``'s MoE arm as train-CLI flags: vit-tiny-moe at 32 px with
+    drop-path 0.1, flash attention, the fused loss and LAMB (K2b)."""
+    return ["--datadir", root, *DDP_MOE_ARGS, "--batchsize", str(batch),
+            "--num-classes", "1000", "--epochs", "1", "--no-class-weights",
+            "--milestones", "--fused-loss", "--fused-optimizer", "--dtype",
+            "float32", "--workers", "8", "--log-every-steps", "1", "--seed",
+            str(seed), "--no-resume", "--ckpt-dir",
+            os.path.join(work, "ckpt"), "--log-dir",
+            os.path.join(work, "logs")]
+
+
+def _ddp_moe_launches(val_forwards: int) -> dict:
+    """One process's launches in the MoE arm's epoch: K1 both ways and K2b
+    once a step, K4's forward 2 a step and 2 a val forward (depth 2), its
+    backward pair 2 a step."""
+    return expect(cross_entropy_fwd=DDP_STEPS, cross_entropy_bwd=DDP_STEPS,
+                  lamb_update=DDP_STEPS,
+                  flash_attention_fwd=2 * (DDP_STEPS + val_forwards),
+                  flash_attention_bwd_dq=2 * DDP_STEPS,
+                  flash_attention_bwd_dkv=2 * DDP_STEPS)
+
+
+def ddp_moe(data: str, work: str, seed: int) -> dict:
+    """``[ddp]``'s MoE arm: vit-tiny-moe with drop-path 0.1 (the drop-path
+    masks and the aux loss's all-reduce across ranks), one NCCL process
+    against the one-process ``Trainer`` and two gloo ranks on the card
+    against it, each step's loss within TRAIN_LOSS_RTOL and its global
+    aux loss within MOE_AUX_RTOL, with the launches of each process."""
+    from tpuic_torch.train import __main__ as train_cli
+    from tpuic_torch.train.loop import Trainer
+    tag = "ddp"
+    work = os.path.join(work, "moe")
+    parser = train_cli.build_parser()
+    cfg = train_cli.config_from_args(parser.parse_args(_ddp_moe_argv(
+        data, os.path.join(work, "one"), TRAIN_BATCH, seed)), parser)
+    one = Trainer(cfg, log=lambda msg: log(tag, f"moe one process: {msg}"),
+                  log_dir=os.path.join(work, "one", "logs"))
+    reset_counts()
+    one.fit()
+    one_counts = read_counts()
+    sites = len(one.model.backbone.drop_path_rates())
+    want = _ddp_moe_launches(len(one.val_loader))
+    logged = os.path.join(work, "one", "logs", "metrics.jsonl")
+    one_losses = _jsonl_losses(logged)
+    one_aux = _jsonl_losses(logged, "moe_aux")
+    del one
+    free()
+    if one_counts != want or not sites:
+        fail(tag, f"moe one process: launches {one_counts}, expected "
+                  f"{want}; {sites} drop-path sites")
+    row = {"model": "vit-tiny-moe", "image": 32, "drop_path_sites": sites,
+           "one_process": {"losses": one_losses, "aux": one_aux,
+                           "launches": one_counts},
+           "arms": {}}
+    for name, world, backend in (("nccl", 1, "nccl"), ("gloo", 2, "gloo")):
+        arm = _ddp_run(tag, data, os.path.join(work, name), world, backend,
+                       seed, argv_of=_ddp_moe_argv)
+        rel = _held(tag, f"moe {backend} x{world} against one process",
+                    arm["losses"], one_losses)
+        # The aux term is ~0.01 of the loss: held on its own, tightly.
+        aux_rel = _held(tag, f"moe {backend} x{world} aux loss against one "
+                             f"process", arm["aux"], one_aux, MOE_AUX_RTOL)
+        for rec in arm["recs"]:
+            per = _ddp_moe_launches(rec["val_forwards"])
+            if rec["launches"] != per or rec["world"] != world:
+                fail(tag, f"moe {backend} rank {rec['rank']}: launches "
+                          f"{rec['launches']}, expected {per}")
+        row["arms"][name] = {
+            "world": world, "losses": arm["losses"], "loss_rel_diff": rel,
+            "aux": arm["aux"], "aux_rel_diff": aux_rel,
+            "step_ms": [_step_ms(r["stats"]) for r in arm["recs"]],
+            "launches": [r["launches"] for r in arm["recs"]],
+            "wall_s": arm["wall_s"]}
+    log(tag, "moe arm: " + json.dumps(row))
     return row
 
 
@@ -3070,6 +3200,7 @@ def phase_predict(root: str, ckpt_dir: str, val_accuracy: float,
     return row
 
 
+MOE_SHAPE_KEY = "vit-s16-moe [64, 197, 6, 64]"
 K4 = ("flash_attention_fwd", "flash_attention_bwd_dq",
       "flash_attention_bwd_dkv")
 
@@ -3105,21 +3236,22 @@ def tf32_on():
 
 
 def phase_attn(device_name: str, gen: torch.Generator):
-    """K4 against its plain versions at the ViT-B/16 shapes and the masked
-    cases, then timed.  Returns the summaries at [64, 197, 12, 64] float32
-    and every row."""
+    """K4 against its plain versions at the ViT-B/16 shapes, ViT-S/16-MoE's
+    [64, 197, 6, 64] and the masked cases, then timed.  Returns the
+    summaries at [64, 197, 12, 64] (with the MoE shape's under
+    MOE_SHAPE_KEY) in float32 and bf16, and every row."""
     from tpuic_torch.kernels import no_tf32
     FA = importlib.import_module("tpuic_torch.kernels.flash_attention")
     _, peak_flops, hbm = peaks(device_name)
     tc_peak = {torch.float32: tf32_peak(device_name) / 3,  # 3xTF32
                torch.bfloat16: bf16_peak(device_name)}
 
-    def inputs(b, n, dtype=torch.float32):
+    def inputs(b, n, dtype=torch.float32, h=ATTN_H):
         # q/k/v as the ViT makes them: strided views of one projection.
-        qkv = torch.randn((b, n, 3 * ATTN_H * ATTN_D), generator=gen)
-        q, k, v = (t.view(b, n, ATTN_H, ATTN_D)
-                   for t in qkv.cuda().to(dtype).split(ATTN_H * ATTN_D, -1))
-        do = torch.randn((b, n, ATTN_H, ATTN_D), generator=gen)
+        qkv = torch.randn((b, n, 3 * h * ATTN_D), generator=gen)
+        q, k, v = (t.view(b, n, h, ATTN_D)
+                   for t in qkv.cuda().to(dtype).split(h * ATTN_D, -1))
+        do = torch.randn((b, n, h, ATTN_D), generator=gen)
         return q, k, v, do.cuda().to(dtype)
 
     def check(label, q, k, v, do, tol, sentinel=0.0, backward=True, **mask):
@@ -3197,9 +3329,9 @@ def phase_attn(device_name: str, gen: torch.Generator):
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             dname = str(dtype).replace("torch.", "")
-            for b in ATTN_BATCHES:
-                label = f"{dname} [{b}, {ATTN_N}, {ATTN_H}, {ATTN_D}]"
-                q, k, v, do = inputs(b, ATTN_N, dtype)
+            for b, h in ATTN_SHAPES:
+                label = f"{dname} [{b}, {ATTN_N}, {h}, {ATTN_D}]"
+                q, k, v, do = inputs(b, ATTN_N, dtype, h)
                 errs, (o, lse, delta), grads = check(label, q, k, v, do, tol)
                 tf32_err = (tf32_checks(label, q, k, v, o, lse, do, grads)
                             if dtype == torch.float32 else None)
@@ -3246,7 +3378,7 @@ def phase_attn(device_name: str, gen: torch.Generator):
                         "bwd": time_ms(lambda: torch.autograd.grad(
                             out, (qr, kr, vr), gh, retain_graph=True)),
                         "fwd_bwd": time_ms(sdpa_fwd_bwd)}
-                row = {"shape": [b, ATTN_N, ATTN_H, ATTN_D], "dtype": dname,
+                row = {"shape": [b, ATTN_N, h, ATTN_D], "dtype": dname,
                        "max_abs_err": errs, "tf32_plain_max_abs_err": tf32_err,
                        "ms": ms, "plain_ms": plain, "sdpa_ms": sdpa,
                        "fwd_device_ms": fwd_device,
@@ -3274,7 +3406,7 @@ def phase_attn(device_name: str, gen: torch.Generator):
                                      f"is {row['earlier_fwd']} off")
                     del eo, el
                 for name, (ops, nbytes) in attn_work(
-                        b, itemsize=dtype.itemsize).items():
+                        b, h=h, itemsize=dtype.itemsize).items():
                     core = bound(ops, nbytes, peak_flops, hbm)
                     # The bound at the rate of the products each kernel
                     # issues: 3xTF32 (float32) or bf16 tensor-core MMAs.
@@ -3286,7 +3418,21 @@ def phase_attn(device_name: str, gen: torch.Generator):
                     row["share_of_bound"][name] = bms / ms[name]
                 rows.append(row)
                 log("attn", json.dumps(row))
-                if b == VIT_BATCH:
+                if h == MOE_HEADS:
+                    # ViT-S/16-MoE's shape, beside the ViT-B/16 row.
+                    summary = main if dtype == torch.float32 else main_bf16
+                    for name in K4:
+                        summary[name][MOE_SHAPE_KEY] = {
+                            "shape": row["shape"],
+                            "max_abs_err": errs[name], "ms": ms[name],
+                            "plain_ms": plain["fwd" if name == K4[0]
+                                              else "bwd"],
+                            "bound_ms": row["bound_ms"][name],
+                            "bound_by": row["bound_by"][name],
+                            "library_ms": sdpa["fwd"] if name == K4[0]
+                            else None,
+                            "sdpa_bwd_ms": sdpa["bwd"]}
+                elif b == VIT_BATCH:
                     summary = main if dtype == torch.float32 else main_bf16
                     for name in K4:
                         fwd = name == "flash_attention_fwd"
@@ -3602,8 +3748,9 @@ def step_breakdown(cfgs: dict, batches, seed: int) -> dict:
     idle share ``1 - busy / step``, the kernels taking the most device
     time, and the kernels launched a step."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from tpuic_torch.checkpoint import init_params
+    from tpuic_torch.telemetry import tracing
+    from tpuic_torch.telemetry.profile import LAYER_SCOPE
     from tpuic_torch.models import create_model_from_config
     from tpuic_torch.train.optimizer import make_optimizer, make_schedule
     from tpuic_torch.train.state import create_train_state
@@ -3628,15 +3775,20 @@ def step_breakdown(cfgs: dict, batches, seed: int) -> dict:
         ms = (time.perf_counter() - t0) / BREAKDOWN_STEPS * 1e3
         out[arm]["step_ms"].append(ms)
         if "busy_ms" not in out[arm]:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for b in batches[:3]:
-                    state, _ = step(state, b)
-                torch.cuda.synchronize()
+            # The port's profiler session: CUPTI torn down at its stop,
+            # so the turns and phases after it pay no launch tax.
+            prof = tracing.start_profiler()
+            for b in batches[:3]:
+                state, _ = step(state, b)
+            torch.cuda.synchronize()
+            prof.stop()
             # The kernels themselves (an operator's row repeats the
-            # device time of the kernels it launched).
+            # device time of the kernels it launched; a record_function
+            # scope's row on the card spans the kernels inside it).
             events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA]
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)
+                      and not LAYER_SCOPE.match(e.key)]
             busy = sum(e.self_device_time_total for e in events) / 3e3
             top = sorted(events, key=lambda e: -e.self_device_time_total)
             out[arm].update(
@@ -4706,6 +4858,520 @@ def phase_serve_cli_ladder(root: str, ckpt_dir: str, smi: str) -> dict:
     return row
 
 
+# -- the Switch-MoE ViT and the trainer's telemetry ---------------------------
+MOE_MODEL = "vit-s16-moe"
+MOE_BATCH = 64
+MOE_BLOCKS = (1, 3, 5, 7, 9, 11)
+MOE_LR = 2e-3
+MOE_SLO = "train_step:p99<=500ms"
+MOE_REQUESTS = 320
+# vit-tiny-moe at 32 px (65 tokens, 4 experts) for [ddp]'s MoE arm.
+DDP_MOE_ARGS = ["--model", "vit-tiny-moe", "--resize", "32", "--attention",
+                "flash", "--optimizer", "lamb", "--lr", "1e-3",
+                "--weight-decay", "0.05", "--drop-path", "0.1"]
+# Each step's logged aux loss in [ddp]'s MoE arm (the mean of the ranks'
+# loss terms) against one process's: a term off by its ``world`` factor,
+# or built on per-rank sums, moves it by far more (the gloo ranks'
+# losses sat 6.7e-8 from one process).
+MOE_AUX_RTOL = 1e-5
+TEL_MODEL = "inceptionv3"
+TEL_BATCH = 32
+TEL_STEPS = 8             # [telemetry]'s steps an epoch (two epochs)
+TEL_TRACE_STEPS = 2       # the on run's forced window (steps 10-11)
+TEL_WINDOW = (14, 16)     # the off run's window: global steps [a, b)
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _moe_argv(root: str, work: str, dtype: str, seed: int) -> list:
+    """``[moe-train]``'s train-CLI flags: vit-s16-moe at 224 px, flash
+    attention, the fused loss, LAMB through K2b, drop-path 0.1, one epoch
+    of ``root`` (24 steps at batch 64), and the telemetry."""
+    return ["--datadir", root, "--model", MOE_MODEL, "--resize", str(IMAGE),
+            "--batchsize", str(MOE_BATCH), "--num-classes", "1000",
+            "--attention", "flash", "--fused-loss", "--optimizer", "lamb",
+            "--fused-optimizer", "--lr", str(MOE_LR), "--weight-decay",
+            "0.05", "--drop-path", "0.1", "--label-smoothing", "0.1",
+            "--no-class-weights", "--milestones", "--epochs", "1",
+            "--dtype", dtype,
+            *(["--compute-dtype", "bf16"] if dtype == "bfloat16" else []),
+            "--workers", "8", "--log-every-steps", "4", "--seed", str(seed),
+            "--no-resume", "--ckpt-dir", os.path.join(work, "ckpt"),
+            "--log-dir", os.path.join(work, "logs"),
+            "--metrics-jsonl", os.path.join(work, "events.jsonl"),
+            "--trace-dir", os.path.join(work, "traces"), "--trace-steps",
+            "3", "--trace-analyze", "--prom-dump",
+            os.path.join(work, "train.prom"), "--slo", MOE_SLO]
+
+
+@contextlib.contextmanager
+def forced_trace(path: str):
+    """``TPUIC_TRACE`` set in the block: the run's first step opens a
+    profiler window at once."""
+    old = os.environ.get("TPUIC_TRACE")
+    os.environ["TPUIC_TRACE"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TPUIC_TRACE", None)
+        else:
+            os.environ["TPUIC_TRACE"] = old
+
+
+def telemetry_row(tag: str, work: str, model: str, dtype: str,
+                  batch: int, image: int, profiled=()) -> dict:
+    """What the run's telemetry wrote: the step events' total ms (median
+    and p90 over the steps no profiler recorded: not a window's, not the
+    one after it, which ran its analysis, not ``profiled``, the first two
+    aside) and the MFU of that median step (the analytic FLOPs over the
+    card's peak for ``dtype``), the final goodput report (its buckets
+    must sum to its wall time), the memory peak, the analyzed window's
+    waterfall (which must hold device events), its busy ms against the
+    median step (the idle share without the profiler's own host cost;
+    the window's span carries it) and the prom file's train rows."""
+    from tpuic_torch.telemetry import goodput
+    recs = _jsonl(os.path.join(work, "events.jsonl"))
+    kinds = {}
+    for r in recs:
+        kinds[r["event"]] = kinds.get(r["event"], 0) + 1
+    traced, window = set(profiled), None
+    for r in recs:
+        if r["event"] == "trace" and r.get("action") == "started":
+            window = True
+        elif r["event"] == "trace" and r.get("action") == "stopped":
+            window = "analysis"
+        elif r["event"] == "step" and window:
+            traced.add(r["step"])
+            window = None if window == "analysis" else window
+    steps = [r for r in recs if r["event"] == "step"]
+    clean = sorted(r["total_ms"] for r in steps[2:]
+                   if r["step"] not in traced) or [0.0]
+    final = [r for r in recs if r["event"] == "goodput" and r.get("final")]
+    if len(final) != 1:
+        fail(tag, f"{len(final)} final goodput reports")
+    gp = final[0]
+    buckets = sum(gp[k] for k in gp if k.endswith("_s") and k not in (
+        "wall_s", "checkpoint_async_s"))
+    if abs(buckets - gp["wall_s"]) > 0.01 + 0.01 * gp["wall_s"]:
+        fail(tag, f"goodput buckets sum to {buckets} s of {gp['wall_s']} s")
+    profiles = [r for r in recs if r["event"] == "profile"
+                and not r.get("final") and "classes" in r]
+    if not profiles:
+        fail(tag, "no analyzed trace window: " + json.dumps(
+            [r for r in recs if r["event"] in ("profile", "trace")]))
+    wf = profiles[-1]
+    prom = open(os.path.join(work, "train.prom")).read()
+    for row in ("tpuic_train_goodput_fraction", "tpuic_train_steps_total",
+                "tpuic_train_device_time_ms", "tpuic_train_mfu",
+                "tpuic_train_device_memory_bytes"):
+        if row not in prom:
+            fail(tag, f"the prom file lacks {row}")
+    memory = [r for r in recs if r["event"] == "memory"]
+    median = clean[len(clean) // 2]
+    peak = goodput.peak_flops(torch.cuda.get_device_name(0), dtype,
+                              tf32=torch.backends.cuda.matmul.allow_tf32)
+    flops = goodput.analytic_flops_per_step(model, image, batch)
+    return {
+        "events": kinds, "steps": len(steps), "clean_steps": len(clean),
+        "step_ms_median": median,
+        "step_ms_p90": clean[int(0.9 * (len(clean) - 1))],
+        "mfu_median_step": flops / (peak * median * 1e-3),
+        "peak_flops": peak, "analytic_flops_per_step": flops,
+        "busy_over_median_step": wf["busy_ms_per_step"] / median,
+        "idle_frac_without_profiler": 1.0 - wf["busy_ms_per_step"] / median,
+        "traced_steps": sorted(traced),
+        "goodput": {k: gp[k] for k in gp if k.startswith(("frac_", "mfu"))
+                    or k in ("wall_s", "accounted_frac", "compiles")},
+        "peak_bytes_in_use": max(r.get("peak_bytes_in_use", 0)
+                                 for r in memory) if memory else None,
+        "waterfall": {k: wf[k] for k in (
+            "classes", "port_kernels", "layers", "busy_ms_per_step",
+            "span_ms_per_step", "idle_frac", "device_ms_per_step",
+            "stall_ms", "syncs", "steps_traced", "kernels_per_step",
+            "host_ops_per_step", "top_kernels") if k in wf}}
+
+
+def moe_routing(cfg, batch) -> dict:
+    """The trained ``latest`` weights of ``cfg``'s run in train mode on
+    ``batch`` (every drop-path site kept): each MoE block's expert token
+    shares and dropped-token share, and the batch's aux loss."""
+    from tpuic_torch.checkpoint.loading import load_inference_variables
+    from tpuic_torch.models import moe
+    model = load_inference_variables(cfg, track="latest",
+                                     log=lambda m: None).train()
+    layers = moe.moe_layers(model)
+    masks = torch.ones((len(model.backbone.drop_path_rates()),
+                        batch["image"].shape[0]), dtype=torch.bool,
+                       device="cuda")
+    with torch.no_grad():
+        model(batch["image"], drop_masks=masks)
+        stats = moe.take_router_stats(layers)
+        out = {}
+        auxes = []
+        for i, (layer, (p, o)) in zip(MOE_BLOCKS, zip(layers, stats)):
+            summ = moe.routing_summary(o, layer.capacity(
+                p.shape[1])).tolist()
+            auxes.append(float(moe.switch_aux_loss(p, o, batch["mask"])))
+            # An image's busiest expert's share of its own tokens.
+            per_image = float((o.sum(dim=1) / o.shape[1]).amax(-1).mean())
+            out[f"block{i}"] = {"expert_share": summ[:-1],
+                                "dropped_share": summ[-1],
+                                "image_top_expert_share": per_image}
+    del model
+    free()
+    return {"blocks": out, "aux_loss": sum(auxes) / len(auxes)}
+
+
+def phase_moe_train(root: str, seed: int, smi: str):
+    """ViT-S/16-MoE through the train CLI, in float32 and bf16: launches
+    (K4 at [64, 197, 6, 64], K1, K2b's LAMB), the aux loss, each block's
+    routing and the telemetry's step ms and waterfall; then the kernels
+    against the plain versions on the same 3 batches (TF32 off)."""
+    from tpuic_torch.train import __main__ as train_cli
+    from tpuic_torch.train.loop import Trainer
+    tag = "moe-train"
+    t_start = time.perf_counter()
+    counts, rows = {}, {}
+    steps = TRAIN_BATCH * TRAIN_STEPS // MOE_BATCH
+    for dtype in ("float32", "bfloat16"):
+        work = tempfile.mkdtemp(prefix=f"moe_{dtype}_", dir=root)
+        argv = _moe_argv(root, work, dtype, seed)
+        reset_counts()
+        with forced_trace(os.path.join(work, "traces")):
+            rc, lines, wall = _train_cli(argv)
+        counts[dtype] = read_counts()
+        for line in lines:
+            if line.startswith(("[model]", "[goodput]", "[slo]")) or \
+                    "Val Accuracy" in line:
+                log(tag, f"{dtype}: {line}")
+        val_forwards = -(-2 * TRAIN_BATCH // MOE_BATCH)
+        want = expect(flash_attention_fwd=12 * (steps + val_forwards),
+                      flash_attention_bwd_dq=12 * steps,
+                      flash_attention_bwd_dkv=12 * steps,
+                      cross_entropy_fwd=steps, cross_entropy_bwd=steps,
+                      lamb_update=steps)
+        if rc != 0 or counts[dtype] != want:
+            fail(tag, f"{dtype}: exit {rc}, launches {counts[dtype]}, "
+                      f"expected {want}")
+        logged = _jsonl(os.path.join(work, "logs", "metrics.jsonl"))
+        aux = [r["moe_aux"] for r in logged if "moe_aux" in r]
+        losses = [r["loss"] for r in logged if "loss" in r]
+        if not aux or not all(math.isfinite(v) for v in aux + losses):
+            fail(tag, f"{dtype}: aux {aux}, losses {losses}")
+        parser = train_cli.build_parser()
+        cfg = train_cli.config_from_args(parser.parse_args(argv), parser)
+        if dtype == "float32":
+            cfg32 = cfg
+        tel = telemetry_row(tag, work, MOE_MODEL,
+                            "bf16" if dtype == "bfloat16" else "f32",
+                            MOE_BATCH, IMAGE)
+        rows[dtype] = {"steps": steps, "wall_s": wall, "launches":
+                       counts[dtype], "moe_aux_logged": aux,
+                       "losses_logged": losses, **tel,
+                       "images_per_s": MOE_BATCH / tel["step_ms_median"]
+                       * 1e3, "card": smi}
+        if dtype == "float32":
+            trainer = Trainer(dataclasses.replace(
+                cfg, run=dataclasses.replace(cfg.run, metrics_jsonl="",
+                                             trace_dir="", slo="",
+                                             trace_analyze=False)),
+                log=lambda m: None)
+            batches = first_batches(trainer)
+            del trainer
+            free()
+        rows[dtype]["routing"] = moe_routing(cfg, batches[0])
+        log(tag, f"{dtype}: " + json.dumps(rows[dtype]))
+    arms = compare_plain(cfg32, batches, seed, MOE_LR / 10,
+                         plain_model=dataclasses.replace(
+                             cfg32.model, attention="dense"))
+    rows["compare"] = check_compare(tag, arms)
+    rows["phase_s"] = time.perf_counter() - t_start
+    del batches
+    free()
+    return counts, rows
+
+
+def phase_moe_serve(seed: int, smi: str) -> dict:
+    """ViT-S/16-MoE (seeded synthetic weights, flash attention) served on
+    the fp32 and bf16 rungs by one engine, a CUDA graph per (rung,
+    bucket): a row alone against the same row in a request of 32
+    (RUNG_ROW_TOL: fp32's is [vit-serve]'s SERVE_TOL; routing groups are
+    per image), then MOE_REQUESTS closed-loop requests a rung (images/s,
+    p50/p99), answers against the rung's direct forward, K4f 12 times a
+    device call."""
+    from tpuic_torch import quant
+    from tpuic_torch.checkpoint import init_synthetic
+    from tpuic_torch.models import create_model
+    from tpuic_torch.serve import InferenceEngine, make_forward
+    tag, t0 = "moe-serve", time.perf_counter()
+    model = init_synthetic(create_model(
+        MOE_MODEL, 1000, dtype="float32", attention="flash",
+        image_size=IMAGE), seed=seed).eval()
+    tags = ("fp32", "bf16")
+    rungs = quant.serve_variants(model, tags)
+    fwd = {t: make_forward(m, normalize=True) for t, m in rungs.items()}
+    rows = {t: _rung_rows(tag, MOE_MODEL, t, rungs[t], f, IMAGE)
+            for t, f in fwd.items()}
+    eng = InferenceEngine(rungs["fp32"], image_size=IMAGE,
+                          input_dtype=np.uint8, normalize=True,
+                          buckets=(1, 8, 32), variants={"bf16":
+                                                        rungs["bf16"]})
+    warm = eng.warmup()
+    rng = np.random.default_rng(1)
+    x32 = rng.integers(0, 256, (SERVE_BATCH, IMAGE, IMAGE, 3),
+                       dtype=np.uint8)
+    served_rows = {}
+    for t in tags:
+        big = eng.submit(x32, dtype=t).result(timeout=600)[0]
+        served_rows[t] = max(float(np.abs(eng.submit(
+            x32[r:r + 1], dtype=t).result(timeout=600)[0][0] - big[r]).max())
+            for r in (0, 17, 31))
+        if served_rows[t] > RUNG_ROW_TOL[t]:
+            fail(tag, f"{t}: a served row alone and in a request of "
+                      f"{SERVE_BATCH} differ by {served_rows[t]} (bound "
+                      f"{RUNG_ROW_TOL[t]})")
+    pool = np.random.default_rng(seed).integers(
+        0, 256, (64, IMAGE, IMAGE, 3), dtype=np.uint8)
+    refs = {t: _pool_outputs(f, pool) for t, f in fwd.items()}
+    served = {}
+    for t in tags:
+        eng.stats.reset()
+        reset_counts()
+        results, errors, wall, pauses = _serve_rung(
+            eng, pool, MOE_REQUESTS, seed, dtype=t)
+        snap = eng.stats.snapshot()
+        counts = read_counts()
+        if errors:
+            fail(tag, f"{t}: client errors {errors[:3]}")
+        worst = max(float(np.abs(out[0] - refs[t][lo:lo + n]).max())
+                    for _, lo, n, out, _ in results)
+        if worst > RUNG_SERVE_TOL[t]:
+            fail(tag, f"{t}: served probabilities {worst} from a direct "
+                      f"forward (bound {RUNG_SERVE_TOL[t]})")
+        if counts != expect(flash_attention_fwd=12 * snap["device_calls"]):
+            fail(tag, f"{t}: launches {counts} for {snap['device_calls']} "
+                      "device calls (expected 12 K4f each)")
+        served[t] = {"requests": len(results), "images": snap["images"],
+                     "images_per_s": snap["throughput_images_per_sec"],
+                     "images_per_s_wall": snap["images"] / wall,
+                     "latency_ms": snap["latency_ms"],
+                     "device_calls": snap["device_calls"],
+                     "kernel_launches": counts["flash_attention_fwd"],
+                     "max_abs_err_vs_direct": worst,
+                     "gc_during_traffic": pauses}
+    eng.close()
+    out = {"model": MOE_MODEL, "image": IMAGE,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch1_vs_batch32": rows, "served_batch1_vs_batch32":
+           served_rows, "row_bounds": {t: RUNG_ROW_TOL[t] for t in tags},
+           "warmup_s": warm, "served": served, "card": smi,
+           "phase_s": time.perf_counter() - t0}
+    log(tag, json.dumps(out))
+    del eng, rungs, model
+    free()
+    return out
+
+
+_SYNC_WINDOW = r"""
+import atexit, json, os, runpy, sys, time
+out, a, b, argv = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4:]
+import torch
+from tpuic_torch.telemetry import profile, tracing
+from tpuic_torch.train import loop
+_make = loop.make_train_step
+stamps = []
+
+def dump():
+    with open(os.path.join(out, "stamps.json"), "w") as f:
+        json.dump(stamps, f)
+
+atexit.register(dump)
+
+def make(*args, **kw):
+    step = _make(*args, **kw)
+    calls = {"n": 0, "prof": None}
+
+    def wrapped(*a_, **k_):
+        calls["n"] += 1
+        stamps.append(time.perf_counter())
+        if calls["n"] == a:
+            calls["prof"] = tracing.start_profiler()
+        elif calls["n"] == b:
+            tracing.stop_profiler(calls["prof"], out)
+            wf = profile.parse_trace(out, steps=b - a)
+            with open(os.path.join(out, "window.json"), "w") as f:
+                json.dump(wf, f)
+        return step(*a_, **k_)
+    return wrapped
+
+loop.make_train_step = make
+sys.argv = ["python -m tpuic_torch.train"] + argv
+runpy.run_module("tpuic_torch.train", run_name="__main__", alter_sys=True)
+"""
+
+
+def _tel_run(tag: str, work: str, argv: list, env: dict,
+             window=(0, 0)) -> dict:
+    """One train-CLI process, with a profiler window of its own over the
+    global steps ``[a, b)`` of ``window`` unless it is ``(0, 0)``: that
+    window's parsed trace (sync calls a step among it, else None), and
+    the host time of each train-step call (``stamps``: when each call
+    began)."""
+    os.makedirs(os.path.join(work, "window"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _SYNC_WINDOW, os.path.join(work, "window"),
+         str(window[0]), str(window[1]), *argv],
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)), **env),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=DDP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in out.stdout.splitlines():
+        if line.startswith(("[model]", "[goodput]", "[slo]", "[profile]",
+                            "[tpuic_torch]")) or "Val Accuracy" in line:
+            log(tag, line)
+    if out.returncode:
+        log(tag, "\n".join(out.stdout.splitlines()[-20:]))
+        fail(tag, f"the train CLI exited {out.returncode}")
+    parsed = None
+    if window != (0, 0):
+        with open(os.path.join(work, "window", "window.json")) as f:
+            parsed = json.load(f)
+    with open(os.path.join(work, "window", "stamps.json")) as f:
+        stamps = json.load(f)
+    return {"window": parsed, "wall_s": wall, "stamps": stamps}
+
+
+def telemetry_cost(n: int = 2000) -> dict:
+    """The telemetry's own host microseconds on the card: one memory
+    sample, and a step's ``step_end`` with a run's default subscribers
+    (step timer, memory sampler every CARD_EVERY steps, goodput), the
+    mean over ``n`` calls."""
+    from tpuic_torch.config import RunConfig
+    from tpuic_torch.telemetry.events import EventBus
+    from tpuic_torch.telemetry.memory import MemorySampler
+    from tpuic_torch.telemetry.wiring import TrainTelemetry
+    dev = torch.device("cuda", 0)
+    sampler = MemorySampler(publish=EventBus().publish, device=dev)
+    sampler.sample(step=0)
+    t0 = time.perf_counter()
+    for i in range(n):
+        sampler.sample(step=i)
+    sample_us = (time.perf_counter() - t0) / n * 1e6
+    tm = TrainTelemetry(RunConfig(), model_name=TEL_MODEL,
+                        image_size=INC_IMAGE, global_batch=TEL_BATCH,
+                        device=dev, compute_dtype="bf16")
+    timer = tm.steptime
+    timer.epoch_start()
+    t0 = time.perf_counter()
+    for i in range(n):
+        timer.dispatch_start()
+        timer.dispatch_end()
+        timer.step_end(i + 1)
+    step_us = (time.perf_counter() - t0) / n * 1e6
+    tm.close()
+    return {"memory_sample_us": sample_us, "step_end_us": step_us}
+
+
+def phase_telemetry(root: str, seed: int, smi: str) -> dict:
+    """InceptionV3 (the reference's default model, bf16 as it trains) at
+    batch 32 through the train CLI, two epochs of TEL_STEPS steps, with
+    every telemetry flag on (``--profile-dir`` traces epoch 0, a forced
+    ``TPUIC_TRACE`` window then takes TEL_TRACE_STEPS steps of epoch 1
+    and is analyzed), and again with none: the JSONL's events, goodput's
+    buckets summing to its wall time, the prom rows, the analyzed
+    waterfall and idle share.  The forced window's cudaStreamSynchronize
+    and cudaDeviceSynchronize calls a step must equal those of a window
+    of the script's own over as many steps of the off run.  Epoch 1's
+    step ms after the on run's windows against the off run's before its
+    window: what a finished profiler session leaves behind."""
+    tag = "telemetry"
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="telemetry_", dir=root)
+    data = os.path.join(work, "data")
+    os.makedirs(os.path.join(data, "train"))
+    per = TEL_BATCH * TEL_STEPS // TRAIN_CLASSES
+    for c in sorted(os.listdir(os.path.join(root, "train"))):
+        src = os.path.join(root, "train", c)
+        os.makedirs(os.path.join(data, "train", c))
+        for name in sorted(os.listdir(src))[:per]:
+            os.symlink(os.path.join(src, name),
+                       os.path.join(data, "train", c, name))
+    os.symlink(os.path.join(root, "val"), os.path.join(data, "val"))
+    base = ["--datadir", data, "--model", TEL_MODEL, "--batchsize",
+            str(TEL_BATCH), "--num-classes", "1000", "--epochs", "2",
+            "--no-class-weights", "--workers", "8", "--log-every-steps",
+            "1", "--seed", str(seed), "--no-resume"]
+    on_dir = os.path.join(work, "on")
+    on_argv = base + [
+        "--ckpt-dir", os.path.join(on_dir, "ckpt"),
+        "--metrics-jsonl", os.path.join(on_dir, "events.jsonl"),
+        "--profile-dir", os.path.join(on_dir, "profile"),
+        "--trace-dir", os.path.join(on_dir, "traces"), "--trace-steps",
+        str(TEL_TRACE_STEPS), "--trace-analyze", "--prom-dump",
+        os.path.join(on_dir, "train.prom"), "--slo", MOE_SLO, "--log-dir",
+        os.path.join(on_dir, "logs")]
+    on = _tel_run(tag, on_dir, on_argv,
+                  {"TPUIC_TRACE": os.path.join(on_dir, "traces")})
+    off_dir = os.path.join(work, "off")
+    off = _tel_run(tag, off_dir, base + ["--ckpt-dir",
+                                         os.path.join(off_dir, "ckpt")],
+                   {"TPUIC_TRACE": ""}, window=TEL_WINDOW)
+    # Epoch 0 ran under --profile-dir.
+    row = telemetry_row(tag, on_dir, TEL_MODEL, "bf16", TEL_BATCH,
+                        INC_IMAGE, profiled=range(1, TEL_STEPS + 1))
+    need = {"step", "epoch", "eval", "goodput", "checkpoint_commit",
+            "memory", "trace", "profile"}
+    if not need <= set(row["events"]):
+        fail(tag, f"events {row['events']} lack {need - set(row['events'])}")
+    if not os.path.isfile(os.path.join(on_dir, "profile", "epoch0",
+                                       "trace.json")):
+        fail(tag, "--profile-dir wrote no trace of epoch 0")
+    # The forced window against the script's own in the off run: windows
+    # of as many steps, each whole loop iterations.
+    wf = row["waterfall"]
+    if wf.get("steps_traced") != TEL_TRACE_STEPS:
+        fail(tag, f"the forced window traced {wf.get('steps_traced')} "
+                  f"steps, expected {TEL_TRACE_STEPS}")
+    syncs = {"on": wf["syncs"], "off": off["window"]["syncs"]}
+    if syncs["on"] != syncs["off"]:
+        fail(tag, f"sync calls a step with telemetry on and off: {syncs}")
+    # Step ms of epoch 1: an iteration is the interval from a step's call
+    # to the next one's, kept where no profiler recorded, started or
+    # stopped in it.  The on run's come after --profile-dir's epoch and
+    # its forced window; the off run's before its own window.
+    on_off = {}
+    for arm, run, traced in (
+            ("on", on, set(row["traced_steps"])),
+            ("off", off, set(range(*TEL_WINDOW)))):
+        clean = [k for k in range(TEL_STEPS + 1, 2 * TEL_STEPS)
+                 if k not in traced and k + 1 not in traced]
+        st = run["stamps"]
+        ms = sorted((st[k] - st[k - 1]) * 1e3 for k in clean)
+        on_off[arm] = {"steps": clean, "median_ms": ms[len(ms) // 2],
+                       "ms": ms}
+    row.update(model=TEL_MODEL, batch=TEL_BATCH, dtype="bfloat16",
+               syncs_per_step=syncs, window_steps={
+                   "on": [k for k in row["traced_steps"] if k > TEL_STEPS],
+                   "off": list(range(*TEL_WINDOW))},
+               step_ms_on_off=on_off,
+               after_window_over_before=on_off["on"]["median_ms"]
+               / on_off["off"]["median_ms"],
+               host_cost=telemetry_cost(),
+               off_window={k: off["window"][k] for k in (
+                   "busy_ms_per_step", "span_ms_per_step", "idle_frac",
+                   "classes")},
+               wall_s={"on": on["wall_s"], "off": off["wall_s"]},
+               card=smi, phase_s=time.perf_counter() - t0)
+    log(tag, json.dumps(row))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=320)
@@ -4826,6 +5492,15 @@ def main(argv=None) -> int:
         effnet = phase_cnn_serve(EFF_MODEL, EFF_IMAGE, "effnet-serve",
                                  args.requests, args.seed, smi)
         took["effnet-serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_counts, moe_train = phase_moe_train(root, args.seed, smi)
+        took["moe-train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_serve = phase_moe_serve(args.seed, smi)
+        took["moe-serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        telemetry = phase_telemetry(root, args.seed, smi)
+        took["telemetry"] = time.perf_counter() - t0
     took["total"] = time.perf_counter() - t_start
     log("timing", json.dumps(took))
     # The share of each training cell's train loop spent waiting for the
@@ -4852,6 +5527,16 @@ def main(argv=None) -> int:
                 for arm, a in ddp["arms"].items()
                 for r, c in enumerate(a["launches"])}
 
+    def moe_paths(name):
+        """``name``'s launches on the MoE paths: ``[moe-train]``'s arms and
+        ``[ddp]``'s MoE arm by process."""
+        return {**{f"moe-train {d}": c[name] for d, c in moe_counts.items()},
+                "ddp moe one process": ddp["moe"]["one_process"][
+                    "launches"][name],
+                **{f"ddp moe {arm} rank {r}": c[name]
+                   for arm, a in ddp["moe"]["arms"].items()
+                   for r, c in enumerate(a["launches"])}}
+
     accum = train["accum"]
     remat = vit_train["recipe"]["remat"]
 
@@ -4869,7 +5554,7 @@ def main(argv=None) -> int:
             "vit-train remat dots": remat["remat_dots"]["launches"][name],
             "effnet-train": eff_counts[name],
             "accum": accum["kernels"]["launches"][name],
-            "digits-vit (2 a step)": dvit_counts[name]}
+            "digits-vit (2 a step)": dvit_counts[name], **moe_paths(name)}
 
     def k4(name):
         """K4's launches on each training path."""
@@ -4880,7 +5565,10 @@ def main(argv=None) -> int:
                     remat["no_remat"]["launches"][name],
                 "vit-train remat dots (2 steps)":
                     remat["remat_dots"]["launches"][name],
-                "digits-vit": dvit_counts[name]}
+                "digits-vit": dvit_counts[name], **moe_paths(name),
+                **({f"moe-serve {t}": r["kernel_launches"]
+                    for t, r in moe_serve["served"].items()}
+                   if name == K4[0] else {})}
 
     csrc = "tpuic_torch/kernels/csrc/"
     kernels = [summary]
@@ -4929,6 +5617,9 @@ def main(argv=None) -> int:
                         "status": "ok"})
         if name.startswith("cross_entropy"):
             kernels[-1]["launches_by_path"] = k1(name)
+        if name == "lamb_update":
+            kernels[-1]["launches_by_path"] = {
+                "train (lamb arm)": lamb_counts[name], **moe_paths(name)}
         if name == "lars_update":
             kernels[-1]["launches_by_path"] = {
                 "train": counts[name], **ddp_counts(name),
@@ -4958,6 +5649,8 @@ def main(argv=None) -> int:
                        "digits": digits, "digits_vit": digits_vit,
                        "effnet_train": eff_train, "effnet_serve": effnet,
                        "ladder": ladder, "serve_cli_ladder": cli_ladder,
+                       "moe_train": moe_train, "moe_serve": moe_serve,
+                       "telemetry": telemetry,
                        "k1_launches": {"train": counts, "inception_train":
                                        inc_counts, "digits": digits_counts,
                                        "vit_recipe": recipe_counts,

@@ -690,8 +690,12 @@ def test_val_pass_names_tpuics_misclassified_images(parity):
     roots = [g["val"]["logger_root"] for g in parity["got"]]
     assert roots[0] is not None and roots[1] is None
     logs = os.path.join(parity["work"], "val_logs")
-    assert sorted(os.listdir(logs)) == ["confusion_e0.npy", "metrics.jsonl",
-                                        "per_class.jsonl"]
+    # Process 0's files alone, its TensorBoard events file among them.
+    names = sorted(os.listdir(logs))
+    tb = [n for n in names if n.startswith("events.out.tfevents.")]
+    assert len(tb) == 1
+    assert [n for n in names if n not in tb] == [
+        "confusion_e0.npy", "metrics.jsonl", "per_class.jsonl"]
     with open(os.path.join(logs, "metrics.jsonl")) as f:
         (rec,) = [json.loads(line) for line in f]
     assert rec["n_misclassified"] == len(ref["val_misclassified"])

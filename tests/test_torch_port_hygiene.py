@@ -55,13 +55,19 @@ def test_importing_every_port_module_loads_no_jax_and_no_tpuic():
     assert "tpuic_torch.serve.engine" in got["names"]
     assert "tpuic_torch.kernels.conv_bn_relu" in got["names"]
     for name in ("tpuic_torch.native", "tpuic_torch.data.pack",
-                 "tpuic_torch.data.device_prep"):
+                 "tpuic_torch.data.device_prep", "tpuic_torch.models.moe",
+                 "tpuic_torch.metrics.tensorboard"):
         assert name in got["names"]
+    assert {f"tpuic_torch.telemetry.{m}" for m in (
+        "events", "goodput", "memory", "profile", "prom", "slo",
+        "steptime", "tracing", "wiring")} <= set(got["names"])
 
 
 def test_package_import_is_light():
-    """``import tpuic_torch`` (and the lazy serve package) load no torch."""
+    """``import tpuic_torch`` (and the lazy serve and telemetry packages,
+    and the telemetry's event bus) load no torch."""
     got = _run("import json, sys, tpuic_torch, tpuic_torch.serve\n"
+               "import tpuic_torch.telemetry, tpuic_torch.telemetry.events\n"
                "print(json.dumps({'torch': 'torch' in sys.modules}))\n")
     assert got == {"torch": False}
 

@@ -216,13 +216,13 @@ def test_registry_covers_the_jax_zoo():
     assert ported == {"resnet18", "resnet34", "resnet50", "resnet101",
                       "resnet152", "resnet18-cifar", "resnet50-s2d",
                       "vit-b16", "vit-l16", "vit-b32", "vit-l32", "vit-s16",
-                      "vit-tiny", "inceptionv3"} | {
+                      "vit-tiny", "vit-s16-moe", "vit-tiny-moe",
+                      "inceptionv3"} | {
                           f"efficientnet-b{i}" for i in range(8)}
-    assert port_models.NOT_YET_PORTED == ("vit-s16-moe", "vit-tiny-moe")
-    assert set(jax_models.available_models()) == \
-        ported | set(port_models.NOT_YET_PORTED)
-    with pytest.raises(ValueError, match="not yet ported"):
-        port_models.create_model("vit-s16-moe", 10, device="cpu")
+    assert set(jax_models.available_models()) == ported
+    moe = port_models.create_model("vit-tiny-moe", 10, device="cpu")
+    assert [n for n, _ in moe.named_modules() if n.endswith(".moe")] == [
+        "backbone.block1.moe"]
     with pytest.raises(ValueError, match="unknown model"):
         port_models.create_model("resnet9000", 10, device="cpu")
 

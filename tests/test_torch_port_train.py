@@ -330,13 +330,13 @@ def test_cli_refuses_unported_settings(folder):
     from tpuic_torch.train.loop import unported_settings
     base = ["--datadir", folder, "--device", "cpu", "--dtype", "float32",
             "--no-pack", "--no-native", "--model", "resnet18-cifar"]
-    with pytest.raises(SystemExit, match="--slo: not yet ported"):
-        main(base + ["--slo", "train_step:p99<=5ms"])
+    with pytest.raises(SystemExit, match="--skip-threshold: not yet ported"):
+        main(base + ["--skip-threshold", "3"])
     # The packed loader and the native core are ported: their fields are
     # no longer refused, and a flag still to port is.
     assert unported_settings(pcfg.Config()) == []
-    with pytest.raises(SystemExit, match="--prom-dump: not yet ported"):
-        main(base[:-4] + ["--model", "resnet18-cifar", "--prom-dump", "x"])
+    with pytest.raises(SystemExit, match="--init-from: not yet ported"):
+        main(base[:-4] + ["--model", "resnet18-cifar", "--init-from", "x"])
     # Item 8's recipe features are ported: no field of theirs is refused.
     cfg = pcfg.Config(
         model=pcfg.ModelConfig(name="efficientnet-b0", remat=True,

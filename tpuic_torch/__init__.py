@@ -10,7 +10,8 @@ there it keeps as its own copy.
                                plain PyTorch version (fused conv+BN+ReLU,
                                fused cross-entropy, fused LARS/LAMB, flash
                                attention)
-- ``tpuic_torch.models``     — the ResNet and ViT families + the MLP
+- ``tpuic_torch.models``     — the ResNet, InceptionV3, EfficientNet, ViT
+                               and Switch-MoE ViT families + the MLP
                                classifier head, with the flax module names
 - ``tpuic_torch.checkpoint`` — carry a ``tpuic`` variables tree, optimizer
                                state or reference torch checkpoint into the
@@ -26,7 +27,11 @@ there it keeps as its own copy.
                                ``python -m tpuic_torch.serve``
 - ``tpuic_torch.predict``    — ``python -m tpuic_torch.predict``: score an
                                ImageFolder fold to CSV
-- ``tpuic_torch.runtime``    — the SIGTERM latch
+- ``tpuic_torch.runtime``    — the SIGTERM latch and the process group
+- ``tpuic_torch.telemetry``  — the event bus, step breakdown, goodput and
+                               MFU, memory, SLOs, triggered
+                               ``torch.profiler`` windows and their
+                               kernel-class waterfall, Prometheus text
 
 Entry points that place tensors take ``device=None``, which means
 ``"cuda"``; with no CUDA device they raise instead of falling back to the

@@ -15,6 +15,9 @@ Dense ``kernel`` [in, out]         ``Linear.weight``            transpose
 BN, LayerNorm ``scale``, ``bias``  ``weight``, ``bias``         as is
 BN stats ``mean``, ``var``         ``running_mean``/``_var``    as is
 ViT ``cls``, ``pos_embed``         ``ViT.cls``, ``.pos_embed``  as is
+MoE ``router`` (D, E), ``w1``      ``SwitchMoEMlp`` tensors of  as is
+(E, D, H), ``b1`` (E, H), ``w2``   the same names
+(E, H, D), ``b2`` (E, D)
 =================================  ===========================  ===========
 
 The load is strict: every leaf is consumed and every parameter and
@@ -48,10 +51,13 @@ from torch import nn
 
 from tpuic_torch.device import resolve_device
 from tpuic_torch.models.layers import LayerNorm
+from tpuic_torch.models.moe import SwitchMoEMlp
 from tpuic_torch.models.vit import ViT
 
+# Leaves that keep their name and their flax layout in the port.
+_AS_IS = ("router", "w1", "b1", "w2", "b2")
 _PARAM_LEAF = {"scale": "weight", "bias": "bias", "cls": "cls",
-               "pos_embed": "pos_embed"}
+               "pos_embed": "pos_embed", **{k: k for k in _AS_IS}}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 _STAT_LEAF_NAMES = tuple(_STAT_LEAF.values())
 
@@ -86,7 +92,9 @@ def _port_name(collection: str, path: str) -> str:
     return ".".join(mods + [name])
 
 
-def _to_port_layout(arr: np.ndarray) -> np.ndarray:
+def _to_port_layout(arr: np.ndarray, path: str = "") -> np.ndarray:
+    if path.rsplit("/", 1)[-1] in _AS_IS:
+        return arr
     if arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if arr.ndim == 2:
@@ -138,7 +146,7 @@ def _write_tree(model: nn.Module, variables: Mapping, strict: bool):
             if name in written[collection]:
                 raise KeyError(f"{collection}/{path}: '{name}' written twice")
             t = targets[name]
-            src = _to_port_layout(arr)
+            src = _to_port_layout(arr, path)
             if tuple(src.shape) != tuple(t.shape):
                 if strict:
                     raise ValueError(f"{collection}/{path}: shape "
@@ -216,8 +224,23 @@ def init_synthetic(model: nn.Module, seed: int = 0,
             elif isinstance(m, ViT):
                 m.cls.copy_(draw(m.cls.shape, 0.02))
                 m.pos_embed.copy_(draw(m.pos_embed.shape, 0.02))
+            elif isinstance(m, SwitchMoEMlp):
+                m.router.copy_(draw(m.router.shape, 0.02))
+                for w in (m.w1, m.w2):
+                    w.copy_(draw(w.shape, (2.0 / w.shape[1]) ** 0.5))
+                for b in (m.b1, m.b2):
+                    b.copy_(draw(b.shape, 0.01))
     _invalidate(model)
     return model
+
+
+def _moe_xavier(w: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """flax's ``xavier_uniform`` of an ``(E, in, out)`` expert weight: the
+    expert axis counts as receptive field, so the fans are ``E * in`` and
+    ``E * out``."""
+    e, fan_in, fan_out = w.shape
+    limit = (6.0 / (e * fan_in + e * fan_out)) ** 0.5
+    return (torch.rand(w.shape, generator=g) * 2.0 - 1.0) * limit
 
 
 def init_params(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
@@ -229,7 +252,9 @@ def init_params(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
     ``kernel_init = "xavier_uniform"``), which flax draws from
     ``xavier_uniform``; biases 0, BN and LayerNorm scale 1 and bias 0,
     running mean 0 and variance 1; the ViT's ``cls`` 0 and ``pos_embed``
-    from a normal of std 0.02.  The distribution is flax's; the numbers
+    from a normal of std 0.02; a MoE layer's ``router`` from a normal of
+    std 0.02 and its experts from ``xavier_uniform`` over ``(E, in,
+    out)``.  The distribution is flax's; the numbers
     are not a ``tpuic`` init's."""
     model.to(resolve_device(device))
     g = torch.Generator().manual_seed(int(seed))
@@ -261,6 +286,13 @@ def init_params(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
                 m.cls.zero_()
                 m.pos_embed.copy_(torch.randn(m.pos_embed.shape,
                                               generator=g) * 0.02)
+            elif isinstance(m, SwitchMoEMlp):
+                m.router.copy_(torch.randn(m.router.shape, generator=g)
+                               * 0.02)
+                m.w1.copy_(_moe_xavier(m.w1, g))
+                m.w2.copy_(_moe_xavier(m.w2, g))
+                m.b1.zero_()
+                m.b2.zero_()
     _invalidate(model)
     return model
 
@@ -332,7 +364,7 @@ def load_jax_opt_state(opt_state, params_order: Sequence[str], device=None):
             if port in by_name:
                 raise KeyError(f"{name}/{path}: '{port}' written twice")
             by_name[port] = torch.tensor(np.ascontiguousarray(
-                _to_port_layout(arr)), dtype=torch.float32, device=dev)
+                _to_port_layout(arr, path)), dtype=torch.float32, device=dev)
         if name == "acc_grads":
             for extra in set(by_name) - set(order):
                 if bool(by_name.pop(extra).any()):
@@ -364,7 +396,7 @@ def load_jax_ema(model: nn.Module, ema_params: Mapping,
     by_name = {}
     for path, arr in _flatten(ema_params).items():
         port = _port_name("params", path)
-        src = _to_port_layout(arr)
+        src = _to_port_layout(arr, path)
         if port not in shapes or port in by_name:
             raise KeyError(f"ema_params/{path}: no single parameter "
                            f"'{port}'")

@@ -57,8 +57,12 @@ protocol:
   On resume every process walks the ladder, and all of them check that
   they restored the same epoch and step.
 
-Not ported: the fault point ``ckpt_kill`` and the ``checkpoint_commit``
-telemetry event.
+- **Telemetry** (``tpuic/checkpoint/manager.py:324``, ``:359``): each
+  save publishes ``checkpoint_commit`` events, ``phase="stage"`` for the
+  snapshot and ``phase="commit"`` for the write and rotation (with
+  ``blocking`` False when it ran on the background thread).
+
+Not ported: the fault point ``ckpt_kill``.
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ import torch.distributed as dist
 
 from tpuic_torch.checkpoint.convert import _invalidate
 from tpuic_torch.runtime import distributed
+from tpuic_torch.telemetry.events import publish
 
 # The resume keys, as tpuic writes them: completed steps of the saved epoch
 # at a mid-epoch flush, and the loader geometry that offset is valid for;
@@ -279,9 +284,11 @@ class CheckpointManager:
                 raise err
 
     def _commit(self, track: str, payload: Dict[str, Any],
-                pending: Dict[str, Any]) -> None:
+                pending: Dict[str, Any], blocking: bool = True) -> None:
         """Stage -> manifest -> rotate -> sidecar (``tpuic``'s
-        ``_drain_and_commit``)."""
+        ``_drain_and_commit``), then a ``checkpoint_commit`` event
+        (``blocking`` False for a background commit, which the goodput
+        tracker books as overlapped work)."""
         t0 = time.perf_counter()
         path = os.path.join(self.root, track)
         new = path + ".new"
@@ -312,6 +319,10 @@ class CheckpointManager:
         self.last_save.update(
             bytes=sum(size for size, _ in manifest["files"].values()),
             commit_s=time.perf_counter() - t0)
+        publish("checkpoint_commit", track=track, epoch=int(pending["epoch"]),
+                step=int(pending["step"]), phase="commit",
+                blocking=bool(blocking),
+                duration_s=round(time.perf_counter() - t0, 3))
 
     def _commit_barrier(self) -> None:
         """Every process waits here after each save until process 0's
@@ -337,6 +348,10 @@ class CheckpointManager:
         payload["meta"] = dict(pending)
         self.last_save = {"track": track,
                           "snapshot_s": time.perf_counter() - t0}
+        # The snapshot (host copies) blocks the loop: checkpoint time.
+        publish("checkpoint_commit", track=track, epoch=int(epoch),
+                phase="stage", duration_s=round(self.last_save["snapshot_s"],
+                                                3))
         if not self._async_commit:
             self._commit(track, payload, pending)
             self._commit_barrier()
@@ -344,7 +359,7 @@ class CheckpointManager:
 
         def _bg() -> None:
             try:
-                self._commit(track, payload, pending)
+                self._commit(track, payload, pending, blocking=False)
             except BaseException as e:  # re-raised at the next wait()
                 self._commit_error = e
 

@@ -105,6 +105,10 @@ class ModelConfig:
     remat_policy: str = "dots"
     # Inception aux-logits loss weight (reference train.py:52).
     aux_loss_weight: float = 0.4
+    # MoE load-balancing loss weight (Switch Transformer's alpha; only
+    # the *-moe models record router stats, which the train step turns
+    # into a padding-masked switch_aux_loss).
+    moe_aux_weight: float = 0.01
     # Inference-only fused conv+BN+ReLU kernel for the ResNet family
     # (tpuic_torch/kernels/conv_bn_relu.py): every conv -> BN -> ReLU of an
     # eval-mode forward is one kernel launch with BN folded into its
@@ -252,6 +256,25 @@ class RunConfig:
     # processes; balanced and worst-class accuracy logged, the matrix and
     # per-class rows written beside the metrics JSONL.
     per_class_metrics: bool = False
+    # -- telemetry (tpuic_torch/telemetry) -------------------------------
+    # A torch.profiler trace of the first epoch (Chrome trace) under this
+    # dir ('' disables).
+    profile_dir: str = ""
+    # Telemetry event JSONL sink ('' disables): one line per bus event.
+    metrics_jsonl: str = ""
+    # Triggered torch.profiler windows: a step slower than
+    # trace_threshold x the rolling median opens a window of trace_steps
+    # steps under trace_dir, keeping at most trace_keep; TPUIC_TRACE=dir
+    # overrides the dir and forces one window at once.
+    trace_dir: str = ""
+    trace_threshold: float = 3.0
+    trace_steps: int = 3
+    trace_keep: int = 4
+    # Analyze each captured window into the per-op-class waterfall
+    # ('profile' events, telemetry/profile.py).
+    trace_analyze: bool = False
+    # Step-time SLOs, e.g. 'train_step:p99<=500ms@0.99' ('' disables).
+    slo: str = ""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,8 +16,9 @@
   decode is retried with a backoff, then replaced by a deterministic
   same-class sample, whose label and id travel with it, and counted
   (``quarantine_count``, ``quarantined``).  ``cfg.quarantine=False``
-  re-raises.  ``tpuic``'s ``decode_error`` fault point and its
-  ``quarantine`` bus event are not ported (ROADMAP items 11 and 6).
+  re-raises.  Each replacement publishes a ``quarantine`` bus event
+  (``path``, ``count``) from the thread that decoded it.  ``tpuic``'s
+  ``decode_error`` fault point is not ported (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from PIL import Image
 
 from tpuic_torch.config import DataConfig
 from tpuic_torch.data import transforms as T
+from tpuic_torch.telemetry.events import publish
 
 # What PIL raises for unreadable or corrupt image bytes: its
 # UnidentifiedImageError and "image file is truncated" are OSErrors,
@@ -190,6 +192,8 @@ class ImageFolderDataset:
         with self._quarantine_lock:
             self.quarantine_count += 1
             self.quarantined[path] = self.quarantined.get(path, 0) + 1
+            count = self.quarantine_count
+        publish("quarantine", path=path, count=count)
 
     def load(self, index: int, rng: Optional[np.random.Generator] = None
              ) -> Tuple[np.ndarray, int, str]:

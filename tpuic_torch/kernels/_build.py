@@ -100,6 +100,10 @@ def _build_locked(names: Iterable[str]) -> Dict[str, float]:
         os.replace(tmp, out)  # atomic: a racing process sees all or nothing
     if failed:
         raise RuntimeError("\n".join(failed))
+    # One compile event for the batch: its builds ran side by side.
+    from tpuic_torch.telemetry.events import publish_compile
+    publish_compile("nvcc:" + ",".join(todo), time.perf_counter() - t0,
+                    sources=list(todo))
     return secs
 
 

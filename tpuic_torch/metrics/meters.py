@@ -24,6 +24,15 @@ def _rank(n: int, q: float) -> int:
     return max(1, min(n, math.ceil(q / 100.0 * n)))
 
 
+def quantile(samples: Sequence[float], q: float) -> float:
+    """Nearest-rank quantile of ``samples`` (``q`` in percent); raises on
+    an empty sequence (a fabricated 0 would read as a perfect latency)."""
+    s = sorted(samples)
+    if not s:
+        raise ValueError("quantile of empty sample set")
+    return s[_rank(len(s), q) - 1]
+
+
 def quantile_label(q: float) -> str:
     """Canonical metric key for a quantile: 50 -> 'p50', 99.9 -> 'p999'."""
     return "p" + format(float(q), "g").replace(".", "")
@@ -38,29 +47,52 @@ def quantiles(samples: Sequence[float],
     return {quantile_label(q): s[_rank(len(s), q) - 1] for q in qs}
 
 
+def process_rss_bytes():
+    """Resident set size of this process in bytes, from
+    ``/proc/self/status`` (else ``getrusage``'s peak; None when neither
+    answers)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return float(line.split()[1]) * 1024.0
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        import resource
+        import sys
+        peak = float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+        return peak if sys.platform == "darwin" else peak * 1024.0
+    except Exception:
+        return None
+
+
 class LatencyMeter:
     """Latency percentile tracker over a bounded sliding window.
 
     ``update`` records one sample (seconds); ``percentiles_ms`` reads
     p50/p95/p99/p999 (milliseconds) over the last ``window`` samples;
-    ``count`` covers every sample ever recorded.  Not thread-safe by
-    itself — callers that update from several threads hold their own lock
-    (``tpuic_torch.serve.metrics`` does)."""
+    ``count`` and ``total`` cover every sample ever recorded.  Not
+    thread-safe by itself — callers that update from several threads hold
+    their own lock (``tpuic_torch.serve.metrics`` does)."""
 
     def __init__(self, window: int = 8192) -> None:
         self._win = deque(maxlen=max(1, int(window)))
         self.count = 0
+        self.total = 0.0
 
     def update(self, seconds: float) -> None:
-        self._win.append(float(seconds))
+        s = float(seconds)
+        self._win.append(s)
         self.count += 1
+        self.total += s
 
     def quantile_s(self, q: float):
         """One nearest-rank quantile in seconds over the window (None
         when there are no samples yet)."""
         if not self._win:
             return None
-        return next(iter(quantiles(self._win, (q,)).values()))
+        return quantile(self._win, q)
 
     def percentiles_ms(self, qs=(50, 95, 99, 99.9)) -> dict:
         """{'p50': ms, ..., 'p999': ms} over the window; {} when empty."""

@@ -2,8 +2,8 @@
 
 ``create_model(name, num_classes)`` builds ``Classifier(backbone, head)``
 with the same names, defaults and parameter structure as ``tpuic``'s.
-The ResNet, InceptionV3, EfficientNet and dense ViT families are ported;
-the MoE ViTs raise ``ValueError`` saying they are not ported yet.
+The ResNet, InceptionV3, EfficientNet, dense ViT and Switch-MoE ViT
+families are ported.
 InceptionV3 and EfficientNet keep BN eps 1e-3 and float32 statistics
 whatever ``bn_eps`` and ``bn_f32_stats`` say, and ``fused_conv_bn`` stays
 ResNet-only, as in ``tpuic`` (``tpuic/models/__init__.py:146-193``).
@@ -25,9 +25,6 @@ from tpuic_torch.models.classifier import Classifier
 
 # name -> (factory, has_aux)
 _REGISTRY: Dict[str, Tuple[Callable[..., torch.nn.Module], bool]] = {}
-
-#: ``tpuic`` model names whose backbones are later slices of the port.
-NOT_YET_PORTED = ("vit-s16-moe", "vit-tiny-moe")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -63,9 +60,6 @@ def create_backbone(name: str, num_classes: int = 0, *,
     ViT-only ``remat_policy`` values (``attention``, ``gelu``,
     ``blocks``)."""
     if name not in _REGISTRY:
-        if name in NOT_YET_PORTED:
-            raise ValueError(f"model '{name}' is not yet ported to "
-                             f"tpuic_torch; available: {available_models()}")
         raise ValueError(f"unknown model '{name}'; available: "
                          f"{available_models()}")
     if attention not in ATTENTION_IMPLS:
@@ -194,3 +188,5 @@ register("vit-b32", _vit_factory(_vit.vit_b32))
 register("vit-l32", _vit_factory(_vit.vit_l32))
 register("vit-s16", _vit_factory(_vit.vit_s16))
 register("vit-tiny", _vit_factory(_vit.vit_tiny))
+register("vit-s16-moe", _vit_factory(_vit.vit_s16_moe))
+register("vit-tiny-moe", _vit_factory(_vit.vit_tiny_moe))

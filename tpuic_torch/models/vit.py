@@ -33,6 +33,10 @@ feature ``[B, hidden]`` after the final LayerNorm.
 - Every ``Linear`` of the backbone is marked ``kernel_init =
   "xavier_uniform"``, flax's init for the ViT's Dense layers
   (``checkpoint.init_params`` reads it).
+- MoE (``moe_experts`` > 0, ``tpuic/models/vit.py:214-218``,
+  ``:290-297``): every ``moe_every``-th block, counting from block
+  ``moe_every - 1``, replaces its dense MLP by a ``SwitchMoEMlp``
+  (``models/moe.py``) named ``moe``.
 
 ``image_size`` fixes the token count, hence ``pos_embed``'s shape, at
 construction (flax infers it from the first input).
@@ -50,7 +54,9 @@ from tpuic_torch.config import ATTENTION_IMPLS
 from tpuic_torch.device import resolve_device
 from tpuic_torch.kernels.flash_attention import flash_attention
 from tpuic_torch.models.layers import LayerNorm
+from tpuic_torch.models.moe import SwitchMoEMlp
 from tpuic_torch.models.remat import checkpointed
+from tpuic_torch.telemetry.tracing import scope
 
 PORTED_ATTENTION = ("dense", "flash")
 
@@ -129,15 +135,15 @@ def _drop(y: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
 
 class EncoderBlock(nn.Module):
     """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))`` with an
-    exact-erf GELU (``MlpUpGelu``); in train mode at ``drop_path`` > 0
-    each branch is dropped per sample by the ``masks`` pair
-    (attention's, MLP's)."""
+    exact-erf GELU (``MlpUpGelu``), or a routed ``SwitchMoEMlp`` when
+    ``moe_experts`` > 0; in train mode at ``drop_path`` > 0 each branch is
+    dropped per sample by the ``masks`` pair (attention's, MLP's)."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: int = 4,
                  attention: str = "dense", *, drop_path: float = 0.0,
-                 remat_core: bool = False, remat_mlp: bool = False,
-                 dtype=torch.float32, param_dtype=torch.float32,
-                 device=None) -> None:
+                 moe_experts: int = 0, remat_core: bool = False,
+                 remat_mlp: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None) -> None:
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.drop_path = float(drop_path)
@@ -146,10 +152,14 @@ class EncoderBlock(nn.Module):
         self.attn = MultiHeadAttention(hidden, num_heads, attention,
                                        remat_core=remat_core, **kw)
         self.ln2 = LayerNorm(hidden, **kw)
-        self.mlp_up = _dense(hidden, hidden * mlp_ratio, dtype, param_dtype,
-                             device)
-        self.mlp_down = _dense(hidden * mlp_ratio, hidden, dtype,
-                               param_dtype, device)
+        self.moe_experts = moe_experts
+        if moe_experts:
+            self.moe = SwitchMoEMlp(hidden, moe_experts, mlp_ratio, **kw)
+        else:
+            self.mlp_up = _dense(hidden, hidden * mlp_ratio, dtype,
+                                 param_dtype, device)
+            self.mlp_down = _dense(hidden * mlp_ratio, hidden, dtype,
+                                   param_dtype, device)
 
     def _up_gelu(self, y: torch.Tensor) -> torch.Tensor:
         return F.gelu(_apply(self.mlp_up, y), approximate="none")
@@ -158,9 +168,12 @@ class EncoderBlock(nn.Module):
         y = self.attn(self.ln1(x))
         x = x + (y if masks is None else _drop(y, masks[0], self.drop_path))
         y = self.ln2(x)
-        y = (checkpointed(self._up_gelu, y) if self.remat_mlp
-             and self.training else self._up_gelu(y))
-        y = _apply(self.mlp_down, y)
+        if self.moe_experts:
+            y = self.moe(y)
+        else:
+            y = (checkpointed(self._up_gelu, y) if self.remat_mlp
+                 and self.training else self._up_gelu(y))
+            y = _apply(self.mlp_down, y)
         return x + (y if masks is None else _drop(y, masks[1],
                                                   self.drop_path))
 
@@ -179,14 +192,12 @@ class ViT(nn.Module):
     def __init__(self, patch: int = 16, hidden: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_ratio: int = 4, *,
                  image_size: int = 224, attention: str = "dense",
-                 moe_experts: int = 0, drop_path: float = 0.0,
-                 remat_core: bool = False, remat_mlp: bool = False,
-                 remat_blocks: bool = False, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None) -> None:
+                 moe_experts: int = 0, moe_every: int = 2,
+                 drop_path: float = 0.0, remat_core: bool = False,
+                 remat_mlp: bool = False, remat_blocks: bool = False,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None) -> None:
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError("ViT MoE blocks (tpuic/models/moe.py) "
-                                      "are not yet ported to tpuic_torch")
         check_attention(attention)
         device = resolve_device(device)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
@@ -205,10 +216,12 @@ class ViT(nn.Module):
         self.block_rates = [drop_path * i / max(1, depth - 1)
                             if drop_path else 0.0 for i in range(depth)]
         for i in range(depth):
+            moe = (moe_experts if moe_experts
+                   and i % moe_every == moe_every - 1 else 0)
             setattr(self, f"block{i}", EncoderBlock(
                 hidden, num_heads, mlp_ratio, attention,
-                drop_path=self.block_rates[i], remat_core=remat_core,
-                remat_mlp=remat_mlp, **kw))
+                drop_path=self.block_rates[i], moe_experts=moe,
+                remat_core=remat_core, remat_mlp=remat_mlp, **kw))
         self.ln_final = LayerNorm(hidden, **kw)
         self.num_features = hidden
 
@@ -246,20 +259,24 @@ class ViT(nn.Module):
                              f"{self.image_size}x{self.image_size}")
         masks = check_drop_masks(self, drop_masks, b)
         dt = self.compute_dtype
-        x = self.embed_patches(x.to(dt))
-        cls = self.cls.to(dt).expand(b, 1, self.hidden)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        # Profiler scopes named as tpuic's (the waterfall's layers).
+        with scope("tokenize"):
+            x = self.embed_patches(x.to(dt))
+            cls = self.cls.to(dt).expand(b, 1, self.hidden)
+            x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         site = 0
         for i in range(self.depth):
             block = getattr(self, f"block{i}")
             m = None
             if masks is not None and self.block_rates[i] > 0:
                 m, site = masks[site:site + 2], site + 2
-            if self.remat_blocks and self.training:
-                x = checkpointed(block, x, m)
-            else:
-                x = block(x, m)
-        return self.ln_final(x)[:, 0].float()
+            with scope(f"block{i}"):
+                if self.remat_blocks and self.training:
+                    x = checkpointed(block, x, m)
+                else:
+                    x = block(x, m)
+        with scope("cls_pool"):
+            return self.ln_final(x)[:, 0].float()
 
 
 def check_drop_masks(module: nn.Module, drop_masks, batch: int):
@@ -302,3 +319,14 @@ def vit_s16(**kw) -> ViT:
 def vit_tiny(**kw) -> ViT:
     """Test-scale ViT."""
     return ViT(patch=4, hidden=64, depth=2, num_heads=4, **kw)
+
+
+def vit_s16_moe(**kw) -> ViT:
+    """ViT-S/16 with 8-expert Switch MoE in every other block."""
+    return ViT(patch=16, hidden=384, depth=12, num_heads=6, moe_experts=8,
+               **kw)
+
+
+def vit_tiny_moe(**kw) -> ViT:
+    """Test-scale MoE ViT (4 experts, MoE in block 1)."""
+    return ViT(patch=4, hidden=64, depth=2, num_heads=4, moe_experts=4, **kw)

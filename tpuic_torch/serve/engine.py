@@ -110,6 +110,7 @@ from tpuic_torch.serve.admission import (DEFAULT_PRIORITY, PRIORITIES,
                                          AdmissionRejected, DeadlineExceeded,
                                          priority_index)
 from tpuic_torch.serve.metrics import ServeStats
+from tpuic_torch.telemetry.events import publish_compile
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 
@@ -798,6 +799,7 @@ class InferenceEngine:
         # reference to its scratch, and no other launch or graph uses it.
         # The counters start every replay at zero: the kernel leaves
         # each it took at zero, and the eager run left them so.
+        t_capture = time.perf_counter()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         key = (static_in.get_device(), stream.cuda_stream)
@@ -849,6 +851,10 @@ class InferenceEngine:
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of bucket {bucket} "
                                f"({tag}) failed: {e}") from e
+        # The eager run and the capture are the port's compile: a
+        # ``compile`` event for the goodput tracker.
+        publish_compile(f"cuda_graph:{tag}/{bucket}",
+                        time.perf_counter() - t_capture)
         scratch = conv_bn_relu._SCRATCH.pop(key, None)
         scratch = (tuple(t for t in (scratch.ws, scratch.counters)
                          if t is not None) if scratch is not None else ())

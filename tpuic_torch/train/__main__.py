@@ -67,6 +67,21 @@ checkpoints.  Two processes on two cards::
 
 Each process joins NCCL on ``cuda:{rank % cards}``; with ``--device cpu``
 they join gloo on the CPU instead.
+
+Telemetry (``tpuic_torch/telemetry``): ``--metrics-jsonl`` writes every
+bus event (step breakdowns, epochs, evals, checkpoint commits, memory
+samples, goodput reports), ``--trace-dir`` with ``--trace-threshold``
+and ``--trace-steps`` opens ``torch.profiler`` windows on slow steps,
+``--trace-analyze`` turns each into the kernel-class waterfall,
+``--prom-dump`` writes the train Prometheus exposition, ``--slo`` tracks
+``train_step`` objectives and ``--profile-dir`` traces the first epoch.
+Each profiler session tears CUPTI down when it stops (``TEARDOWN_CUPTI``
+defaults to 1), so the steps after a window run at full speed::
+
+  python -m tpuic_torch.train --datadir D --model vit-s16-moe --resize 224 \\
+      --attention flash --fused-loss --optimizer lamb --fused-optimizer \\
+      --drop-path 0.1 --metrics-jsonl run/events.jsonl --trace-dir run/tr \\
+      --trace-analyze --prom-dump run/train.prom --slo 'train_step:p99<=500ms'
 """
 
 from __future__ import annotations
@@ -81,17 +96,9 @@ from tpuic_torch.config import (ATTENTION_IMPLS, Config, DataConfig,
 # train.py flags whose features are not ported: (flag, argparse kwargs).
 _NOT_PORTED = (
     ("--init-from", dict(default="")),
-    ("--profile-dir", dict(default="")),
     ("--skip-threshold", dict(type=int, default=10)),
     ("--no-rollback", dict(action="store_true")),
     ("--rewarm-steps", dict(type=int, default=0)),
-    ("--metrics-jsonl", dict(default="")),
-    ("--trace-dir", dict(default="")),
-    ("--trace-threshold", dict(type=float, default=3.0)),
-    ("--trace-steps", dict(type=int, default=3)),
-    ("--trace-analyze", dict(action="store_true")),
-    ("--prom-dump", dict(default="")),
-    ("--slo", dict(default="")),
 )
 
 
@@ -223,8 +230,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-class val accuracy: the confusion matrix and "
                         "per_class.jsonl go under --log-dir")
     p.add_argument("--log-dir", default="",
-                   help="metrics.jsonl (and the per-class files) on "
-                        "process 0")
+                   help="metrics.jsonl, TensorBoard events (and the "
+                        "per-class files) on process 0")
+    # Telemetry (tpuic_torch/telemetry).
+    p.add_argument("--profile-dir", default="",
+                   help="torch.profiler Chrome trace of the first epoch "
+                        "under this dir")
+    p.add_argument("--metrics-jsonl", default="",
+                   help="telemetry event JSONL sink: per-step time "
+                        "breakdown, skip/quarantine/checkpoint/compile/"
+                        "memory events and the goodput reports")
+    p.add_argument("--trace-dir", default="",
+                   help="triggered torch.profiler windows land here when a "
+                        "step regresses past --trace-threshold x the "
+                        "rolling median (TPUIC_TRACE=dir forces one window "
+                        "at once)")
+    p.add_argument("--trace-threshold", type=float, default=3.0,
+                   help="step-time regression multiple that opens a window "
+                        "(0 disables the automatic trigger)")
+    p.add_argument("--trace-steps", type=int, default=3,
+                   help="steps each window covers")
+    p.add_argument("--trace-analyze", action="store_true",
+                   help="analyze each window into the per-op-class device "
+                        "time waterfall ('profile' events; "
+                        "device_time_ms{op_class} rows in --prom-dump)")
+    p.add_argument("--prom-dump", default="",
+                   help="write the train Prometheus exposition to this file "
+                        "atomically at every goodput report")
+    p.add_argument("--slo", default="",
+                   help="step-time SLOs, a comma list of "
+                        "'train_step:pQ<=Nms[@target]' specs")
     for flag, kw in _NOT_PORTED:
         p.add_argument(flag, help="not yet ported to tpuic_torch", **kw)
     return p
@@ -240,6 +275,13 @@ def config_from_args(args: argparse.Namespace,
         dest = flag.lstrip("-").replace("-", "_")
         if getattr(args, dest) != parser.get_default(dest):
             _fail(f"{flag}: not yet ported to tpuic_torch")
+    if args.slo:
+        # A typo'd objective fails the command line, not the Trainer.
+        from tpuic_torch.telemetry.slo import parse_objectives
+        try:
+            parse_objectives(args.slo, allowed=("train_step",))
+        except ValueError as e:
+            _fail(f"--slo: {e}")
     auto = (not args.no_class_weights and list(args.class_weights) == ["auto"])
     if args.no_class_weights or auto:
         weights = ()
@@ -290,10 +332,32 @@ def config_from_args(args: argparse.Namespace,
                       max_steps=args.steps,
                       async_checkpoint=not args.no_async_checkpoint,
                       collect_misclassified=args.collect_misclassified,
-                      per_class_metrics=args.per_class_metrics),
+                      per_class_metrics=args.per_class_metrics,
+                      profile_dir=args.profile_dir,
+                      metrics_jsonl=args.metrics_jsonl,
+                      trace_dir=args.trace_dir,
+                      trace_threshold=args.trace_threshold,
+                      trace_steps=args.trace_steps,
+                      trace_analyze=args.trace_analyze, slo=args.slo),
         mesh=MeshConfig(model=args.model_axis, seq=args.seq_axis,
                         fsdp=args.fsdp, zero1=args.zero1),
     )
+
+
+def _wire_prom_dump(trainer, path: str) -> None:
+    """Rewrite the train exposition at ``path`` at every goodput report:
+    one more host-side bus subscriber."""
+    from tpuic_torch.telemetry.prom import train_exposition, write_exposition
+    tm = trainer.telemetry
+
+    def dump(ev) -> None:
+        write_exposition(path, train_exposition(
+            dict(ev.data), tm.steptime.summary(),
+            slo=tm.slo.report() if tm.slo is not None else None,
+            memory=tm.memory.snapshot(),
+            profile=tm.profile.last if tm.profile is not None else None))
+
+    tm.subscribe(dump, kinds=("goodput",))
 
 
 def main(argv=None) -> int:
@@ -311,7 +375,11 @@ def main(argv=None) -> int:
                               log_dir=args.log_dir or None)
         except NotImplementedError as e:
             _fail(str(e))
+        if args.prom_dump and info.process_index == 0:
+            _wire_prom_dump(trainer, args.prom_dump)
         best = trainer.fit()
+        if trainer.telemetry.slo is not None:
+            host0_print(f"[slo] {trainer.telemetry.slo.summary_line()}")
         host0_print(f"[tpuic_torch] done; best val accuracy {best:.4f}")
     finally:
         shutdown()

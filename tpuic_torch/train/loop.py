@@ -86,12 +86,24 @@ the K4 flash-attention kernels with ``attention="flash"``.
   (``data/folder.py``), and each epoch that served replacements logs a
   ``[quarantine]`` line.
 
+- **Telemetry** (``tpuic/train/loop.py:566-570``, ``:728``, ``:1098``,
+  ``:1209-1234``; ``telemetry/wiring.py``): the loop publishes ``step``
+  (the ``StepTimer``'s data / dispatch / device breakdown), ``drain``,
+  ``skip``, ``epoch``, ``eval`` and ``goodput`` events (one a val pass
+  and a final one) on the process-global bus, which the run's
+  ``TrainTelemetry`` turns into the metrics JSONL, memory samples,
+  goodput and MFU, SLOs and triggered ``torch.profiler`` windows.
+  Everything it adds is ``perf_counter`` arithmetic and bus callbacks:
+  no host sync and no device work.  ``run.profile_dir`` traces the first
+  epoch with ``torch.profiler`` (a Chrome trace under
+  ``{profile_dir}/epoch{e}``).
+
 Not ported, and refused with ``NotImplementedError`` naming the field:
 the ``seq`` and ``model`` axes above 1, ``fsdp``, ``zero1`` (ROADMAP §1
 item 12) and ``run.init_from``.  The ViT refuses the sequence-parallel
 attention impls the same way.
-Mid-epoch (preemption) saves, rollback, elastic membership, telemetry and
-profiling are later items (ROADMAP §1 items 6, 9 and 11).  A
+Mid-epoch (preemption) saves, rollback and elastic membership are later
+items (ROADMAP §1 items 9 and 11).  A
 preemption's mid-epoch save across processes needs ``tpuic``'s
 ``agree()`` (``tpuic/train/loop.py:593-615``) as a collective: every
 process must take the same decision at the same step.
@@ -119,6 +131,7 @@ from tpuic_torch.metrics.logging import MetricLogger, host0_print
 from tpuic_torch.metrics.meters import AverageMeter
 from tpuic_torch.models import create_model_from_config
 from tpuic_torch.runtime import distributed
+from tpuic_torch.telemetry.events import publish
 from tpuic_torch.train.optimizer import make_optimizer, make_schedule
 from tpuic_torch.train.state import create_train_state
 from tpuic_torch.train.step import make_eval_step, make_train_step
@@ -282,6 +295,15 @@ class Trainer:
                 self.log(f"[ckpt] a mid-epoch save: epoch "
                          f"{self.start_epoch} replays from its first step "
                          "(step-exact resume is not ported)")
+        # Telemetry: host-side subscribers on the process-global bus.
+        from tpuic_torch.telemetry.wiring import TrainTelemetry
+        self.telemetry = TrainTelemetry(
+            cfg.run, model_name=mcfg.name, image_size=d.resize_size,
+            global_batch=global_batch, n_devices=self.world,
+            device=self.device, tb=self.logger.tb,
+            compute_dtype="bf16" if mcfg.dtype == "bfloat16" else "f32",
+            rank=self.rank, log=self.log)
+        self._last_skip_streak = 0
         self.stats = {}
         self._quarantine_seen = 0
         self._steps_done = 0
@@ -298,8 +320,17 @@ class Trainer:
         msg = (f"Epoch: {epoch}; step {step_num}; Loss {losses.val:.4f}|"
                f"({losses.avg:.4f}); acc {vals['accuracy']:.4f}; "
                f"lr {vals.get('lr', 0.0):.6g}")
-        if vals.get("skip_count"):
-            msg += f"; skipped streak {int(vals['skip_count'])}"
+        if "moe_aux" in vals:
+            msg += f"; moe aux {vals['moe_aux']:.4f}"
+        streak = int(vals.get("skip_count", 0))
+        if streak:
+            msg += f"; skipped streak {streak}"
+            # The streak at this drain and its growth since the last one:
+            # the goodput tracker charges that many steps to 'skip'.
+            last = self._last_skip_streak
+            publish("skip", step=step_num, streak=streak,
+                    delta=streak - last if streak > last else streak)
+        self._last_skip_streak = streak
         self.log(msg)
 
     def train_epoch(self, epoch: int) -> float:
@@ -313,7 +344,11 @@ class Trainer:
         metrics = None
         wait, first_wait = 0.0, 0.0
         t0 = time.perf_counter()
-        it = iter(self.train_loader.epoch(epoch))
+        inner = iter(self.train_loader.epoch(epoch))
+        # The step timer's wrapper times the loader's waits (data wait).
+        steptime = self.telemetry.steptime
+        steptime.epoch_start()
+        it = steptime.wrap_epoch(inner)
         step = 0
         first = epoch * self.train_loader.steps_per_epoch()
         while True:
@@ -325,23 +360,30 @@ class Trainer:
             if batch is None:
                 break
             # The step's draws are keyed by the global micro-step.
+            steptime.dispatch_start()
             self.state, metrics = self.train_step(
                 self.state, {k: batch[k] for k in ("image", "label", "mask")},
                 step=first + step)
+            steptime.dispatch_end()
             step += 1
             self._steps_done += 1
             if step % log_every == 0 or step == n_steps:
                 handles = {k: metrics[k] for k in
-                           ("loss", "accuracy", "lr", "skip_count")
-                           if k in metrics}
+                           ("loss", "accuracy", "lr", "skip_count",
+                            "moe_aux") if k in metrics}
                 if pending is not None:
                     self._drain(pending, losses, epoch)
                 pending = (self._steps_done, handles)
+            # The step's 'step' event, after the deferred drain: a
+            # blocking read is charged to the step that made it.
+            steptime.step_end(self._steps_done)
             max_steps = self.cfg.run.max_steps
             if max_steps and self._steps_done >= max_steps:
                 self._steps_exhausted = True
                 break
         it.close()
+        inner.close()
+        t_drain = time.perf_counter()
         if metrics is not None and (pending is None
                                     or pending[0] != self._steps_done):
             if pending is not None:
@@ -350,6 +392,10 @@ class Trainer:
                                           "accuracy": metrics["accuracy"]})
         if pending is not None:
             self._drain(pending, losses, epoch)
+            # The last steps' device time, read after their step events
+            # closed: productive time the goodput tracker books late.
+            publish("drain",
+                    duration_s=round(time.perf_counter() - t_drain, 3))
         self.stats = {"steps": step, "wall_s": time.perf_counter() - t0,
                       "data_wait_s": wait, "first_wait_s": first_wait,
                       "drains": self._drains}
@@ -363,12 +409,14 @@ class Trainer:
                      f"served a replacement (total {q})")
             self.logger.write(self._steps_done, quarantined=delta,
                               quarantined_total=q)
+        publish("epoch", epoch=epoch, steps=step, loss=round(losses.avg, 6))
         return losses.avg
 
     def val_epoch(self, epoch: int) -> float:
         """Reference val_epoch (train.py:78-97): exact global val accuracy
         x100 and the exact global weighted val CE, from per-batch device
         sums read once at the end (module docstring)."""
+        t_eval0 = time.perf_counter()
         collect = self.cfg.run.collect_misclassified
         per_class = self.cfg.run.per_class_metrics
         sums, wrongs, orders = None, [], []
@@ -410,6 +458,8 @@ class Trainer:
                           val_loss=val_loss, **extra)
         self.last_val = {"accuracy": score, "loss": val_loss, **vals,
                          **extra}
+        publish("eval", epoch=epoch, accuracy=round(score, 4),
+                duration_s=round(time.perf_counter() - t_eval0, 3))
         return score
 
     def _misclassified(self, wrongs: list, orders: list) -> list:
@@ -458,11 +508,18 @@ class Trainer:
         ``save_period`` epochs), and return the best val accuracy.  A
         ``max_steps`` budget reached mid-run stops before that epoch's val
         pass.  Every save has committed when ``fit`` returns."""
+        from tpuic_torch.telemetry import tracing
         epochs = self.cfg.run.epochs if epochs is None else epochs
         best = self.best_score
         self._steps_exhausted = False
+        tm = self.telemetry
+        goodput = tm.goodput
+        goodput.start()
+        profiler = None
         try:
             for epoch in range(self.start_epoch, epochs):
+                if self.cfg.run.profile_dir and epoch == self.start_epoch:
+                    profiler = (tracing.start_profiler(), epoch)
                 t0 = time.perf_counter()
                 self.train_epoch(epoch)
                 if self._steps_exhausted:
@@ -473,13 +530,37 @@ class Trainer:
                 score = self.val_epoch(epoch)
                 self.log(f"Epoch {epoch} took "
                          f"{time.perf_counter() - t0:.1f}s")
+                if profiler is not None:
+                    self._stop_profiler(*profiler)
+                    profiler = None
                 if score > best:
                     best = score
                     self.ckpt.save_best(self.state, epoch, best)
                 self.ckpt.maybe_save_latest(self.state, epoch, best)
+                self.log(f"[goodput] {goodput.summary_line()}")
+                publish("goodput", step=tm.steptime.last_step,
+                        **goodput.report())
         finally:
+            if profiler is not None:
+                self._stop_profiler(*profiler)
             # A save staged in the last epoch commits on every exit path.
             self.ckpt.wait()
+            if tm.tracer is not None:
+                tm.tracer.finish()
+            if tm.profile is not None:
+                tm.profile.finalize()
+            self.log(f"[goodput] {goodput.summary_line()}")
+            publish("goodput", final=True, step=tm.steptime.last_step,
+                    **goodput.report())
+            tm.flush()
         self.best_score = best
         return best
+
+    def _stop_profiler(self, prof, epoch: int) -> None:
+        from tpuic_torch.telemetry import tracing
+        name = f"epoch{epoch}" + (f".rank{self.rank}" if self.world > 1
+                                  else "")
+        path = tracing.stop_profiler(
+            prof, os.path.join(self.cfg.run.profile_dir, name))
+        self.log(f"[profile] {path}")
 

@@ -74,6 +74,21 @@ its ``state.step`` did not advance; the port draws the next index's.
 through ``_foreach`` ops); the skip guard and, under gradient
 accumulation, the micro-steps between real updates leave it as it was.
 
+**The MoE load-balancing loss** (``tpuic/train/step.py:46-60``,
+``:365-372``): a model with ``SwitchMoEMlp`` layers records each layer's
+router ``(probs, onehot)`` in its forward, and the loss adds
+``moe_aux_weight`` times the mean over the layers of
+``switch_aux_loss(probs, onehot, mask)``, once, after the ``lam`` mix
+(it is not mixed).  ``tpuic`` takes its means over the global batch; in a
+process group each rank holds its shard, so one ``all_reduce`` a step
+carries every layer's masked one-hot sums, masked probability sums
+(values only) and masked token count, and each rank adds its share
+``E * sum_e (F_e / T) * (p_local_e / T) * world`` (``models/moe.py``'s
+``global_aux_term``), the classification loss's rule: DDP's mean of the
+gradients is the global gradient, and the mean of the ranks' losses is
+the global loss.  ``metrics["moe_aux"]`` is the mean of the ranks' terms,
+which is the global aux loss only where each term is right.
+
 **Remat** (``models/remat.py``) is the model's: ``resolve_remat_policy``
 warns here where the policy has no effect, as ``tpuic``'s step does.
 
@@ -91,7 +106,9 @@ from torch.nn.parallel import DistributedDataParallel
 
 from tpuic_torch.config import ModelConfig, OptimConfig, resolve_compute_dtype
 from tpuic_torch.metrics.meters import accuracy, topk_accuracy
+from tpuic_torch.models import moe as _moe
 from tpuic_torch.models.remat import resolve_remat_policy
+from tpuic_torch.telemetry.tracing import scope
 from tpuic_torch.train import augment
 from tpuic_torch.train.loss import classification_loss
 from tpuic_torch.train.optimizer import global_norm
@@ -134,6 +151,18 @@ def _gather_pool(images, labels, mask, world: int):
             None if mask is None else lm[1].to(mask.dtype))
 
 
+def _moe_aux(routers, mask, world: int):
+    """This rank's loss term of the mean ``switch_aux_loss`` over the
+    layers' ``routers`` (see the module docstring)."""
+    if world == 1:
+        return sum(_moe.switch_aux_loss(p, o, mask)
+                   for p, o in routers) / len(routers)
+    sums = torch.stack([_moe.router_sums(p, o, mask) for p, o in routers])
+    dist.all_reduce(sums)
+    return sum(_moe.global_aux_term(p, o, mask, sums[i], world)
+               for i, (p, o) in enumerate(routers)) / len(routers)
+
+
 def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
                     lr_schedule: Optional[Callable] = None,
                     device=None, seed: int = 0) -> Callable:
@@ -155,6 +184,7 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
     resolve_remat_policy(model_cfg)
     wrapper = {}
     rng = {"next": 0}
+    moe_layers = {}
 
     def draws_for(model, dev, step: int, n: int):
         """This step's draws (``augment.draw_step``) over a global batch
@@ -223,31 +253,45 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
         if bf16:  # the loss is taken on float32 logits
             out = (tuple(t.float() for t in out) if isinstance(out, tuple)
                    else out.float())
-        loss = classification_loss(
-            out, labels, class_weights=class_weights, mask=mask,
-            aux_weight=model_cfg.aux_loss_weight,
-            label_smoothing=optim_cfg.label_smoothing, impl=impl,
-            data_parallel=parallel, mix=mix)
+        with scope("loss"):
+            loss = classification_loss(
+                out, labels, class_weights=class_weights, mask=mask,
+                aux_weight=model_cfg.aux_loss_weight,
+                label_smoothing=optim_cfg.label_smoothing, impl=impl,
+                data_parallel=parallel, mix=mix)
+            if moe_layers.get("model") is not model:
+                moe_layers.update(model=model,
+                                  layers=_moe.moe_layers(model))
+            if moe_layers["layers"]:
+                routers = _moe.take_router_stats(moe_layers["layers"])
+                if model_cfg.moe_aux_weight:
+                    aux = _moe_aux(routers, mask, world)
+                    metrics["moe_aux"] = aux.detach()
+                    loss = loss + model_cfg.moe_aux_weight * aux
         (loss * loss_scale if loss_scale != 1.0 else loss).backward()
         logits = (out[0] if isinstance(out, tuple) else out).detach()
         loss = loss.detach()
         if world > 1:
-            # The global batch's loss and accuracy: the mean of the ranks'
-            # shares, and the ratio of summed counts.
+            # The global batch's loss, accuracy and aux loss: the mean of
+            # the ranks' shares, and the ratio of summed counts.
             m = (torch.ones_like(labels, dtype=torch.float32)
                  if mask is None else mask.float())
             sums = torch.stack([loss, torch.sum(accuracy(logits, labels)
-                                                * m), torch.sum(m)])
+                                                * m), torch.sum(m),
+                                *([metrics["moe_aux"]]
+                                  if "moe_aux" in metrics else [])])
             dist.all_reduce(sums)
             loss = sums[0] / world
             correct = sums[1] / torch.clamp(sums[2], min=1.0)
+            if "moe_aux" in metrics:
+                metrics["moe_aux"] = sums[3] / world
         else:
             correct = _masked_mean(accuracy(logits, labels), mask)
         grads = [p.grad for p in params]
         if loss_scale != 1.0:
             torch._foreach_mul_(grads, 1.0 / loss_scale)
         grad_norm = global_norm(grads)
-        with torch.no_grad():
+        with torch.no_grad(), scope("optimizer"):
             if guard:
                 finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
             else:
