@@ -368,6 +368,30 @@ non-zero at the first phase that fails:
    against the off run's before its window, and the telemetry's own host
    cost on the card (a memory sample, and a step's ``step_end`` with a
    run's default subscribers).
+30. serve-ops — the operated replica, ResNet-50 at 224 px (seeded
+   weights), buckets 1/8/32, fp32.  ``waterfall``: bucket 32's graph
+   replayed before any profiler window, after the engine's waterfall
+   window and after a second: bit for bit an eager forward and the first
+   replay, replay ms within OPS_REPLAY_TOL (10%) of the ms before; the
+   window's kernel classes (K3's share named) summed within
+   OPS_WATERFALL_TOL (5%) of the measured device span.  ``spans``: sync
+   calls a batch under a profiler window with ``serve_span`` unsubscribed
+   and subscribed, equal; each span's six phases within 1e-3 ms of its
+   ``total_ms``; K3 53 times a device call.  ``canary``:
+   ``canary_degrade#0.05`` silent on the boot weights, firing after a swap
+   (whose new graphs get their window first), silent again once the boot
+   weights are swapped back.  ``slo``: ``python -m tpuic_torch.serve
+   --listen`` with ``--slo``, ``--brownout-slo``, ``--admission`` and
+   ``--prom-port`` under ``TPUIC_FAULTS=flood#3000`` (above the knee) and a
+   client's high requests: the brownout gauge tightens and recovers,
+   every high request is answered, one scrape holds the latency, reject,
+   memory, waterfall and graph rows.  ``crash`` and ``wedge``, at once,
+   each a replica under ``python -m tpuic_torch.supervise``:
+   ``replica_crash@6`` restarted, its ready file back, the first answer
+   after it the same record as before with the same digest, the restart
+   seconds printed; ``replica_wedge@6`` escalated SIGQUIT -> SIGTERM ->
+   SIGKILL by the watchdog, a stack dump and a flight dump on disk, the
+   restarted replica answering.
 
 Every launch count is set to 0 just before a path runs and read just after
 it.  Cuts: ResNet-50 trains in float32 (bf16 runs the ViT-B/16,
@@ -5372,6 +5396,596 @@ def phase_telemetry(root: str, seed: int, smi: str) -> dict:
     return row
 
 
+# [serve-ops]: the operated replica (ResNet-50, 224 px, buckets 1/8/32).
+OPS_BUCKETS = (1, 8, 32)
+OPS_REPLAY_TOL = 0.10     # replay ms after a profiler window against before
+OPS_WATERFALL_TOL = 0.05  # the classes' ms against the device span
+OPS_TIMING_ITERS = 30     # replays a timing window; the median of 3 windows
+OPS_WINDOW_TRAFFIC = 16   # requests of 32 images the device span averages
+OPS_SPAN_BATCHES = 20     # closed-loop batches a sync-count window
+# The flood against the replica's knee ([ladder]'s fp32 ResNet-50: ~2,266
+# images/s in requests of 1-8 images; one-image requests are host-bound
+# near 1,570 a second, p50 ~40 ms): one-image low requests at
+# OPS_FLOOD_RPS, high ones from a client at OPS_HIGH_RPS for OPS_SLO_S
+# (each a 200 KB b64 line the server decodes holding the GIL: 300 a second
+# held the high requests' own p50 near 30 ms).  A p50 objective, so that
+# half the tracker's 1,024-sample window of good samples brings the burn
+# back under 1: recovery takes ~7 s of high requests after the tighten.
+OPS_FLOOD_RPS = 3000
+OPS_HIGH_RPS = 100
+OPS_SLO_S = 12.0
+OPS_SLO = "serve_latency:p50<=25ms"
+OPS_TIGHTEN = 1.2         # burn rate 1.2: 40% of the window good
+OPS_SCRAPE_S = 0.2        # the scraper's period
+OPS_CRASH_AT = 6          # replica_crash@K: the Kth accepted request
+OPS_WEDGE_AT = 6          # replica_wedge@K
+OPS_WATCHDOG_S = 5.0
+OPS_CANARY_S = 0.05       # canary_degrade#0.05
+OPS_START_S = 240.0       # a replica's start, its warmup included
+
+
+def _replica_cmd(ready: str, *extra) -> list:
+    """``python -m tpuic_torch.serve`` as a load-testing replica: ResNet-50
+    at 224 px with seeded weights, buckets 1/8/32, on ``--listen``."""
+    return [sys.executable, "-m", "tpuic_torch.serve", "--synthetic-init",
+            "--model", "resnet50", "--num-classes", "1000", "--resize",
+            str(IMAGE), "--buckets", ",".join(map(str, OPS_BUCKETS)),
+            "--listen", "127.0.0.1:0", "--ready-file", ready, *extra]
+
+
+def _await_ready(tag: str, ready: str, proc, err_path: str,
+                 not_pid=None) -> dict:
+    """The replica's ready file once it names a pid other than
+    ``not_pid``; fails the phase when ``proc`` exits first or after
+    OPS_START_S."""
+    from tpuic_torch.serve import wire
+    t0 = time.perf_counter()
+    while True:
+        info = wire.read_ready_file(ready)
+        if info is not None and info.get("pid") != not_pid:
+            return info
+        if proc.poll() is not None or time.perf_counter() - t0 > OPS_START_S:
+            fail(tag, f"no ready file (exit {proc.poll()}): "
+                      f"{open(err_path).read()[-3000:]}")
+        time.sleep(0.05)
+
+
+def _ask(port: int, lines: list, timeout: float = 120.0) -> list:
+    """Send ``lines`` on one connection; the records that come back, one
+    a line, until each has its answer or the server closes."""
+    import socket
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=timeout) as sock:
+        sock.sendall("".join(json.dumps(r) + "\n" for r in lines).encode())
+        return _Records(sock).read(lambda got: len(got) >= len(lines))
+
+
+def _syncs_by_scope(trace_dir: str, scopes) -> dict:
+    """cuda runtime synchronize calls in a Chrome trace, by name, within
+    the host range of each ``record_function`` scope in ``scopes`` (on
+    any thread: the batcher's calls fall inside the range of the scope
+    the main thread was in)."""
+    from tpuic_torch.telemetry import profile
+    events = [e for f in profile._trace_files(trace_dir)
+              for e in profile._load_events(f) if e.get("ph") == "X"]
+    ranges = {str(e["name"]): (float(e["ts"]), float(e["ts"])
+                               + float(e.get("dur", 0.0)))
+              for e in events if e.get("name") in scopes}
+    out = {k: {} for k in scopes}
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") != "cuda_runtime" or "Synchronize" not in name:
+            continue
+        for k, (a, b) in ranges.items():
+            if a <= float(e.get("ts", 0.0)) <= b:
+                out[k][name] = out[k].get(name, 0) + 1
+    return out, sorted(ranges)
+
+
+def _ops_waterfall(tag: str, eng, model, x32, smi: str) -> dict:
+    """Replays of bucket 32's graph before any profiler window, after one
+    and after two (``_take_waterfall``, the window warmup takes): bit for
+    bit an eager forward and the first replay, and as fast.  Then the
+    waterfall over OPS_WINDOW_TRAFFIC served requests of 32 images: its
+    classes summed against the measured device span."""
+    from tpuic_torch.serve import make_forward
+    from tpuic_torch.telemetry.profile import port_kernel
+    eager = [t.clone() for t in make_forward(model, normalize=True)(x32)]
+
+    def replay():
+        return eng.replay(32, x32)
+
+    def timed():
+        return statistics.median(time_ms(replay, iters=OPS_TIMING_ITERS)
+                                 for _ in range(3))
+
+    def bits(ref):
+        got = [t.clone() for t in replay()]
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+    first = [t.clone() for t in replay()]
+    torch.cuda.synchronize()
+    rows = {"before": {"ms": timed(), "bits_vs_eager": bits(eager)}}
+    windows = []
+    for k in ("after_window_1", "after_window_2"):
+        t0 = time.perf_counter()
+        eng._take_waterfall(eng._gen, eng.generation)
+        windows.append(time.perf_counter() - t0)
+        rows[k] = {"ms": timed(), "bits_vs_eager": bits(eager),
+                   "bits_vs_first_replay": bits(first)}
+    for k, r in rows.items():
+        if not r["bits_vs_eager"] or not r.get("bits_vs_first_replay", True):
+            fail(tag, f"bucket 32's replay {k} differs from the eager "
+                      f"forward or the first replay: {rows}")
+        ratio = r["ms"] / rows["before"]["ms"]
+        r["over_before"] = ratio
+        if abs(ratio - 1.0) > OPS_REPLAY_TOL:
+            fail(tag, f"replay ms {k} is {ratio:.3f}x the ms before any "
+                      f"window (tolerance {OPS_REPLAY_TOL}): {rows}")
+    eng.stats.reset()
+    pool = np.random.default_rng(5).integers(0, 256, (32, IMAGE, IMAGE, 3),
+                                             dtype=np.uint8)
+    for _ in range(OPS_WINDOW_TRAFFIC):
+        eng.submit(pool).result(timeout=120)
+    wf = eng.profile_waterfall()
+    if wf is None or not wf.get("classes"):
+        fail(tag, f"no measured waterfall: {wf}")
+    with eng.stats._lock:
+        meter = eng.stats.spans["device"]
+        span_ms = 1000.0 * meter.total / meter.count
+    total = sum(c["ms"] for c in wf["classes"].values())
+    if abs(total - span_ms) > OPS_WATERFALL_TOL * span_ms:
+        fail(tag, f"the waterfall's classes sum to {total} ms against a "
+                  f"device span of {span_ms} ms")
+    k3 = sum(ms for k, ms in wf["port_kernels"].items() if k == "K3")
+    out = {"replays": rows, "window_s": windows,
+           "classes": {k: {"ms": c["ms"], "frac": c["frac"]}
+                       for k, c in wf["classes"].items()},
+           "classes_ms_sum": total, "device_span_ms": span_ms,
+           "k3_ms_per_replay": k3, "k3_share_of_busy": k3 / max(
+               1e-9, wf["busy_ms_per_step"]),
+           "busy_ms_per_replay": wf["busy_ms_per_step"],
+           "kernels_per_replay": wf["kernels_per_step"],
+           "stall_ms": wf["stall_ms"], "bucket": wf["bucket"],
+           "top_kernels": wf["top_kernels"][:5],
+           "k_ids": sorted({port_kernel(n) for n, _, _ in wf["top_kernels"]
+                            if port_kernel(n)}), "card": smi}
+    log(tag, "waterfall: " + json.dumps(out))
+    return out
+
+
+def _ops_spans(tag: str, eng, root: str) -> dict:
+    """Sync calls a batch with ``serve_span`` unsubscribed and subscribed:
+    one profiler window over OPS_SPAN_BATCHES closed-loop batches of 32
+    images in each arm, the arms in ``record_function`` scopes of their
+    own; each span's six phases against its ``total_ms``."""
+    from tpuic_torch.serve.metrics import SPAN_PHASES
+    from tpuic_torch.telemetry import events, tracing
+    pool = np.random.default_rng(6).integers(0, 256, (32, IMAGE, IMAGE, 3),
+                                             dtype=np.uint8)
+    eng.submit(pool).result(timeout=120)
+    sink = events.MemorySink(maxlen=OPS_SPAN_BATCHES * 2)
+    out_dir = os.path.join(root, "spans")
+    prof = tracing.start_profiler()
+    try:
+        for arm in ("off", "on"):
+            unsub = (events.bus.subscribe(sink, kinds=("serve_span",))
+                     if arm == "on" else None)
+            try:
+                with torch.profiler.record_function(f"spans_{arm}"):
+                    for _ in range(OPS_SPAN_BATCHES):
+                        eng.submit(pool).result(timeout=120)
+            finally:
+                if unsub is not None:
+                    unsub()
+    finally:
+        tracing.stop_profiler(prof, out_dir)
+    syncs, found = _syncs_by_scope(out_dir, ("spans_off", "spans_on"))
+    per_batch = {k[6:]: {n: c / OPS_SPAN_BATCHES for n, c in v.items()}
+                 for k, v in syncs.items()}
+    spans = sink.of("serve_span")
+    if len(spans) != OPS_SPAN_BATCHES or len(found) != 2:
+        fail(tag, f"{len(spans)} serve_span events for {OPS_SPAN_BATCHES} "
+                  f"requests; scopes in the trace: {found}")
+    worst = max(abs(sum(ev.data[f"{p}_ms"] for p in SPAN_PHASES)
+                    - ev.data["total_ms"]) for ev in spans)
+    if per_batch["on"] != per_batch["off"] or not per_batch["off"] \
+            or worst > 1e-3:
+        fail(tag, f"sync calls a batch with spans off and on: {per_batch}; "
+                  f"phases against total_ms: {worst} ms")
+    out = {"syncs_per_batch": per_batch, "phase_sum_max_err_ms": worst,
+           "spans": len(spans), "span_example": spans[-1].data}
+    log(tag, "spans: " + json.dumps(out))
+    return out
+
+
+def _ops_canary(tag: str, eng, model, other) -> dict:
+    """``canary_degrade#OPS_CANARY_S`` armed in this process: silent on
+    the boot weights, firing after a swap to ``other`` (whose new graphs
+    get their waterfall window before traffic reaches them), standing
+    down once the boot weights are swapped back."""
+    from tpuic_torch.runtime import faults
+    boot = {k: v.clone() for k, v in model.state_dict().items()}
+    x = np.random.default_rng(8).integers(0, 256, (1, IMAGE, IMAGE, 3),
+                                          dtype=np.uint8)
+
+    def lone_ms():
+        t0 = time.perf_counter()
+        eng.submit(x).result(timeout=120)
+        return (time.perf_counter() - t0) * 1e3
+
+    faults.reset()
+    faults.arm("canary_degrade", param=OPS_CANARY_S)
+    eng.waterfall = True
+    try:
+        rows = {"boot": {"ms": lone_ms(),
+                         "fired": faults.fired("canary_degrade")}}
+        swap = eng.swap_weights(other)
+        wf_gen = eng.profile_waterfall()["gen"]
+        rows["swapped"] = {"ms": lone_ms(),
+                           "fired": faults.fired("canary_degrade"),
+                           "generation": swap["generation"],
+                           "prewarmed": swap["prewarmed"],
+                           "waterfall_gen": wf_gen}
+        back = eng.swap_weights(boot)
+        rows["swapped_back"] = {"ms": lone_ms(),
+                                "fired": faults.fired("canary_degrade"),
+                                "digest_is_boot":
+                                    eng.model_digest == eng._boot_digest,
+                                "generation": back["generation"]}
+    finally:
+        faults.reset()
+        eng.waterfall = False
+    if (rows["boot"]["fired"] != 0 or rows["swapped"]["fired"] < 1
+            or rows["swapped_back"]["fired"] != rows["swapped"]["fired"]
+            or not rows["swapped_back"]["digest_is_boot"]
+            or rows["swapped"]["ms"] < 1e3 * OPS_CANARY_S
+            or wf_gen != swap["generation"]):
+        fail(tag, f"canary_degrade: {rows}")
+    log(tag, "canary: " + json.dumps(rows))
+    return rows
+
+
+def _scrape(port: int) -> str:
+    import urllib.request
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=10).read().decode()
+
+
+def _gauge(text: str, name: str):
+    for ln in text.splitlines():
+        if ln.startswith(name):
+            return float(ln.rsplit(" ", 1)[1])
+    return None
+
+
+def _ops_slo(tag: str, root: str, smi: str) -> dict:
+    """A replica with ``--slo``, ``--brownout-slo``, ``--admission`` and
+    ``--prom-port`` under ``TPUIC_FAULTS=flood#OPS_FLOOD_RPS``; a client
+    sends one-image ``high`` requests at OPS_HIGH_RPS for OPS_SLO_S while
+    a scraper reads /metrics every OPS_SCRAPE_S.  The brownout gauge must
+    go up (tighten) and come down (recover), every high request must be
+    answered, and one scrape must hold the latency quantiles, rejects by
+    cause, device memory, the waterfall's rows and the graph rows."""
+    import socket
+
+    from tpuic_torch.serve import wire
+    work = tempfile.mkdtemp(prefix="serve_ops_slo_", dir=root)
+    ready = os.path.join(work, "ready.json")
+    err_path = os.path.join(work, "replica.err")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here,
+               TPUIC_FAULTS=f"flood#{OPS_FLOOD_RPS}")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(_replica_cmd(
+            ready, "--slo", OPS_SLO, "--brownout-slo", "serve_latency_p50",
+            "--brownout-tighten", str(OPS_TIGHTEN), "--admission",
+            "--prom-port", "-1"), env=env, cwd=here,
+            stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        info = _await_ready(tag, ready, proc, err_path)
+        start_s = time.perf_counter() - t0
+        img = np.random.default_rng(9).integers(
+            0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8)
+        payload = wire.encode_array(img)
+        levels, stop = [], threading.Event()
+
+        def scraper():
+            while not stop.is_set():
+                try:
+                    text = _scrape(info["prom_port"])
+                    levels.append((time.perf_counter() - t0, _gauge(
+                        text, "tpuic_serve_brownout_level")))
+                except OSError:
+                    pass
+                stop.wait(OPS_SCRAPE_S)
+
+        scrape = threading.Thread(target=scraper, daemon=True)
+        scrape.start()
+        n = int(OPS_SLO_S * OPS_HIGH_RPS)
+        with socket.create_connection(("127.0.0.1", info["port"]),
+                                      timeout=120) as sock:
+            got = {}
+            reader = _Records(sock)
+
+            def receive():
+                for rec in reader.read(lambda r: len(r) >= n):
+                    got[rec.get("id")] = rec
+
+            rx = threading.Thread(target=receive, daemon=True)
+            rx.start()
+            t_send = time.perf_counter()
+            for i in range(n):
+                sock.sendall((json.dumps({"id": f"h{i}", "priority": "high",
+                                          **payload}) + "\n").encode())
+                delay = t_send + (i + 1) / OPS_HIGH_RPS - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+            rx.join(timeout=120)
+        stop.set()
+        scrape.join(timeout=10)
+        text = _scrape(info["prom_port"])
+        proc.send_signal(__import__("signal").SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    answered = sum(1 for r in got.values() if "pred" in r)
+    seq = [lv for _, lv in levels if lv is not None]
+    tightened = any(b > a for a, b in zip(seq, seq[1:]))
+    recovered = any(b < a for a, b in zip(seq, seq[1:]))
+    need = ('tpuic_serve_latency_ms{quantile="p99"}',
+            'tpuic_serve_rejected_total{cause="brownout",priority="low"}',
+            "tpuic_serve_device_memory_bytes{", "tpuic_serve_device_time_ms{",
+            "tpuic_serve_compile_cache_entries", "tpuic_serve_slo_burn_rate")
+    missing = [r for r in need if r not in text]
+    transitions = [(round(t, 3), lv) for (t, lv), prev in zip(
+        levels[1:], levels) if lv != prev[1]]
+    row = {"flood_rps": OPS_FLOOD_RPS, "high_sent": n,
+           "high_answered": answered, "start_s": start_s,
+           "level_transitions": transitions, "tightened": tightened,
+           "recovered": recovered, "exit": rc,
+           "requests_total": _gauge(text, "tpuic_serve_requests_total"),
+           "rejected": {c: _gauge(text, f'tpuic_serve_rejected_total{{cause='
+                                        f'"{c}",priority="low"}}')
+                        for c in ("brownout", "queue_full")},
+           "latency_ms": {q: _gauge(text, f'tpuic_serve_latency_ms{{quantile'
+                                          f'="{q}"}}')
+                          for q in ("p50", "p99")},
+           "waterfall_rows": [ln for ln in text.splitlines()
+                              if ln.startswith("tpuic_serve_device_time_ms")],
+           "graph_rows": [ln for ln in text.splitlines()
+                          if ln.startswith("tpuic_serve_compile_cache")],
+           "card": smi}
+    with open(os.path.join(work, "metrics.prom"), "w") as f:
+        f.write(text)
+    if (answered != n or not tightened or not recovered or missing
+            or rc != 0):
+        fail(tag, f"slo: {json.dumps(row)}; missing rows {missing}; "
+                  f"{open(err_path).read()[-2000:]}")
+    log(tag, "slo: " + json.dumps(row))
+    return row
+
+
+def _supervised(tag: str, work: str, chaos: str, *sup_args):
+    """``python -m tpuic_torch.supervise`` over a replica, attempt 0 under
+    ``chaos``; returns (process, ready path, stderr path, state dir)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ready = os.path.join(work, "ready.json")
+    err_path = os.path.join(work, "supervise.err")
+    state = os.path.join(work, "state")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpuic_torch.supervise", "--state-dir",
+             state, "--watchdog-s", str(OPS_WATCHDOG_S), "--startup-grace-s",
+             str(OPS_START_S), "--poll-s", "0.2", "--backoff-s", "0.1",
+             "--chaos", chaos, *sup_args, "--",
+             *_replica_cmd(ready)], env=dict(os.environ, PYTHONPATH=here),
+            cwd=here, stdout=subprocess.DEVNULL, stderr=err)
+    return proc, ready, err_path, state
+
+
+def _stop_supervised(tag: str, proc, err_path: str) -> int:
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(tag, f"the supervisor did not stop: "
+                  f"{open(err_path).read()[-2000:]}")
+
+
+def _ledger_of(state: str) -> list:
+    with open(os.path.join(state, "ledger.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def _start_crash(tag: str, root: str):
+    work = tempfile.mkdtemp(prefix="serve_ops_crash_", dir=root)
+    return _supervised(tag, work, f"replica_crash@{OPS_CRASH_AT}")
+
+
+def _ops_crash(tag: str, box: dict, started) -> None:
+    """``replica_crash@OPS_CRASH_AT`` under the supervisor (``started``:
+    ``_start_crash``'s): the replica answers OPS_CRASH_AT - 1 requests,
+    dies at the next, is restarted, and its ready file reappears; the
+    first answer after the restart equals the one before the crash (the
+    same record, the same digest)."""
+    from tpuic_torch.serve import wire
+    proc, ready, err_path, state = started
+    try:
+        info = _await_ready(tag, ready, proc, err_path)
+        img = np.random.default_rng(10).integers(
+            0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8)
+        req = {"id": "x", **wire.encode_array(img)}
+        before = _ask(info["port"], [dict(req, id=f"r{i}")
+                                     for i in range(OPS_CRASH_AT - 1)]
+                      + [{"op": "ping", "id": "ping"}])
+        pong = next(r for r in before if r.get("op") == "pong")
+        answer = next(r for r in before if r.get("id") == "r0")
+        os.remove(ready)  # SIGKILL leaves it: it must be written again
+        t_crash = time.perf_counter()
+        try:
+            lost = _ask(info["port"], [dict(req, id="crash")], timeout=60)
+        except OSError as e:  # the connection reset by the kill
+            lost = repr(e)
+        info2 = _await_ready(tag, ready, proc, err_path, not_pid=info["pid"])
+        restart_s = time.perf_counter() - t_crash
+        after = _ask(info2["port"], [dict(req, id="r0"),
+                                     {"op": "ping", "id": "ping"}])
+        pong2 = next(r for r in after if r.get("op") == "pong")
+        answer2 = next(r for r in after if r.get("id") == "r0")
+    finally:
+        rc = _stop_supervised(tag, proc, err_path)
+    spawns = [r for r in _ledger_of(state) if r["event"] == "spawn"]
+    exits = [r for r in _ledger_of(state) if r["event"] == "exit"]
+    box["crash"] = row = {
+        "answers_before": len(before) - 1, "lost": lost,
+        "restart_s": restart_s, "pids": [info["pid"], info2["pid"]],
+        "same_answer": answer2 == answer, "answer": answer2,
+        "digest": [pong["digest"], pong2["digest"]],
+        "spawns": len(spawns), "first_exit": exits[0]["returncode"]
+        if exits else None, "supervisor_exit": rc}
+    if (answer2 != answer or pong["digest"] != pong2["digest"]
+            or len(spawns) != 2 or row["first_exit"] != -9 or rc != 0):
+        fail(tag, f"crash: {json.dumps(row)}; "
+                  f"{open(err_path).read()[-2000:]}")
+
+
+def _start_wedge(tag: str, root: str):
+    work = tempfile.mkdtemp(prefix="serve_ops_wedge_", dir=root)
+    return _supervised(tag, work, f"replica_wedge@{OPS_WEDGE_AT}",
+                       "--quit-wait-s", "2", "--grace-s", "3")
+
+
+def _ops_wedge(tag: str, box: dict, started) -> None:
+    """``replica_wedge@OPS_WEDGE_AT`` under the supervisor (``started``:
+    ``_start_wedge``'s): the replica stops servicing its socket, the
+    heartbeat goes stale, the watchdog sends SIGQUIT (a stack dump and a
+    flight dump land in the state directory), then SIGTERM, then SIGKILL,
+    and the restarted replica serves again."""
+    from tpuic_torch.serve import wire
+    proc, ready, err_path, state = started
+    try:
+        info = _await_ready(tag, ready, proc, err_path)
+        img = np.random.default_rng(11).integers(
+            0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8)
+        req = wire.encode_array(img)
+        first = _ask(info["port"], [{"id": f"w{i}", **req}
+                                    for i in range(OPS_WEDGE_AT - 1)])
+        os.remove(ready)
+        t_wedge = time.perf_counter()
+        import socket
+        wedged = socket.create_connection(("127.0.0.1", info["port"]),
+                                          timeout=5)
+        wedged.sendall((json.dumps({"id": "wedge", **req}) + "\n").encode())
+        info2 = _await_ready(tag, ready, proc, err_path, not_pid=info["pid"])
+        back_s = time.perf_counter() - t_wedge
+        wedged.close()
+        again = _ask(info2["port"], [{"id": "again", **req}])
+    finally:
+        rc = _stop_supervised(tag, proc, err_path)
+    ledger = _ledger_of(state)
+    hang = [r for r in ledger if r["event"] == "hang"]
+    exits = [r for r in ledger if r["event"] == "exit"]
+    stack = os.path.join(state, "stackdump-0.txt")
+    flight = os.path.join(state, "flightdump-0.jsonl")
+    stack_ok = os.path.isfile(stack) and "File" in open(stack).read()
+    trailer = None
+    if os.path.isfile(flight):
+        with open(flight) as f:
+            recs = [json.loads(ln) for ln in f]
+        trailer = recs[-1] if recs else None
+        kinds = sorted({r["event"] for r in recs[:-1]})
+    else:
+        kinds = []
+    box["wedge"] = row = {
+        "answered_before": sum("pred" in r for r in first),
+        "back_s": back_s, "hang": hang[:1], "first_exit":
+        exits[0]["returncode"] if exits else None,
+        "hung": exits[0]["hung"] if exits else None,
+        "stack_dump_has_frames": stack_ok, "flight_trailer": trailer,
+        "flight_kinds": kinds, "answered_after": sum(
+            "pred" in r for r in again), "supervisor_exit": rc}
+    if (not hang or row["first_exit"] != -9 or not row["hung"]
+            or not stack_ok or trailer is None
+            or trailer.get("reason") != "sigquit"
+            or row["answered_after"] != 1 or rc != 0):
+        fail(tag, f"wedge: {json.dumps(row)}; "
+                  f"{open(err_path).read()[-2000:]}")
+
+
+def phase_serve_ops(root: str, seed: int, smi: str) -> dict:
+    """The operated replica: ResNet-50 at 224 px, buckets 1/8/32, fp32.
+    In this process an engine's measured waterfall beside its graphs
+    (``waterfall``), the sync calls of its span events (``spans``) and
+    ``canary_degrade`` (``canary``); then ``python -m tpuic_torch.serve``
+    under a flood with brownout and Prometheus (``slo``), and two
+    replicas under ``python -m tpuic_torch.supervise`` at once, one
+    crashed (``crash``) and one wedged (``wedge``)."""
+    from tpuic_torch.serve import InferenceEngine
+    tag = "serve-ops"
+    t0 = time.perf_counter()
+    model = resnet50_b(seed)
+    eng = InferenceEngine(model, None, image_size=IMAGE,
+                          input_dtype=np.uint8, normalize=True,
+                          buckets=OPS_BUCKETS)
+    row = {}
+    try:
+        eng.warmup()
+        x32 = torch.from_numpy(np.random.default_rng(4).integers(
+            0, 256, (32, IMAGE, IMAGE, 3), dtype=np.uint8)).cuda()
+        row["waterfall"] = _ops_waterfall(tag, eng, model, x32, smi)
+        calls = eng.stats.snapshot()["device_calls"]
+        reset_counts()
+        row["spans"] = _ops_spans(tag, eng, root)
+        launches = read_counts()["conv_bn_relu"]
+        calls = eng.stats.snapshot()["device_calls"] - calls
+        if launches != len(resnet50_launches(1)) * calls:
+            fail(tag, f"{launches} K3 launches for {calls} device calls")
+        row["canary"] = _ops_canary(tag, eng, model, resnet50_b(seed + 1))
+        row["graph_cache"] = eng.graph_cache_counters()
+    finally:
+        eng.close()
+    del eng, model
+    free()
+    row["launches"] = launches
+    # The supervised replicas start beside the slo arm's and wait, ready
+    # and beating, until it ends.
+    started = {_ops_crash: _start_crash(tag, root),
+               _ops_wedge: _start_wedge(tag, root)}
+    box, errors = {}, []
+    try:
+        row["slo"] = _ops_slo(tag, root, smi)
+    except SystemExit:
+        for proc, _, err_path, _ in started.values():
+            _stop_supervised(tag, proc, err_path)
+        raise
+
+    def arm(fn):
+        try:
+            fn(tag, box, started[fn])
+        except SystemExit as e:  # fail() in a thread: reported below
+            errors.append(f"{fn.__name__}: exit {e.code}")
+
+    threads = [threading.Thread(target=arm, args=(fn,))
+               for fn in (_ops_crash, _ops_wedge)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(tag, f"supervised arms: {errors}")
+    row.update(box, card=smi, phase_s=time.perf_counter() - t0)
+    log(tag, json.dumps(row))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=320)
@@ -5501,6 +6115,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         telemetry = phase_telemetry(root, args.seed, smi)
         took["telemetry"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve_ops = phase_serve_ops(root, args.seed, smi)
+        took["serve-ops"] = time.perf_counter() - t0
     took["total"] = time.perf_counter() - t_start
     log("timing", json.dumps(took))
     # The share of each training cell's train loop spent waiting for the
@@ -5632,7 +6249,7 @@ def main(argv=None) -> int:
     summary["launches_by_path"] = {
         "serve": launches, **{f"ladder {t}": r["kernel_launches"] for t, r
                               in ladder["resnet50"]["served"].items()},
-        **ddp_counts("conv_bn_relu")}
+        **ddp_counts("conv_bn_relu"), "serve-ops": serve_ops["launches"]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
@@ -5650,7 +6267,7 @@ def main(argv=None) -> int:
                        "effnet_train": eff_train, "effnet_serve": effnet,
                        "ladder": ladder, "serve_cli_ladder": cli_ladder,
                        "moe_train": moe_train, "moe_serve": moe_serve,
-                       "telemetry": telemetry,
+                       "telemetry": telemetry, "serve_ops": serve_ops,
                        "k1_launches": {"train": counts, "inception_train":
                                        inc_counts, "digits": digits_counts,
                                        "vit_recipe": recipe_counts,

@@ -1,0 +1,184 @@
+"""Port parity: ``tpuic_torch.runtime.faults`` against
+``tpuic.runtime.faults``, and the CLIs' ``TPUIC_FAULTS`` handling.
+
+- One table of ``TPUIC_FAULTS`` strings, valid and malformed, gives the
+  same plans (each armed point's steps, times and payload) and the same
+  errors in both packages; ``REGISTERED_POINTS`` is one set; a scripted
+  arm/fire/disarm sequence fires alike; the at-rest corruption helpers
+  leave the same bytes.
+- The train CLI no longer drops a chaos spec: it refuses by name every
+  point the port's training path does not fire, and a spec that does not
+  parse.  The serve CLI takes the serving points and refuses the rest the
+  same way.
+
+``tpuic.runtime.faults`` imports only the stdlib; it is imported in a
+fixture all the same, as every ``tpuic`` import of the port's tests is.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpuic_torch.runtime import faults as pf
+from _torch_threads import TORCH_THREADS, subprocess_env
+
+torch.set_num_threads(TORCH_THREADS)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def jf():
+    from tpuic.runtime import faults
+    return faults
+
+
+SPECS = (
+    "",
+    "flood",
+    "flood#200",
+    "replica_crash@20",
+    "replica_wedge@3#0.5",
+    "hang_device*2#0.25",
+    "canary_degrade#0.05",
+    "nan_batch@100-105,sigterm@200",
+    " slow_step#0.3 , hard_crash@7 ",
+    "rank_crash@8#1,rank_hang@9*1",
+    "scorer_crash@1#1,shard_corrupt@2#1,lease_skew#120",
+    "flood#1e3,,",
+    # Malformed: each raises the same ValueError in both packages.
+    "bogus",
+    "flood@x",
+    "flood#fast",
+    "nan_batch@1-y",
+    "hang_device*many",
+    "replica_crash@3,typo_point@4",
+)
+
+
+def _plan(mod, spec):
+    """``(arms, None)`` of a parsed plan, or ``(None, error text)``."""
+    try:
+        plan = mod.FaultPlan(spec)
+    except ValueError as e:
+        return None, str(e)
+    arms = {p: (None if a.steps is None else sorted(a.steps), a.times,
+                a.param) for p, a in plan._arms.items()}
+    return arms, None
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_spec_table_parses_the_same_in_both_packages(jf, spec):
+    assert _plan(pf, spec) == _plan(jf, spec)
+
+
+def test_registered_points_are_one_set(jf):
+    assert pf.REGISTERED_POINTS == jf.REGISTERED_POINTS
+    # Every point the port fires is registered, and the serving set is
+    # the one the port's serving path fires.
+    assert pf.FIRED_BY["serve"] == {"flood", "replica_crash",
+                                    "replica_wedge", "hang_device",
+                                    "canary_degrade"}
+    assert all(p <= pf.REGISTERED_POINTS for p in pf.FIRED_BY.values())
+
+
+def test_scripted_firings_agree(jf):
+    def script(mod):
+        plan = mod.FaultPlan("replica_crash@3,flood*2#50")
+        plan.arm("adhoc", steps=range(2, 4), times=1, param="x")
+        log = []
+        for step in range(6):
+            log.append([plan.fire(p, step) for p in
+                        ("replica_crash", "flood", "adhoc", "nope")])
+        log.append((plan.param("flood"), plan.param("adhoc"),
+                    plan.param("nope"), dict(plan.fired)))
+        plan.disarm("flood")
+        log.append(plan.fire("flood"))
+        plan.reset()
+        log.append((plan.fire("replica_crash", 3), dict(plan.fired)))
+        return log
+    assert script(pf) == script(jf)
+
+
+def test_module_level_arming_fires_and_resets():
+    pf.reset()
+    try:
+        pf.arm("hang_device", times=1, param=0.0)
+        assert pf.param("hang_device") == 0.0
+        assert pf.fire("hang_device") and not pf.fire("hang_device")
+        assert pf.fired("hang_device") == 1
+        pf.disarm()
+        assert not pf.fire("hang_device")
+    finally:
+        pf.reset()
+    assert pf.fired("hang_device") == 0
+
+
+def test_corruption_helpers_leave_the_same_bytes(jf, tmp_path):
+    data = bytes(range(256)) * 3
+    out = {}
+    for name, mod in (("port", pf), ("tpuic", jf)):
+        a, b = tmp_path / f"{name}_a", tmp_path / f"{name}_b"
+        a.write_bytes(data)
+        b.write_bytes(data)
+        mod.truncate_file(str(a), keep=10)
+        mod.corrupt_file(str(b), offset=700, nbytes=200)
+        out[name] = (a.read_bytes(), b.read_bytes())
+    assert out["port"] == out["tpuic"]
+    assert len(out["port"][0]) == 10 and out["port"][1] != data
+
+
+@pytest.mark.parametrize("entry,spec,match", [
+    ("train", "nan_batch@3", "'nan_batch' not fired by the port's train "
+     "path yet \\(ROADMAP §1 item 11\\)"),
+    ("train", "flood#10", "'flood' not fired by the port's train path"),
+    ("serve", "swap_corrupt", "'swap_corrupt' not fired by the port's "
+     "serve path yet \\(ROADMAP §1 item 11\\)"),
+    ("serve", "scorer_crash@1#1", "item 14"),
+    ("serve", "flood@x", "malformed directive 'flood@x'"),
+])
+def test_check_fired_refuses_by_name(entry, spec, match):
+    with pytest.raises(ValueError, match=match):
+        pf.check_fired(entry, spec)
+
+
+def test_check_fired_passes_the_serving_points():
+    pf.check_fired("serve", "flood#400,replica_crash@5,replica_wedge@2#1,"
+                            "hang_device#0,canary_degrade#0.05")
+    pf.check_fired("train", "")
+
+
+def _cli(module: str, spec: str, *args) -> subprocess.CompletedProcess:
+    env = subprocess_env(PYTHONPATH=str(ROOT), TPUIC_FAULTS=spec)
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=180)
+
+
+def test_train_cli_no_longer_drops_a_chaos_spec(tmp_path):
+    """The repair: ``python -m tpuic_torch.train`` used to start and train
+    with ``TPUIC_FAULTS`` set, the spec dropped without a word.  Now a
+    point its path does not fire is refused by name before anything
+    loads, and so is a spec that does not parse."""
+    out = _cli("tpuic_torch.train", "hard_crash@2", "--datadir",
+               str(tmp_path), "--device", "cpu")
+    assert out.returncode != 0
+    assert ("TPUIC_FAULTS: 'hard_crash' not fired by the port's train path "
+            "yet (ROADMAP §1 item 11)") in out.stderr
+    out = _cli("tpuic_torch.train", "hard_crash@", "--datadir",
+               str(tmp_path), "--device", "cpu")
+    assert out.returncode != 0
+    assert "malformed directive 'hard_crash@'" in out.stderr
+
+
+def test_serve_cli_refuses_unfired_and_malformed_specs(tmp_path):
+    for spec, want in (("ckpt_kill@1", "'ckpt_kill' not fired by the "
+                        "port's serve path"),
+                       ("floods#3", "unknown injection point 'floods'")):
+        out = _cli("tpuic_torch.serve", spec, "--device", "cpu",
+                   "--ckpt-dir", str(tmp_path))
+        assert out.returncode != 0 and want in out.stderr, out.stderr

@@ -6,10 +6,11 @@ torch-checkpoint converter, and the engine's device-resident requests.
   pong with the model's digest and generation, a bad line a typed error
   line, and SIGTERM drains with typed stragglers
   (tests/test_serve.py's contract).
-- Refusals: each ``tpuic`` flag whose feature is not ported is refused by
-  name (and a malformed ``--quota``, an unknown ``--serve-dtypes`` rung);
-  a refused swap line gets a typed error line and the server keeps
-  answering.  ``--serve-dtypes fp32,int8`` serves: a request line's
+- Flags: ``tpuic``'s operating flags (``--slo``, ``--brownout-*``,
+  ``--prom-*``) serve, and their start-time errors (a brownout coupled to
+  no ``--slo`` objective, a malformed ``--quota``, an unknown
+  ``--serve-dtypes`` rung) are refused by name; a refused swap line gets
+  a typed error line and the server keeps answering.  ``--serve-dtypes fp32,int8`` serves: a request line's
   ``serve_dtype`` picks the int8 rung (its own forward within 1e-5), an
   unknown one gets a typed error line.
 - Whole-CLI parity: one reference-format torch checkpoint (``module.``
@@ -184,37 +185,59 @@ def test_watch_once_answers_each_file(served, tmp_path, monkeypatch):
     _check_records(recs, served, 3)
 
 
+# A served case: (its flags, a line its stderr must hold).
+_SMALL = ["--resize", "32", "--buckets", "1"]
+
+
 @pytest.mark.parametrize("flag,match", [
     pytest.param(["--admission", "--brownout-slo", "x"],
-                 "--brownout-slo: not yet ported.*item 6", id="--admission"),
+                 "--brownout-slo 'x' names no --slo objective",
+                 id="--admission"),
     pytest.param(["--quota", "a=0"], "--quota: bad quota spec 'a=0'",
                  id="--quota"),
-    *(pytest.param(f, f"{f[0]}.*not yet ported.*item {item}", id=f[0])
-      for f, item in ((["--brownout-slo", "x"], 6),
-                      (["--brownout-tighten", "3"], 6),
-                      (["--brownout-recover", "0.5"], 6),
-                      (["--slo", "serve_latency:p99<=5ms"], 6),
-                      (["--prom-port", "9"], 6),
-                      (["--prom-host", "0.0.0.0"], 6),
-                      (["--prom-dump", "m.prom"], 6))),
-    # The dtype ladder is ported: served, its rungs past the start gate.
-    pytest.param(["--serve-dtypes", "fp32,int8", "--resize", "32",
-                  "--buckets", "1"], None, id="--serve-dtypes"),
+    pytest.param(["--brownout-slo", "x"],
+                 "--brownout-slo 'x' names no --slo objective "
+                 "\\(configured: none\\)", id="--brownout-slo"),
+    pytest.param(["--brownout-tighten", "3"] + _SMALL,
+                 (None, "warmup ran 1 buckets eagerly"),
+                 id="--brownout-tighten"),
+    pytest.param(["--brownout-recover", "0.5"] + _SMALL,
+                 (None, "warmup ran 1 buckets eagerly"),
+                 id="--brownout-recover"),
+    pytest.param(["--slo", "serve_latency:p99<=5ms"] + _SMALL,
+                 (None, "[serve] slo: serve_latency_p99"), id="--slo"),
+    pytest.param(["--prom-port", "-1"] + _SMALL,
+                 (None, "[serve] prometheus /metrics on 127.0.0.1:"),
+                 id="--prom-port"),
+    pytest.param(["--prom-host", "0.0.0.0"] + _SMALL,
+                 (None, "warmup ran 1 buckets eagerly"), id="--prom-host"),
+    pytest.param(["--prom-dump", "PROM"] + _SMALL,
+                 (None, "[serve] prometheus exposition -> "),
+                 id="--prom-dump"),
+    # The dtype ladder: served, its rungs past the start gate.
+    pytest.param(["--serve-dtypes", "fp32,int8"] + _SMALL,
+                 (None, "dtype ladder rung int8: top-1 agreement"),
+                 id="--serve-dtypes"),
     pytest.param(["--serve-dtypes", "fp32,fp8"],
                  "--serve-dtypes: unknown dtype 'fp8'", id="fp8")])
-def test_unported_flag_is_refused_by_name(flag, match, monkeypatch, capsys):
-    """Each flag whose feature is not ported is refused by name, naming
-    its ROADMAP item (``--admission`` itself works, but not with
-    brownout); a malformed ``--quota`` or an unknown ladder rung is
-    refused before the model loads.  ``--serve-dtypes fp32,int8`` serves
-    (an empty stdin: start, gate, exit 0)."""
+def test_unported_flag_is_refused_by_name(flag, match, monkeypatch, capsys,
+                                          tmp_path):
+    """Every flag of ``tpuic``'s server is ported: ``--slo``,
+    ``--brownout-*`` and ``--prom-*`` serve (an empty stdin: start, exit
+    0, the line each leaves on stderr), and what cannot serve is refused
+    by name before the model loads: a ``--brownout-slo`` naming no
+    ``--slo`` objective (with or without ``--admission``), a malformed
+    ``--quota``, an unknown ladder rung."""
     argv = ["--device", "cpu", "--synthetic-init", "--model", "resnet18",
-            "--num-classes", "3"] + flag
-    if match is None:
+            "--num-classes", "3"] + [str(tmp_path / "m.prom") if f == "PROM"
+                                     else f for f in flag]
+    if isinstance(match, tuple):
         monkeypatch.setattr(sys, "stdin", io.StringIO(""))
         assert pserve.main(argv) == 0
-        assert "dtype ladder rung int8: top-1 agreement" in \
-            capsys.readouterr().err
+        assert match[1] in capsys.readouterr().err
+        if "PROM" in flag:
+            assert "tpuic_serve_requests_total 0" in (
+                tmp_path / "m.prom").read_text()
         return
     with pytest.raises(SystemExit, match=match):
         pserve.main(argv)
@@ -254,7 +277,8 @@ def test_ema_checkpoint_serves_its_ema_and_fault_points_are_refused(
         served, tmp_path, monkeypatch):
     """``tpuic`` serves an EMA-trained checkpoint's EMA weights, at start
     and as a swap candidate: records within 1e-5 of a direct forward of
-    ``ema_params``."""
+    ``ema_params``.  A ``TPUIC_FAULTS`` point the serving path does not
+    fire, and a malformed spec, are refused by name at start."""
     ckpt = str(tmp_path / "ema")
     ema_model = _ema_checkpoint(served, ckpt)
     lines = [json.dumps({"id": p, "path": p}) for p in served["images"]]
@@ -275,8 +299,14 @@ def test_ema_checkpoint_serves_its_ema_and_fault_points_are_refused(
     assert result["ok"] is True
     assert result["digest"] == variables_digest(ema_model) != \
         variables_digest(served["model"])
-    monkeypatch.setenv("TPUIC_FAULTS", "flood#10")
-    with pytest.raises(SystemExit, match="TPUIC_FAULTS.*item 11"):
+    # The serving fault points are ported; a point the serving path does
+    # not fire, or a spec that does not parse, still fails at start.
+    monkeypatch.setenv("TPUIC_FAULTS", "ckpt_kill@1")
+    with pytest.raises(SystemExit, match="TPUIC_FAULTS: 'ckpt_kill' not "
+                       "fired by the port's serve path yet.*item 11"):
+        pserve.main(["--device", "cpu", "--ckpt-dir", served["ckpt"]])
+    monkeypatch.setenv("TPUIC_FAULTS", "flood#ten")
+    with pytest.raises(SystemExit, match="malformed directive 'flood#ten'"):
         pserve.main(["--device", "cpu", "--ckpt-dir", served["ckpt"]])
 
 

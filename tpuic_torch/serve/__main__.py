@@ -62,12 +62,30 @@ images, or a rung that disagrees with the candidate's fp32, a
 "swap_result", "ok": true, "generation", "digest", ...}``; ``pong`` and
 the ready file carry the new identity.
 
-Flags of ``tpuic``'s server whose features are not ported are accepted
-by the parser and refused by name when set (ROADMAP §1): brownout
-(``--brownout-*``, which couples admission to an ``--slo`` objective),
-SLOs and Prometheus (``--slo``, ``--prom-*``; item 6).  Fault points
-(``TPUIC_FAULTS``), the supervisor's heartbeat and the flight recorder
-wait for item 11.
+Operating the replica, as ``tpuic``'s server does:
+
+- ``--slo 'serve_latency:p99<=50ms'`` tracks latency objectives from the
+  engine's per-request ``serve_span`` events; ``--brownout-slo`` names
+  one whose error-budget burn past ``--brownout-tighten`` sheds the
+  lowest priority class still admitted, recovering below
+  ``--brownout-recover`` (brownout implies ``--admission``).
+- ``--prom-port`` serves ``/metrics`` (``-1``: a free port, named in the
+  ready file), ``--prom-dump`` writes the exposition at shutdown (and
+  each ``--watch`` tick): latency and span percentiles, rejects by cause
+  and priority, brownout and quota gauges, SLO rows, the device memory
+  (the allocator's counters, read at scrape time with no sync), the
+  engine's CUDA-graph rows, and the measured waterfall of the largest
+  bucket's graph, taken at warmup and after a swap that captured graphs,
+  never at scrape time.
+- Under ``python -m tpuic_torch.supervise`` the server writes the
+  heartbeat from its batches and its accept loop, installs the flight
+  recorder and a faulthandler stack dump on SIGQUIT (chained).
+- ``TPUIC_FAULTS`` (``runtime/faults.py``): ``flood#RATE`` submits a
+  low-priority storm from inside the process, ``replica_crash@N``
+  SIGKILLs the server at the Nth request ``--listen`` accepts and
+  ``replica_wedge@N`` stops servicing its socket there; the engine fires
+  ``hang_device`` and ``canary_degrade``.  A spec that does not parse, or
+  that arms a point the port's serving path does not fire, fails at start.
 """
 
 from __future__ import annotations
@@ -88,20 +106,6 @@ from tpuic_torch.serve import wire
 from tpuic_torch.serve.admission import AdmissionError
 
 _PROG = "python -m tpuic_torch.serve"
-
-#: ``tpuic`` server flags whose features are not ported:
-#: (flag, argparse kwargs, the ROADMAP §1 item that brings them).
-_NOT_PORTED = (
-    ("--brownout-slo", dict(default=""), "item 6 (telemetry)"),
-    ("--brownout-tighten", dict(type=float, default=2.0),
-     "item 6 (telemetry)"),
-    ("--brownout-recover", dict(type=float, default=1.0),
-     "item 6 (telemetry)"),
-    ("--slo", dict(default=""), "item 6 (telemetry)"),
-    ("--prom-port", dict(type=int, default=0), "item 6 (telemetry)"),
-    ("--prom-host", dict(default="127.0.0.1"), "item 6 (telemetry)"),
-    ("--prom-dump", dict(default=""), "item 6 (telemetry)"),
-)
 
 # One swap at a time per process: a second candidate racing the first
 # would gate against a moving incumbent.
@@ -160,7 +164,7 @@ def _result_record(rid, probs, order, names, k: int) -> dict:
 
 def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                  guard, beat=lambda: None, drain_timeout: float = 30.0,
-                 ready_file: str = "",
+                 ready_file: str = "", prom_port=None,
                  log=lambda msg: print(msg, file=sys.stderr)) -> int:
     """The socket-JSONL replica transport; returns the requests served.
 
@@ -182,12 +186,21 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
       with the new identity.
 
     Single-threaded select loop: reads submit, completed futures flush
-    each tick, and the SIGTERM latch drains everything in flight for up
-    to ``drain_timeout`` seconds with typed straggler lines.
-    ``ready_file`` is written (atomically) once the socket is bound; the
-    engine is already warm by then."""
+    each tick, ``beat()`` ticks the supervisor's heartbeat, and the
+    SIGTERM latch drains everything in flight for up to ``drain_timeout``
+    seconds with typed straggler lines.  ``ready_file`` is written
+    (atomically, with ``prom_port``) once the socket is bound; the engine
+    is already warm by then.
+
+    Fault points (``runtime/faults.py``): ``replica_crash`` SIGKILLs this
+    process at the Nth accepted request; ``replica_wedge`` stops
+    servicing the socket there (pings included), so the heartbeat goes
+    stale."""
     import select
+    import signal as _signal
     import socket as _socket
+
+    from tpuic_torch.runtime import faults as _faults
 
     host, port = wire.parse_hostport(listen)
     srv = _socket.create_server((host, port), backlog=64)
@@ -198,7 +211,7 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
         if ready_file:
             wire.write_ready_file(
                 ready_file, port=int(bound), pid=os.getpid(),
-                prom_port=None, digest=engine.model_digest,
+                prom_port=prom_port, digest=engine.model_digest,
                 dtypes=list(engine.variant_tags()),
                 generation=engine.generation)
 
@@ -290,6 +303,11 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                                   submit_swap(engine, req, log)))
             return
         accepted += 1
+        if _faults.fire("replica_crash", accepted):
+            os.kill(os.getpid(), _signal.SIGKILL)
+        if _faults.fire("replica_wedge", accepted):
+            w = _faults.param("replica_wedge")
+            time.sleep(3600.0 if w is None else float(w))
         rid = str(req.get("id", req.get("path", accepted)))
         try:
             if req.get("b64") is not None:
@@ -713,7 +731,8 @@ def build_engine(args):
                              buckets=buckets, max_wait_ms=args.max_wait_ms,
                              queue_size=args.queue_size, device=args.device,
                              variants={t: m for t, m in variants.items()
-                                       if t != "fp32"})
+                                       if t != "fp32"},
+                             waterfall=bool(args.prom_port or args.prom_dump))
     t = engine.warmup()
     n = sum(len(v) if isinstance(v, dict) else 1 for v in t.values())
     made = ("captured {} bucket CUDA graphs" if engine.device.type == "cuda"
@@ -791,35 +810,86 @@ def build_parser() -> argparse.ArgumentParser:
                         "the shared free pool unconfigured tenants and "
                         "dry tenant buckets draw from. Implies "
                         "--admission")
-    for flag, kw, item in _NOT_PORTED:
-        p.add_argument(flag, help=f"not yet ported to tpuic_torch "
-                                  f"(ROADMAP §1 {item})", **kw)
+    p.add_argument("--prom-port", type=int, default=0,
+                   help="serve a Prometheus /metrics endpoint on this "
+                        "port (0 disables; -1 binds a kernel-assigned free "
+                        "port, named in --ready-file)")
+    p.add_argument("--prom-host", default="127.0.0.1",
+                   help="interface for --prom-port (loopback by default: "
+                        "the endpoint is unauthenticated)")
+    p.add_argument("--prom-dump", default="",
+                   help="write the Prometheus text exposition to this "
+                        "file on shutdown (and each poll tick under "
+                        "--watch): the textfile-collector transport")
+    p.add_argument("--slo", default="",
+                   help="latency SLOs, comma list of "
+                        "'serve_latency:pQ<=Nms[@target]' specs; the "
+                        "tracker subscribes to the engine's per-request "
+                        "serve_span events")
+    p.add_argument("--brownout-slo", default="",
+                   help="name of one --slo objective (e.g. "
+                        "serve_latency_p99) whose error-budget burn rate "
+                        "drives brownout: past --brownout-tighten the "
+                        "controller sheds one more priority class per SLO "
+                        "report, recovering below --brownout-recover. "
+                        "Implies --admission")
+    p.add_argument("--brownout-tighten", type=float, default=2.0,
+                   help="burn rate at/above which brownout tightens one "
+                        "level")
+    p.add_argument("--brownout-recover", type=float, default=1.0,
+                   help="burn rate at/below which (after 3 consecutive "
+                        "reports) brownout relaxes one level")
     return p
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, _, item in _NOT_PORTED:
-        dest = flag.lstrip("-").replace("-", "_")
-        if getattr(args, dest) != parser.get_default(dest):
-            raise SystemExit(f"{_PROG}: error: {flag}: not yet ported to "
-                             f"tpuic_torch (ROADMAP §1 {item})")
     _parse_dtypes(args.serve_dtypes)
-    if os.environ.get("TPUIC_FAULTS"):
-        raise SystemExit(f"{_PROG}: error: TPUIC_FAULTS: fault points are "
-                         "not yet ported to tpuic_torch (ROADMAP §1 item "
-                         "11)")
-    # Admission parses before the checkpoint load and warmup: a typo'd
-    # quota would read as "unlimited" exactly when it was meant to cap.
+    # The chaos spec parses first: one that does not parse, or that arms
+    # a point the serving path does not fire, fails the command line.
+    try:
+        from tpuic_torch.runtime import faults as _faults
+        _faults.check_fired("serve", os.environ.get("TPUIC_FAULTS"))
+    except ValueError as e:
+        raise SystemExit(f"{_PROG}: error: {e}")
+    if args.quota or args.brownout_slo:
+        args.admission = True
+    # SLOs and admission parse before the checkpoint load and warmup: a
+    # typo'd quota would read as "unlimited" exactly when it was meant to
+    # cap, and a brownout coupled to an objective --slo does not track
+    # would never tighten.
+    slo_tracker = None
+    if args.slo:
+        from tpuic_torch.telemetry.slo import SLOTracker, parse_objectives
+        try:
+            slo_tracker = SLOTracker(parse_objectives(
+                args.slo, allowed=("serve_latency",)))
+        except ValueError as e:
+            raise SystemExit(f"{_PROG}: error: --slo: {e}")
     admission_ctl = None
-    if args.admission or args.quota:
+    if args.admission:
         from tpuic_torch.serve.admission import (AdmissionController,
+                                                 BrownoutController,
                                                  parse_quotas)
         try:
-            admission_ctl = AdmissionController(parse_quotas(args.quota))
+            quotas = parse_quotas(args.quota)
         except ValueError as e:
             raise SystemExit(f"{_PROG}: error: --quota: {e}")
+        brownout = None
+        if args.brownout_slo:
+            known = ([o.name for o in slo_tracker.objectives]
+                     if slo_tracker is not None else [])
+            if args.brownout_slo not in known:
+                raise SystemExit(
+                    f"{_PROG}: error: --brownout-slo {args.brownout_slo!r} "
+                    f"names no --slo objective (configured: "
+                    f"{', '.join(known) or 'none'}): brownout would never "
+                    "see a burn rate")
+            brownout = BrownoutController(
+                args.brownout_slo, tighten_above=args.brownout_tighten,
+                recover_below=args.brownout_recover)
+        admission_ctl = AdmissionController(quotas, brownout=brownout)
 
     # Install the latch BEFORE the checkpoint load and warmup: an eviction
     # during startup must also exit cleanly.
@@ -831,13 +901,111 @@ def main(argv=None) -> int:
     if args.classes and not os.path.isfile(args.classes):
         raise SystemExit(f"{_PROG}: --classes file not found: "
                          f"{args.classes}")
+    # Supervised liveness (runtime/supervisor.py): under ``python -m
+    # tpuic_torch.supervise`` the parent set the heartbeat and dump
+    # paths.  The flight recorder registers its SIGQUIT dump first, so
+    # that the faulthandler stack dump chains into it.  Installed before
+    # the checkpoint load and warmup: a wedge there dumps too.
+    from tpuic_torch.runtime.supervisor import (HeartbeatWriter,
+                                                install_stack_dump_handler)
+    from tpuic_torch.telemetry.events import bus as _bus
+    from tpuic_torch.telemetry.flight import install_flight_recorder
+    flight = install_flight_recorder()
+    heartbeat = HeartbeatWriter.from_env()
+    if heartbeat is not None or flight is not None:
+        install_stack_dump_handler(chain=flight is not None)
+    # This run's subscribers leave the process-global bus at exit.
+    unsubs = []
+    if heartbeat is not None:
+        # Engine activity (serve_batch events) beats; the loops below
+        # tick it too, as an idle server is alive.
+        unsubs.append(_bus.subscribe(heartbeat))
+
+    def _beat() -> None:
+        if heartbeat is not None:
+            heartbeat.beat()
+
     engine, size, num_classes, model_name = build_engine(args)
     names = _class_names(args.ckpt_dir, model_name, num_classes,
                          args.classes)
+    if slo_tracker is not None:
+        # Subscribing to serve_span is what turns the engine's span
+        # events on.
+        unsubs.append(slo_tracker.attach(_bus))
     if admission_ctl is not None:
         engine.admission = admission_ctl
+        if admission_ctl.brownout is not None:
+            # Brownout reads the SLO reports on the same bus; its
+            # transitions come back as 'admission' events.
+            unsubs.append(admission_ctl.brownout.attach(_bus))
         print(f"[serve] admission control on: "
               f"{json.dumps(admission_ctl.state())}", file=sys.stderr)
+
+    # The Prometheus exposition.  Device memory is sampled at scrape time
+    # from the allocator's counters (no sync) and is not published: a
+    # scraper must not keep a wedged server looking alive to the
+    # heartbeat.  The waterfall rows read what the engine's window left;
+    # a scrape never opens one.
+    from tpuic_torch.telemetry.memory import MemorySampler
+    from tpuic_torch.telemetry.prom import (PromServer, serve_exposition,
+                                            write_exposition)
+    mem_sampler = MemorySampler(publish=lambda *a, **kw: None,
+                                device=engine.device)
+
+    def _prom_text() -> str:
+        mem_sampler.sample()
+        return serve_exposition(
+            engine.stats.snapshot(),
+            heartbeat_age_s=(heartbeat.age_s() if heartbeat is not None
+                             else None),
+            slo=slo_tracker.report() if slo_tracker is not None else None,
+            admission=(admission_ctl.state() if admission_ctl is not None
+                       else None),
+            memory=mem_sampler.snapshot(),
+            profile=engine.profile_waterfall(),
+            compile_cache=engine.graph_cache_counters())
+
+    prom_server = None
+    if args.prom_port:
+        prom_server = PromServer(max(0, args.prom_port), _prom_text,
+                                 host=args.prom_host)
+        print(f"[serve] prometheus /metrics on "
+              f"{args.prom_host}:{prom_server.port}", file=sys.stderr)
+    # 'flood' (runtime/faults.py): a low-priority storm from inside the
+    # process at #PARAM requests/s.  One shared image: the staging copy
+    # goes through the engine's pinned buffers, which pin nothing more.
+    # Paced by due time: a wait after each submit (tpuic's) falls short of
+    # the rate once the GIL is contended, and a storm that never reaches
+    # the replica's knee drives nothing; a backlog past a second is
+    # dropped rather than sent as one burst.
+    flood_stop = threading.Event()
+    if _faults.fire("flood"):
+        flood_rate = _faults.param("flood")
+        flood_rate = 50.0 if flood_rate is None else float(flood_rate)
+        flood_img = np.zeros((1, size, size, 3), engine.input_dtype)
+
+        def _flood() -> None:
+            period = 1.0 / max(flood_rate, 1e-3)
+            due = time.monotonic()
+            while not flood_stop.is_set() and not guard.triggered:
+                try:
+                    fut = engine.submit(flood_img, timeout=0,
+                                        priority="low", tenant="_flood")
+                    fut.add_done_callback(
+                        lambda f: f.cancelled() or f.exception())
+                except Exception:  # noqa: BLE001 — rejects are the point
+                    pass
+                due += period
+                ahead = due - time.monotonic()
+                if ahead > 0:
+                    flood_stop.wait(ahead)
+                elif ahead < -1.0:
+                    due = time.monotonic()
+
+        threading.Thread(target=_flood, daemon=True,
+                         name="tpuic-torch-flood").start()
+        print(f"[serve] fault 'flood' armed: synthetic low-priority storm "
+              f"at {flood_rate:g} req/s", file=sys.stderr)
     k = max(1, min(args.top_k, num_classes))
     out = open(args.out, "w") if args.out else sys.stdout
     pending = deque()  # (id, Future) in submission order
@@ -997,8 +1165,11 @@ def main(argv=None) -> int:
         if args.listen:
             served = serve_socket(
                 engine, listen=args.listen, names=names, top_k=k,
-                size=size, guard=guard, drain_timeout=args.drain_timeout,
+                size=size, guard=guard, beat=_beat,
+                drain_timeout=args.drain_timeout,
                 ready_file=args.ready_file,
+                prom_port=(prom_server.port if prom_server is not None
+                           else None),
                 log=lambda msg: print(msg, file=sys.stderr))
         elif args.watch:
             exts = (".png", ".jpg", ".jpeg", ".bmp", ".gif", ".webp")
@@ -1022,6 +1193,15 @@ def main(argv=None) -> int:
                         if args.once or attempts[f] >= 3:
                             seen.add(f)
                 drain(block=False)
+                _beat()
+                if args.prom_dump:
+                    # A textfile collector sees live counters; a dump that
+                    # fails must not take serving down.
+                    try:
+                        write_exposition(args.prom_dump, _prom_text())
+                    except OSError as e:
+                        print(f"[serve] prom dump failed: {e}",
+                              file=sys.stderr)
                 if args.once:
                     drain(block=True)
                     break
@@ -1077,7 +1257,9 @@ def main(argv=None) -> int:
                         break
                     if not ready:
                         drain(block=False)
+                        _beat()
                         continue
+                    _beat()
                     chunk = os.read(stdin_fd, 1 << 16)  # ready: won't block
                     if not chunk:
                         break  # EOF
@@ -1101,7 +1283,20 @@ def main(argv=None) -> int:
               deadline=time.monotonic() + max(0.0, args.drain_timeout))
     finally:
         guard.uninstall()
+        flood_stop.set()
         engine.close(timeout=max(5.0, args.drain_timeout))
+        if prom_server is not None:
+            prom_server.close()
+        if args.prom_dump:
+            try:
+                write_exposition(args.prom_dump, _prom_text())
+                print(f"[serve] prometheus exposition -> {args.prom_dump}",
+                      file=sys.stderr)
+            except OSError as e:
+                print(f"[serve] prom dump failed: {e}", file=sys.stderr)
+        if slo_tracker is not None:
+            print(f"[serve] slo: {slo_tracker.summary_line()}",
+                  file=sys.stderr)
         if admission_ctl is not None:
             # Every cause of the typed vocabulary, zero-filled, so a
             # ledger reads each from this one line.
@@ -1116,6 +1311,8 @@ def main(argv=None) -> int:
               f"{json.dumps(engine.stats.snapshot())}", file=sys.stderr)
         if out is not sys.stdout:
             out.close()
+        for unsub in unsubs:
+            unsub()
     return 0
 
 

@@ -72,7 +72,24 @@ with few, large, fixed-shape calls:
   The kernels' ``.launches`` counters count replays too: each graph
   records its launches per counter at capture, in a tally of the
   capturing thread's own (``kernels.counting``), and every replay adds
-  them.
+  them.  ``graph_cache_counters()`` reads the graph table as ``tpuic``'s
+  compiled-program registry counters (captures are misses, replays hits).
+- **Events** (``telemetry/events.py``): one ``serve_batch`` per device
+  batch and one ``swap`` per swap, with ``tpuic``'s fields; one
+  ``serve_span`` per request, whose dict is built only while something
+  subscribes to the kind.  All are host values the batcher already holds:
+  no sync, no capture.
+- **Fault points** (``runtime/faults.py``): ``hang_device`` sleeps after
+  staging, before the device call; ``canary_degrade`` sleeps per batch
+  while the engine serves weights other than its boot weights.
+- **Measured waterfall** (``waterfall=True``): a ``torch.profiler``
+  window over a few replays of the largest bucket's graph of the default
+  rung, at ``warmup()`` and after a swap that captured new graphs, taken
+  while the batcher is held and before traffic reaches those graphs, its
+  kernels classed as ``telemetry/profile.py`` classes them.
+  ``profile_waterfall()`` rescales it onto the measured ``device`` span;
+  it never opens a window itself, so a scrape never starts CUPTI beside
+  live traffic.  On the card a window that fails raises.
 
 The forward contract: ``forward(images[B,S,S,C] tensor on the engine's
 device) -> tensor or tuple of tensors``, batch dim first.  The default
@@ -90,7 +107,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import itertools
+import os
 import queue
+import shutil
+import tempfile
 import threading
 import time
 from collections import deque
@@ -106,13 +126,18 @@ from tpuic_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from tpuic_torch.device import resolve_device
 from tpuic_torch.kernels import counting, no_tf32
 from tpuic_torch.models.vit import ViT
+from tpuic_torch.runtime import faults as _faults
 from tpuic_torch.serve.admission import (DEFAULT_PRIORITY, PRIORITIES,
                                          AdmissionRejected, DeadlineExceeded,
                                          priority_index)
-from tpuic_torch.serve.metrics import ServeStats
+from tpuic_torch.serve.metrics import SPAN_PHASES, ServeStats
+from tpuic_torch.telemetry.events import bus as _tm_bus
+from tpuic_torch.telemetry.events import publish as _tm_publish
 from tpuic_torch.telemetry.events import publish_compile
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+# Graph replays inside one waterfall window.
+WATERFALL_REPLAYS = 5
 
 
 def default_buckets(max_batch: int) -> tuple:
@@ -353,11 +378,12 @@ class _Slot:
     rung's first; their graphs' memory pool, of the slot's own, and the
     stream a swap's work on it runs on; its generation and digest once it
     has served; the event of the last batch dispatched with it; and the
-    captures made for it since it last went live.  ``model``, ``graphs``
-    and ``folded`` are the default rung's."""
+    captures made for it since it last went live; the waterfall of a
+    window over its graphs.  ``model``, ``graphs`` and ``folded`` are the
+    default rung's."""
 
     __slots__ = ("rungs", "pool", "stream", "generation", "digest",
-                 "last_event", "captures")
+                 "last_event", "captures", "waterfall")
 
     def __init__(self, rungs: dict, stream=None) -> None:
         self.rungs = rungs
@@ -367,6 +393,9 @@ class _Slot:
         self.digest: Optional[str] = None
         self.last_event = None
         self.captures = 0
+        # The measured waterfall of this slot's graphs (None until a
+        # window over them was taken).
+        self.waterfall: Optional[dict] = None
 
     @property
     def _default(self) -> _Rung:
@@ -423,6 +452,10 @@ class InferenceEngine:
         ``make_forward`` (TF32 off) with a graph per bucket of its own.
         A rung whose rows would move with their batch runs at the
         largest bucket only (:func:`rows_follow_batch`).
+    waterfall : on the card, take the measured waterfall window at
+        ``warmup()`` and after each swap that captured graphs
+        (``profile_waterfall``); the serve CLI sets it when it exposes
+        Prometheus rows.
 
     Identity (the socket transport's ``pong`` and ready file carry it):
     ``generation`` (0 at boot, +1 per swap), ``model_digest``
@@ -438,7 +471,8 @@ class InferenceEngine:
                  forward_fn=None, stats: Optional[ServeStats] = None,
                  admission=None, autostart: bool = True,
                  device=None, variants: Optional[dict] = None,
-                 default_variant: str = "fp32") -> None:
+                 default_variant: str = "fp32",
+                 waterfall: bool = False) -> None:
         if not buckets:
             raise ValueError("need at least one padding bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -498,6 +532,12 @@ class InferenceEngine:
         # use.
         self._staging = {}
         self._traces = itertools.count(1)
+        # The graph table's counters (graph_cache_counters) and the boot
+        # weights' digest (canary_degrade's reference).
+        self._graph_counts = {"hits": 0, "misses": 0, "prewarmed": 0}
+        self._count_lock = threading.Lock()
+        self._boot_digest: Optional[str] = None
+        self.waterfall = bool(waterfall) and self.device.type == "cuda"
         self.admission = admission
         self._queue = _PriorityQueue(max(1, int(queue_size)))
         self._held: Optional[_Request] = None
@@ -629,6 +669,10 @@ class InferenceEngine:
         self._gen.captures = 0
         # The stats snapshot carries the served model's identity.
         self.stats.note_identity(self.model_digest or "", self.generation)
+        if self._boot_digest is None and self.generation == 0:
+            self._boot_digest = self.model_digest
+        if self.waterfall:
+            self._take_waterfall(self._gen, self.generation)
         if len(per_variant) == 1:
             return per_variant[self.default_variant]
         return per_variant
@@ -659,6 +703,85 @@ class InferenceEngine:
                 "pinned_bytes": {str(b): sum(
                     buf.numel() * buf.element_size() for buf, _ in bufs)
                     for b, (bufs, _) in sorted(self._staging.items())}}
+
+    def graph_cache_counters(self) -> dict:
+        """The per-bucket graph table as ``tpuic``'s compiled-program
+        registry counters: ``misses`` counts captures, ``prewarmed`` those
+        made at warmup or for a standby slot (ahead of traffic), ``hits``
+        the replays of captured graphs, ``entries`` the graphs held (live
+        slot and standby, every rung).  All zero on the CPU, which
+        captures none."""
+        with self._count_lock:
+            out = dict(self._graph_counts)
+        slots = [s for s in (self._gen, self._standby) if s is not None]
+        out["entries"] = sum(len(r.graphs) for s in slots
+                             for r in s.rungs.values())
+        return out
+
+    def profile_waterfall(self) -> Optional[dict]:
+        """The live slot's measured waterfall (a ``torch.profiler`` window
+        over ``WATERFALL_REPLAYS`` replays of its largest bucket's graph of
+        the default rung, classed by ``telemetry/profile.py``), rescaled
+        onto the span ledger's measured ``device`` phase
+        (``attribute_device_time``): the ``device_time_ms{op_class}`` rows
+        of the serve exposition.  None before a window was taken (on the
+        CPU, or without ``waterfall``).  Reads only what the window left:
+        it never starts a profiler."""
+        wf = self._gen.waterfall
+        if wf is None:
+            return None
+        from tpuic_torch.telemetry.profile import attribute_device_time
+        with self.stats._lock:
+            meter = self.stats.spans["device"]
+            count, total = meter.count, meter.total
+        if not count:
+            return dict(wf)
+        out = attribute_device_time(wf, [1000.0 * total / count])
+        out["bucket"], out["gen"] = wf["bucket"], wf["gen"]
+        return out
+
+    def _take_waterfall(self, slot: _Slot, generation: int) -> None:
+        """Open a profiler window over ``WATERFALL_REPLAYS`` replays of
+        ``slot``'s largest bucket graph of the default rung and keep its
+        parsed waterfall on the slot.  The batcher is held for the window
+        (``_flip``) and the live slot's last batch has ended before it
+        opens, so the trace holds these replays alone; the replays run on
+        the slot's stream and count no launches.  Raises when the trace
+        holds no device event."""
+        from tpuic_torch.telemetry import profile, tracing
+        graphs = slot.rungs[self.default_variant].graphs
+        if not graphs:
+            raise RuntimeError("waterfall window: the slot has no graph")
+        bucket = max(graphs)
+        g = graphs[bucket]
+        work = tempfile.mkdtemp(prefix="tpuic_torch_waterfall_")
+        try:
+            with self._flip:
+                live = self._gen
+                if live.last_event is not None:
+                    live.last_event.synchronize()
+                with torch.cuda.stream(slot.stream):
+                    g.graph.replay()  # off the window: a warm replay
+                    slot.stream.synchronize()
+                    prof = tracing.start_profiler()
+                    try:
+                        for _ in range(WATERFALL_REPLAYS):
+                            g.graph.replay()
+                        slot.stream.synchronize()
+                    finally:
+                        prof.stop()
+            trace = os.path.join(work, tracing.TRACE_FILE)
+            prof.export_chrome_trace(trace)
+            wf = profile.parse_trace(trace, steps=WATERFALL_REPLAYS)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        if wf is None:
+            raise RuntimeError(
+                f"waterfall window over bucket {bucket}'s graph: the trace "
+                "holds no device event")
+        wf.update(bucket=bucket, gen=int(generation),
+                  replays=WATERFALL_REPLAYS)
+        slot.waterfall = wf
 
     # -- request side --------------------------------------------------
     def submit(self, images, *, timeout: Optional[float] = None,
@@ -777,7 +900,8 @@ class InferenceEngine:
         return self._queue.qsize()
 
     # -- device side ---------------------------------------------------
-    def _capture(self, slot: _Slot, bucket: int, tag: str) -> _BucketGraph:
+    def _capture(self, slot: _Slot, bucket: int, tag: str,
+                 prewarm: bool = False) -> _BucketGraph:
         """Capture bucket ``bucket``'s forward of ``slot``'s rung ``tag``
         into a CUDA graph in the slot's pool.  Raises ``RuntimeError``
         naming the bucket when the run before it or the capture fails: the
@@ -874,18 +998,26 @@ class InferenceEngine:
                                f"folded weights that the rung's other "
                                f"graphs do not")
         slot.captures += 1
+        with self._count_lock:
+            self._graph_counts["misses"] += 1
+            if prewarm or slot is not self._gen:
+                self._graph_counts["prewarmed"] += 1
         return _BucketGraph(graph, static_in, outputs,
                             tuple(launches.items()), scratch, pool_bytes)
 
     def _graph_for(self, slot: _Slot, bucket: int, tag: Optional[str] = None,
                    record: bool = True) -> _BucketGraph:
+        """``slot``'s graph of ``bucket`` on rung ``tag``, captured if it has
+        none; ``record=False`` is warmup's (it records its own timings, and
+        its captures count as prewarmed)."""
         tag = self.default_variant if tag is None else tag
         graphs = slot.rungs[tag].graphs
         g = graphs.get(bucket)
         if g is None:
             # A bucket not warmed is captured at its first use, once.
             t0 = time.perf_counter()
-            g = graphs[bucket] = self._capture(slot, bucket, tag)
+            g = graphs[bucket] = self._capture(slot, bucket, tag,
+                                               prewarm=not record)
             if record:
                 self.stats.record_compile(
                     bucket, round(time.perf_counter() - t0, 3))
@@ -896,6 +1028,8 @@ class InferenceEngine:
         kernel's counter."""
         g.graph.replay()
         counting.add_launches(g.launches)
+        with self._count_lock:
+            self._graph_counts["hits"] += 1
         return g.outputs
 
     def replay(self, bucket: int, x: Optional[torch.Tensor] = None):
@@ -1131,12 +1265,16 @@ class InferenceEngine:
         unchanged, from the one call to the other.  The flip is one
         reference assignment between two batches: a batch runs all old or
         all new weights, and in-flight and queued requests resolve, none
-        re-run.  One swap at a time.  Returns ``{generation, digest,
+        re-run.  One swap at a time.  Publishes a ``swap`` event.  With
+        ``waterfall`` a slot that captured graphs gets its window before
+        the flip.  Returns ``{generation, digest,
         reused_executables, prewarmed, duration_s, batcher_hold_s}``, the
         last the host time the flip held the batcher."""
         from tpuic_torch.checkpoint.loading import variables_digest
         t0 = time.perf_counter()
         with self._swap_lock:
+            if self._boot_digest is None and self.generation == 0:
+                self._boot_digest = self.model_digest
             cands = self._candidate(variables, variants)
             slot = self._load(cands, new_shapes=True)
             # The digest reads the weights off the batcher's stream.
@@ -1144,6 +1282,9 @@ class InferenceEngine:
                 slot.digest = variables_digest(slot.model)
             for rung in slot.rungs.values():
                 rung.staged = None
+            if self.waterfall and slot.captures:
+                # New graphs: their window, before traffic reaches them.
+                self._take_waterfall(slot, self.generation + 1)
             with self._flip:
                 t_flip = time.perf_counter()
                 old = self._gen
@@ -1163,7 +1304,14 @@ class InferenceEngine:
                 del old
             prewarmed, slot.captures = slot.captures, 0
             duration_s = time.perf_counter() - t0
+            # Stats and event inside the swap lock: a later swap's must
+            # not land before an earlier one's.
             self.stats.record_swap(slot.generation, slot.digest)
+            _tm_publish("swap", generation=slot.generation,
+                        digest=slot.digest,
+                        reused_executables=prewarmed == 0,
+                        prewarmed=prewarmed,
+                        duration_ms=round(1000.0 * duration_s, 3))
         return {"generation": slot.generation, "digest": slot.digest,
                 "reused_executables": prewarmed == 0,
                 "prewarmed": prewarmed, "duration_s": round(duration_s, 4),
@@ -1343,6 +1491,17 @@ class InferenceEngine:
         reqs, bucket, parts, used = staged
         rows = sum(r.n for r in reqs)
         t_staged = time.monotonic()  # staging (pad/copy) span ends
+        if _faults.fire("hang_device"):
+            # A stuck device call (runtime/faults.py); '#0' is a 0 s stall.
+            hang_s = _faults.param("hang_device")
+            time.sleep(1.0 if hang_s is None else float(hang_s))
+        gen = self._gen
+        if gen.digest is not None and gen.digest != self._boot_digest \
+                and _faults.fire("canary_degrade"):
+            # A swapped-in candidate that serves slower: fires only while
+            # the live weights are not the boot weights.
+            d = _faults.param("canary_degrade")
+            time.sleep(0.05 if d is None else float(d))
         self.stats.record_dispatch(bucket, rows,
                                    [t_staged - r.t_enqueue for r in reqs])
         # ONE read of the live slot per batch: a swap flips it between
@@ -1371,8 +1530,16 @@ class InferenceEngine:
         now = time.monotonic()  # device span ends: results are on host
         # Counters first: a caller woken by set_result may snapshot stats
         # immediately, and the batch it just completed must be in them.
-        self.stats.record_done(len(reqs), sum(r.n for r in reqs),
-                               [now - r.t_enqueue for r in reqs])
+        latencies = [now - r.t_enqueue for r in reqs]
+        valid = sum(r.n for r in reqs)
+        self.stats.record_done(len(reqs), valid, latencies)
+        # The batcher's decision as a typed event (free with no subscriber).
+        _tm_publish("serve_batch", bucket=int(bucket), requests=len(reqs),
+                    images=int(valid), variant=reqs[0].variant,
+                    latency_ms=round(1000.0 * max(latencies), 3))
+        # Span events are per request: their dicts are built only while
+        # something subscribes to the kind.
+        spans_live = _tm_bus.active("serve_span")
         off = 0
         for r in reqs:
             lo, hi = off, off + r.n
@@ -1389,12 +1556,20 @@ class InferenceEngine:
                 except Exception:
                     pass  # future already done — nothing left to deliver
             t_done = time.monotonic()  # scatter span ends
-            self.stats.record_spans((r.t_gather - r.t_enqueue,
-                                     t_batch - r.t_gather,
-                                     t_staged - t_batch,
-                                     t_dispatched - t_staged,
-                                     now - t_dispatched,
-                                     t_done - now))
+            spans = (r.t_gather - r.t_enqueue,   # queue
+                     t_batch - r.t_gather,       # batch formation
+                     t_staged - t_batch,         # staging
+                     t_dispatched - t_staged,    # dispatch
+                     now - t_dispatched,         # device (+readback)
+                     t_done - now)               # scatter
+            self.stats.record_spans(spans)
+            if spans_live:
+                data = {"trace": r.trace, "bucket": int(bucket),
+                        "rows": int(r.n), "batch_requests": len(reqs)}
+                for phase, sp in zip(SPAN_PHASES, spans):
+                    data[f"{phase}_ms"] = round(1000.0 * sp, 4)
+                data["total_ms"] = round(1000.0 * (t_done - r.t_enqueue), 4)
+                _tm_publish("serve_span", **data)
 
     def _run(self) -> None:
         inflight = None

@@ -3,8 +3,10 @@ memory and TensorBoard sinks (``events``), the per-step breakdown
 (``steptime``), goodput and MFU (``goodput``), memory accounting
 (``memory``), step-time SLOs (``slo``), triggered ``torch.profiler``
 windows (``tracing``), the kernel-class waterfall of a capture
-(``profile``), the Prometheus exposition (``prom``) and one training
-run's wiring (``wiring.TrainTelemetry``).
+(``profile``), the Prometheus exposition and ``/metrics`` server
+(``prom``), the crash flight recorder (``flight``), the per-rank fleet
+aggregator (``fleet``, ``python -m tpuic_torch.telemetry.fleet``) and one
+training run's wiring (``wiring.TrainTelemetry``).
 
 Everything is host-side: no module here reads a tensor back from the
 card or launches device work.  Re-exports resolve lazily (PEP 562), so

@@ -1,6 +1,5 @@
-"""Prometheus text exposition of the train counters (from
-``tpuic/telemetry/prom.py``: ``train_exposition`` and the row helpers it
-uses).
+"""Prometheus text exposition of the serve and train counters (from
+``tpuic/telemetry/prom.py``).
 
 No client library: the exposition format is lines of
 ``name{label="v"} value`` with ``# HELP``/``# TYPE`` comments,
@@ -9,15 +8,23 @@ metrics``.  ``train_exposition(goodput.report(), steptime.summary())``
 renders goodput fractions, MFU and step-time percentiles, with the SLO,
 memory and device-time rows; ``write_exposition`` writes it atomically
 (the train CLI's ``--prom-dump``, scrapeable through node_exporter's
-textfile collector).  The port has no compiled-program registry (its
-counterpart is the engine's per-bucket CUDA graphs), so no
-``compile_cache_*`` rows.  The serve expositions are not ported yet.
+textfile collector).  ``serve_exposition(stats.snapshot(), ...)``
+renders the engine's counters with ``tpuic``'s metric names, labels and
+help strings: latency and span percentiles, pad efficiency, the bucket
+histogram, rejects by cause and priority (``admission_rows``), brownout
+and quota gauges, SLO, memory and device-time rows.  The port has no
+compiled-program registry: its ``compile_cache_*`` rows count the
+engine's per-bucket CUDA graphs (``compile_cache_rows``).
+``PromServer`` serves ``/metrics`` over HTTP from a daemon thread (the
+serve CLI's ``--prom-port``).  The router, rollout and score rows are
+ROADMAP §1 items 2 and 14.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, List, Optional, Tuple
+import threading
+from typing import Callable, Iterable, List, Optional, Tuple
 
 
 def _fmt_labels(labels: Optional[dict]) -> str:
@@ -140,6 +147,30 @@ def profile_rows(waterfall: Optional[dict]) -> List[Tuple]:
     return rows
 
 
+def compile_cache_rows(counters: Optional[dict]) -> List[Tuple]:
+    """The engine's per-bucket CUDA-graph table as ``tpuic``'s four
+    compiled-program registry rows (the port's counterpart of the XLA
+    registry): a capture is a miss, a replay of a captured graph a hit, a
+    capture made at warmup or by a swap's standby counts as prewarmed, and
+    the graphs the engine holds are the entries.  None renders nothing."""
+    if counters is None:
+        return []
+    c = counters
+    return [
+        ("compile_cache_hits_total", c.get("hits", 0), "counter",
+         "CUDA graph replays of a captured bucket graph (no capture)",
+         None),
+        ("compile_cache_misses_total", c.get("misses", 0), "counter",
+         "CUDA graph captures of a bucket's forward (includes prewarms)",
+         None),
+        ("compile_cache_prewarmed_total", c.get("prewarmed", 0), "counter",
+         "CUDA graphs captured ahead of traffic (warmup and a swap's "
+         "standby)", None),
+        ("compile_cache_entries", c.get("entries", 0), "gauge",
+         "CUDA graphs the engine holds (live slot and standby)", None),
+    ]
+
+
 def _process_rss_row() -> Tuple:
     """The ``process_rss_bytes`` gauge both expositions render — host
     memory next to the device curve it eventually takes down.  Lazy
@@ -147,6 +178,147 @@ def _process_rss_row() -> Tuple:
     from tpuic_torch.metrics.meters import process_rss_bytes
     return ("process_rss_bytes", process_rss_bytes(), "gauge",
             "resident set size of this process", None)
+
+
+def admission_rows(snapshot: dict,
+                   admission: Optional[dict] = None) -> List[Tuple]:
+    """The admission-control exposition (docs/serving.md, "Admission
+    control and overload"): the ``rejected_total`` counter split by
+    cause (``queue_full|deadline|quota|brownout``) and priority class —
+    the labels every typed :class:`tpuic_torch.serve.admission.AdmissionError`
+    carries — plus, when an ``AdmissionController.state()`` dict is
+    handed in, the brownout level and remaining quota tokens.  A cause
+    that never fired renders no series (Prometheus treats an absent
+    counter as 0); the unlabeled total lives on in
+    ``snapshot()['rejected']`` for humans."""
+    rows: List[Tuple] = []
+    for cause, by_prio in (snapshot.get("rejected_by") or {}).items():
+        for prio, n in (by_prio or {}).items():
+            rows.append(("rejected_total", n, "counter",
+                         "requests rejected or shed, by cause "
+                         "(queue_full|deadline|quota|brownout) and "
+                         "priority class",
+                         {"cause": cause, "priority": prio}))
+    brownout = (admission or {}).get("brownout") or {}
+    if brownout.get("level") is not None:
+        rows.append(("brownout_level", brownout["level"], "gauge",
+                     "SLO-coupled brownout level (0 = admitting every "
+                     "class; level L sheds the L lowest classes)",
+                     {"slo": brownout.get("slo", "")}))
+    for tenant, tokens in ((admission or {}).get("tenant_tokens")
+                           or {}).items():
+        rows.append(("quota_tokens", tokens, "gauge",
+                     "remaining token-bucket quota per tenant",
+                     {"tenant": tenant}))
+    if (admission or {}).get("free_pool_tokens") is not None:
+        rows.append(("quota_tokens", admission["free_pool_tokens"],
+                     "gauge", "remaining token-bucket quota per tenant",
+                     {"tenant": "*"}))
+    return rows
+
+
+def serve_exposition(snapshot: dict, prefix: str = "tpuic_serve",
+                     heartbeat_age_s: Optional[float] = None,
+                     slo: Optional[dict] = None,
+                     admission: Optional[dict] = None,
+                     memory: Optional[dict] = None,
+                     profile: Optional[dict] = None,
+                     compile_cache: Optional[dict] = None) -> str:
+    """ServeStats.snapshot() -> Prometheus text.
+
+    ``heartbeat_age_s``: seconds since the supervised-liveness heartbeat
+    file was last written (runtime/supervisor.py), when the server runs
+    under ``python -m tpuic_torch.supervise``; omitted (None) unsupervised —
+    a scraper alerting on staleness must not see a bogus 0.
+    ``slo``: an SLOTracker.report() to append (telemetry/slo.py).
+    ``admission``: an AdmissionController.state() for brownout/quota
+    gauges; the rejected_total{cause,priority} split renders from the
+    snapshot itself.
+    ``memory``: a MemorySampler.snapshot() for the per-device
+    ``device_memory_bytes{device,kind}`` rows (telemetry/memory.py).
+    ``profile``: a device-time waterfall (telemetry/profile.py — the
+    engine's ``profile_waterfall()``) for ``device_time_ms{op_class}``
+    rows.
+    ``compile_cache``: the engine's CUDA-graph table counters
+    (``InferenceEngine.graph_cache_counters()``) for the four
+    ``compile_cache_*`` rows."""
+    rows: List[Tuple] = [
+        _process_rss_row(),
+        ("heartbeat_age_seconds", heartbeat_age_s, "gauge",
+         "seconds since the liveness heartbeat file was last written "
+         "(supervised runs only)", None),
+        ("requests_total", snapshot.get("requests"), "counter",
+         "requests resolved", None),
+        ("images_total", snapshot.get("images"), "counter",
+         "images scored", None),
+        ("device_calls_total", snapshot.get("device_calls"), "counter",
+         "bucketed device dispatches", None),
+        ("compiles_total", snapshot.get("compiles"), "counter",
+         "bucket executable compiles (0 after warmup = the AOT contract)",
+         None),
+        ("executable_cache_hits_total", snapshot.get("executable_cache_hits"),
+         "counter", "steady-state executable cache hits", None),
+        ("compile_seconds_total", snapshot.get("compile_s"), "counter",
+         "cumulative compile wall time", None),
+        ("pad_efficiency", snapshot.get("pad_efficiency"), "gauge",
+         "valid rows / device rows (1.0 = no padding waste)", None),
+        ("swaps_total", snapshot.get("swaps"), "counter",
+         "atomic weight hot-swaps completed (docs/serving.md, "
+         "'Model lifecycle')", None),
+        ("generation", snapshot.get("generation"), "gauge",
+         "weight generation: 0 at boot, +1 per hot-swap", None),
+        ("throughput_images_per_sec", snapshot.get(
+            "throughput_images_per_sec"), "gauge",
+         "lifetime images/sec", None),
+        ("elapsed_seconds", snapshot.get("elapsed_s"), "gauge",
+         "seconds since stats reset", None),
+    ]
+    for src, name, help_ in (
+            ("queue_wait_ms", "queue_wait_ms",
+             "enqueue->dispatch wait percentiles over the sliding window"),
+            ("latency_ms", "latency_ms",
+             "enqueue->result latency percentiles over the sliding window")):
+        for q, v in (snapshot.get(src) or {}).items():
+            rows.append((name, v, "gauge", help_, {"quantile": q}))
+    # Request span ledger percentiles (docs/observability.md, "Request
+    # tracing"): one series per phase of a request's life.
+    for phase, qs in (snapshot.get("span_ms") or {}).items():
+        for q, v in (qs or {}).items():
+            rows.append(("span_ms", v, "gauge",
+                         "per-request span percentiles by phase "
+                         "(queue/batch/staging/dispatch/device/scatter)",
+                         {"phase": phase, "quantile": q}))
+    for bucket, n in (snapshot.get("batch_hist") or {}).items():
+        rows.append(("batches_total", n, "counter",
+                     "device calls per padding bucket", {"bucket": bucket}))
+    # Per-bucket executable cost analysis (serve/engine.py _compile):
+    # FLOPs/bytes/intensity of each AOT bucket — the roofline context
+    # for the span ledger's device phase.
+    for bucket, c in sorted((snapshot.get("executable_cost")
+                             or {}).items()):
+        labels = {"bucket": str(bucket)}
+        for field, help_ in (("flops", "compiled FLOPs per executable "
+                              "call, by padding bucket"),
+                             ("bytes", "compiled HBM bytes accessed per "
+                              "executable call, by padding bucket"),
+                             ("intensity", "arithmetic intensity "
+                              "(FLOPs/byte) per bucket executable")):
+            if c.get(field) is not None:
+                rows.append((f"executable_{field}", c[field], "gauge",
+                             help_, labels))
+    if snapshot.get("model_digest"):
+        # Info-style row (value 1, identity in the label): what weights
+        # are serving — scrape-join it against the router's view.
+        rows.append(("model_info", 1, "gauge",
+                     "serving-weights identity (digest label; "
+                     "generation row says how many swaps ago)",
+                     {"digest": str(snapshot["model_digest"])}))
+    rows.extend(profile_rows(profile))
+    rows.extend(admission_rows(snapshot, admission))
+    rows.extend(memory_rows(memory))
+    rows.extend(slo_rows(slo))
+    rows.extend(compile_cache_rows(compile_cache))
+    return render(rows, prefix=prefix)
 
 
 def train_exposition(report: dict, steptime: Optional[dict] = None,
@@ -157,8 +329,8 @@ def train_exposition(report: dict, steptime: Optional[dict] = None,
                      profile: Optional[dict] = None) -> str:
     """GoodputTracker.report() (+ StepTimer.summary()) -> Prometheus text.
 
-    ``heartbeat_age_s``: the supervisor heartbeat's age (``tpuic``'s
-    supervisor is not ported: None renders no row); ``restart_count``
+    ``heartbeat_age_s``: the supervisor heartbeat's age (None
+    unsupervised renders no row); ``restart_count``
     comes from the report's ``restarts`` field.
     ``slo``: an SLOTracker.report() for the step-time objectives.
     ``memory``: a MemorySampler.snapshot() (telemetry/memory.py).
@@ -221,3 +393,50 @@ def write_exposition(path: str, text: str) -> None:
     with open(tmp, "w") as f:
         f.write(text)
     os.replace(tmp, path)
+
+
+class PromServer:
+    """Minimal /metrics HTTP endpoint around a ``collect() -> str``
+    callable; runs in a daemon thread, ``close()`` shuts it down.
+
+    Binds loopback by default (the node_exporter convention): the
+    endpoint has no auth, so exposing it beyond the host is an explicit
+    caller decision (``--prom-host`` in ``python -m tpuic_torch.serve``)."""
+
+    def __init__(self, port: int, collect: Callable[[], str],
+                 host: str = "127.0.0.1") -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self_inner):  # noqa: N805
+                if self_inner.path.rstrip("/") not in ("", "/metrics"):
+                    self_inner.send_response(404)
+                    self_inner.end_headers()
+                    return
+                try:
+                    body = collect().encode()
+                except Exception as e:  # collector bug -> 500, not crash
+                    self_inner.send_response(500)
+                    self_inner.end_headers()
+                    self_inner.wfile.write(str(e).encode())
+                    return
+                self_inner.send_response(200)
+                self_inner.send_header(
+                    "Content-Type", "text/plain; version=0.0.4")
+                self_inner.send_header("Content-Length", str(len(body)))
+                self_inner.end_headers()
+                self_inner.wfile.write(body)
+
+            def log_message(self_inner, *a):  # quiet: stderr is for stats
+                pass
+
+        self._srv = ThreadingHTTPServer((host, int(port)), Handler)
+        self.port = self._srv.server_address[1]  # resolved (port 0 = any)
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        daemon=True, name="tpuic-prom")
+        self._thread.start()
+
+    def close(self) -> None:
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=5)

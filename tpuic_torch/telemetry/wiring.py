@@ -3,7 +3,10 @@
 
 It owns the run's subscribers on the process-global bus: the JSONL sink
 (``run.metrics_jsonl``; rank k of a process group writes
-``<stem>.rank<k>.jsonl`` beside it), the step timer, the memory sampler,
+``<stem>.rank<k>.jsonl`` beside it, and tags its events with ``rank`` and
+``ranks`` for ``python -m tpuic_torch.telemetry.fleet``), the supervisor's
+heartbeat (when ``TPUIC_HEARTBEAT_FILE`` is set), the step timer, the
+memory sampler,
 the goodput tracker, the SLO tracker (``run.slo``), the device-time
 analyzer (``run.trace_analyze``), the trace trigger (``run.trace_dir`` or
 ``TPUIC_TRACE``) and a TensorBoard bridge.  The emitters (the loop, the
@@ -11,8 +14,7 @@ checkpoint manager, the dataset quarantine, the kernel builds and the
 engine's graph captures) publish to the bus without knowing any of this.
 
 Exactly one instance is live per process: building one closes the
-previous run's subscribers first.  ``tpuic``'s supervisor heartbeat is
-ROADMAP item 11's and is not wired.
+previous run's subscribers first.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from tpuic_torch.runtime.supervisor import HeartbeatWriter
 from tpuic_torch.telemetry.events import JsonlSink, TensorBoardSink, bus
+from tpuic_torch.telemetry.fleet import rank_stream_path, tag_bus_with_rank
 from tpuic_torch.telemetry.goodput import (GoodputTracker,
                                            analytic_flops_per_step,
                                            peak_flops)
@@ -28,14 +32,6 @@ from tpuic_torch.telemetry.memory import MemorySampler
 from tpuic_torch.telemetry.slo import SLOTracker, parse_objectives
 from tpuic_torch.telemetry.steptime import StepTimer
 from tpuic_torch.telemetry.tracing import TraceTrigger
-
-
-def rank_stream_path(path: str, rank: int) -> str:
-    """Rank 0 keeps ``path``; rank k writes ``<stem>.rank<k><ext>``."""
-    if not rank:
-        return path
-    stem, ext = os.path.splitext(path)
-    return f"{stem}.rank{int(rank)}{ext or '.jsonl'}"
 
 
 def device_peak(device, compute_dtype: str) -> Optional[float]:
@@ -66,12 +62,20 @@ class TrainTelemetry:
         _active = self
         self._sinks = []
         self._unsubs = []
-        self.rank, self.ranks = int(rank), max(1, int(n_devices))
+        self.rank, self.ranks = tag_bus_with_rank(
+            bus, int(rank), max(1, int(n_devices)))
         jsonl = getattr(run_cfg, "metrics_jsonl", "") or ""
         if jsonl:
             sink = JsonlSink(rank_stream_path(jsonl, self.rank))
             self._sinks.append(sink)
             self._unsubs.append(bus.subscribe(sink))
+        # Supervised liveness: under ``python -m tpuic_torch.supervise``
+        # the parent set TPUIC_HEARTBEAT_FILE, and bus activity (the
+        # step events the loop publishes anyway) is mirrored into it:
+        # host-side file writes, no device sync.
+        self.heartbeat = HeartbeatWriter.from_env(publish=bus.publish)
+        if self.heartbeat is not None:
+            self._unsubs.append(bus.subscribe(self.heartbeat))
         self.steptime = StepTimer(bus)
         self.memory = MemorySampler(publish=bus.publish, device=device,
                                     log=log)

@@ -68,6 +68,12 @@ checkpoints.  Two processes on two cards::
 Each process joins NCCL on ``cuda:{rank % cards}``; with ``--device cpu``
 they join gloo on the CPU instead.
 
+``TPUIC_FAULTS`` is parsed at start (``runtime/faults.py``): a spec that
+does not parse, or that arms a point the port's training path does not
+fire yet (ROADMAP §1 item 11), exits naming it.  Under ``python -m
+tpuic_torch.supervise`` the run writes the supervisor's heartbeat from its
+step events, and a restart resumes from the latest checkpoint.
+
 Telemetry (``tpuic_torch/telemetry``): ``--metrics-jsonl`` writes every
 bus event (step breakdowns, epochs, evals, checkpoint commits, memory
 samples, goodput reports), ``--trace-dir`` with ``--trace-threshold``
@@ -87,6 +93,7 @@ defaults to 1), so the steps after a window run at full speed::
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from tpuic_torch.config import (ATTENTION_IMPLS, Config, DataConfig,
@@ -269,8 +276,20 @@ def _fail(msg: str):
     raise SystemExit(f"python -m tpuic_torch.train: error: {msg}")
 
 
+def check_faults() -> None:
+    """Parse ``TPUIC_FAULTS`` through ``runtime/faults.py`` and refuse,
+    by name, a point the port's training path does not fire yet: a chaos
+    spec must not be dropped without a word."""
+    try:
+        from tpuic_torch.runtime import faults
+        faults.check_fired("train", os.environ.get("TPUIC_FAULTS"))
+    except ValueError as e:
+        _fail(str(e))
+
+
 def config_from_args(args: argparse.Namespace,
                      parser: argparse.ArgumentParser) -> Config:
+    check_faults()
     for flag, _ in _NOT_PORTED:
         dest = flag.lstrip("-").replace("-", "_")
         if getattr(args, dest) != parser.get_default(dest):
@@ -353,6 +372,8 @@ def _wire_prom_dump(trainer, path: str) -> None:
     def dump(ev) -> None:
         write_exposition(path, train_exposition(
             dict(ev.data), tm.steptime.summary(),
+            heartbeat_age_s=(tm.heartbeat.age_s()
+                             if tm.heartbeat is not None else None),
             slo=tm.slo.report() if tm.slo is not None else None,
             memory=tm.memory.snapshot(),
             profile=tm.profile.last if tm.profile is not None else None))
