@@ -8,7 +8,9 @@ non-zero at the first phase that fails:
 1. device — ``nvidia-smi`` name and power limit, torch/CUDA versions.
    Refuses to run without CUDA.
 2. build  — every kernel source in ``tpuic_torch/kernels/csrc`` compiled
-   by ``nvcc`` (one process per source, started together).
+   by ``nvcc`` (one process per source, started together), while two
+   forked processes write the synthetic folders of ``train`` and
+   ``inception-train``; both end before anything is timed.
 3. kernel — the fused conv+BN+ReLU kernel (K3) at every distinct conv
    shape a ResNet-50 forward at 224x224 launches, plus the space-to-depth
    stem, at batch 8 and at batch 32 (the engine's largest bucket): held
@@ -392,6 +394,38 @@ non-zero at the first phase that fails:
    seconds printed; ``replica_wedge@6`` escalated SIGQUIT -> SIGTERM ->
    SIGKILL by the watchdog, a stack dump and a flight dump on disk, the
    restarted replica answering.
+31. resilience — the trainer's failure story, every life of ``python -m
+   tpuic_torch.train`` under cuDNN's deterministic algorithms, read
+   through its exit code, log, checkpoints and ``--metrics-jsonl``
+   events (its launches from the ``kernel_launches`` event ``fit``
+   publishes as it returns).  ``preempt``: ResNet-50 at 224 px,
+   batch 32, LARS through K2a, the fused loss (K1), K3 on the val
+   forward, float32, two epochs of RES_STEPS steps, once uninterrupted,
+   once under ``TPUIC_FAULTS=sigterm@5`` (exit 43, ``latest`` flushed at
+   epoch 0 step 5), then the same command again (it resumes at epoch 0
+   step 5, exit 0): its final weights equal the uninterrupted run's bit
+   for bit, and the two lives' K1f, K1b, K2a and K3 launches sum to the
+   uninterrupted run's; the flush seconds (the ``preempt`` event's: the
+   signal to the committed flush) and the resume seconds (the spawn to
+   the first ``step`` event).  ``rollback``: ``nan_batch@10-13*4`` with
+   ``--skip-threshold 3 --rewarm-steps 4``: one ``rollback`` event to
+   epoch 1 step 0 (epoch 0's ``latest``) saying the parameters were
+   finite and 10 steps applied (none of the 4 skipped ones, though K2a
+   ran on each, gated off), the next 4 logged lr values ``rewarm_scale``
+   composed onto the schedule (rtol RES_LR_RTOL), finite weights.
+   ``crash``: ``python -m tpuic_torch.supervise --chaos hard_crash@9``
+   over the train command: one restart (exit -9, then 0), resumed at
+   epoch 1 step 0, a ``restart`` event with its downtime.
+   ``gang``: ``supervise --gang 2 --coordinator`` over two gloo ranks on
+   the card (ResNet-50 at 64 px, batch 8 a rank, three epochs of 4 steps),
+   undisturbed and under ``rank_crash@6#1``: rank 1 killed, the teardown
+   logged, both ranks restarted with ``TPUIC_RESUME_STEP``, exit 0, the
+   weights within GANG_TOL (1e-6) of the undisturbed gang's.  The
+   uninterrupted and preempted lives, ``rollback`` and the two gangs run
+   at once (the time limit); then the resumed life alone, then ``crash``
+   alone, so that the resume seconds and the downtime are their own.
+   Each life runs in a process group of its own, killed whole on a
+   timeout.
 
 Every launch count is set to 0 just before a path runs and read just after
 it.  Cuts: ResNet-50 trains in float32 (bf16 runs the ViT-B/16,
@@ -416,6 +450,7 @@ import importlib
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1999,6 +2034,28 @@ def write_folder(root: str, seed: int) -> None:
                  f"{TRAIN_BATCH * TRAIN_STEPS} train + "
                  f"{2 * TRAIN_BATCH} val images in "
                  f"{time.perf_counter() - t0:.3f} s")
+
+
+def start_folder_writers(root: str, seed: int) -> list:
+    """Write ``train``'s folder and ``inception-train``'s (under
+    ``{root}/inception``), each in a forked process of its own: PNG
+    encoding is host work, and it overlaps the kernels' build, which
+    ``join_folder_writers`` waits for before anything is timed."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("fork")
+    procs = [ctx.Process(target=write_folder, args=(root, seed)),
+             ctx.Process(target=write_inception_folder,
+                         args=(os.path.join(root, "inception"), seed))]
+    for proc in procs:
+        proc.start()
+    return procs
+
+
+def join_folder_writers(procs: list) -> None:
+    for proc in procs:
+        proc.join()
+        if proc.exitcode:
+            fail("train", f"a folder writer exited {proc.exitcode}")
 
 
 def pack_folder(root: str, dst: str) -> str:
@@ -4013,6 +4070,17 @@ def write_ref_folder(root: str, seed: int, per_train: int,
                                size=INC_IMAGE, folds=("val",), seed=seed + 1)
 
 
+def write_inception_folder(root: str, seed: int) -> None:
+    """``inception-train``'s folder: the reference's 7 classes at 299 px,
+    TRAIN_STEPS batches of INC_BATCH and a spare a class."""
+    t0 = time.perf_counter()
+    write_ref_folder(root, seed, per_train=INC_BATCH * TRAIN_STEPS
+                     // len(REF_WEIGHTS) + 1, per_val=4)
+    log("inception-train", f"synthetic ImageFolder {INC_IMAGE}x{INC_IMAGE}, "
+                           f"{len(REF_WEIGHTS)} classes, in "
+                           f"{time.perf_counter() - t0:.3f} s")
+
+
 def inception_train_config(root: str, seed: int, dtype: str):
     """The reference program's recipe (train.py: InceptionV3 with its aux
     head at 299 px, Adam lr 0.5e-5, MultiStepLR [50, 80], the 7 class
@@ -4041,12 +4109,6 @@ def phase_inception_train(root: str, seed: int, smi: str):
     loss (float32, TF32 off: loss rtol 1e-3) and through the kernels in
     bf16 (loss within BF16_LOSS_RTOL of the float32 kernels')."""
     from tpuic_torch.train.loop import Trainer
-    t0 = time.perf_counter()
-    write_ref_folder(root, seed, per_train=INC_BATCH * TRAIN_STEPS
-                     // len(REF_WEIGHTS) + 1, per_val=4)
-    log("inception-train", f"synthetic ImageFolder {INC_IMAGE}x{INC_IMAGE}, "
-                           f"{len(REF_WEIGHTS)} classes, in "
-                           f"{time.perf_counter() - t0:.3f} s")
     rows, counts = {}, {}
     for dtype in ("float32", "bfloat16"):
         cfg = inception_train_config(root, seed, dtype)
@@ -5986,6 +6048,493 @@ def phase_serve_ops(root: str, seed: int, smi: str) -> dict:
     return row
 
 
+# -- [resilience]: the trainer's failure story ------------------------------
+RES_BATCH = 32            # ResNet-50 at 224 px, float32
+RES_STEPS = 8             # steps an epoch: 8 x 32 train images
+RES_EPOCHS = 2
+RES_VAL_PER_CLASS = 8     # 64 val images: 2 val forwards of 32
+RES_SIGTERM_AT = 5        # sigterm@5: the flush at epoch 0 step 5
+RES_NAN = "nan_batch@10-13*4"  # epoch 1's steps 2-5, once each
+RES_SKIP_THRESHOLD = 3
+RES_REWARM = 4
+RES_CRASH_AT = 9          # hard_crash@9: epoch 1's second step
+GANG_IMAGE = 64           # [resilience]'s gang: orchestration at full width
+GANG_BATCH = 8            # a rank; global batch 16
+GANG_STEPS = 4            # steps an epoch
+GANG_EPOCHS = 3
+GANG_CRASH = "rank_crash@6#1"  # rank 1 dies at epoch 1's third step
+GANG_TOL = 1e-6           # the gang's weights against an undisturbed gang
+RES_TIMEOUT = 300.0
+RES_LR_RTOL = 1e-6        # the logged lr against rewarm_scale's composite
+
+# One life of ``python -m tpuic_torch.train`` (``__main__`` through runpy)
+# under cuDNN's deterministic algorithms.  With ``gloo`` it joins the
+# trio's group on the card first (NCCL refuses two ranks on one device).
+# What the arms read of a life is public: its exit code, its log, its
+# ``--metrics-jsonl`` events (``step``, ``preempt``, ``rollback``,
+# ``restart``, ``kernel_launches``), its checkpoints.
+_RES_LIFE = r"""
+import os, runpy, sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+if sys.argv[1] == "gloo":
+    torch.distributed.init_process_group(
+        "gloo", init_method="tcp://" + os.environ["TPUIC_COORDINATOR_ADDRESS"],
+        world_size=int(os.environ["TPUIC_NUM_PROCESSES"]),
+        rank=int(os.environ["TPUIC_PROCESS_ID"]))
+sys.argv = ["python -m tpuic_torch.train"] + sys.argv[2:]
+runpy.run_module("tpuic_torch.train", run_name="__main__", alter_sys=True)
+"""
+# chip_smoke's names for the path's kernels -> the wrappers' names in the
+# trainer's ``kernel_launches`` event.
+RES_KERNELS = {"cross_entropy_fwd": "cross_entropy_fwd",
+               "cross_entropy_bwd": "cross_entropy_bwd",
+               "lars_update": "lars_update",
+               "conv_bn_relu": "fused_conv_bn_relu"}
+
+
+def _res_folder(root: str, dst: str, per_train: int, per_val: int) -> str:
+    """``train``'s folder cut to ``per_train`` train and ``per_val`` val
+    images a class (symbolic links)."""
+    for fold, per in (("train", per_train), ("val", per_val)):
+        for c in sorted(os.listdir(os.path.join(root, fold))):
+            src = os.path.join(root, fold, c)
+            os.makedirs(os.path.join(dst, fold, c))
+            for name in sorted(os.listdir(src))[:per]:
+                os.symlink(os.path.join(src, name),
+                           os.path.join(dst, fold, c, name))
+    return dst
+
+
+def _res_argv(data: str, ckpt: str, events: str, batch: int, image: int,
+              epochs: int, seed: int, *extra) -> list:
+    """The slice's path as train-CLI flags: ResNet-50, LARS through K2a,
+    the fused loss (K1), K3 on the val forward, float32, a warmup epoch of
+    a cosine schedule, a ``latest`` every epoch, the events to
+    ``events``."""
+    return ["--datadir", data, "--model", "resnet50", "--resize", str(image),
+            "--batchsize", str(batch), "--num-classes", str(TRAIN_CLASSES),
+            "--optimizer", "lars", "--lr", "0.48", "--weight-decay", "1e-4",
+            "--warmup-epochs", "1", "--epochs", str(epochs),
+            "--label-smoothing", "0.1", "--no-class-weights", "--milestones",
+            "--fused-loss", "--fused-optimizer", "--fused-conv-bn",
+            "--dtype", "float32", "--workers", "4", "--seed", str(seed),
+            "--save-period", "1", "--ckpt-dir", ckpt, "--metrics-jsonl",
+            events, *extra]
+
+
+def _res_cmd(backend: str, argv: list) -> list:
+    return [sys.executable, "-c", _RES_LIFE, backend, *argv]
+
+
+def _res_env(**extra) -> dict:
+    """This process's environment for a life: the checkout on the path,
+    no fault armed but ``extra``'s."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    env.pop("TPUIC_FAULTS", None)
+    env.update(extra)
+    return env
+
+
+def _res_start(cmd: list, log_path: str, env: dict) -> tuple:
+    """Start ``cmd`` in a process group of its own (a supervisor's
+    children with it), its output to ``log_path``; ``(process, spawn wall
+    time, log path)``."""
+    t_spawn = time.time()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, env=env, stdout=f,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+    return proc, t_spawn, log_path
+
+
+def _res_kill_group(proc) -> None:
+    """SIGKILL what is left of ``proc``'s process group."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def _res_wait(tag: str, started: tuple) -> tuple:
+    """Wait for ``_res_start``'s process, then end what is left of its
+    group; ``(exit code, spawn wall time, log text)``.  On a timeout the
+    whole group is killed and the phase fails."""
+    proc, t_spawn, log_path = started
+    try:
+        rc = proc.wait(timeout=RES_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _res_kill_group(proc)
+        proc.wait()
+        with open(log_path) as f:
+            fail(tag, f"{log_path}: no end within {RES_TIMEOUT} s: "
+                      f"{f.read()[-3000:]}")
+    _res_kill_group(proc)
+    with open(log_path) as f:
+        text = f.read()
+    return rc, t_spawn, text
+
+
+def _res_run(tag: str, cmd: list, log_path: str, env: dict) -> tuple:
+    """Run ``cmd`` to its end; ``(exit code, spawn wall time, log text)``."""
+    return _res_wait(tag, _res_start(cmd, log_path, env))
+
+
+def _res_events(path: str) -> list:
+    """A life's events (a SIGKILLed life may leave a torn last line)."""
+    from tpuic_torch.telemetry.events import read_jsonl
+    return read_jsonl(path)
+
+
+def _res_after_restart(evs: list) -> list:
+    """The events of the last life in a stream that several lives
+    appended to: those from its ``restart`` event on."""
+    at = max((i for i, e in enumerate(evs) if e["event"] == "restart"),
+             default=0)
+    return evs[at:]
+
+
+def _res_first_step(evs: list) -> dict:
+    return next((e for e in evs if e["event"] == "step"),
+                {"step": None, "t": math.nan})
+
+
+def _res_weights(ckpt: str) -> dict:
+    from tpuic_torch.checkpoint.manager import PAYLOAD
+    return torch.load(os.path.join(ckpt, "resnet50", "latest", PAYLOAD),
+                      map_location="cpu", weights_only=True)
+
+
+def _res_diff(a: dict, b: dict) -> tuple:
+    """``(bitwise equal, largest |difference|)`` of two payloads' model
+    tensors."""
+    ma, mb = a["model"], b["model"]
+    if sorted(ma) != sorted(mb):
+        return False, math.inf
+    equal, worst = True, 0.0
+    for k in ma:
+        equal = equal and torch.equal(ma[k], mb[k])
+        if ma[k].is_floating_point():
+            worst = max(worst, float((ma[k] - mb[k]).abs().max()))
+    return equal, worst
+
+
+def _res_sum(evs: list) -> dict:
+    """The path's kernel launches summed over the ``kernel_launches``
+    events in ``evs`` (one a life that reached the end of ``fit``)."""
+    done = [e for e in evs if e["event"] == "kernel_launches"]
+    return {n: sum(e[k] for e in done) for n, k in RES_KERNELS.items()}
+
+
+def _res_preempt_pair(tag: str, work: str, seed: int) -> dict:
+    """The uninterrupted life and the one under
+    ``sigterm@RES_SIGTERM_AT`` (exit 43, ``latest`` at that step), at
+    once; the preempted life's events go to the file its resumed life
+    appends to."""
+    data = os.path.join(work, "data")
+    started = {}
+    for arm, ckpt, faults in (
+            ("straight", "ck_a", None),
+            ("preempted", "ck_b", f"sigterm@{RES_SIGTERM_AT}")):
+        argv = _res_argv(data, os.path.join(work, ckpt),
+                         os.path.join(work, f"{ckpt}_events.jsonl"),
+                         RES_BATCH, IMAGE, RES_EPOCHS, seed)
+        env = _res_env(**({"TPUIC_FAULTS": faults} if faults else {}))
+        started[arm] = (_res_start(_res_cmd("none", argv),
+                                   os.path.join(work, f"{arm}.log"), env),
+                        ckpt, argv)
+    runs = {}
+    for arm, (proc, ckpt, argv) in started.items():
+        rc, _, text = _res_wait(tag, proc)
+        want = 43 if arm == "preempted" else 0
+        if rc != want:
+            fail(tag, f"preempt: the {arm} run exited {rc}, expected "
+                      f"{want}: {text[-3000:]}")
+        runs[arm] = dict(argv=argv, events=_res_events(
+            os.path.join(work, f"{ckpt}_events.jsonl")))
+    # The flush, before the resume overwrites it.
+    with open(os.path.join(work, "ck_b", "resnet50",
+                           "latest.manifest.json")) as f:
+        manifest = json.load(f)
+    runs["flushed"] = {k: manifest[k]
+                       for k in ("epoch", "step_in_epoch", "step")}
+    return runs
+
+
+def _res_preempt(tag: str, work: str, pair: dict) -> dict:
+    """The preempted life's command again, alone on the card (its resume
+    seconds are its own): it resumes at epoch 0 step RES_SIGTERM_AT and
+    ends on the uninterrupted run's bits, the two lives' launches summing
+    to the uninterrupted run's."""
+    argv = pair["preempted"]["argv"]
+    rc, t_spawn, text = _res_run(tag, _res_cmd("none", argv),
+                                 os.path.join(work, "resumed.log"),
+                                 _res_env())
+    if rc != 0:
+        fail(tag, f"preempt: the resumed run exited {rc}: {text[-3000:]}")
+    pre = pair["preempted"]["events"]
+    resumed = _res_events(os.path.join(work, "ck_b_events.jsonl"))[len(pre):]
+    flush = [e for e in pre if e["event"] == "preempt"]
+    line = f"resuming epoch 0 at step {RES_SIGTERM_AT}"
+    equal, worst = _res_diff(_res_weights(os.path.join(work, "ck_a")),
+                             _res_weights(os.path.join(work, "ck_b")))
+    launches = {"straight": _res_sum(pair["straight"]["events"]),
+                "preempted": _res_sum(pre), "resumed": _res_sum(resumed)}
+    summed = {n: launches["preempted"][n] + launches["resumed"][n]
+              for n in RES_KERNELS}
+    first = _res_first_step(resumed)
+    row = {
+        "flushed": pair["flushed"], "preempt_events": flush,
+        "resume_line": line in text, "resumed_first_step": first["step"],
+        "weights_bits_equal": equal, "weights_max_abs_diff": worst,
+        "launches": launches,
+        "flush_s": flush[0]["flush_s"] if flush else None,
+        "resume_s": first["t"] - t_spawn}
+    per_step = {"cross_entropy_fwd": RES_STEPS * RES_EPOCHS,
+                "cross_entropy_bwd": RES_STEPS * RES_EPOCHS,
+                "lars_update": RES_STEPS * RES_EPOCHS,
+                "conv_bn_relu": 53 * 2 * RES_EPOCHS}
+    if (pair["flushed"] != {"epoch": 0, "step_in_epoch": RES_SIGTERM_AT,
+                            "step": RES_SIGTERM_AT}
+            or len(flush) != 1 or row["flush_s"] is None
+            or not row["resume_line"]
+            or first["step"] != RES_SIGTERM_AT + 1 or not equal
+            or summed != launches["straight"]
+            or launches["straight"] != per_step):
+        fail(tag, f"preempt: {json.dumps(row)}; want launches {per_step}")
+    return row
+
+
+def _res_rollback(tag: str, work: str, seed: int) -> dict:
+    """``RES_NAN`` under ``--skip-threshold`` and ``--rewarm-steps``: the
+    guard skips (the parameters stay finite, no skipped step applied),
+    one rollback to epoch 1 step 0 after epoch 0's ``latest``, the logged
+    lr re-warming as ``rewarm_scale`` composed onto the schedule, finite
+    weights."""
+    from tpuic_torch.train.__main__ import build_parser, config_from_args
+    from tpuic_torch.train.optimizer import make_schedule, rewarm_scale
+    data = os.path.join(work, "data")
+    events = os.path.join(work, "rollback_events.jsonl")
+    argv = _res_argv(data, os.path.join(work, "ck_r"), events, RES_BATCH,
+                     IMAGE, RES_EPOCHS, seed, "--skip-threshold",
+                     str(RES_SKIP_THRESHOLD), "--rewarm-steps",
+                     str(RES_REWARM), "--log-every-steps", "1",
+                     "--log-dir", os.path.join(work, "rollback_logs"))
+    rc, _, text = _res_run(tag, _res_cmd("none", argv),
+                           os.path.join(work, "rollback.log"),
+                           _res_env(TPUIC_FAULTS=RES_NAN))
+    if rc != 0:
+        fail(tag, f"rollback: exit {rc}: {text[-3000:]}")
+    evs = _res_events(events)
+    rollbacks = [e for e in evs if e["event"] == "rollback"]
+    skips = [e for e in evs if e["event"] == "skip"]
+    with open(os.path.join(work, "rollback_logs", "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f if '"lr"' in ln]
+    # The records after the restore: the first whose step is not past the
+    # one before it.
+    cut = next((i for i in range(1, len(recs))
+                if recs[i]["step"] <= recs[i - 1]["step"]), None)
+    ramp = [r["lr"] for r in recs[cut:cut + RES_REWARM]] if cut else []
+    parser = build_parser()
+    cfg = config_from_args(parser.parse_args(argv), parser)
+    base = make_schedule(cfg.optim, RES_STEPS, RES_EPOCHS,
+                         global_batch=RES_BATCH)
+    restored = RES_STEPS  # epoch 0's latest: 8 applied steps
+    scale = rewarm_scale(restored, RES_REWARM)
+    want = [float(base(torch.tensor(t)) * scale(torch.tensor(t)))
+            for t in range(restored, restored + RES_REWARM)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(ramp, want)] or [math.inf]
+    final = _res_weights(os.path.join(work, "ck_r"))["model"]
+    finite = all(bool(torch.isfinite(t).all()) for t in final.values()
+                 if t.is_floating_point())
+    launches = _res_sum(evs)
+    # Epoch 1 ran 6 steps before the rollback (2 clean, then the 4
+    # poisoned ones, K2a launched and gated off), then all RES_STEPS again.
+    run_steps = RES_STEPS * RES_EPOCHS + 6
+    row = {"rollback_events": rollbacks, "skip_events": len(skips),
+           "lr_ramp": ramp, "lr_want": want, "lr_rel_diff": max(rel),
+           "finite": finite, "launches": launches}
+    if (len(rollbacks) != 1 or rollbacks[0]["epoch"] != 1
+            or rollbacks[0]["step_in_epoch"] != 0
+            or rollbacks[0]["params_finite"] is not True
+            or rollbacks[0]["applied_steps"] != RES_STEPS + 2
+            or launches["lars_update"] != run_steps
+            or max(rel) > RES_LR_RTOL or not finite):
+        fail(tag, f"rollback: {json.dumps(row)}; {text[-2000:]}")
+    return row
+
+
+def _res_crash(tag: str, work: str, seed: int) -> dict:
+    """``python -m tpuic_torch.supervise --chaos hard_crash@RES_CRASH_AT``
+    over the train command, alone on the card (its downtime is its own):
+    one restart, resumed from the last commit (epoch 0's end), exit 0,
+    the ``restart`` event with its downtime."""
+    data = os.path.join(work, "data")
+    events = os.path.join(work, "crash_events.jsonl")
+    state = os.path.join(work, "crash_state")
+    # Commits before training goes on: the crash lands two steps after
+    # epoch 0's save, which must be the last commit.
+    argv = _res_argv(data, os.path.join(work, "ck_c"), events, RES_BATCH,
+                     IMAGE, RES_EPOCHS, seed, "--no-async-checkpoint")
+    cmd = [sys.executable, "-m", "tpuic_torch.supervise", "--state-dir",
+           state, "--poll-s", "0.2", "--backoff-s", "0.1", "--chaos",
+           f"hard_crash@{RES_CRASH_AT}", "--", *_res_cmd("none", argv)]
+    rc, _, text = _res_run(tag, cmd, os.path.join(work, "crash.log"),
+                           _res_env())
+    ledger = _ledger_of(state)
+    spawns = [r for r in ledger if r["event"] == "spawn"]
+    exits = [r["returncode"] for r in ledger if r["event"] == "exit"]
+    evs = _res_events(events)
+    restarts = [e for e in evs if e["event"] == "restart"]
+    second = _res_after_restart(evs)
+    first = _res_first_step(second)
+    equal, _ = _res_diff(_res_weights(os.path.join(work, "ck_a")),
+                         _res_weights(os.path.join(work, "ck_c")))
+    row = {"supervisor_exit": rc, "spawns": len(spawns), "exits": exits,
+           "restart_events": restarts, "first_step": first["step"],
+           "weights_bits_equal_uninterrupted": equal,
+           "launches_second_life": _res_sum(second)}
+    if (rc != 0 or len(spawns) != 2 or exits[:1] != [-9]
+            or len(restarts) != 1 or restarts[0]["downtime_s"] <= 0
+            or [restarts[0]["epoch"], restarts[0]["step_in_epoch"]] != [1, 0]
+            or first["step"] != RES_STEPS + 1):
+        fail(tag, f"crash: {json.dumps(row)}; {text[-3000:]}")
+    return row
+
+
+def _res_gang(tag: str, work: str, seed: int) -> dict:
+    """Two gloo ranks on the card under ``supervise --gang 2``: an
+    undisturbed gang beside one under ``GANG_CRASH`` (rank 1 SIGKILLed,
+    the gang torn down and restarted with ``TPUIC_RESUME_STEP``), whose
+    weights equal the undisturbed gang's within GANG_TOL."""
+    import socket
+    from tpuic_torch.data.synthetic import make_synthetic_imagefolder
+    from tpuic_torch.telemetry.fleet import rank_stream_path
+    classes = tuple(f"class{i}" for i in range(TRAIN_CLASSES))
+    data = os.path.join(work, "gang_data")
+    per = GANG_BATCH * 2 * GANG_STEPS // TRAIN_CLASSES
+    make_synthetic_imagefolder(data, classes, per_class=per,
+                               size=GANG_IMAGE, folds=("train",), seed=seed)
+    make_synthetic_imagefolder(data, classes, per_class=2, size=GANG_IMAGE,
+                               folds=("val",), seed=seed + 1)
+    # The two gangs run at once, on ports of their own.
+    started, ports, socks = {}, [], []
+    for _ in range(2):
+        socks.append(socket.socket())
+        socks[-1].bind(("localhost", 0))
+        ports.append(socks[-1].getsockname()[1])
+    for sock in socks:
+        sock.close()
+    for (arm, chaos), port in zip((("undisturbed", None),
+                                   ("disturbed", GANG_CRASH)), ports):
+        ckpt = os.path.join(work, f"ck_{arm}")
+        state = os.path.join(work, f"gang_{arm}")
+        argv = _res_argv(data, ckpt, os.path.join(work, f"{arm}.jsonl"),
+                         GANG_BATCH, GANG_IMAGE, GANG_EPOCHS, seed,
+                         "--workers", "2")
+        cmd = [sys.executable, "-m", "tpuic_torch.supervise", "--state-dir",
+               state, "--gang", "2", "--coordinator", f"localhost:{port}",
+               "--gang-ckpt", os.path.join(ckpt, "resnet50"), "--poll-s",
+               "0.05", "--backoff-s", "0.1", "--grace-s", "20",
+               *(("--chaos", chaos) if chaos else ()), "--",
+               *_res_cmd("gloo", argv)]
+        started[arm] = (_res_start(cmd, os.path.join(work, f"{arm}.log"),
+                                   _res_env()), state)
+    gangs = {}
+    for arm, (proc, state) in started.items():
+        rc, t_spawn, text = _res_wait(tag, proc)
+        ranks = [_res_events(rank_stream_path(
+            os.path.join(work, f"{arm}.jsonl"), r)) for r in (0, 1)]
+        gangs[arm] = dict(rc=rc, text=text, ledger=_ledger_of(state),
+                          ranks=ranks, wall_s=time.time() - t_spawn)
+    dis = gangs["disturbed"]
+    ledger = dis["ledger"]
+    teardown = [r for r in ledger if r["event"] == "teardown"]
+    exits = [(r["attempt"], r["rank"], r["returncode"]) for r in ledger
+             if r["event"] == "exit"]
+    resume = [r for r in ledger if r["event"] == "gang_resume"]
+    restarted = [_res_after_restart(evs) for evs in dis["ranks"]]
+    restart_evs = [evs[0] if evs and evs[0]["event"] == "restart" else None
+                   for evs in restarted]
+    equal, worst = _res_diff(
+        _res_weights(os.path.join(work, "ck_undisturbed")),
+        _res_weights(os.path.join(work, "ck_disturbed")))
+    logged = "tearing down gang" in dis["text"]
+    row = {"exit": {a: g["rc"] for a, g in gangs.items()},
+           "wall_s": {a: g["wall_s"] for a, g in gangs.items()},
+           "teardown": teardown, "teardown_logged": logged, "exits": exits,
+           "gang_resume": resume, "restart_events": restart_evs,
+           "weights_bits_equal": equal, "weights_max_abs_diff": worst,
+           "launches": {
+               "undisturbed": [_res_sum(evs)
+                               for evs in gangs["undisturbed"]["ranks"]],
+               "disturbed_restart": [_res_sum(evs) for evs in restarted]}}
+    if (any(g["rc"] != 0 for g in gangs.values()) or not teardown
+            or teardown[0]["rank"] != 1 or not logged
+            or (0, 1, -9) not in exits
+            or any(e is None or e["resume_step"] is None
+                   for e in restart_evs)
+            or worst > GANG_TOL):
+        fail(tag, f"gang: {json.dumps(row)}; {dis['text'][-3000:]}")
+    return row
+
+
+def phase_resilience(root: str, seed: int, smi: str) -> dict:
+    """The trainer's failure story on the card, through the train CLI and
+    ``python -m tpuic_torch.supervise``: ``preempt``, ``rollback``,
+    ``crash`` and ``gang`` (module docstring).  Every life runs cuDNN's
+    deterministic algorithms, so a resumed run is held bit for bit.  The
+    lives whose seconds are read run alone: the preempted command's
+    resumed life (resume seconds), then the crash arm (downtime); the
+    rest run at once before them (the time limit)."""
+    tag = "resilience"
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="resilience_", dir=root)
+    _res_folder(root, os.path.join(work, "data"),
+                RES_BATCH * RES_STEPS // TRAIN_CLASSES, RES_VAL_PER_CLASS)
+    row, errors, parts = {}, [], {}
+
+    def arm(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            parts[name] = fn(tag, work, *args)
+        except SystemExit as e:  # fail() in a thread: reported below
+            errors.append(f"{name}: exit {e.code}")
+            return
+        except Exception as e:
+            errors.append(f"{name}: {e!r}")
+            return
+        parts[name + "_s"] = time.perf_counter() - t
+
+    def report(name):
+        row[name] = dict(parts[name], arm_s=parts[name + "_s"])
+        log(tag, f"{name}: {json.dumps(row[name])}")
+
+    threads = [threading.Thread(target=arm, args=item) for item in (
+        ("pair", _res_preempt_pair, seed), ("rollback", _res_rollback, seed),
+        ("gang", _res_gang, seed))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(tag, f"arms: {errors}")
+    report("rollback")
+    report("gang")
+    arm("preempt", _res_preempt, parts["pair"])
+    arm("crash", _res_crash, seed)
+    if errors:
+        fail(tag, f"arms: {errors}")
+    parts["preempt_s"] += parts["pair_s"]
+    report("preempt")
+    report("crash")
+    row.update(card=smi, phase_s=time.perf_counter() - t0)
+    log(tag, json.dumps({k: row[k] for k in ("card", "phase_s")}))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=320)
@@ -6005,8 +6554,13 @@ def main(argv=None) -> int:
 
     from tpuic_torch.kernels import _build
     t_start = t0 = time.perf_counter()
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    writers = start_folder_writers(workdir.name, args.seed)
     built = _build.build()
     log("build", f"{json.dumps(built)} in {time.perf_counter() - t0:.3f} s")
+    join_folder_writers(writers)
+    log("build", f"the synthetic folders written beside it: "
+                 f"{time.perf_counter() - t0:.3f} s in all")
     for name in _build.sources():
         for line in _build.ptxas_log(name).splitlines():
             if any(key in line for key in ("entry function", "Function "
@@ -6028,8 +6582,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     xent, xent_rows = phase_xent(kind, gen)
     optim = phase_optim(kind, args.seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        write_folder(root, args.seed)
+    with workdir as root:
         t0 = time.perf_counter()
         pack = phase_pack(root, args.seed, smi)
         t_pack = time.perf_counter() - t0
@@ -6118,6 +6671,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         serve_ops = phase_serve_ops(root, args.seed, smi)
         took["serve-ops"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resilience = phase_resilience(root, args.seed, smi)
+        took["resilience"] = time.perf_counter() - t0
     took["total"] = time.perf_counter() - t_start
     log("timing", json.dumps(took))
     # The share of each training cell's train loop spent waiting for the
@@ -6157,10 +6713,24 @@ def main(argv=None) -> int:
     accum = train["accum"]
     remat = vit_train["recipe"]["remat"]
 
+    def res_paths(name):
+        """``name``'s launches on ``[resilience]``'s paths, each life
+        counted from 0 at its ``fit`` (a SIGKILLed life's are lost)."""
+        pre, gang = resilience["preempt"], resilience["gang"]
+        return {
+            **{f"resilience preempt {arm}": c[name]
+               for arm, c in pre["launches"].items()},
+            "resilience rollback": resilience["rollback"]["launches"][name],
+            "resilience crash (restarted life)":
+                resilience["crash"]["launches_second_life"][name],
+            **{f"resilience gang {arm} rank {r}": c[name]
+               for arm, per in gang["launches"].items()
+               for r, c in enumerate(per)}}
+
     def k1(name):
         """K1's launches on each training path, each counted from 0 just
         before its path ran; ``launches`` stays ``[train]``'s."""
-        return {"train": counts[name], **{
+        return {"train": counts[name], **res_paths(name), **{
             f"{tag} {dtype}": c[name]
             for tag, per in (("inception-train", inc_counts),
                              ("digits", digits_counts))
@@ -6241,7 +6811,7 @@ def main(argv=None) -> int:
             kernels[-1]["launches_by_path"] = {
                 "train": counts[name], **ddp_counts(name),
                 "accum (gate open on 2 of 4)":
-                    accum["kernels"]["launches"][name]}
+                    accum["kernels"]["launches"][name], **res_paths(name)}
         if name.split(" ")[0] in K4:
             kernels[-1]["launches_by_path"] = k4(name.split(" ")[0])
     # K3 on the ladder's int8 and bf16 ResNet-50 rungs and the ddp val
@@ -6249,7 +6819,8 @@ def main(argv=None) -> int:
     summary["launches_by_path"] = {
         "serve": launches, **{f"ladder {t}": r["kernel_launches"] for t, r
                               in ladder["resnet50"]["served"].items()},
-        **ddp_counts("conv_bn_relu"), "serve-ops": serve_ops["launches"]}
+        **ddp_counts("conv_bn_relu"), "serve-ops": serve_ops["launches"],
+        **res_paths("conv_bn_relu")}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
@@ -6268,6 +6839,7 @@ def main(argv=None) -> int:
                        "ladder": ladder, "serve_cli_ladder": cli_ladder,
                        "moe_train": moe_train, "moe_serve": moe_serve,
                        "telemetry": telemetry, "serve_ops": serve_ops,
+                       "resilience": resilience,
                        "k1_launches": {"train": counts, "inception_train":
                                        inc_counts, "digits": digits_counts,
                                        "vit_recipe": recipe_counts,

@@ -6,10 +6,11 @@
   errors in both packages; ``REGISTERED_POINTS`` is one set; a scripted
   arm/fire/disarm sequence fires alike; the at-rest corruption helpers
   leave the same bytes.
-- The train CLI no longer drops a chaos spec: it refuses by name every
-  point the port's training path does not fire, and a spec that does not
-  parse.  The serve CLI takes the serving points and refuses the rest the
-  same way.
+- The train CLI no longer drops a chaos spec: it fires the training
+  points and refuses by name the one it does not fire
+  (``rank_rejoin_flap``), and a spec that does not parse.  The serve CLI
+  takes the serving points (``swap_corrupt`` among them) and refuses the
+  rest the same way.
 
 ``tpuic.runtime.faults`` imports only the stdlib; it is imported in a
 fixture all the same, as every ``tpuic`` import of the port's tests is.
@@ -82,7 +83,14 @@ def test_registered_points_are_one_set(jf):
     # the one the port's serving path fires.
     assert pf.FIRED_BY["serve"] == {"flood", "replica_crash",
                                     "replica_wedge", "hang_device",
-                                    "canary_degrade"}
+                                    "canary_degrade", "swap_corrupt"}
+    assert pf.FIRED_BY["train"] == {
+        "nan_batch", "sigterm", "decode_error", "ckpt_kill", "slow_step",
+        "hard_crash", "hang_step", "rank_crash", "rank_hang",
+        "bf16_master_truncate"}
+    # What no path fires: elastic membership's point and bulk scoring's.
+    assert pf.REGISTERED_POINTS - set().union(*pf.FIRED_BY.values()) == {
+        "rank_rejoin_flap", "scorer_crash", "shard_corrupt", "lease_skew"}
     assert all(p <= pf.REGISTERED_POINTS for p in pf.FIRED_BY.values())
 
 
@@ -133,11 +141,13 @@ def test_corruption_helpers_leave_the_same_bytes(jf, tmp_path):
 
 
 @pytest.mark.parametrize("entry,spec,match", [
-    ("train", "nan_batch@3", "'nan_batch' not fired by the port's train "
-     "path yet \\(ROADMAP §1 item 11\\)"),
-    ("train", "flood#10", "'flood' not fired by the port's train path"),
-    ("serve", "swap_corrupt", "'swap_corrupt' not fired by the port's "
-     "serve path yet \\(ROADMAP §1 item 11\\)"),
+    ("train", "rank_rejoin_flap@3", "'rank_rejoin_flap' not fired by the "
+     "port's train path \\('rank_rejoin_flap' comes with ROADMAP §1 item "
+     "13\\)"),
+    ("train", "flood#10", "'flood' not fired by the port's train path "
+     "\\(the serve path fires 'flood'\\)"),
+    ("serve", "nan_batch@3", "'nan_batch' not fired by the port's "
+     "serve path \\(the train path fires 'nan_batch'\\)"),
     ("serve", "scorer_crash@1#1", "item 14"),
     ("serve", "flood@x", "malformed directive 'flood@x'"),
 ])
@@ -148,8 +158,13 @@ def test_check_fired_refuses_by_name(entry, spec, match):
 
 def test_check_fired_passes_the_serving_points():
     pf.check_fired("serve", "flood#400,replica_crash@5,replica_wedge@2#1,"
-                            "hang_device#0,canary_degrade#0.05")
+                            "hang_device#0,canary_degrade#0.05,"
+                            "swap_corrupt")
     pf.check_fired("train", "")
+    pf.check_fired("train", "nan_batch@10-13*4,sigterm@5,decode_error@2,"
+                            "ckpt_kill,slow_step#0.1,hard_crash@9,"
+                            "hang_step@3#1,rank_crash@6#1,rank_hang@7,"
+                            "bf16_master_truncate")
 
 
 def _cli(module: str, spec: str, *args) -> subprocess.CompletedProcess:
@@ -162,13 +177,15 @@ def _cli(module: str, spec: str, *args) -> subprocess.CompletedProcess:
 def test_train_cli_no_longer_drops_a_chaos_spec(tmp_path):
     """The repair: ``python -m tpuic_torch.train`` used to start and train
     with ``TPUIC_FAULTS`` set, the spec dropped without a word.  Now a
-    point its path does not fire is refused by name before anything
-    loads, and so is a spec that does not parse."""
-    out = _cli("tpuic_torch.train", "hard_crash@2", "--datadir",
+    point its path does not fire (``rank_rejoin_flap``: elastic
+    membership) is refused by name before anything loads, and so is a
+    spec that does not parse."""
+    out = _cli("tpuic_torch.train", "rank_rejoin_flap@2", "--datadir",
                str(tmp_path), "--device", "cpu")
     assert out.returncode != 0
-    assert ("TPUIC_FAULTS: 'hard_crash' not fired by the port's train path "
-            "yet (ROADMAP §1 item 11)") in out.stderr
+    assert ("TPUIC_FAULTS: 'rank_rejoin_flap' not fired by the port's train "
+            "path ('rank_rejoin_flap' comes with ROADMAP §1 item 13)"
+            ) in out.stderr
     out = _cli("tpuic_torch.train", "hard_crash@", "--datadir",
                str(tmp_path), "--device", "cpu")
     assert out.returncode != 0

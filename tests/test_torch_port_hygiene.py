@@ -56,7 +56,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_tpuic():
     assert "tpuic_torch.kernels.conv_bn_relu" in got["names"]
     for name in ("tpuic_torch.native", "tpuic_torch.data.pack",
                  "tpuic_torch.data.device_prep", "tpuic_torch.models.moe",
-                 "tpuic_torch.metrics.tensorboard"):
+                 "tpuic_torch.metrics.tensorboard",
+                 "tpuic_torch.runtime.gang", "tpuic_torch.runtime.supervisor",
+                 "tpuic_torch.runtime.preemption", "tpuic_torch.supervise"):
         assert name in got["names"]
     assert {f"tpuic_torch.telemetry.{m}" for m in (
         "events", "goodput", "memory", "profile", "prom", "slo",
@@ -70,6 +72,16 @@ def test_package_import_is_light():
                "import tpuic_torch.telemetry, tpuic_torch.telemetry.events\n"
                "print(json.dumps({'torch': 'torch' in sys.modules}))\n")
     assert got == {"torch": False}
+
+
+def test_the_supervisors_import_only_the_stdlib():
+    """``python -m tpuic_torch.supervise`` (one child or a gang) never
+    initialises CUDA: the parent imports neither torch nor numpy."""
+    got = _run("import json, sys\n"
+               "import tpuic_torch.supervise, tpuic_torch.runtime.gang\n"
+               "print(json.dumps(sorted(m for m in ('torch', 'numpy') "
+               "if m in sys.modules)))\n")
+    assert got == []
 
 
 @pytest.mark.parametrize("path", _port_files(),

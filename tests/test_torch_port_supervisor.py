@@ -9,8 +9,8 @@ tpuic_torch.supervise`` against ``tpuic``'s.
   SIGQUIT -> SIGTERM -> SIGKILL ladder with its stack dump) on a tiny
   Python child that speaks the protocol through the port's
   ``HeartbeatWriter``; the ladder also leaves the flight recorder's dump.
-- The CLI: a child supervised to a clean exit; ``tpuic``'s gang flags
-  refused by name.
+- The CLI: a child supervised to a clean exit; ``tpuic``'s elastic
+  flags refused by name.
 - ``TrainTelemetry`` writes the heartbeat from the bus when the
   supervisor set its file.
 
@@ -369,19 +369,25 @@ def test_supervise_cli_runs_a_child_to_a_clean_exit(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--gang", "2"], ["--gang-ckpt", "/w/cp{rank}"], ["--elastic"],
-    ["--min-ranks", "2"], ["--max-respawns", "3"],
-    ["--coordinator", "localhost:1234"]], ids=lambda f: f[0])
+    ["--elastic"], ["--min-ranks", "2"], ["--max-respawns", "3"],
+    ["--elastic", "--gang", "2"], ["--min-ranks", "2", "--gang-ckpt",
+                                   "/w/cp{rank}"],
+    ["--max-respawns", "3", "--coordinator", "localhost:1234"]],
+    ids=lambda f: " ".join(f[::2]))
 def test_supervise_cli_refuses_the_gang_flags_by_name(flag):
+    """The gang supervisor is ported (``--gang``, ``--gang-ckpt``,
+    ``--coordinator``: ``tests/test_torch_port_gang.py``); elastic
+    membership is not, and its flags are refused by name, beside the
+    gang's flags or alone."""
     from tpuic_torch import supervise
-    with pytest.raises(SystemExit, match=f"{flag[0]}: the gang supervisor "
-                       "is not yet ported.*item 11"):
+    with pytest.raises(SystemExit, match=f"{flag[0]}: elastic membership "
+                       "is not yet ported.*item 13"):
         supervise.main(flag + ["--", sys.executable, "-c", "pass"])
 
 
 def test_supervise_cli_takes_every_tpuic_flag(js):
     """Every flag of ``python -m tpuic.supervise`` parses in the port's
-    CLI (the gang's to be refused)."""
+    CLI (the elastic ones to be refused)."""
     import tpuic.supervise as jsup
 
     from tpuic_torch import supervise

@@ -330,13 +330,19 @@ def test_cli_refuses_unported_settings(folder):
     from tpuic_torch.train.loop import unported_settings
     base = ["--datadir", folder, "--device", "cpu", "--dtype", "float32",
             "--no-pack", "--no-native", "--model", "resnet18-cifar"]
-    with pytest.raises(SystemExit, match="--skip-threshold: not yet ported"):
-        main(base + ["--skip-threshold", "3"])
-    # The packed loader and the native core are ported: their fields are
-    # no longer refused, and a flag still to port is.
+    with pytest.raises(SystemExit, match="not yet ported to tpuic_torch: "
+                       "mesh.seq"):
+        main(base + ["--seq-axis", "2"])
+    # The packed loader, the native core, the failure story (--init-from,
+    # rollback) are ported: their fields are no longer refused, and a
+    # flag still to port is.
     assert unported_settings(pcfg.Config()) == []
-    with pytest.raises(SystemExit, match="--init-from: not yet ported"):
-        main(base[:-4] + ["--model", "resnet18-cifar", "--init-from", "x"])
+    assert unported_settings(pcfg.Config(run=pcfg.RunConfig(
+        init_from="x", skip_threshold=3, rollback=False,
+        rollback_rewarm_steps=4))) == []
+    with pytest.raises(SystemExit, match="not yet ported to tpuic_torch: "
+                       "mesh.fsdp"):
+        main(base[:-4] + ["--model", "resnet18-cifar", "--fsdp"])
     # Item 8's recipe features are ported: no field of theirs is refused.
     cfg = pcfg.Config(
         model=pcfg.ModelConfig(name="efficientnet-b0", remat=True,

@@ -23,7 +23,10 @@ attention impl.
 ``load_candidate_variables`` is the hot-swap gate's read, stricter still:
 the named track only, its commit manifest required and verified, every
 failure a typed ``SwapRejected`` (cause ``swap_corrupt``), and the
-weights restored into a fresh model, never into a serving one.
+weights restored into a fresh model, never into a serving one.  The
+fault point ``swap_corrupt`` (``runtime/faults.py``) flips bytes of the
+candidate's largest payload file after it is located and before it is
+verified, so the gate must refuse it.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from tpuic_torch.checkpoint.convert import _invalidate
 from tpuic_torch.checkpoint.manager import CheckpointManager
+from tpuic_torch.runtime import faults
 
 #: Sidecar fields that fix the architecture a run trained.
 ARCH_FIELDS = ("num_classes", "head_widths", "bn_momentum", "bn_eps")
@@ -147,6 +151,19 @@ def load_candidate_variables(cfg, *, track: str = "best", log=print,
         raise SwapRejected(f"swap candidate missing: no '{track}' "
                            f"checkpoint under {mgr.root}",
                            cause="swap_corrupt")
+    if faults.fire("swap_corrupt"):
+        # Bit-rot between producer and gate: flip the largest payload
+        # file's first bytes before the verification below reads them.
+        victim, size = None, -1
+        for dirpath, _, filenames in os.walk(path):
+            for fn in filenames:
+                fp = os.path.join(dirpath, fn)
+                if os.path.getsize(fp) > size:
+                    victim, size = fp, os.path.getsize(fp)
+        if victim is not None:
+            faults.corrupt_file(victim)
+            log(f"[swap] fault 'swap_corrupt': corrupted "
+                f"{os.path.relpath(victim, path)} pre-verification")
     if not os.path.exists(path + ".manifest.json"):
         raise SwapRejected(
             f"swap candidate {mgr.root}/{track} has no commit manifest — "

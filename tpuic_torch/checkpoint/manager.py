@@ -62,7 +62,10 @@ protocol:
   snapshot and ``phase="commit"`` for the write and rotation (with
   ``blocking`` False when it ran on the background thread).
 
-Not ported: the fault point ``ckpt_kill``.
+- **Fault point** ``ckpt_kill`` (``runtime/faults.py``): the commit
+  raises ``InjectedFault`` after the staged save and its manifest are
+  written and before the rotation, the kill mid-write: the committed
+  track is untouched and the ladder never reads ``{track}.new``.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ import torch
 import torch.distributed as dist
 
 from tpuic_torch.checkpoint.convert import _invalidate
-from tpuic_torch.runtime import distributed
+from tpuic_torch.runtime import distributed, faults
 from tpuic_torch.telemetry.events import publish
 
 # The resume keys, as tpuic writes them: completed steps of the saved epoch
@@ -268,6 +271,9 @@ class CheckpointManager:
         self.last_restore_meta: Optional[Tuple[int, int]] = None
         self.last_restore_step_in_epoch: Optional[int] = None
         self.last_restore_geometry: Optional[Tuple[int, int, int]] = None
+        #: The trainer's global step count at the save (skipped steps
+        #: included, unlike ``step``) on a full restore that recorded it.
+        self.last_restore_loop_step: Optional[int] = None
         if self.rank == 0:
             os.makedirs(self.root, exist_ok=True)
 
@@ -300,6 +306,9 @@ class CheckpointManager:
                     "step_in_epoch": pending["step_in_epoch"],
                     "step": pending["step"], "files": _dir_manifest(new)}
         _atomic_json(new + ".manifest.json", manifest)
+        if faults.fire("ckpt_kill"):
+            raise faults.InjectedFault(
+                f"injected kill before committing checkpoint '{track}'")
         # The previous committed save survives as {track}.prev, the
         # ladder's last rung.  Plain renames; the window between the two
         # can leave only .prev on disk, which the ladder also reads.
@@ -333,7 +342,8 @@ class CheckpointManager:
 
     def _save(self, track: str, state, epoch: int, best_score: float,
               step_in_epoch: int = -1, global_batch: int = -1,
-              data_seed: int = -1, data_len: int = -1) -> None:
+              data_seed: int = -1, data_len: int = -1,
+              loop_step: int = -1) -> None:
         self.wait()  # one save in flight; also orders best and latest
         if self.rank != 0:
             self._commit_barrier()
@@ -344,7 +354,8 @@ class CheckpointManager:
                    "step_in_epoch": int(step_in_epoch),
                    "global_batch": int(global_batch),
                    "data_seed": int(data_seed), "data_len": int(data_len),
-                   "step": int(payload["step"])}
+                   "step": int(payload["step"]),
+                   "loop_step": int(loop_step)}
         payload["meta"] = dict(pending)
         self.last_save = {"track": track,
                           "snapshot_s": time.perf_counter() - t0}
@@ -367,27 +378,33 @@ class CheckpointManager:
             target=_bg, name="tpuic-torch-ckpt-commit", daemon=True)
         self._commit_thread.start()
 
-    def save_best(self, state, epoch: int, best_score: float) -> None:
-        """Reference train.py:173-180: on a val-accuracy improvement."""
-        self._save("best", state, epoch, best_score)
+    def save_best(self, state, epoch: int, best_score: float,
+                  loop_step: int = -1) -> None:
+        """Reference train.py:173-180: on a val-accuracy improvement.
+        ``loop_step`` is the trainer's global step count, which a resume
+        continues from."""
+        self._save("best", state, epoch, best_score, loop_step=loop_step)
         self.log(f"[ckpt] best -> {self.root}/best (epoch {epoch}, score "
                  f"{best_score:.4f})")
 
-    def maybe_save_latest(self, state, epoch: int, best_score: float) -> None:
+    def maybe_save_latest(self, state, epoch: int, best_score: float,
+                          loop_step: int = -1) -> None:
         """Reference train.py:183-188: every ``save_period`` epochs
         (``epoch % period == 0``, so epoch 0 saves)."""
         if epoch % self.save_period == 0:
-            self.save_latest(state, epoch, best_score)
+            self.save_latest(state, epoch, best_score, loop_step=loop_step)
 
     def save_latest(self, state, epoch: int, best_score: float,
                     step_in_epoch: int = -1, global_batch: int = -1,
-                    data_seed: int = -1, data_len: int = -1) -> None:
+                    data_seed: int = -1, data_len: int = -1,
+                    loop_step: int = -1) -> None:
         """Unconditional ``latest`` save.  ``step_in_epoch >= 0`` marks a
         partial epoch with that many completed steps (with the loader
         geometry it is valid for); resume then continues that epoch."""
         self._save("latest", state, epoch, best_score,
                    step_in_epoch=step_in_epoch, global_batch=global_batch,
-                   data_seed=data_seed, data_len=data_len)
+                   data_seed=data_seed, data_len=data_len,
+                   loop_step=loop_step)
         at = (f"epoch {epoch}" if step_in_epoch < 0
               else f"epoch {epoch}, step {step_in_epoch}")
         self.log(f"[ckpt] latest -> {self.root}/latest ({at})")
@@ -519,6 +536,7 @@ class CheckpointManager:
         self.last_restore_meta = None
         self.last_restore_step_in_epoch = None
         self.last_restore_geometry = None
+        self.last_restore_loop_step = None
         if track is None:
             primary = self.newest_track() or "latest"
             other = "best" if primary == "latest" else "latest"
@@ -572,6 +590,7 @@ class CheckpointManager:
         self.last_restore_meta = None
         self.last_restore_step_in_epoch = None
         self.last_restore_geometry = None
+        self.last_restore_loop_step = None
         self.last_restore_rung = track
         payload = torch.load(os.path.join(self.root, track, PAYLOAD),
                              map_location="cpu", weights_only=True)
@@ -611,6 +630,9 @@ class CheckpointManager:
                 with torch.no_grad():
                     state.step.copy_(payload["step"])
                     state.skip_count.copy_(payload["skip_count"])
+                loop_step = int(meta.get("loop_step", -1))
+                self.last_restore_loop_step = (loop_step if loop_step >= 0
+                                               else None)
             else:
                 self.log("[ckpt] optimizer state does not match the "
                          "optimizer; it starts fresh")

@@ -233,8 +233,9 @@ class RunConfig:
     resume: bool = True
     # A reference torch checkpoint to start from (``{'state_dict': ...}``
     # or a bare state_dict, family detected from its keys), merged
-    # leniently (``checkpoint.torch_convert``).  Inference loading takes
-    # it over the tracks; the Trainer does not take it yet.
+    # leniently (``checkpoint.torch_convert.init_from_torch``): the
+    # Trainer's initial weights (a resumed checkpoint then overrides
+    # them), and inference loading's weights in place of the tracks.
     init_from: str = ""
     # Metric readback cadence: one host read per this many steps.
     log_every_steps: int = 50
@@ -256,6 +257,23 @@ class RunConfig:
     # processes; balanced and worst-class accuracy logged, the matrix and
     # per-class rows written beside the metrics JSONL.
     per_class_metrics: bool = False
+    # SIGTERM latch (runtime/preemption.py): on a preemption the loop
+    # finishes its step, flushes a step-exact 'latest' checkpoint and
+    # returns (the train CLI exits 43) instead of dying mid-epoch.
+    handle_preemption: bool = True
+    # Rollback on a non-finite streak: when the step's guard
+    # (OptimConfig.skip_nonfinite) has skipped this many consecutive
+    # steps, the Trainer restores the last good checkpoint through the
+    # integrity ladder and goes on from there.  Detection rides the
+    # deferred metric drain (up to ~2 log intervals late); 0 disables it.
+    skip_threshold: int = 10
+    rollback: bool = True
+    # Give up (NonRetryableError, exit 44) after this many rollbacks in
+    # one fit(): persistent non-finite data would loop forever.
+    max_rollbacks: int = 3
+    # After a rollback, ramp the LR linearly from 1/N of the schedule
+    # back to it over this many steps (0 keeps the plain schedule).
+    rollback_rewarm_steps: int = 0
     # -- telemetry (tpuic_torch/telemetry) -------------------------------
     # A torch.profiler trace of the first epoch (Chrome trace) under this
     # dir ('' disables).

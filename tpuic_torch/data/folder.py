@@ -17,8 +17,13 @@
   same-class sample, whose label and id travel with it, and counted
   (``quarantine_count``, ``quarantined``).  ``cfg.quarantine=False``
   re-raises.  Each replacement publishes a ``quarantine`` bus event
-  (``path``, ``count``) from the thread that decoded it.  ``tpuic``'s
-  ``decode_error`` fault point is not ported (ROADMAP item 11).
+  (``path``, ``count``) from the thread that decoded it.
+- **Fault point** ``decode_error`` (``runtime/faults.py``, keyed by the
+  dataset index): ``load`` raises an ``OSError`` in place of the decode,
+  at every attempt while armed, so a spec without ``*TIMES`` models a
+  corrupt file (the retries fail too, quarantine serves a replacement)
+  and ``*1`` a transient read (the retry recovers).  Like ``tpuic``'s it
+  sits on the decode path; the pack decodes through ``pack.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from PIL import Image
 
 from tpuic_torch.config import DataConfig
 from tpuic_torch.data import transforms as T
+from tpuic_torch.runtime import faults
 from tpuic_torch.telemetry.events import publish
 
 # What PIL raises for unreadable or corrupt image bytes: its
@@ -205,7 +211,12 @@ class ImageFolderDataset:
         else by the NumPy transforms: the same image either way.  A file
         that does not decode goes through ``quarantined_decode``, and a
         replacement brings its own image, label and id."""
-        img, index = quarantined_decode(self, index, self._decode_sized)
+        def decode_index(i: int) -> np.ndarray:
+            if faults.fire("decode_error", step=i):
+                raise OSError(f"injected decode error for index {i}")
+            return self._decode_sized(i)
+
+        img, index = quarantined_decode(self, index, decode_index)
         label = self.samples[index][1]
         c = self.cfg
         img = T.to_rgb(img)

@@ -239,14 +239,23 @@ class Loader:
                 params["factor"][i] = factor
         return pack_params(params)
 
-    def epoch(self, epoch: int) -> Iterator[Batch]:
-        """Yield the batches of ``epoch``."""
+    def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Batch]:
+        """Yield the batches of ``epoch`` from batch ``start_step`` on
+        (``tpuic/data/pipeline.py:247-296``): step-exact resume.  The
+        order is a ``(seed, epoch)`` permutation and every row's draws
+        are keyed by ``(seed, epoch, index)``, so the batches served are
+        bit for bit the uninterrupted epoch's from that step; nothing is
+        loaded or drawn for the skipped ones.  ``start_step`` outside
+        ``[0, steps]`` raises."""
         n = len(self.dataset)
         order, n_valid = _epoch_indices(n, epoch, self.seed, self.shuffle,
                                         self.global_batch)
         n_batches = len(order) // self.global_batch
         if self.drop_last and n % self.global_batch:
             n_batches -= 1
+        if not 0 <= start_step <= n_batches:
+            raise ValueError(f"start_step {start_step} outside this epoch's "
+                             f"0..{n_batches} steps")
         gb, lb = self.global_batch, self.local_batch
         size = self.dataset.resize_size
         pin = self.device.type == "cuda"
@@ -283,7 +292,7 @@ class Loader:
 
         def produce_loop():
             with ThreadPoolExecutor(self.num_workers) as pool:
-                for b in range(n_batches):
+                for b in range(start_step, n_batches):
                     if stop.is_set():
                         break
                     gidx = order[b * gb:(b + 1) * gb]

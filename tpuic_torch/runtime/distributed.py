@@ -17,9 +17,11 @@ reference does (its ``README.md``: ``torch.distributed.launch
 - A single process with no trio initializes nothing: no process group,
   no collective, nothing to pay.
 - :func:`runtime_info` and :func:`data_parallel_replicas` answer from the
-  process group (one process without one).  ``tpuic``'s elastic
-  membership file (``TPUIC_MEMBERSHIP_FILE``) and ``TPUIC_FLEET_RANKS``
-  are ROADMAP §1 item 11.
+  process group (one process without one).  The gang supervisor
+  (``runtime/gang.py``) passes each rank the trio with ``--coordinator``,
+  and ``TPUIC_FLEET_RANK``/``TPUIC_FLEET_RANKS``, which the telemetry's
+  tags and the rank-targeted fault points read.  ``tpuic``'s elastic
+  membership file (``TPUIC_MEMBERSHIP_FILE``) is ROADMAP §1 item 13.
 
 Usage, two processes on one host::
 

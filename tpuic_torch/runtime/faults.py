@@ -28,14 +28,40 @@ same in both packages.  The port fires the serving points:
                       while the engine serves weights other than the ones
                       it booted with; swapping the boot weights back stands
                       it down.
+- ``swap_corrupt``  — the hot-swap gate (``checkpoint/loading.py``
+                      ``load_candidate_variables``): flip bytes of the
+                      candidate's largest payload file before its CRC
+                      verification, which must then refuse it.
 
-The training points (``nan_batch``, ``sigterm``, ``decode_error``,
-``ckpt_kill``, ``slow_step``, ``hard_crash``, ``hang_step``,
-``rank_crash``, ``rank_hang``, ``rank_rejoin_flap``,
-``bf16_master_truncate``), ``swap_corrupt`` and the bulk-scoring points
-(``scorer_crash``, ``shard_corrupt``, ``lease_skew``) are not fired by the
-port yet (ROADMAP §1 items 11 and 14); the train and serve CLIs refuse a
-spec that arms one of them, by name.
+and the training points, in the ``Trainer``'s step loop
+(``train/loop.py``; ``step`` is the global step index, ``epoch *
+steps_per_epoch +`` the step in the epoch) unless said otherwise:
+
+- ``nan_batch``     — multiply this step's prepared float images by NaN
+                      on the device (same shapes and dtypes).
+- ``sigterm``       — SIGTERM to this process before the step: the real
+                      preemption latch, flush and exit 43.
+- ``slow_step``     — sleep ``param`` seconds (default 0.05) before it.
+- ``hard_crash``    — SIGKILL this process before it.
+- ``hang_step``     — stop making progress (sleep ``param`` seconds;
+                      forever without a payload).
+- ``rank_crash``    — SIGKILL, only on the rank ``param`` names (default
+                      0; ``TPUIC_FLEET_RANK``, else the process index).
+- ``rank_hang``     — wedge forever, only on the rank ``param`` names.
+- ``decode_error``  — ``ImageFolderDataset.load`` (``data/folder.py``):
+                      raise ``OSError`` in place of the decode; ``step``
+                      is the dataset index.
+- ``ckpt_kill``     — ``CheckpointManager``'s commit
+                      (``checkpoint/manager.py``): raise ``InjectedFault``
+                      after the staged save is written, before rotation.
+- ``bf16_master_truncate`` — ``make_train_step`` (``train/step.py``),
+                      checked when the step is built: every applied update
+                      rounds the float32 master weights through bf16.
+
+``rank_rejoin_flap`` needs elastic membership (ROADMAP §1 item 13) and
+the bulk-scoring points (``scorer_crash``, ``shard_corrupt``,
+``lease_skew``) bulk scoring (item 14): the port fires none of them, and
+the train and serve CLIs refuse a spec that arms one, by name.
 
 Arming: programmatic (tests) via ``arm()``/``disarm()``/``reset()``, or
 the ``TPUIC_FAULTS`` env var for whole-process CLI runs, a comma list of
@@ -81,13 +107,19 @@ REGISTERED_POINTS = frozenset({
 
 
 # The points each of the port's entry points fires.  The rest are not
-# ported yet: the training points and swap_corrupt with ROADMAP §1 item
-# 11, the bulk-scoring points with item 14.
+# ported yet: rank_rejoin_flap with elastic membership (ROADMAP §1 item
+# 13), the bulk-scoring points with item 14.
 FIRED_BY = {
     "serve": frozenset({"flood", "replica_crash", "replica_wedge",
-                        "hang_device", "canary_degrade"}),
-    "train": frozenset(),
+                        "hang_device", "canary_degrade", "swap_corrupt"}),
+    "train": frozenset({"nan_batch", "sigterm", "decode_error",
+                        "ckpt_kill", "slow_step", "hard_crash", "hang_step",
+                        "rank_crash", "rank_hang", "bf16_master_truncate"}),
 }
+# The points no entry point of the port fires yet, with the ROADMAP §1
+# item that brings each.
+_LATER = {"rank_rejoin_flap": 13, "scorer_crash": 14, "shard_corrupt": 14,
+          "lease_skew": 14}
 
 
 class InjectedFault(RuntimeError):
@@ -241,15 +273,17 @@ def check_fired(entry: str, spec: Optional[str] = None) -> None:
     the run instead."""
     armed = plan.armed() | (FaultPlan(spec).armed() if spec else frozenset())
     missing = sorted(armed - FIRED_BY[entry])
-    if missing:
-        raise ValueError(
-            f"TPUIC_FAULTS: {', '.join(map(repr, missing))} not fired by "
-            f"the port's {entry} path yet (ROADMAP §1 item "
-            f"{14 if set(missing) <= _SCORE_POINTS else 11}); it fires "
-            f"{', '.join(sorted(FIRED_BY[entry])) or 'none'}")
-
-
-_SCORE_POINTS = frozenset({"scorer_crash", "shard_corrupt", "lease_skew"})
+    if not missing:
+        return
+    why = []
+    for p in missing:
+        other = [e for e, pts in sorted(FIRED_BY.items()) if p in pts]
+        why.append(f"the {other[0]} path fires {p!r}" if other else
+                   f"{p!r} comes with ROADMAP §1 item {_LATER[p]}")
+    raise ValueError(
+        f"TPUIC_FAULTS: {', '.join(map(repr, missing))} not fired by the "
+        f"port's {entry} path ({'; '.join(why)}); it fires "
+        f"{', '.join(sorted(FIRED_BY[entry])) or 'none'}")
 
 
 # -- at-rest corruption helpers (test-side tools) --------------------------

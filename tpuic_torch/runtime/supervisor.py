@@ -75,8 +75,8 @@ ENV_STACK_DUMP = "TPUIC_STACK_DUMP"
 ENV_FLIGHT_DUMP = "TPUIC_FLIGHT_DUMP"  # telemetry/flight.py reads it
 ENV_RESTART = "TPUIC_RESTART"
 ENV_DOWN_SINCE = "TPUIC_DOWN_SINCE"
-# Fleet-consistent resume cap of ``tpuic``'s gang supervisor (ROADMAP §1
-# item 11 in the port): kept so that the protocol's names stay one set.
+# The fleet-consistent resume cap the gang supervisor passes
+# (runtime/gang.py); restore_into skips rungs past it.
 ENV_RESUME_STEP = "TPUIC_RESUME_STEP"
 
 

@@ -26,10 +26,26 @@ escalated SIGQUIT (stack dump and flight dump) -> SIGTERM -> SIGKILL.
 attempt 0 gets the first spec, attempt 1 the second, ...; attempts past
 the list run fault-free.
 
-``tpuic``'s gang flags (``--gang``, ``--gang-ckpt``, ``--elastic``,
-``--min-ranks``, ``--max-respawns``, ``--coordinator``) are parsed and
-refused by name: the gang supervisor and elastic membership are ROADMAP
-§1 item 11.
+A child that exits 43 (a trainer's preemption flush) is restarted at
+once with resume; SIGTERM to the supervisor reaches the child, which
+flushes, and the supervisor exits 43 with it.
+
+``--gang N`` supervises N ranks as one unit (``runtime/gang.py``):
+per-rank watchdogs, a coordinated teardown (every survivor gets the
+SIGTERM flush window) and restart of all ranks on any rank's failure,
+poison from any rank stopping the gang, and with ``--gang-ckpt`` a
+fleet-agreed resume step passed down as ``TPUIC_RESUME_STEP``.  The
+port's trainer writes its checkpoints from process 0 into one directory,
+so ``--gang-ckpt`` without ``{rank}`` names that shared model directory;
+``{rank}`` in it, and in the child command, is substituted per rank.
+``--coordinator HOST:PORT`` gives each rank the process-group trio::
+
+    python -m tpuic_torch.supervise --gang 2 --coordinator localhost:29500 \
+        --gang-ckpt cp/resnet50 -- python -m tpuic_torch.train \
+        --datadir /data/imagefolder --model resnet50 --ckpt-dir cp
+
+Elastic membership (``--elastic``, ``--min-ranks``, ``--max-respawns``)
+is parsed and refused by name: it is ROADMAP §1 item 13.
 """
 
 from __future__ import annotations
@@ -41,14 +57,11 @@ from tpuic_torch.runtime.supervisor import Supervisor
 
 _PROG = "python -m tpuic_torch.supervise"
 
-#: ``tpuic``'s gang flags: (flag, argparse kwargs).  Not ported.
-_GANG = (
-    ("--gang", dict(type=int, default=0, metavar="N")),
-    ("--gang-ckpt", dict(default="", metavar="DIR")),
+#: ``tpuic``'s elastic-gang flags: (flag, argparse kwargs).  Not ported.
+_ELASTIC = (
     ("--elastic", dict(action="store_true")),
     ("--min-ranks", dict(type=int, default=1, metavar="M")),
     ("--max-respawns", dict(type=int, default=None, metavar="N")),
-    ("--coordinator", dict(default="", metavar="HOST:PORT")),
 )
 
 
@@ -90,9 +103,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="child-side heartbeat write throttle")
     p.add_argument("--chaos", default="",
                    help="per-attempt TPUIC_FAULTS specs, ';'-separated")
-    for flag, kw in _GANG:
-        p.add_argument(flag, help="not yet ported to tpuic_torch (ROADMAP "
-                                  "§1 item 11)", **kw)
+    p.add_argument("--gang", type=int, default=0, metavar="N",
+                   help="supervise N ranks as one unit (runtime/gang.py): "
+                        "coordinated teardown and restart on a partial "
+                        "failure, per-rank watchdogs, fleet-agreed resume; "
+                        "'{rank}' in the child command is substituted")
+    p.add_argument("--gang-ckpt", default="", metavar="DIR",
+                   help="the checkpoint model dir holding the "
+                        "*.manifest.json sidecars (one shared dir, or a "
+                        "'{rank}' template of per-rank dirs): a restart "
+                        "passes the newest step every rank committed as "
+                        "TPUIC_RESUME_STEP")
+    p.add_argument("--coordinator", default="", metavar="HOST:PORT",
+                   help="TPUIC_COORDINATOR_ADDRESS for the ranks (with "
+                        "TPUIC_NUM_PROCESSES and TPUIC_PROCESS_ID: the "
+                        "process group's rendezvous); omit for ranks "
+                        "without collectives")
+    for flag, kw in _ELASTIC:
+        p.add_argument(flag, help="not yet ported to tpuic_torch (elastic "
+                                  "membership, ROADMAP §1 item 13)", **kw)
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="-- followed by the child command")
     return p
@@ -101,12 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, _ in _GANG:
+    for flag, _ in _ELASTIC:
         dest = flag.lstrip("-").replace("-", "_")
         if getattr(args, dest) != parser.get_default(dest):
-            raise SystemExit(f"{_PROG}: error: {flag}: the gang supervisor "
+            raise SystemExit(f"{_PROG}: error: {flag}: elastic membership "
                              "is not yet ported to tpuic_torch (ROADMAP §1 "
-                             "item 11)")
+                             "item 13)")
     cmd = list(args.cmd)
     if cmd and cmd[0] == "--":
         cmd = cmd[1:]
@@ -117,13 +146,20 @@ def main(argv=None) -> int:
         return 2
     chaos = ([s.strip() for s in args.chaos.split(";")] if args.chaos
              else None)
-    return Supervisor(
-        cmd, args.state_dir, watchdog_s=args.watchdog_s,
-        startup_grace_s=args.startup_grace_s, quit_wait_s=args.quit_wait_s,
-        grace_s=args.grace_s, poll_s=args.poll_s,
-        max_restarts=args.max_restarts, backoff_s=args.backoff_s,
-        backoff_max_s=args.backoff_max_s, crash_loop_k=args.crash_loop_k,
-        heartbeat_interval_s=args.heartbeat_interval_s, chaos=chaos).run()
+    common = dict(
+        watchdog_s=args.watchdog_s, startup_grace_s=args.startup_grace_s,
+        quit_wait_s=args.quit_wait_s, grace_s=args.grace_s,
+        poll_s=args.poll_s, max_restarts=args.max_restarts,
+        backoff_s=args.backoff_s, backoff_max_s=args.backoff_max_s,
+        crash_loop_k=args.crash_loop_k,
+        heartbeat_interval_s=args.heartbeat_interval_s, chaos=chaos)
+    if args.gang:
+        from tpuic_torch.runtime.gang import GangSupervisor
+        return GangSupervisor(
+            cmd, args.state_dir, ranks=args.gang,
+            ckpt_dirs=args.gang_ckpt or None,
+            coordinator=args.coordinator, **common).run()
+    return Supervisor(cmd, args.state_dir, **common).run()
 
 
 if __name__ == "__main__":

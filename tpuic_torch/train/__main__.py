@@ -68,11 +68,27 @@ checkpoints.  Two processes on two cards::
 Each process joins NCCL on ``cuda:{rank % cards}``; with ``--device cpu``
 they join gloo on the CPU instead.
 
-``TPUIC_FAULTS`` is parsed at start (``runtime/faults.py``): a spec that
-does not parse, or that arms a point the port's training path does not
-fire yet (ROADMAP §1 item 11), exits naming it.  Under ``python -m
-tpuic_torch.supervise`` the run writes the supervisor's heartbeat from its
-step events, and a restart resumes from the latest checkpoint.
+Failures (``tpuic``'s exit-code contract, ``runtime/supervisor.py``):
+SIGTERM latches; the run finishes its step, flushes a step-exact
+``latest`` (no val pass) and exits 43, and the same command resumes at
+that step and ends on the uninterrupted run's weights.  A streak of
+``--skip-threshold`` (10) non-finite steps, which the step's guard skips,
+rolls back to the last good checkpoint and goes on, the LR re-warming over
+``--rewarm-steps`` when set (``--no-rollback`` keeps skipping); a rollback
+past ``max_rollbacks`` (3), or with no checkpoint, exits 44.
+``--init-from`` starts from a reference torch checkpoint (a
+torchvision-layout ``state_dict``, merged leniently).  ``TPUIC_FAULTS`` is
+parsed at start (``runtime/faults.py``): a spec that does not parse, or
+that arms a point the training path does not fire (``rank_rejoin_flap``,
+which needs elastic membership, ROADMAP §1 item 13), exits naming it::
+
+  TPUIC_FAULTS=sigterm@5 python -m tpuic_torch.train ... ; echo $?  # 43
+  python -m tpuic_torch.train ...   # "resuming epoch 0 at step 5"
+
+Under ``python -m tpuic_torch.supervise`` (``--gang N`` for N processes)
+the run writes the supervisor's heartbeat from its step events, installs
+the flight recorder and the stack dump on SIGQUIT, and a restart resumes
+from the latest checkpoint (capped at ``TPUIC_RESUME_STEP`` in a gang).
 
 Telemetry (``tpuic_torch/telemetry``): ``--metrics-jsonl`` writes every
 bus event (step breakdowns, epochs, evals, checkpoint commits, memory
@@ -99,15 +115,6 @@ import sys
 from tpuic_torch.config import (ATTENTION_IMPLS, Config, DataConfig,
                                 MeshConfig, ModelConfig, OptimConfig,
                                 RunConfig)
-
-# train.py flags whose features are not ported: (flag, argparse kwargs).
-_NOT_PORTED = (
-    ("--init-from", dict(default="")),
-    ("--skip-threshold", dict(type=int, default=10)),
-    ("--no-rollback", dict(action="store_true")),
-    ("--rewarm-steps", dict(type=int, default=0)),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -267,8 +274,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slo", default="",
                    help="step-time SLOs, a comma list of "
                         "'train_step:pQ<=Nms[@target]' specs")
-    for flag, kw in _NOT_PORTED:
-        p.add_argument(flag, help="not yet ported to tpuic_torch", **kw)
+    # Failures (runtime/preemption.py, the Trainer's rollback).
+    p.add_argument("--init-from", default="",
+                   help="start from this reference torch checkpoint "
+                        "(a torchvision-layout state_dict, merged "
+                        "leniently; a resumed checkpoint overrides it)")
+    p.add_argument("--skip-threshold", type=int, default=10,
+                   help="consecutive non-finite (skipped) steps before the "
+                        "trainer rolls back to the last good checkpoint "
+                        "(0 disables detection)")
+    p.add_argument("--no-rollback", action="store_true",
+                   help="never roll back on a non-finite streak (keep "
+                        "skipping instead)")
+    p.add_argument("--rewarm-steps", type=int, default=0,
+                   help="after a rollback, ramp the LR linearly back to "
+                        "its schedule over this many steps")
     return p
 
 
@@ -290,10 +310,6 @@ def check_faults() -> None:
 def config_from_args(args: argparse.Namespace,
                      parser: argparse.ArgumentParser) -> Config:
     check_faults()
-    for flag, _ in _NOT_PORTED:
-        dest = flag.lstrip("-").replace("-", "_")
-        if getattr(args, dest) != parser.get_default(dest):
-            _fail(f"{flag}: not yet ported to tpuic_torch")
     if args.slo:
         # A typo'd objective fails the command line, not the Trainer.
         from tpuic_torch.telemetry.slo import parse_objectives
@@ -357,7 +373,11 @@ def config_from_args(args: argparse.Namespace,
                       trace_dir=args.trace_dir,
                       trace_threshold=args.trace_threshold,
                       trace_steps=args.trace_steps,
-                      trace_analyze=args.trace_analyze, slo=args.slo),
+                      trace_analyze=args.trace_analyze, slo=args.slo,
+                      init_from=args.init_from,
+                      skip_threshold=args.skip_threshold,
+                      rollback=not args.no_rollback,
+                      rollback_rewarm_steps=args.rewarm_steps),
         mesh=MeshConfig(model=args.model_axis, seq=args.seq_axis,
                         fsdp=args.fsdp, zero1=args.zero1),
     )
@@ -387,18 +407,45 @@ def main(argv=None) -> int:
     cfg = config_from_args(args, parser)
     from tpuic_torch.metrics.logging import host0_print
     from tpuic_torch.runtime.distributed import initialize, shutdown
+    from tpuic_torch.runtime.supervisor import (ENV_HEARTBEAT_FILE,
+                                                EXIT_POISON, EXIT_PREEMPTED,
+                                                NonRetryableError,
+                                                install_stack_dump_handler)
+    from tpuic_torch.telemetry.flight import install_flight_recorder
     from tpuic_torch.train.loop import Trainer
+    # Supervised liveness: the flight recorder's SIGQUIT dump first, the
+    # faulthandler stack dump chained to it (the serve CLI's order).
+    flight = install_flight_recorder()
+    if flight is not None or os.environ.get(ENV_HEARTBEAT_FILE, ""):
+        install_stack_dump_handler(chain=flight is not None)
     info = initialize(device=args.device)
     host0_print(f"[tpuic_torch] {info.process_count} process(es)")
     try:
         try:
+            # Construction is in the poison scope too: a resume that finds
+            # every checkpoint rung corrupt must not crash-loop.
             trainer = Trainer(cfg, device=args.device,
                               log_dir=args.log_dir or None)
         except NotImplementedError as e:
             _fail(str(e))
+        except NonRetryableError as e:
+            host0_print(f"[tpuic_torch] NON-RETRYABLE: {e}")
+            return EXIT_POISON
         if args.prom_dump and info.process_index == 0:
             _wire_prom_dump(trainer, args.prom_dump)
-        best = trainer.fit()
+        try:
+            best = trainer.fit()
+        except NonRetryableError as e:
+            # A restart cannot fix it (rollbacks exhausted, no checkpoint
+            # to roll back to): exit 44 so a supervisor reports.
+            host0_print(f"[tpuic_torch] NON-RETRYABLE: {e}")
+            return EXIT_POISON
+        if cfg.run.handle_preemption and trainer.preemption.triggered:
+            # The step-exact 'latest' is committed: exit 43, so that a
+            # supervisor restarts with resume at once.
+            host0_print(f"[tpuic_torch] preempted (flushed); best val "
+                        f"accuracy {best:.4f}")
+            return EXIT_PREEMPTED
         if trainer.telemetry.slo is not None:
             host0_print(f"[slo] {trainer.telemetry.slo.summary_line()}")
         host0_print(f"[tpuic_torch] done; best val accuracy {best:.4f}")

@@ -98,15 +98,61 @@ the K4 flash-attention kernels with ``attention="flash"``.
   epoch with ``torch.profiler`` (a Chrome trace under
   ``{profile_dir}/epoch{e}``).
 
+- **Preemption** (``tpuic/train/loop.py:169-175``, ``:593-617``,
+  ``:1169-1195``; ``run.handle_preemption``): ``fit`` installs a SIGTERM
+  latch (``runtime/preemption.py``; it chains to the handler that was
+  there) for its span.  The step loop polls it before each step; with
+  several processes it acts only on ``agree()``, a collective, every 16
+  steps and at the epoch's end, so every process stops at the same step.
+  A latched run skips the pending val pass and flushes ``latest`` with
+  ``step_in_epoch`` (the steps done) and the loader geometry, committed
+  before ``fit`` returns; the train CLI then exits 43.  A resume
+  (``__init__``) continues that epoch at that step (``start_step``):
+  the loader skips the done batches (``Loader.epoch(e, start_step)``)
+  and the step's draws keep their global index, so the run ends on the
+  uninterrupted run's bits.  A geometry that differs, or an offset past
+  the epoch, replays the epoch from its start, with ``tpuic``'s
+  messages.  A flush at the epoch's last step resumes into the pending
+  val pass.
+- **Rollback** (``tpuic/train/loop.py:774-814``, ``:915-995``): the
+  deferred drain reads the step guard's ``skip_count``; at
+  ``run.skip_threshold`` consecutive skipped steps (with
+  ``run.rollback``) the epoch stops and ``fit`` restores the last good
+  checkpoint through ``restore_into`` (after ``ckpt.wait()``), resets the
+  streak and goes on from the restored epoch and step.  With
+  ``run.rollback_rewarm_steps`` the LR re-enters its schedule on a
+  linear ramp (``rewarm_scale`` composed onto the pristine schedule, in
+  the optimizer and in the logged ``lr``).  More than
+  ``run.max_rollbacks`` rollbacks, or a streak before any checkpoint,
+  raises ``NonRetryableError`` (the train CLI exits 44).
+- **Step numbers** are global and count every step run, a skipped one
+  too.  Each save records the count (``loop_step``), and a resume or a
+  rollback goes on from the restored one (from ``state.step``, the
+  applied steps, for a checkpoint without it), so the log, the
+  heartbeat, ``max_steps`` and the fault points name the same steps in
+  a resumed run as in the uninterrupted one.  (``tpuic`` reads
+  ``state.step`` at each epoch's start instead, so after a skipped step
+  its numbers there fall behind the steps run.)
+- **Fault points** (``runtime/faults.py``): ``sigterm``, ``nan_batch``
+  (the prepared float images times NaN, on the device), ``slow_step``,
+  ``hard_crash``, ``hang_step``, ``rank_crash`` and ``rank_hang`` (on
+  the rank ``TPUIC_FLEET_RANK`` names, else the process index) fire at
+  the step whose global number they name.
+- ``run.init_from`` merges a reference torch checkpoint into the fresh
+  weights (``checkpoint/torch_convert.init_from_torch``) before a
+  resume, and reseeds the EMA there.  Under ``python -m
+  tpuic_torch.supervise`` a restarted run publishes a ``restart`` event
+  with its downtime and the supervisor's ``TPUIC_RESUME_STEP`` cap.
+- **Events** of the failure story: ``preempt`` once the flush has
+  committed (its ``flush_s`` from the signal), ``rollback`` (with
+  whether the skipped steps left the parameters finite and the applied
+  steps before the restore), and ``kernel_launches`` as ``fit`` returns:
+  each counted kernel's launches in its span.
+
 Not ported, and refused with ``NotImplementedError`` naming the field:
-the ``seq`` and ``model`` axes above 1, ``fsdp``, ``zero1`` (ROADMAP §1
-item 12) and ``run.init_from``.  The ViT refuses the sequence-parallel
-attention impls the same way.
-Mid-epoch (preemption) saves, rollback and elastic membership are later
-items (ROADMAP §1 items 9 and 11).  A
-preemption's mid-epoch save across processes needs ``tpuic``'s
-``agree()`` (``tpuic/train/loop.py:593-615``) as a collective: every
-process must take the same decision at the same step.
+the ``seq`` and ``model`` axes above 1, ``fsdp`` and ``zero1`` (ROADMAP
+§1 item 12).  The ViT refuses the sequence-parallel attention impls the
+same way.  Elastic membership is item 13.
 """
 
 from __future__ import annotations
@@ -114,6 +160,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import time
 from typing import Callable, Optional
 
@@ -127,12 +174,17 @@ from tpuic_torch.data.folder import ImageFolderDataset
 from tpuic_torch.data.pack import pack_folds
 from tpuic_torch.data.pipeline import Loader
 from tpuic_torch.device import resolve_device
+from tpuic_torch.kernels import counted_kernels
 from tpuic_torch.metrics.logging import MetricLogger, host0_print
 from tpuic_torch.metrics.meters import AverageMeter
 from tpuic_torch.models import create_model_from_config
-from tpuic_torch.runtime import distributed
+from tpuic_torch.runtime import distributed, faults
+from tpuic_torch.runtime.preemption import PreemptionGuard, agree
+from tpuic_torch.runtime.supervisor import (ENV_RESUME_STEP,
+                                            NonRetryableError, restart_info)
 from tpuic_torch.telemetry.events import publish
-from tpuic_torch.train.optimizer import make_optimizer, make_schedule
+from tpuic_torch.train.optimizer import (make_optimizer, make_schedule,
+                                         rewarm_scale)
 from tpuic_torch.train.state import create_train_state
 from tpuic_torch.train.step import make_eval_step, make_train_step
 
@@ -153,13 +205,24 @@ def unported_settings(cfg: Config) -> list:
         ("mesh.model", mesh.model > 1),
         ("mesh.fsdp", mesh.fsdp),
         ("mesh.zero1", mesh.zero1),
-        ("run.init_from", bool(cfg.run.init_from)),
     ]
     return [name for name, on in checks if on]
 
 
 def _silent(msg: str) -> None:
     pass
+
+
+#: Steps between two ``agree`` calls of the step loop with several
+#: processes: well inside any grace window.
+PREEMPT_SYNC = 16
+
+
+def fleet_rank(default: int) -> int:
+    """The rank the rank-targeted fault points name: ``TPUIC_FLEET_RANK``
+    (the gang supervisor's), else ``default`` (the process index)."""
+    from tpuic_torch.telemetry.fleet import ENV_FLEET_RANK
+    return int(os.environ.get(ENV_FLEET_RANK, default))
 
 
 def loader_mode(loader) -> str:
@@ -284,17 +347,24 @@ class Trainer:
             with open(os.path.join(self.ckpt.root, "class_to_idx.json"),
                       "w") as f:
                 json.dump(self.train_ds.class_to_idx, f, indent=2)
+        # SIGTERM latch, installed for the span of fit().
+        self.preemption = PreemptionGuard()
         self.start_epoch = 0
+        # Steps of start_epoch already done (a mid-epoch flush's resume).
+        self.start_step = 0
+        self.last_epoch_steps = 0
         self.best_score = 0.0
+        if cfg.run.init_from:
+            self._init_from_torch(cfg.run.init_from)
         if cfg.run.resume:
             # The newest of latest and best: a crash after the last val
             # improvement resumes at the last periodic save.
             self.state, self.start_epoch, self.best_score = \
                 self.ckpt.restore_into(self.state)
-            if self.ckpt.last_restore_step_in_epoch is not None:
-                self.log(f"[ckpt] a mid-epoch save: epoch "
-                         f"{self.start_epoch} replays from its first step "
-                         "(step-exact resume is not ported)")
+            self.start_step = self._validated_start_step()
+            if self.start_step:
+                self.log(f"[ckpt] a mid-epoch save: resuming epoch "
+                         f"{self.start_epoch} at step {self.start_step}")
         # Telemetry: host-side subscribers on the process-global bus.
         from tpuic_torch.telemetry.wiring import TrainTelemetry
         self.telemetry = TrainTelemetry(
@@ -306,8 +376,69 @@ class Trainer:
         self._last_skip_streak = 0
         self.stats = {}
         self._quarantine_seen = 0
-        self._steps_done = 0
+        # Global step number: the restored count (or 0).
+        self._steps_done = self._restored_step_count()
         self._steps_exhausted = False
+        self._rollback_pending = False
+        self.rollbacks = 0
+
+    def _init_from_torch(self, path: str) -> None:
+        """Merge the reference torch checkpoint at ``path`` into the fresh
+        model (``tpuic``'s ``_init_from_torch``): the family detected from
+        its keys, an unmapped or mismatched tensor keeps its fresh value;
+        an EMA restarts at the merged weights."""
+        from tpuic_torch.checkpoint.convert import _invalidate
+        from tpuic_torch.checkpoint.torch_convert import init_from_torch
+        init_from_torch(self.state.model, path, self.mcfg.name,
+                        log=self.log)
+        _invalidate(self.state.model)
+        if self.state.ema_params is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(
+                    self.state.ema_params,
+                    [p.detach() for p in self.state.model.parameters()])
+
+    def _restored_step_count(self) -> int:
+        """The global step count to go on from after a restore: the one
+        the checkpoint recorded, else its applied steps."""
+        n = self.ckpt.last_restore_loop_step
+        return int(self.state.step) if n is None else n
+
+    def _loader_geometry(self):
+        """``(global_batch, seed, n_samples)``: what the epoch order and its
+        slicing into steps depend on; a mid-epoch flush records it and a
+        resume needs it unchanged to reuse the step offset."""
+        ld = self.train_loader
+        return (ld.global_batch, ld.seed, len(ld.dataset))
+
+    def _validated_start_step(self) -> int:
+        """The step offset of the checkpoint just restored, when its loader
+        geometry matches this run's (``tpuic/train/loop.py:522-552``;
+        shared by the resume and the rollback), else 0: an offset under
+        another geometry would skip other samples."""
+        start_step = self.ckpt.last_restore_step_in_epoch or 0
+        if not start_step:
+            return 0
+        saved = self.ckpt.last_restore_geometry
+        live = self._loader_geometry()
+        epoch = (self.ckpt.last_restore_meta or (0, 0))[0]
+        if saved is not None and any(
+                a not in (-1, b) for a, b in zip(saved, live)):
+            self.log(
+                f"[ckpt] mid-epoch checkpoint was flushed under "
+                f"loader geometry (global_batch, seed, n_samples)="
+                f"{saved} but this run has {live} — the step "
+                f"offset would skip the wrong samples; replaying "
+                f"epoch {epoch} from its start instead")
+            return 0
+        if start_step > len(self.train_loader):
+            self.log(
+                f"[ckpt] mid-epoch step {start_step} exceeds "
+                f"this run's {len(self.train_loader)} steps/epoch "
+                f"(dataset changed?) — replaying epoch "
+                f"{epoch} from its start instead")
+            return 0
+        return start_step
 
     def _drain(self, pending, losses: AverageMeter, epoch: int) -> None:
         """Read one deferred log interval back to the host and print it."""
@@ -332,25 +463,43 @@ class Trainer:
                     delta=streak - last if streak > last else streak)
         self._last_skip_streak = streak
         self.log(msg)
+        thr = self.cfg.run.skip_threshold
+        if (thr > 0 and streak >= thr and self.cfg.run.rollback
+                and not self._rollback_pending):
+            self.log(f"[rollback] {streak} consecutive non-finite steps "
+                     f"(threshold {thr}) at step {step_num} — state is "
+                     "still finite (guard skipped the updates); restoring "
+                     "the last good checkpoint instead of grinding forward")
+            self._rollback_pending = True
 
-    def train_epoch(self, epoch: int) -> float:
+    def train_epoch(self, epoch: int, start_step: int = 0) -> float:
         """Reference train_epoch (train.py:36-73): the mean of the logged
-        losses.  Honours ``run.max_steps``."""
+        losses.  Honours ``run.max_steps``.  ``start_step`` continues a
+        partly trained epoch at that step (the loader serves the same
+        remainder); ``self.last_epoch_steps`` is the epoch's steps done
+        when it returns: all of them, or fewer after a preemption, a
+        rollback or the step budget."""
         losses = AverageMeter()
         self._drains = []
-        log_every = max(1, self.cfg.run.log_every_steps)
-        n_steps = len(self.train_loader)
+        run = self.cfg.run
+        log_every = max(1, run.log_every_steps)
+        remaining = len(self.train_loader) - start_step
+        self.last_epoch_steps = start_step
         pending = None
         metrics = None
         wait, first_wait = 0.0, 0.0
         t0 = time.perf_counter()
-        inner = iter(self.train_loader.epoch(epoch))
+        inner = iter(self.train_loader.epoch(epoch, start_step=start_step))
         # The step timer's wrapper times the loader's waits (data wait).
         steptime = self.telemetry.steptime
         steptime.epoch_start()
         it = steptime.wrap_epoch(inner)
         step = 0
-        first = epoch * self.train_loader.steps_per_epoch()
+        # The draws' index: the step's place in the schedule's epochs.
+        first = epoch * self.train_loader.steps_per_epoch() + start_step
+        preempt_on = run.handle_preemption
+        multi = self.world > 1
+        rank = fleet_rank(self.rank)
         while True:
             tw = time.perf_counter()
             batch = next(it, None)
@@ -359,15 +508,57 @@ class Trainer:
                 first_wait = wait
             if batch is None:
                 break
+            # Fault points (runtime/faults.py; one dict lookup unarmed),
+            # keyed by the global step number.  'sigterm' drives the real
+            # latch, agreement and flush.
+            at = self._steps_done
+            if preempt_on and faults.fire("sigterm", step=at):
+                os.kill(os.getpid(), signal.SIGTERM)
+            trig = preempt_on and self.preemption.triggered
+            if preempt_on and multi:
+                # Only at a boundary every process reaches together.
+                if step % PREEMPT_SYNC == 0:
+                    trig = agree(trig)
+                    if trig:
+                        self.preemption.trigger()
+                else:
+                    trig = False
+            if trig:
+                break
+            fbatch = {k: batch[k] for k in ("image", "label", "mask")}
+            if faults.fire("nan_batch", step=at):
+                # The prepared float images, poisoned on the device: the
+                # same shapes and dtypes, so nothing new is built.
+                fbatch["image"] = fbatch["image"] * float("nan")
+            if faults.fire("slow_step", step=at):
+                slow_s = faults.param("slow_step")
+                time.sleep(0.05 if slow_s is None else float(slow_s))
+            if faults.fire("hard_crash", step=at):
+                # Death with no flush, no atexit: the supervisor's
+                # retryable crash and resume.
+                os.kill(os.getpid(), signal.SIGKILL)
+            if faults.fire("hang_step", step=at):
+                hang_s = faults.param("hang_step")
+                deadline = (None if hang_s is None
+                            else time.monotonic() + float(hang_s))
+                while deadline is None or time.monotonic() < deadline:
+                    time.sleep(0.5)
+            if faults.fire("rank_crash", step=at):
+                if rank == int(faults.param("rank_crash") or 0):
+                    os.kill(os.getpid(), signal.SIGKILL)
+            if faults.fire("rank_hang", step=at):
+                if rank == int(faults.param("rank_hang") or 0):
+                    while True:
+                        time.sleep(0.5)
             # The step's draws are keyed by the global micro-step.
             steptime.dispatch_start()
-            self.state, metrics = self.train_step(
-                self.state, {k: batch[k] for k in ("image", "label", "mask")},
-                step=first + step)
+            self.state, metrics = self.train_step(self.state, fbatch,
+                                                  step=first + step)
             steptime.dispatch_end()
             step += 1
             self._steps_done += 1
-            if step % log_every == 0 or step == n_steps:
+            self.last_epoch_steps = start_step + step
+            if step % log_every == 0 or step == remaining:
                 handles = {k: metrics[k] for k in
                            ("loss", "accuracy", "lr", "skip_count",
                             "moe_aux") if k in metrics}
@@ -377,7 +568,10 @@ class Trainer:
             # The step's 'step' event, after the deferred drain: a
             # blocking read is charged to the step that made it.
             steptime.step_end(self._steps_done)
-            max_steps = self.cfg.run.max_steps
+            if self._rollback_pending:
+                # Guarded but unprogressing steps: hand back to fit().
+                break
+            max_steps = run.max_steps
             if max_steps and self._steps_done >= max_steps:
                 self._steps_exhausted = True
                 break
@@ -502,30 +696,84 @@ class Trainer:
         return out
 
     def fit(self, epochs: Optional[int] = None) -> float:
-        """Train from ``start_epoch`` up to ``epochs`` (default
-        ``run.epochs``), each epoch followed by a val pass and the
-        checkpoint saves (``best`` on an improvement, ``latest`` every
-        ``save_period`` epochs), and return the best val accuracy.  A
-        ``max_steps`` budget reached mid-run stops before that epoch's val
-        pass.  Every save has committed when ``fit`` returns."""
+        """Train from ``start_epoch`` (at ``start_step`` in it) up to
+        ``epochs`` (default ``run.epochs``), each epoch followed by a val
+        pass and the checkpoint saves (``best`` on an improvement,
+        ``latest`` every ``save_period`` epochs), and return the best val
+        accuracy.  A ``max_steps`` budget reached mid-run stops before
+        that epoch's val pass; a preemption flushes ``latest`` in its
+        place and returns (``self.preemption.triggered``); a non-finite
+        streak rolls back and goes on.  Every save has committed when
+        ``fit`` returns."""
         from tpuic_torch.telemetry import tracing
         epochs = self.cfg.run.epochs if epochs is None else epochs
         best = self.best_score
         self._steps_exhausted = False
+        run = self.cfg.run
+        if run.handle_preemption:
+            self.preemption.install()
         tm = self.telemetry
         goodput = tm.goodput
         goodput.start()
+        # A supervised restart: its downtime (the last life's death to
+        # here) goes to the goodput 'restart' bucket.
+        rinfo = restart_info()
+        if rinfo is not None:
+            count, downtime_s = rinfo
+            self.log(f"[supervise] restart #{count}: resumed at epoch "
+                     f"{self.start_epoch} step {self.start_step} after "
+                     f"{downtime_s:.1f}s downtime")
+            publish("restart", restart=count, downtime_s=round(downtime_s, 3),
+                    epoch=self.start_epoch, step_in_epoch=self.start_step,
+                    resume_step=os.environ.get(ENV_RESUME_STEP))
         profiler = None
+        flushed = None
+        counted = {fn.__name__: fn for fn in counted_kernels()}
+        launched = {name: fn.launches for name, fn in counted.items()}
         try:
-            for epoch in range(self.start_epoch, epochs):
-                if self.cfg.run.profile_dir and epoch == self.start_epoch:
+            epoch = self.start_epoch
+            while epoch < epochs:
+                if run.profile_dir and epoch == self.start_epoch \
+                        and profiler is None:
                     profiler = (tracing.start_profiler(), epoch)
                 t0 = time.perf_counter()
-                self.train_epoch(epoch)
+                self.train_epoch(
+                    epoch, self.start_step if epoch == self.start_epoch
+                    else 0)
+                if self._rollback_pending:
+                    # A non-finite streak: restore the last good
+                    # checkpoint and go on from its epoch and step.
+                    if profiler is not None:
+                        self._stop_profiler(*profiler)
+                        profiler = None
+                    epoch = self._do_rollback()
+                    best = self.best_score
+                    continue
                 if self._steps_exhausted:
                     self.log(f"[tpuic_torch] step budget "
-                             f"({self.cfg.run.max_steps}) reached in epoch "
+                             f"({run.max_steps}) reached in epoch "
                              f"{epoch}; stopping")
+                    break
+                # The epoch's end is a common boundary: agree, so that a
+                # process whose latch missed the last in-epoch agreement
+                # does not go to val while the others flush.
+                if run.handle_preemption and agree(
+                        self.preemption.triggered):
+                    self.preemption.trigger()
+                    # Grace windows are short: no val pass, a flush of
+                    # 'latest' with the steps done (all of them at the
+                    # epoch's end: the resume runs the pending val).
+                    done = self.last_epoch_steps
+                    total = len(self.train_loader)
+                    self.log(f"[preempt] signal received during epoch "
+                             f"{epoch} (step {done}/{total}); flushing "
+                             "latest and exiting")
+                    gb, seed, n = self._loader_geometry()
+                    self.ckpt.save_latest(
+                        self.state, epoch, best, step_in_epoch=done,
+                        global_batch=gb, data_seed=seed, data_len=n,
+                        loop_step=self._steps_done)
+                    flushed = (epoch, done)
                     break
                 score = self.val_epoch(epoch)
                 self.log(f"Epoch {epoch} took "
@@ -535,16 +783,30 @@ class Trainer:
                     profiler = None
                 if score > best:
                     best = score
-                    self.ckpt.save_best(self.state, epoch, best)
-                self.ckpt.maybe_save_latest(self.state, epoch, best)
+                    self.ckpt.save_best(self.state, epoch, best,
+                                        loop_step=self._steps_done)
+                self.ckpt.maybe_save_latest(self.state, epoch, best,
+                                            loop_step=self._steps_done)
                 self.log(f"[goodput] {goodput.summary_line()}")
                 publish("goodput", step=tm.steptime.last_step,
                         **goodput.report())
+                epoch += 1
         finally:
+            self.preemption.uninstall()
             if profiler is not None:
                 self._stop_profiler(*profiler)
-            # A save staged in the last epoch commits on every exit path.
+            # A save staged in the last epoch, or the flush, commits on
+            # every exit path.
             self.ckpt.wait()
+            if flushed is not None:
+                t_signal = self.preemption.triggered_at
+                publish("preempt", epoch=flushed[0], step_in_epoch=flushed[1],
+                        step=self._steps_done,
+                        flush_s=None if t_signal is None
+                        else round(time.time() - t_signal, 3))
+            publish("kernel_launches", **{
+                name: fn.launches - launched[name]
+                for name, fn in counted.items()})
             if tm.tracer is not None:
                 tm.tracer.finish()
             if tm.profile is not None:
@@ -555,6 +817,79 @@ class Trainer:
             tm.flush()
         self.best_score = best
         return best
+
+    def _do_rollback(self) -> int:
+        """Restore the last good checkpoint after a non-finite streak
+        (``tpuic/train/loop.py:915-995``); returns the epoch to go on
+        from, with ``self.start_step`` its step.  The restore goes
+        through the integrity ladder, the skip streak restarts at 0, and
+        with ``run.rollback_rewarm_steps`` the LR ramps back into its
+        schedule (a new optimizer around the restored state and a step
+        rebuilt around the composed schedule)."""
+        self._rollback_pending = False
+        self.rollbacks += 1
+        t_rb0 = time.perf_counter()
+        run = self.cfg.run
+        if self.rollbacks > run.max_rollbacks:
+            # A restart would resume, diverge and land here again: the
+            # poison half of the exit-code contract.
+            raise NonRetryableError(
+                f"non-finite rollback #{self.rollbacks} exceeds "
+                f"run.max_rollbacks={run.max_rollbacks}: the run keeps "
+                "diverging after restore — fix the data/LR instead of "
+                "looping restore->diverge forever")
+        # What the skipped steps left: a NaN update the guard let through
+        # would leave a non-finite parameter.  One read, on this rare path.
+        applied = int(self.state.step)
+        with torch.no_grad():
+            params_finite = bool(torch.stack([
+                torch.isfinite(p).all()
+                for p in self.state.model.parameters()]).all())
+        # A staged save commits first: the newest checkpoint may still sit
+        # in '{track}.new'.
+        self.ckpt.wait()
+        if self.ckpt.newest_track() is None:
+            raise NonRetryableError(
+                f"{run.skip_threshold} consecutive non-finite steps before "
+                "any checkpoint existed — nothing to roll back to (the "
+                "guard kept the state finite; lower the LR or check the "
+                "data)")
+        self.state, epoch, restored_best = self.ckpt.restore_into(self.state)
+        # 'best' on disk keeps its score: a rollback never lowers it.
+        self.best_score = max(self.best_score, restored_best)
+        with torch.no_grad():
+            self.state.skip_count.zero_()
+        if run.rollback_rewarm_steps > 0:
+            steps = max(1, self.train_loader.steps_per_epoch())
+            gb = self.train_loader.global_batch
+            base_step = int(self.state.step)
+            scale = rewarm_scale(base_step, run.rollback_rewarm_steps)
+            self.state.tx = make_optimizer(self.cfg.optim, steps, run.epochs,
+                                           global_batch=gb, lr_scale=scale)
+            # The logged 'lr' is what the optimizer applies: the ramp
+            # composed onto the pristine schedule (a second rollback inside
+            # the first one's ramp must not stack the two).
+            base = make_schedule(self.cfg.optim, steps, run.epochs,
+                                 global_batch=gb)
+            self.schedule = lambda t: base(t) * scale(t)
+            self.train_step = make_train_step(
+                self.cfg.optim, self.mcfg, lr_schedule=self.schedule,
+                device=self.device, seed=run.seed)
+            self.log(f"[rollback] LR re-warming over "
+                     f"{run.rollback_rewarm_steps} steps from step "
+                     f"{base_step}")
+        self.start_epoch = epoch
+        self.start_step = self._validated_start_step()
+        self._steps_done = self._restored_step_count()
+        self.log(f"[rollback] restored '{self.ckpt.last_restore_rung}' — "
+                 f"continuing at epoch {epoch} step {self.start_step} "
+                 f"(rollback {self.rollbacks}/{run.max_rollbacks})")
+        self._last_skip_streak = 0
+        publish("rollback", epoch=epoch, step_in_epoch=self.start_step,
+                rollback=self.rollbacks, rung=self.ckpt.last_restore_rung,
+                params_finite=params_finite, applied_steps=applied,
+                duration_s=round(time.perf_counter() - t_rb0, 3))
+        return epoch
 
     def _stop_profiler(self, prof, epoch: int) -> None:
         from tpuic_torch.telemetry import tracing

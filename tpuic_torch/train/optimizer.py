@@ -301,12 +301,17 @@ class Optimizer:
 
 def make_optimizer(cfg: OptimConfig, steps_per_epoch: int = 1,
                    total_epochs: int = 100,
-                   global_batch: int = 0) -> Optimizer:
+                   global_batch: int = 0,
+                   lr_scale: Optional[Callable] = None) -> Optimizer:
     """``tpuic``'s ``make_optimizer`` for one device: the schedule (in
     micro-step time), the optimizer kind, gradient clipping, gradient
-    accumulation and ``freeze_backbone``."""
+    accumulation and ``freeze_backbone``.  ``lr_scale`` multiplies the
+    schedule in micro-step time, before the accumulation's remap (the
+    ``Trainer``'s ``rewarm_scale`` after a rollback)."""
     lr = make_schedule(cfg, steps_per_epoch, total_epochs,
                        global_batch=global_batch)
+    if lr_scale is not None:
+        lr = (lambda t, base=lr: base(t) * lr_scale(t))
     name = cfg.optimizer.lower()
     kw = dict(clip_norm=cfg.grad_clip_norm,
               accum_steps=cfg.grad_accum_steps,

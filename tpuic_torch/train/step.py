@@ -89,6 +89,11 @@ gradients is the global gradient, and the mean of the ranks' losses is
 the global loss.  ``metrics["moe_aux"]`` is the mean of the ranks' terms,
 which is the global aux loss only where each term is right.
 
+**Fault point** ``bf16_master_truncate`` (``tpuic/train/step.py:400``,
+``runtime/faults.py``): checked once, when the step is built; armed,
+every applied update then rounds the float32 master weights through
+bf16, the no-float32-master bug a convergence gate must catch.
+
 **Remat** (``models/remat.py``) is the model's: ``resolve_remat_policy``
 warns here where the policy has no effect, as ``tpuic``'s step does.
 
@@ -108,6 +113,7 @@ from tpuic_torch.config import ModelConfig, OptimConfig, resolve_compute_dtype
 from tpuic_torch.metrics.meters import accuracy, topk_accuracy
 from tpuic_torch.models import moe as _moe
 from tpuic_torch.models.remat import resolve_remat_policy
+from tpuic_torch.runtime import faults
 from tpuic_torch.telemetry.tracing import scope
 from tpuic_torch.train import augment
 from tpuic_torch.train.loss import classification_loss
@@ -182,6 +188,7 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
     mixing = optim_cfg.mixup_alpha > 0 or optim_cfg.cutmix_alpha > 0
     ema_decay = float(optim_cfg.ema_decay)
     resolve_remat_policy(model_cfg)
+    truncate = faults.fire("bf16_master_truncate")
     wrapper = {}
     rng = {"next": 0}
     moe_layers = {}
@@ -299,6 +306,10 @@ def make_train_step(optim_cfg: OptimConfig, model_cfg: ModelConfig,
             applied = finite & state.tx.emits(state.opt_state)
             state.tx.update(params, grads, state.opt_state, finite,
                             grad_norm=grad_norm)
+            if truncate:
+                for p in params:
+                    p.copy_(torch.where(finite, p.to(torch.bfloat16).to(
+                        p.dtype), p))
             if state.ema_params is not None:
                 _ema_update(state, ema_decay, applied)
             if old_stats is not None:
