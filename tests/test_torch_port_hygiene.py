@@ -23,6 +23,14 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "tpuic_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpuic")
 
+# The parents that must outlive a CUDA wedge of their children: the
+# supervisors, the SLO arithmetic they and the rollout controller share, and
+# the front tier (router, rollout, HTTP front end, load generator).
+STDLIB_ONLY = ("tpuic_torch.supervise", "tpuic_torch.runtime.gang",
+               "tpuic_torch.telemetry.slo", "tpuic_torch.serve.router",
+               "tpuic_torch.serve.rollout", "tpuic_torch.serve.http",
+               "tpuic_torch.serve.loadgen")
+
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -58,7 +66,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_tpuic():
                  "tpuic_torch.data.device_prep", "tpuic_torch.models.moe",
                  "tpuic_torch.metrics.tensorboard",
                  "tpuic_torch.runtime.gang", "tpuic_torch.runtime.supervisor",
-                 "tpuic_torch.runtime.preemption", "tpuic_torch.supervise"):
+                 "tpuic_torch.runtime.preemption", "tpuic_torch.supervise",
+                 "tpuic_torch.checkpoint.torch_ref",
+                 *STDLIB_ONLY[3:]):
         assert name in got["names"]
     assert {f"tpuic_torch.telemetry.{m}" for m in (
         "events", "goodput", "memory", "profile", "prom", "slo",
@@ -74,14 +84,25 @@ def test_package_import_is_light():
     assert got == {"torch": False}
 
 
+def _stdlib_only(names) -> list:
+    return _run("import importlib, json, sys\n"
+                f"for n in {list(names)!r}: importlib.import_module(n)\n"
+                "print(json.dumps(sorted(m for m in ('torch', 'numpy', "
+                "'jax') if m in sys.modules)))\n")
+
+
 def test_the_supervisors_import_only_the_stdlib():
-    """``python -m tpuic_torch.supervise`` (one child or a gang) never
-    initialises CUDA: the parent imports neither torch nor numpy."""
-    got = _run("import json, sys\n"
-               "import tpuic_torch.supervise, tpuic_torch.runtime.gang\n"
-               "print(json.dumps(sorted(m for m in ('torch', 'numpy') "
-               "if m in sys.modules)))\n")
-    assert got == []
+    """``python -m tpuic_torch.supervise`` (one child or a gang), the SLO
+    arithmetic, the router and the rollout controller never initialise CUDA:
+    the parent imports neither torch nor numpy (nor jax)."""
+    assert _stdlib_only(STDLIB_ONLY) == []
+
+
+@pytest.mark.parametrize("name", STDLIB_ONLY)
+def test_each_stdlib_only_module_alone(name):
+    """Each of them alone, so a module that only loads torch after
+    another's import cannot hide behind it."""
+    assert _stdlib_only([name]) == []
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -15,8 +15,13 @@ there it keeps as its own copy.
                                classifier head, with the flax module names
 - ``tpuic_torch.checkpoint`` — carry a ``tpuic`` variables tree, optimizer
                                state or reference torch checkpoint into the
-                               port; initialisation; the port's own
-                               checkpoints
+                               port, and a port model back out to both;
+                               initialisation; the port's own checkpoints;
+                               ``python -m
+                               tpuic_torch.checkpoint.torch_convert``
+                               (``--verify`` against the bare-torch
+                               replicas of ``torch_ref``,
+                               ``--export-torch``)
 - ``tpuic_torch.data``       — ImageFolder decode/augment and the Loader
 - ``tpuic_torch.train``      — loss, optimizers, schedules, steps and
                                their draws (mixup, CutMix, erasing,
@@ -24,10 +29,17 @@ there it keeps as its own copy.
                                ``python -m tpuic_torch.train``
 - ``tpuic_torch.serve``      — the dynamic-batching inference engine (one
                                CUDA graph per padding bucket) and
-                               ``python -m tpuic_torch.serve``
+                               ``python -m tpuic_torch.serve``; the front
+                               tier over its replicas, stdlib only: the
+                               router (``python -m
+                               tpuic_torch.serve.router``), the canary
+                               rollout (``python -m
+                               tpuic_torch.serve.rollout``), the HTTP
+                               front end and the load generator
 - ``tpuic_torch.predict``    — ``python -m tpuic_torch.predict``: score an
                                ImageFolder fold to CSV
-- ``tpuic_torch.runtime``    — the SIGTERM latch and the process group
+- ``tpuic_torch.runtime``    — the SIGTERM latch, the process group, the
+                               fault points and the supervisors
 - ``tpuic_torch.telemetry``  — the event bus, step breakdown, goodput and
                                MFU, memory, SLOs, triggered
                                ``torch.profiler`` windows and their

@@ -36,6 +36,11 @@ state (``freeze_backbone``: moments for the head's leaves only, the
 backbone's ``MaskedNode``) included.  ``load_jax_ema(model, ema_params)``
 carries ``TrainState.ema_params`` by the variables' naming.
 
+``export_jax_variables(model)`` is the inverse of
+:func:`load_jax_variables`: a port model -> the ``tpuic`` tree with numpy
+leaves, flax layout and names, which ``torch_convert``'s ``export_*``
+functions write out as a reference torch checkpoint.
+
 ``init_params(model, seed)`` draws flax's default initialisation (what a
 ``tpuic`` Trainer starts from) for training; ``init_synthetic`` draws
 weights and statistics for a serving smoke run.
@@ -100,6 +105,52 @@ def _to_port_layout(arr: np.ndarray, path: str = "") -> np.ndarray:
     if arr.ndim == 2:
         return arr.T  # [in, out] -> [out, in]
     return arr
+
+
+_FLAX_PARAM_LEAF = {v: k for k, v in _PARAM_LEAF.items()}
+_FLAX_STAT_LEAF = {v: k for k, v in _STAT_LEAF.items()}
+
+
+def _flax_path(name: str, ndim: int) -> tuple:
+    """``(collection, flax path)`` of the port tensor ``name``: the
+    inverse of :func:`_port_name`.  A ``weight`` of one dimension is a BN
+    or LayerNorm ``scale``; of two or four, a Dense or conv ``kernel``."""
+    *mods, leaf = name.split(".")
+    if leaf in _FLAX_STAT_LEAF:
+        return "batch_stats", mods + [_FLAX_STAT_LEAF[leaf]]
+    if leaf == "weight":
+        return "params", mods + ["scale" if ndim == 1 else "kernel"]
+    if leaf not in _FLAX_PARAM_LEAF:
+        raise KeyError(f"{name}: no flax counterpart for leaf '{leaf}'")
+    return "params", mods + [_FLAX_PARAM_LEAF[leaf]]
+
+
+def _to_flax_layout(arr: np.ndarray, path: Sequence[str]) -> np.ndarray:
+    """The inverse of :func:`_to_port_layout`."""
+    if path[-1] in _AS_IS:
+        return arr
+    if arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if arr.ndim == 2:
+        return arr.T  # [out, in] -> [in, out]
+    return arr
+
+
+def export_jax_variables(model: nn.Module) -> Dict[str, Dict]:
+    """A port model -> ``{"params": ..., "batch_stats": ...}``, the
+    ``tpuic`` variables tree with numpy leaves (flax layout and names):
+    the inverse of :func:`load_jax_variables`, so ``load_jax_variables(m,
+    export_jax_variables(m))`` writes every tensor back bit for bit.
+    Each leaf is a float32 copy on the host."""
+    tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, t in _targets(model).items():
+        collection, path = _flax_path(name, t.dim())
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        node = tree[collection]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(_to_flax_layout(arr, path), order="C")
+    return tree
 
 
 def _targets(model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,7 @@
 """Reference torch checkpoints -> the port's models
-(``tpuic/checkpoint/torch_convert.py``, the families the port has).
+(``tpuic/checkpoint/torch_convert.py``, the families the port has), and
+back, with ``tpuic``'s CLI
+(``python -m tpuic_torch.checkpoint.torch_convert``).
 
 The reference saves ``{'epoch', 'best_score', 'state_dict'}`` with DDP's
 ``module.`` prefix (train.py:177-179), where the model is
@@ -33,6 +35,17 @@ flax layout and names) with the same rules as ``tpuic``:
 port's own flax-to-torch rules.  Leniency is the reference's
 (train.py:143-148, ``tpuic``'s ``init_state_from_torch``): an unmapped or
 shape-mismatched leaf keeps its fresh initialisation.
+
+The inverse direction: ``export_resnet``, ``export_inception``,
+``export_efficientnet``, ``export_vit`` and ``export_state_dict`` write a
+``tpuic`` tree (a port model's, through ``convert.export_jax_variables``)
+as a reference-layout state dict with DDP's ``module.encoder.`` prefix.
+
+CLI: ``python -m tpuic_torch.checkpoint.torch_convert CKPT [--verify]``
+prints what the file holds and, with ``--verify``, holds the port model
+against ``checkpoint/torch_ref.py``'s bare replica on the same weights;
+``--export-torch OUT CKPT_DIR/<model>/<track>`` writes a port checkpoint
+out in the reference layout (``--verify`` then checks the written file).
 """
 
 from __future__ import annotations
@@ -517,6 +530,25 @@ def convert_vit(state_dict: Mapping[str, Any],
     return {"params": params, "batch_stats": {}}
 
 
+def detect_vit_variant(state_dict: Mapping[str, Any]) -> str:
+    """The model name (``tpuic``'s) from the patch-embedding shape
+    [D, 3, p, p]."""
+    sd = strip_prefixes(state_dict)
+    w = sd.get("conv_proj.weight")
+    if w is None:
+        raise ValueError("no conv_proj.weight in state_dict")
+    hidden, _, patch, _ = w.shape
+    names = {(768, 16): "vit-b16", (1024, 16): "vit-l16",
+             (768, 32): "vit-b32", (1024, 32): "vit-l32",
+             (384, 16): "vit-s16", (64, 4): "vit-tiny"}
+    name = names.get((int(hidden), int(patch)))
+    if name is None:
+        raise ValueError(
+            f"no tpuic ViT for hidden={hidden}, patch={patch} "
+            f"(supported: {sorted(names.values())})")
+    return name
+
+
 def detect_arch(state_dict: Mapping[str, Any]) -> str:
     """Sniff the backbone family from state_dict key shapes."""
     for k in state_dict:
@@ -667,3 +699,501 @@ def init_from_torch(model, path: str, model_name: str, log=print) -> dict:
     log(f"[init] {path}: loaded {n}/{total} param and "
         f"{n_s}/{total_s} batch-stat leaves")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Inverse direction: tpuic trees -> reference torch state_dict
+# (``tpuic/checkpoint/torch_convert.py:711-995``; a port model gives its
+# tree through ``convert.export_jax_variables``)
+# ---------------------------------------------------------------------------
+
+def _unbox(leaf):
+    return np.asarray(getattr(leaf, "value", leaf))
+
+
+def _conv_inv(w) -> np.ndarray:
+    return np.transpose(_unbox(w), (3, 2, 0, 1))  # HWIO -> OIHW
+
+
+_RESNET_LEAF_INV = {v: k for k, v in _RESNET_LEAF.items()}
+
+
+def _put_bn_inv(sd: Dict[str, np.ndarray], tname: str,
+                p: Mapping, s: Mapping) -> None:
+    """Emit one BatchNorm's torch keys from tpuic params/stats subtrees
+    (shared by every exporter; num_batches_tracked re-synthesized as 0)."""
+    sd[f"{tname}.weight"] = _unbox(p["scale"])
+    sd[f"{tname}.bias"] = _unbox(p["bias"])
+    sd[f"{tname}.running_mean"] = _unbox(s["mean"])
+    sd[f"{tname}.running_var"] = _unbox(s["var"])
+    sd[f"{tname}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _export_head(head: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """tpuic head/{fc0..,out} -> fc.{0,2,4,...} Sequential keys (ReLUs take
+    the odd slots), or the plain torchvision 'fc' for a single Linear."""
+    sd: Dict[str, np.ndarray] = {}
+    fcs = sorted((m for m in head if re.fullmatch(r"fc\d+", m)),
+                 key=lambda m: int(m[2:]))
+    for i, mod in enumerate(fcs):
+        sd[f"fc.{2 * i}.weight"] = np.transpose(_unbox(head[mod]["kernel"]))
+        sd[f"fc.{2 * i}.bias"] = _unbox(head[mod]["bias"])
+    if "out" in head:
+        out_name = f"fc.{2 * len(fcs)}" if fcs else "fc"
+        sd[f"{out_name}.weight"] = np.transpose(_unbox(head["out"]["kernel"]))
+        sd[f"{out_name}.bias"] = _unbox(head["out"]["bias"])
+    return sd
+
+
+def export_resnet(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                  prefix: str = "module.encoder.") -> Dict[str, np.ndarray]:
+    """tpuic resnet {'params','batch_stats'} -> reference-layout state_dict.
+
+    The exact inverse of ``convert_resnet`` (HWIO->OIHW convs, transposed
+    linears, scale/bias->weight/bias, mean/var->running_mean/running_var,
+    with num_batches_tracked=0 re-synthesized and DDP's ``module.encoder.``
+    prefix re-applied by default — reference train.py:179 saves it). Lets a
+    tpuic-trained model flow back into the reference's resume path
+    (train.py:132-150) or any torchvision consumer.
+    """
+    bb = params.get("backbone", {})
+    bs = batch_stats.get("backbone", {})
+    head = params.get("head", {})
+    if not any(n.startswith("layer") for n in bb):
+        raise ValueError(
+            "export_resnet: params['backbone'] has no 'layer*' modules — "
+            f"not a resnet checkpoint (got {sorted(bb)[:6]}...); only the "
+            "resnet family exports to the torch layout")
+    sd: Dict[str, np.ndarray] = {}
+    put_bn = lambda tname, p, s: _put_bn_inv(sd, tname, p, s)  # noqa: E731
+
+    for name, sub in bb.items():
+        if name == "conv1":
+            sd["conv1.weight"] = _conv_inv(sub["kernel"])
+        elif name == "bn1":
+            put_bn("bn1", sub, bs["bn1"])
+        elif name.startswith("layer"):
+            stage, block = name[len("layer"):].split("_")
+            for mod, leaves in sub.items():
+                torch_mod = _RESNET_LEAF_INV.get(mod)
+                if torch_mod is None:
+                    continue
+                tname = f"layer{stage}.{block}.{torch_mod}"
+                if "kernel" in leaves:
+                    sd[f"{tname}.weight"] = _conv_inv(leaves["kernel"])
+                else:
+                    put_bn(tname, leaves, bs[name][mod])
+    sd.update(_export_head(head))
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def export_inception(params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any],
+                     prefix: str = "module.encoder.") -> Dict[str, np.ndarray]:
+    """tpuic InceptionV3 trees -> torchvision-layout state_dict (incl. the
+    aux head) — the inverse of ``convert_inception``, covering the
+    reference's DEFAULT backbone (train.py:122)."""
+    bb = params.get("backbone", {})
+    bs = batch_stats.get("backbone", {})
+    if "mixed5b" not in bb:
+        raise ValueError(
+            "export_inception: params['backbone'] has no 'mixed5b' — not an "
+            f"inception checkpoint (got {sorted(bb)[:6]}...)")
+    stem_inv = {v: k for k, v in _INCEPTION_STEM.items()}
+    block_inv = {k.lower().replace("_", ""): k for k in _INCEPTION_FAMILY}
+    branch_inv = {fam: {v: k for k, v in m.items()}
+                  for fam, m in _INCEPTION_BRANCH.items()}
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_convbn(tname: str, p: Mapping, s: Mapping) -> None:
+        sd[f"{tname}.conv.weight"] = _conv_inv(p["conv"]["kernel"])
+        _put_bn_inv(sd, f"{tname}.bn", p["bn"], s["bn"])
+
+    for name, sub in bb.items():
+        if name in stem_inv:
+            put_convbn(stem_inv[name], sub, bs[name])
+        elif name in block_inv:
+            tblock = block_inv[name]
+            fam = _INCEPTION_FAMILY[tblock]
+            for br, leaves in sub.items():
+                tbranch = branch_inv[fam].get(br)
+                if tbranch is not None:
+                    put_convbn(f"{tblock}.{tbranch}", leaves, bs[name][br])
+        elif name == "aux":
+            for conv in ("conv0", "conv1"):
+                if conv in sub:
+                    put_convbn(f"AuxLogits.{conv}", sub[conv],
+                               bs["aux"][conv])
+            if "fc" in sub:
+                sd["AuxLogits.fc.weight"] = np.transpose(
+                    _unbox(sub["fc"]["kernel"]))
+                sd["AuxLogits.fc.bias"] = _unbox(sub["fc"]["bias"])
+    sd.update(_export_head(params.get("head", {})))
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def export_efficientnet(params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any],
+                        prefix: str = "module.encoder."
+                        ) -> Dict[str, np.ndarray]:
+    """tpuic EfficientNet trees -> efficientnet_pytorch-layout state_dict.
+
+    The inverse of ``convert_efficientnet``. The flat ``_blocks.{i}`` index
+    is reconstructed by enumerating ``block{stage}_{repeat}`` names in
+    (stage, repeat) order, so no variant knowledge is needed — any b0..b7
+    tree round-trips. A single-Linear head exports as the package's
+    ``_fc``; a reference-style MLP head exports as ``fc.{0,2,...}``.
+    """
+    bb = params.get("backbone", {})
+    bs = batch_stats.get("backbone", {})
+    if "stem_conv" not in bb or not any(n.startswith("block") for n in bb):
+        raise ValueError(
+            "export_efficientnet: params['backbone'] has no stem_conv/"
+            f"block* modules — not an efficientnet checkpoint "
+            f"(got {sorted(bb)[:6]}...)")
+    conv_inv = {v: k for k, v in _EFFNET_BLOCK_CONV.items()}
+    bn_inv = {v: k for k, v in _EFFNET_BLOCK_BN.items()}
+    se_inv = {v: k for k, v in _EFFNET_SE.items()}
+    sd: Dict[str, np.ndarray] = {}
+    put_bn = lambda tname, p, s: _put_bn_inv(sd, tname, p, s)  # noqa: E731
+
+    def coord_key(name: str) -> Tuple[int, int]:
+        stage, rep = name[len("block"):].split("_")
+        return int(stage), int(rep)
+
+    blocks = sorted((n for n in bb if re.fullmatch(r"block\d+_\d+", n)),
+                    key=coord_key)
+    for i, name in enumerate(blocks):
+        sub, stats = bb[name], bs.get(name, {})
+        for mod, leaves in sub.items():
+            if mod in conv_inv:
+                sd[f"_blocks.{i}.{conv_inv[mod]}.weight"] = _conv_inv(
+                    leaves["kernel"])
+            elif mod in bn_inv:
+                put_bn(f"_blocks.{i}.{bn_inv[mod]}", leaves, stats[mod])
+            elif mod == "se":
+                for part, tpart in se_inv.items():
+                    sd[f"_blocks.{i}.{tpart}.weight"] = _conv_inv(
+                        leaves[part]["kernel"])
+                    sd[f"_blocks.{i}.{tpart}.bias"] = _unbox(
+                        leaves[part]["bias"])
+    sd["_conv_stem.weight"] = _conv_inv(bb["stem_conv"]["kernel"])
+    put_bn("_bn0", bb["stem_bn"], bs["stem_bn"])
+    sd["_conv_head.weight"] = _conv_inv(bb["head_conv"]["kernel"])
+    put_bn("_bn1", bb["head_bn"], bs["head_bn"])
+    head = params.get("head", {})
+    if any(re.fullmatch(r"fc\d+", m) for m in head):
+        sd.update(_export_head(head))      # reference MLP -> fc.{0,2,...}
+    elif "out" in head:
+        sd["_fc.weight"] = np.transpose(_unbox(head["out"]["kernel"]))
+        sd["_fc.bias"] = _unbox(head["out"]["bias"])
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def export_vit(params: Mapping[str, Any],
+               batch_stats: Mapping[str, Any],
+               prefix: str = "module.encoder.") -> Dict[str, np.ndarray]:
+    """tpuic ViT trees -> torchvision vision_transformer-layout state_dict —
+    the inverse of ``convert_vit`` (current >=0.12 ``mlp.{0,3}`` naming).
+    ``batch_stats`` is accepted for dispatch symmetry; ViT has none."""
+    del batch_stats
+    bb = params.get("backbone", {})
+    if "patch_embed" not in bb:
+        raise ValueError(
+            "export_vit: params['backbone'] has no 'patch_embed' — not a "
+            f"ViT checkpoint (got {sorted(bb)[:6]}...)")
+    sd: Dict[str, np.ndarray] = {}
+    sd["class_token"] = _unbox(bb["cls"])
+    sd["conv_proj.weight"] = _conv_inv(bb["patch_embed"]["kernel"])
+    sd["conv_proj.bias"] = _unbox(bb["patch_embed"]["bias"])
+    sd["encoder.pos_embedding"] = _unbox(bb["pos_embed"])
+    sd["encoder.ln.weight"] = _unbox(bb["ln_final"]["scale"])
+    sd["encoder.ln.bias"] = _unbox(bb["ln_final"]["bias"])
+    ln_inv = {v: k for k, v in _VIT_LN.items()}
+    mlp_inv = {"mlp_up": "mlp.0", "mlp_down": "mlp.3"}
+    for name, sub in bb.items():
+        if not name.startswith("block"):
+            continue
+        if "moe" in sub:
+            # Switch-MoE experts/router have no torchvision layout —
+            # exporting would silently drop every MoE MLP.
+            raise ValueError(
+                f"export_vit: {name} contains a Switch-MoE MLP; MoE ViTs "
+                "(vit-*-moe) have no torch export target")
+        t = f"encoder.layers.encoder_layer_{name[len('block'):]}"
+        for mod, leaves in sub.items():
+            if mod in ln_inv:
+                sd[f"{t}.{ln_inv[mod]}.weight"] = _unbox(leaves["scale"])
+                sd[f"{t}.{ln_inv[mod]}.bias"] = _unbox(leaves["bias"])
+            elif mod == "attn":
+                sd[f"{t}.self_attention.in_proj_weight"] = np.transpose(
+                    _unbox(leaves["qkv"]["kernel"]))
+                sd[f"{t}.self_attention.in_proj_bias"] = _unbox(
+                    leaves["qkv"]["bias"])
+                sd[f"{t}.self_attention.out_proj.weight"] = np.transpose(
+                    _unbox(leaves["out"]["kernel"]))
+                sd[f"{t}.self_attention.out_proj.bias"] = _unbox(
+                    leaves["out"]["bias"])
+            elif mod in mlp_inv:
+                sd[f"{t}.{mlp_inv[mod]}.weight"] = np.transpose(
+                    _unbox(leaves["kernel"]))
+                sd[f"{t}.{mlp_inv[mod]}.bias"] = _unbox(leaves["bias"])
+    # Head: _export_head emits fc.* keys ('fc.N.*' for the MLP Sequential,
+    # bare 'fc.weight' for one Linear); torchvision's scope is heads.head.
+    for k, v in _export_head(params.get("head", {})).items():
+        sd["heads.head." + k[len("fc."):]] = v
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def export_state_dict(params: Mapping[str, Any],
+                      batch_stats: Mapping[str, Any],
+                      prefix: str = "module.encoder.") -> Dict[str, np.ndarray]:
+    """Auto-dispatch tpuic->torch export by sniffing the backbone tree."""
+    bb = params.get("backbone", {})
+    if any(n.startswith("layer") for n in bb):
+        return export_resnet(params, batch_stats, prefix)
+    if "mixed5b" in bb:
+        return export_inception(params, batch_stats, prefix)
+    if "stem_conv" in bb:
+        return export_efficientnet(params, batch_stats, prefix)
+    if "patch_embed" in bb:
+        return export_vit(params, batch_stats, prefix)
+    raise ValueError(
+        "export_state_dict: unsupported backbone for torch export "
+        f"(got {sorted(bb)[:6]}...); supported: resnet*, inceptionv3, "
+        "efficientnet-b*, vit*")
+
+
+# ---------------------------------------------------------------------------
+# CLI:  python -m tpuic_torch.checkpoint.torch_convert <ckpt> [--verify]
+# ---------------------------------------------------------------------------
+
+def _infer_head(state_dict: Mapping[str, Any]) -> Tuple[int, bool]:
+    """(num_classes, mlp_head) from the checkpoint's own head keys."""
+    flat = strip_prefixes(state_dict)
+    fc_map = _head_fc_mapping(flat)
+    out_idx = next((i for i, t in fc_map.items() if t == "out"), None)
+    if out_idx is not None:       # Sequential MLP head (reference layout)
+        return int(flat[f"fc.{out_idx}.bias"].shape[0]), len(fc_map) > 1
+    for k in ("fc.bias", "_fc.bias"):   # plain torchvision / effnet _fc
+        if k in flat:
+            return int(flat[k].shape[0]), False
+    # ViT scope (torchvision heads.head): Sequential MLP or one Linear.
+    hh = sorted(int(m.group(1)) for k in flat
+                if (m := re.match(r"heads\.head\.(\d+)\.bias$", k)))
+    if hh:
+        return int(flat[f"heads.head.{hh[-1]}.bias"].shape[0]), len(hh) > 1
+    if "heads.head.bias" in flat:
+        return int(flat["heads.head.bias"].shape[0]), False
+    raise ValueError("cannot infer num_classes: no fc head keys found")
+
+
+def _iter_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _iter_leaves(v)
+        else:
+            yield v
+
+
+def _export_port_checkpoint(path: str, out: str, device) -> dict:
+    """``--export-torch``: the port checkpoint track at ``path``
+    (``ckpt_dir/<model>/{best|latest}``) -> a reference-layout torch file
+    ``{'epoch', 'best_score', 'state_dict'}`` at ``out``, keys under
+    ``module.encoder.``.  The track's parameters are exported (not its
+    EMA), as ``tpuic`` exports its Orbax ``params``."""
+    import json
+    import os
+    import sys
+
+    import torch
+
+    from tpuic_torch.checkpoint.convert import export_jax_variables
+    from tpuic_torch.checkpoint.loading import load_inference_variables
+    from tpuic_torch.config import Config, DataConfig, OptimConfig, RunConfig
+    from tpuic_torch.predict import serving_model_config
+
+    path = os.path.abspath(path)
+    root, track = os.path.split(path)
+    ckpt_dir, model_name = os.path.split(root)
+    sidecar = os.path.join(root, "config.json")
+    if not os.path.isfile(sidecar):
+        raise FileNotFoundError(
+            f"{path}: no config.json beside the track (expected a port "
+            "checkpoint, ckpt_dir/<model>/{best|latest})")
+    with open(sidecar) as f:
+        saved = json.load(f)
+    cfg = Config(data=DataConfig(data_dir=".",
+                                 resize_size=int(saved["data"]
+                                                 ["resize_size"])),
+                 model=serving_model_config(
+                     model_name, int(saved["model"]["num_classes"])),
+                 optim=OptimConfig(ema_decay=0.0),
+                 run=RunConfig(ckpt_dir=ckpt_dir))
+    model = load_inference_variables(
+        cfg, track=track, device=device,
+        log=lambda *a: print(*a, file=sys.stderr))
+    tree = export_jax_variables(model)
+    sd = export_state_dict(tree["params"], tree["batch_stats"])
+    meta = {}
+    meta_path = path + ".meta.json"
+    if os.path.isfile(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    epoch = int(meta.get("epoch", 0))
+    torch.save({"epoch": epoch,
+                "best_score": float(meta.get("best_score", 0.0)),
+                "state_dict": {k: torch.as_tensor(np.asarray(v))
+                               for k, v in sd.items()}}, out)
+    return {"exported": out, "keys": len(sd), "epoch": epoch}
+
+
+def _replica_state_dict(sd: Mapping[str, Any], arch: str) -> Dict[str, Any]:
+    """The checkpoint's keys as the bare replica names them: DDP's and the
+    reference's wrappers off; a ViT keeps its real inner ``encoder.``
+    scope (one ``encoder.`` comes off only when the checkpoint is
+    reference-wrapped, i.e. has no bare ``conv_proj`` at the top)."""
+    import torch
+
+    if arch.startswith("vit"):
+        raw = {(k[len("module."):] if k.startswith("module.") else k): v
+               for k, v in sd.items()}
+        if not any(k.startswith("conv_proj") for k in raw):
+            raw = {(k[len("encoder."):] if k.startswith("encoder.")
+                    else k): v for k, v in raw.items()}
+        return {k: torch.as_tensor(np.asarray(
+            v.detach().cpu().numpy() if hasattr(v, "detach") else v))
+            for k, v in raw.items()}
+    return {k: torch.as_tensor(np.asarray(v))
+            for k, v in strip_prefixes(sd).items()}
+
+
+def main(argv=None) -> int:
+    """Inspect a reference/torchvision checkpoint; optionally verify the
+    port against it, or export a port checkpoint to it (``tpuic``'s CLI,
+    ``tpuic/checkpoint/torch_convert.py:996``).
+
+    ``--verify`` loads the checkpoint BOTH into a bare-torch replica of the
+    reference Classifier (``checkpoint/torch_ref.py``, exact upstream
+    module naming) and, through the converter and ``init_from_torch``'s
+    lenient merge, into the port model, then prints the max |delta
+    logits| on seeded random inputs.  Both forwards run on ``--device``
+    (default: the card) with TF32 off; the port's is the serving forward,
+    so on the card a ResNet runs the fused conv+BN+ReLU kernel and a ViT
+    flash attention.  ``--export-torch OUT`` writes a port checkpoint out
+    in the reference layout, and composes with ``--verify``, which then
+    checks the file it wrote."""
+    import argparse
+    import json
+    import sys
+
+    ap = argparse.ArgumentParser(
+        prog="python -m tpuic_torch.checkpoint.torch_convert",
+        description=main.__doc__.split("\n\n")[0])
+    ap.add_argument("checkpoint", help="reference best_model/latest_model "
+                    "file or a bare torch state_dict file; with "
+                    "--export-torch, a port checkpoint track "
+                    "(ckpt_dir/<model>/{best|latest})")
+    ap.add_argument("--arch", default="auto",
+                    help="backbone family (default: sniffed from keys)")
+    ap.add_argument("--verify", action="store_true",
+                    help="run the torch replica against the port model and "
+                    "print the max logits delta")
+    ap.add_argument("--export-torch", metavar="OUT", default="",
+                    help="INVERSE direction: read a port checkpoint track "
+                    "and write a reference-layout torch file (resnet, "
+                    "inceptionv3, efficientnet, vit families) to OUT; "
+                    "composes with --verify")
+    ap.add_argument("--image-size", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--tol", type=float, default=1e-3,
+                    help="--verify failure threshold on max |delta|")
+    ap.add_argument("--device", default=None,
+                    help="where the port model and the replica run "
+                    "(default: the card; 'cpu' for tests)")
+    args = ap.parse_args(argv)
+
+    if args.export_torch:
+        print(json.dumps(_export_port_checkpoint(
+            args.checkpoint, args.export_torch, args.device)))
+        if not args.verify:
+            return 0
+        # --verify composes: validate the exported file like any
+        # reference checkpoint.
+        args.checkpoint = args.export_torch
+
+    payload = load_reference_checkpoint(args.checkpoint)
+    sd = payload["state_dict"]
+    arch = args.arch if args.arch != "auto" else detect_arch(sd)
+    if arch == "efficientnet":
+        arch = f"efficientnet-{detect_efficientnet_variant(sd)}"
+    elif arch == "resnet":
+        arch = detect_resnet_depth(sd)
+    elif arch == "vit":
+        arch = detect_vit_variant(sd)
+    tree = convert_state_dict(sd, arch=arch)
+    n_params = len([1 for _ in _iter_leaves(tree["params"])])
+    n_stats = len([1 for _ in _iter_leaves(tree["batch_stats"])])
+    num_classes, mlp_head = _infer_head(sd)
+    print(json.dumps({
+        "checkpoint": args.checkpoint, "arch": arch,
+        "epoch": payload["epoch"], "best_score": payload["best_score"],
+        "num_classes": num_classes, "mlp_head": mlp_head,
+        "param_leaves": n_params, "batch_stat_leaves": n_stats}))
+    if not args.verify:
+        return 0
+
+    import torch
+
+    from tpuic_torch.checkpoint.convert import init_params
+    from tpuic_torch.checkpoint.torch_ref import build_reference_model
+    from tpuic_torch.device import resolve_device
+    from tpuic_torch.kernels import no_tf32
+    from tpuic_torch.models import create_model
+
+    dev = resolve_device(args.device)
+    size = args.image_size
+    if arch.startswith("vit"):
+        # The pos-embedding length fixes the ViT's image size: verify at
+        # the checkpoint's own size, whatever --image-size says.
+        flat = strip_prefixes(sd)
+        pe = flat.get("pos_embedding", flat.get("encoder.pos_embedding"))
+        patch = flat["conv_proj.weight"].shape[-1]
+        if pe is not None:
+            size = int(patch) * int(round((pe.shape[1] - 1) ** 0.5))
+    replica = build_reference_model(arch, num_classes, mlp_head=mlp_head,
+                                    image_size=size).eval()
+    missing, unexpected = replica.load_state_dict(
+        _replica_state_dict(sd, arch), strict=False)
+    replica.to(dev)
+    kw = {} if mlp_head else {"head_widths": ()}
+    # The serving forward: float32, fused conv+BN+ReLU, flash attention.
+    model = init_params(create_model(
+        arch, num_classes, dtype="float32", fused_conv_bn=True,
+        attention="flash", image_size=size, device=dev, **kw), 0,
+        device=dev).eval()
+    counts = init_from_torch(model, args.checkpoint, arch,
+                             log=lambda m: print(m, file=sys.stderr))
+    (n_loaded, n_total), (n_s, n_s_total) = (counts["params"],
+                                             counts["batch_stats"])
+    x = np.random.default_rng(0).normal(
+        size=(args.batch, size, size, 3)).astype(np.float32)
+    with torch.no_grad(), no_tf32():
+        xt = torch.from_numpy(x).to(dev)
+        want = replica(xt.permute(0, 3, 1, 2)).float().cpu().numpy()
+        got = model(xt).float().cpu().numpy()
+    delta = float(np.abs(got - want).max())
+    ok = (delta < args.tol and n_loaded == n_total and n_s == n_s_total
+          and not missing)
+    print(json.dumps({
+        "verify": "ok" if ok else "FAIL",
+        "max_logits_delta": delta,
+        "params_mapped": f"{n_loaded}/{n_total}",
+        "batch_stats_mapped": f"{n_s}/{n_s_total}",
+        "replica_missing_keys": len(missing),
+        "replica_unexpected_keys": len(unexpected)}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

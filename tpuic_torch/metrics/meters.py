@@ -14,9 +14,16 @@ from __future__ import annotations
 
 import math
 from collections import deque
-from typing import Dict, Iterable, Sequence
+from typing import TYPE_CHECKING, Dict, Iterable, Sequence
 
-import torch
+if TYPE_CHECKING:  # pragma: no cover — annotations only
+    import torch
+
+# No module-level torch import, as ``tpuic``'s has no jax one: the
+# stdlib-only serve tiers (the replica router and the canary rollout
+# controller) import this module for the pinned quantile helpers, through
+# telemetry/slo.py, and must never load torch or numpy.  ``accuracy``
+# and ``topk_accuracy`` import torch when they are called.
 
 
 def _rank(n: int, q: float) -> int:
@@ -122,6 +129,7 @@ class AverageMeter:
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-sample 0/1 correctness [B] float32; reference utils.py:25-27."""
+    import torch
     return (torch.argmax(logits, dim=-1) == labels.long()).float()
 
 
@@ -129,6 +137,7 @@ def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                   k: int = 5) -> torch.Tensor:
     """Per-sample 0/1 top-k membership [B] float32 (k clamped to the class
     count)."""
+    import torch
     k = min(k, logits.shape[-1])
     idx = torch.topk(logits, k, dim=-1).indices
     return (idx == labels.long()[:, None]).any(dim=-1).float()

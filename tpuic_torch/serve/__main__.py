@@ -13,10 +13,10 @@ Three request sources, all feeding the same ``InferenceEngine``:
 - **socket JSONL** (``--listen HOST:PORT``): the replica transport.  Same
   request lines as stdin plus a ``{"b64", "shape", "dtype"}`` raw-array
   payload (``wire.py``) and a ``{"op": "ping"}`` probe answered with
-  ``pong``, the queue depth and the model's identity (digest,
-  generation); responses go back on the requesting connection, keyed by
-  id.  ``--ready-file`` atomically publishes the bound port and pid once
-  the engine is warm.
+  ``pong``, the queue depth, the model's identity (digest, generation)
+  and the process's kernel launches; responses go back on the
+  requesting connection, keyed by id.  ``--ready-file`` atomically
+  publishes the bound port and pid once the engine is warm.
 
 On the card the engine's warmup captures one CUDA graph per bucket
 (``--buckets``), and every device call replays one.  Decoding request N+1
@@ -75,8 +75,8 @@ Operating the replica, as ``tpuic``'s server does:
   and priority, brownout and quota gauges, SLO rows, the device memory
   (the allocator's counters, read at scrape time with no sync), the
   engine's CUDA-graph rows, and the measured waterfall of the largest
-  bucket's graph, taken at warmup and after a swap that captured graphs,
-  never at scrape time.
+  bucket's graph, taken at warmup and after a swap that captured graphs
+  of new shapes, never at scrape time.
 - Under ``python -m tpuic_torch.supervise`` the server writes the
   heartbeat from its batches and its accept loop, installs the flight
   recorder and a faulthandler stack dump on SIGQUIT (chained).
@@ -162,6 +162,14 @@ def _result_record(rid, probs, order, names, k: int) -> dict:
             "topk": topk}
 
 
+def _kernel_launches() -> dict:
+    """This process's launches of each counted kernel wrapper (graph
+    replays included): a pong's ``kernel_launches``, so a parent reads
+    them per replica life.  Host counters; no device read."""
+    from tpuic_torch.kernels import counted_kernels
+    return {fn.__name__: fn.launches for fn in counted_kernels()}
+
+
 def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                  guard, beat=lambda: None, drain_timeout: float = 30.0,
                  ready_file: str = "", prom_port=None,
@@ -179,7 +187,9 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
       ``priority``/``deadline_ms``/``tenant`` are honoured and the
       enqueue does not block: a rejection is a typed error line.
     - ``{"op": "ping", "id": ...}`` -> ``{"op": "pong", "id",
-      "queue_depth", "inflight", "digest", "generation", "pid"}``.
+      "queue_depth", "inflight", "digest", "generation", "pid",
+      "kernel_launches"}`` (the last the port's: each counted kernel's
+      launches in this process, graph replays included).
     - ``{"op": "swap", ...}`` -> gate and flip on a worker thread
       (``submit_swap``); its ``swap_result`` or typed verdict comes back
       keyed by id like any answer, and the ready file is written again
@@ -247,12 +257,17 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
         """Drain as much of the connection's out buffer as the kernel
         will take WITHOUT blocking: a stalled peer must never stall the
         select loop (and every other connection's pings).  The buffer is
-        consumed through an offset, compacted every 256 KB."""
+        consumed through an offset, compacted every 256 KB.  Each send
+        takes a copy of at most 256 KB of it, never a memoryview: a view
+        still alive when the buffer is resized below raises BufferError
+        ("Existing exports of data") and killed a replica under the
+        router's pings."""
         st = conns.get(sock)
         if st is None or not st["out"]:
             return
+        ofs = st["out_ofs"]
         try:
-            n = sock.send(memoryview(st["out"])[st["out_ofs"]:])
+            n = sock.send(bytes(st["out"][ofs:ofs + (1 << 18)]))
         except (BlockingIOError, InterruptedError):
             return  # kernel buffer full: the writable set drains it
         except OSError:
@@ -294,7 +309,8 @@ def serve_socket(engine, *, listen: str, names, top_k: int, size: int,
                         "digest": engine.model_digest,
                         "generation": engine.generation,
                         "dtypes": list(engine.variant_tags()),
-                        "pid": os.getpid()})
+                        "pid": os.getpid(),
+                        "kernel_launches": _kernel_launches()})
             return
         if req.get("op") == "swap":
             # Control line, not traffic: gate and flip on a worker thread

@@ -84,9 +84,12 @@ with few, large, fixed-shape calls:
   while the engine serves weights other than its boot weights.
 - **Measured waterfall** (``waterfall=True``): a ``torch.profiler``
   window over a few replays of the largest bucket's graph of the default
-  rung, at ``warmup()`` and after a swap that captured new graphs, taken
-  while the batcher is held and before traffic reaches those graphs, its
-  kernels classed as ``telemetry/profile.py`` classes them.
+  rung, at ``warmup()`` and after a swap that captured graphs of new
+  shapes, taken while the batcher is held and before traffic reaches
+  those graphs, its kernels classed as ``telemetry/profile.py`` classes
+  them.  A standby captured in the live slot's shapes takes the live
+  slot's window: the same kernels, and a window beside live traffic
+  stalls every batch for its length (CUPTI's start and stop).
   ``profile_waterfall()`` rescales it onto the measured ``device`` span;
   it never opens a window itself, so a scrape never starts CUPTI beside
   live traffic.  On the card a window that fails raises.
@@ -1266,8 +1269,9 @@ class InferenceEngine:
         reference assignment between two batches: a batch runs all old or
         all new weights, and in-flight and queued requests resolve, none
         re-run.  One swap at a time.  Publishes a ``swap`` event.  With
-        ``waterfall`` a slot that captured graphs gets its window before
-        the flip.  Returns ``{generation, digest,
+        ``waterfall`` a slot that captured graphs of new shapes gets its
+        window before the flip; a standby captured in the live slot's
+        shapes takes the live slot's.  Returns ``{generation, digest,
         reused_executables, prewarmed, duration_s, batcher_hold_s}``, the
         last the host time the flip held the batcher."""
         from tpuic_torch.checkpoint.loading import variables_digest
@@ -1283,8 +1287,16 @@ class InferenceEngine:
             for rung in slot.rungs.values():
                 rung.staged = None
             if self.waterfall and slot.captures:
-                # New graphs: their window, before traffic reaches them.
-                self._take_waterfall(slot, self.generation + 1)
+                if slot is self._standby and self._gen.waterfall:
+                    # The standby was captured in the live slot's shapes:
+                    # the same kernels, whose window the live slot holds.
+                    # A window now would start CUPTI beside live traffic
+                    # and stall every batch for its length.
+                    slot.waterfall = dict(self._gen.waterfall)
+                else:
+                    # New shapes: their window, before traffic reaches
+                    # them.
+                    self._take_waterfall(slot, self.generation + 1)
             with self._flip:
                 t_flip = time.perf_counter()
                 old = self._gen

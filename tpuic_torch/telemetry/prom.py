@@ -15,9 +15,11 @@ histogram, rejects by cause and priority (``admission_rows``), brownout
 and quota gauges, SLO, memory and device-time rows.  The port has no
 compiled-program registry: its ``compile_cache_*`` rows count the
 engine's per-bucket CUDA graphs (``compile_cache_rows``).
-``PromServer`` serves ``/metrics`` over HTTP from a daemon thread (the
-serve CLI's ``--prom-port``).  The router, rollout and score rows are
-ROADMAP §1 items 2 and 14.
+``router_exposition(router.snapshot(), rollout=...)`` renders the replica
+router's ``tpuic_router_*`` rows and a canary rollout's
+``tpuic_rollout_*`` rows (``rollout_rows``).  ``PromServer`` serves
+``/metrics`` over HTTP from a daemon thread (the serve and router CLIs'
+``--prom-port``).  The score rows are ROADMAP §1 item 14.
 """
 
 from __future__ import annotations
@@ -318,6 +320,183 @@ def serve_exposition(snapshot: dict, prefix: str = "tpuic_serve",
     rows.extend(memory_rows(memory))
     rows.extend(slo_rows(slo))
     rows.extend(compile_cache_rows(compile_cache))
+    return render(rows, prefix=prefix)
+
+
+_BREAKER_CODE = {"closed": 0.0, "half_open": 0.5, "open": 1.0}
+_REPLICA_STATE_CODE = {"starting": 0.0, "up": 1.0, "wedged": 2.0,
+                       "down": 3.0, "failed": 4.0, "stopped": 5.0}
+
+
+_ROLLOUT_PHASE_CODE = {"idle": 0.0, "gating": 1.0, "canary": 2.0,
+                       "promoting": 3.0, "rolling_back": 4.0,
+                       "promoted": 5.0, "rolled_back": 6.0,
+                       "refused": 7.0, "aborted": 8.0}
+
+
+def rollout_rows(rollout: Optional[dict]) -> List[Tuple]:
+    """``CanaryRollout.state()`` -> tpuic_rollout_* rows
+    (serve/rollout.py, docs/serving.md "Model lifecycle").
+    Phase is a numeric code (0=idle 1=gating 2=canary 3=promoting
+    4=rolling_back 5=promoted 6=rolled_back 7=refused 8=aborted) so a
+    dashboard alerts on 4+/6+ without string matching."""
+    if not rollout:
+        return []
+    rows: List[Tuple] = [
+        ("rollout_phase", _ROLLOUT_PHASE_CODE.get(rollout.get("phase")),
+         "gauge", "rollout phase (0=idle 1=gating 2=canary 3=promoting "
+         "4=rolling_back 5=promoted 6=rolled_back 7=refused 8=aborted)",
+         None),
+        ("rollout_stage_index", rollout.get("stage_index"), "gauge",
+         "current canary stage index (-1 before the first stage)",
+         None),
+        ("rollout_stage_fraction", rollout.get("stage_fraction"),
+         "gauge", "fraction of traffic routed to the canary", None),
+        ("rollout_canary_errors_total", rollout.get("canary_errors"),
+         "counter", "untyped errors observed on the canary (any one "
+         "triggers rollback)", None),
+    ]
+    if rollout.get("objective"):
+        labels = {"slo": str(rollout["objective"])}
+        rows.append(("rollout_burn_rate", rollout.get("burn_rate"),
+                     "gauge", "canary-scoped error-budget burn rate of "
+                     "the watched objective", labels))
+        rows.append(("rollout_canary_window_samples",
+                     rollout.get("canary_window_samples"), "gauge",
+                     "canary latency samples in the SLO window", labels))
+    return rows
+
+
+def router_exposition(snapshot: dict,
+                      prefix: str = "tpuic_router",
+                      rollout: Optional[dict] = None) -> str:
+    """``Router.snapshot()`` -> Prometheus text (serve/router.py,
+    docs/serving.md "Replica routing and failover").
+
+    Fleet-level counters (the exact offered-traffic ledger: ``offered ==
+    requests + rejected + errors``), the retry budget gauge, end-to-end
+    latency quantiles, and per-replica rows — health state and breaker
+    state as numeric codes (state: 0=starting 1=up 2=wedged 3=down
+    4=failed 5=stopped; breaker: 0=closed 0.5=half_open 1=open) so a
+    dashboard can alert on a replica leaving 1/0.  ``rollout`` appends
+    the tpuic_rollout_* rows (:func:`rollout_rows`) when a canary
+    rollout controller is attached.  No ``process_rss_bytes`` row, as in
+    ``tpuic``'s exposition, so both render the same text."""
+    rows: List[Tuple] = [
+        ("offered_total", snapshot.get("offered"), "counter",
+         "requests offered to the router", None),
+        ("requests_total", snapshot.get("requests"), "counter",
+         "requests resolved with a result", None),
+        ("errors_total", snapshot.get("errors"), "counter",
+         "untyped request failures (decode errors, bugs)", None),
+        ("retries_total", snapshot.get("retries"), "counter",
+         "budgeted failover replays", None),
+        ("failovers_total", snapshot.get("failovers"), "counter",
+         "replica-loss failover events", None),
+        ("failover_requeued_total", snapshot.get("failover_requeued"),
+         "counter", "in-flight requests requeued to a survivor", None),
+        ("failover_lost_total", snapshot.get("failover_lost"), "counter",
+         "in-flight requests resolved replica_lost", None),
+        ("duplicate_responses_total", snapshot.get("duplicates"),
+         "counter", "late/duplicate replica responses dropped by the "
+         "at-most-once id dedupe", None),
+        ("wire_errors_total", snapshot.get("wire_errors"), "counter",
+         "replica lines with an id the router never issued (torn "
+         "framing / protocol errors — alert: not benign dedupe)", None),
+        ("elapsed_seconds", snapshot.get("elapsed_s"), "gauge",
+         "seconds since stats reset", None),
+    ]
+    for cause, by_prio in (snapshot.get("rejected_by") or {}).items():
+        for prio, n in (by_prio or {}).items():
+            rows.append(("rejected_total", n, "counter",
+                         "typed verdicts by cause (queue_full|deadline|"
+                         "quota|brownout|replica_lost) and priority",
+                         {"cause": cause, "priority": prio}))
+    budget = snapshot.get("retry_budget") or {}
+    rows.append(("retry_budget_tokens", budget.get("tokens"), "gauge",
+                 "remaining retry-budget tokens (deposits = ratio x "
+                 "successes; one whole token per replay)", None))
+    rows.append(("retry_budget_denied_total", budget.get("denied"),
+                 "counter", "replays denied by a dry retry budget",
+                 None))
+    for q, v in (snapshot.get("latency_ms") or {}).items():
+        rows.append(("latency_ms", v, "gauge",
+                     "submit->resolve latency percentiles over the "
+                     "sliding window", {"quantile": q}))
+    for name, rep in sorted((snapshot.get("replicas") or {}).items()):
+        labels = {"replica": name}
+        rows.append(("replica_state", _REPLICA_STATE_CODE.get(
+            rep.get("state")), "gauge",
+            "replica health state (0=starting 1=up 2=wedged 3=down "
+            "4=failed 5=stopped)", labels))
+        rows.append(("replica_breaker_state", _BREAKER_CODE.get(
+            (rep.get("breaker") or {}).get("state")), "gauge",
+            "circuit-breaker state (0=closed 0.5=half_open 1=open)",
+            labels))
+        rows.append(("replica_breaker_transitions_total",
+                     (rep.get("breaker") or {}).get("transitions"),
+                     "counter", "breaker state transitions", labels))
+        rows.append(("replica_inflight", rep.get("inflight"), "gauge",
+                     "requests in flight on this replica", labels))
+        rows.append(("replica_routed_total", rep.get("routed"),
+                     "counter", "requests routed to this replica",
+                     labels))
+        rows.append(("replica_transport_failures_total",
+                     rep.get("transport_failures"), "counter",
+                     "transport failures (send errors, ping timeouts, "
+                     "connection loss)", labels))
+        rows.append(("replica_spill_limit", rep.get("spill_limit"),
+                     "gauge", "in-flight ceiling before load spills "
+                     "past this replica (Little's law at the committed "
+                     "knee)", labels))
+        rows.append(("replica_brownout_level", rep.get("brownout_level"),
+                     "gauge", "brownout level scraped from the "
+                     "replica's own exposition", labels))
+        rows.append(("replica_queue_depth", rep.get("queue_depth"),
+                     "gauge", "engine queue depth from the last pong",
+                     labels))
+        rows.append(("replica_heartbeat_age_seconds",
+                     rep.get("heartbeat_age_s"), "gauge",
+                     "age of the replica's supervisor heartbeat file",
+                     labels))
+        rows.append(("replica_spawns_total", rep.get("spawns"),
+                     "counter", "times this replica was (re)spawned",
+                     labels))
+        rows.append(("replica_generation", rep.get("generation"),
+                     "gauge", "replica weight generation (0 at boot, "
+                     "+1 per hot-swap; from the live pong)", labels))
+        rows.append(("replica_resolved_total", rep.get("resolved"),
+                     "counter", "requests this replica resolved with a "
+                     "result", labels))
+        rows.append(("replica_typed_rejects_total",
+                     rep.get("rejected_typed"), "counter",
+                     "typed verdicts this replica returned", labels))
+        rows.append(("replica_errors_total", rep.get("resp_errors"),
+                     "counter", "untyped error responses from this "
+                     "replica (the canary rollback trigger)", labels))
+        rows.append(("replica_digest_ok",
+                     (None if rep.get("digest") is None
+                      else float(bool(rep.get("digest_ok")))), "gauge",
+                     "1 = replica's model digest is in the fleet's "
+                     "allowed set, 0 = refused traffic by the identity "
+                     "gate (absent until the replica reports one)",
+                     labels))
+        if rep.get("digest"):
+            rows.append(("replica_model_info", 1, "gauge",
+                         "replica serving-weights identity (digest "
+                         "label)", {**labels,
+                                    "digest": str(rep["digest"])}))
+    if snapshot.get("fleet_digest"):
+        rows.append(("fleet_model_info", 1, "gauge",
+                     "THE fleet model digest the identity gate "
+                     "enforces (docs/serving.md, 'Model lifecycle')",
+                     {"digest": str(snapshot["fleet_digest"])}))
+    split = snapshot.get("traffic_split")
+    rows.append(("traffic_split_fraction",
+                 (split or {}).get("fraction"), "gauge",
+                 "fraction of picks routed to the canary group (absent "
+                 "outside a rollout)", None))
+    rows.extend(rollout_rows(rollout))
     return render(rows, prefix=prefix)
 
 
