@@ -460,6 +460,27 @@ non-zero at the first phase that fails:
    HTTP front end answers ``/healthz`` 200, ``/predict`` 200 and a
    typed 503, ``/metrics`` with the router and rollout rows.  K3's
    launches per replica life come from each replica's pong.
+34. score — bulk scoring: ``python -m tpuic_torch.score`` over a seeded
+   1,024-row corpus at 224 px (``train``'s first 128 images a class,
+   linked into a ``val`` fold of its own and packed by ``pack_dataset``),
+   scored with ``ckpt``'s ResNet-50 (``--model auto``) in shards of 64
+   rows at batch 32, K3 on every conv of each rung's graph-replayed
+   forward.  A: the undisturbed int8 run (the CLI's default) in this
+   process: images/s over the scoring loop beside ``ladder``'s int8
+   figure, K3 53 times a device call, no graph captured after warmup, the
+   audit exact; its shard files are the reference bytes.  B: the fp32
+   and bf16 rungs the same way, each rung's top-1 within 0.9 of fp32's
+   (the ladder's gate).  C, started with A: two worker processes under a
+   membership file (init, degrade, rejoin); rank 1, armed
+   ``scorer_crash@1#1``, dies by SIGKILL between its first link and
+   manifest, rank 0 steals its lease at once and adopts the shard, a
+   replacement rank 1 joins; ``python -m tpuic_torch.telemetry.fleet
+   --score-ledger --prom-dump`` exits 0 (scored + quarantined == corpus,
+   no duplicate commit record, a recovered one), every shard file equals
+   A's bit for bit, no worker captured a graph after warmup.  D:
+   ``shard_corrupt@2#1`` puts exactly one row in the quarantined column,
+   the audit exact.  E: a ledger copy with a commit record duplicated,
+   and one with it dropped, fail the audit (exit 1).
 
 Every launch count is set to 0 just before a path runs and read just after
 it.  Cuts: ResNet-50 trains in float32 (bf16 runs the ViT-B/16,
@@ -481,6 +502,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import glob
 import importlib
 import json
 import math
@@ -7389,6 +7411,378 @@ def phase_fleet(root: str, seed: int, ckpt_dir: str, smi: str,
     return row
 
 
+# -- [score]: bulk scoring on the card -----------------------------------------
+SCORE_PER_CLASS = 128    # corpus rows a class: 8 classes x 128 = 1,024
+SCORE_MIN_ROWS = 1024
+SCORE_BATCH = 32         # the engine's largest bucket
+SCORE_SHARD = 64         # rows a shard: 16 shards of two batches
+SCORE_CRASH_RANK = 1     # scorer_crash@1#1: rank 1 dies at its first commit
+SCORE_CORRUPT = (2, 1)   # shard_corrupt@2#1: shard 2's row at offset 1
+SCORE_AGREE = 0.9        # a rung's top-1 agreement with fp32: the ladder's gate
+SCORE_TIMEOUT = 300.0    # a gang worker's life, start to exit; each wait
+
+
+def _score_corpus(root: str) -> dict:
+    """The scoring corpus: the first SCORE_PER_CLASS images of each class
+    of ``train``'s folder (hard links: seeded synthetic PNGs at 224 px)
+    as a ``val`` fold of its own, packed by ``pack_dataset``."""
+    from tpuic_torch.config import DataConfig
+    from tpuic_torch.data.folder import ImageFolderDataset
+    from tpuic_torch.data.pack import pack_dataset
+    data = os.path.join(root, "score_data")
+    src = os.path.join(root, "train")
+    for c in sorted(os.listdir(src)):
+        os.makedirs(os.path.join(data, "val", c))
+        for name in sorted(os.listdir(os.path.join(src, c)))[
+                :SCORE_PER_CLASS]:
+            os.link(os.path.join(src, c, name),
+                    os.path.join(data, "val", c, name))
+    ds = ImageFolderDataset(data, "val", IMAGE, DataConfig(
+        data_dir=data, resize_size=IMAGE), allow_unlabeled=True)
+    packed = pack_dataset(ds, os.path.join(data, ".tpuic_pack"),
+                          log=lambda m: log("score", m))
+    t0 = time.perf_counter()
+    for i in range(len(packed)):
+        if not packed.verify_row(i):
+            fail("score", f"packed row {i} fails its CRC at rest")
+    return {"data": data, "n": len(packed), "pack_s": packed.pack_seconds,
+            "decoded": packed.decoded,
+            "crc_s": time.perf_counter() - t0}
+
+
+def _score_cmd(data: str, out: str, ckpt_dir: str) -> list:
+    return [sys.executable, "-m", "tpuic_torch.score", "--datadir", data,
+            "--out", out, "--ckpt-dir", ckpt_dir, "--model", "auto",
+            "--shard-size", str(SCORE_SHARD), "--batchsize",
+            str(SCORE_BATCH), "--poll", "0.1"]
+
+
+def _score_records(out: str) -> dict:
+    """``{index: record}`` of a job's result files."""
+    return {r["index"]: r for path in sorted(glob.glob(os.path.join(
+        out, "results", "*.jsonl"))) for r in _jsonl(path)}
+
+
+def _score_bytes(out: str) -> dict:
+    out_bytes = {}
+    for path in sorted(glob.glob(os.path.join(out, "results", "*.jsonl"))):
+        with open(path, "rb") as f:
+            out_bytes[os.path.basename(path)] = f.read()
+    return out_bytes
+
+
+def _score_ledger(out: str) -> list:
+    """Every rank's ledger records (a killed rank's torn tail skipped)."""
+    from tpuic_torch.telemetry.events import read_jsonl
+    return [r for p in sorted(glob.glob(os.path.join(out, "*.jsonl")))
+            for r in read_jsonl(p)]
+
+
+def _score_orphans(out: str) -> list:
+    """Result files published without a manifest (the dead rank's)."""
+    return [p for p in glob.glob(os.path.join(out, "results", "*.jsonl"))
+            if not os.path.exists(os.path.join(out, "manifests", os.path
+                                               .basename(p)[:-len(".jsonl")]
+                                               + ".json"))]
+
+
+def _score_gang(box: dict, data: str, out: str, ckpt_dir: str,
+                work: str) -> None:
+    """``[score]``'s elastic gang, on a thread of its own: two ``python -m
+    tpuic_torch.score`` workers on the card under the membership file
+    this thread writes.  Rank 1, armed ``scorer_crash@1#1``, starts
+    first; rank 0 starts once rank 1 has published its plan (so rank 1 is
+    first to a commit); rank 1 dies by SIGKILL between its first link and
+    manifest; the degrade is booked; rank 0 steals the dead rank's lease
+    at once (its owner left the active set; the lease's TTL is 30 s) and
+    adopts the shard; then the rejoin is booked and a replacement rank 1
+    starts.  Fills ``box`` (``error`` on a failure)."""
+    from tpuic_torch.runtime.membership import (ENV_MEMBERSHIP_FILE,
+                                                Membership, write_membership)
+    from tpuic_torch.telemetry.fleet import ENV_FLEET_RANK, ENV_FLEET_RANKS
+    here = os.path.dirname(os.path.abspath(__file__))
+    member = os.path.join(work, "membership.json")
+    procs, logs = box["procs"], box["logs"]
+    t0 = time.perf_counter()
+
+    def start(name, rank, spec=""):
+        env = dict(os.environ, PYTHONPATH=here,
+                   **{ENV_FLEET_RANK: str(rank), ENV_FLEET_RANKS: "2",
+                      ENV_MEMBERSHIP_FILE: member})
+        env.pop("TPUIC_FAULTS", None)
+        if spec:
+            env["TPUIC_FAULTS"] = spec
+        logs[name] = os.path.join(work, f"{name.replace(' ', '_')}.log")
+        with open(logs[name], "w") as f:
+            procs[name] = subprocess.Popen(
+                _score_cmd(data, out, ckpt_dir), env=env, cwd=here,
+                stdout=f, stderr=subprocess.STDOUT)
+        box["started_s"][name] = time.perf_counter() - t0
+
+    def book(version, active, reason, rank=None):
+        write_membership(member, Membership(
+            version=version, world=2, active=active, resume_step=None,
+            reason=reason, rank=rank, t=time.time()))
+        box["membership"].append((reason, time.perf_counter() - t0))
+
+    def planned():
+        path = os.path.join(out, f"ledger.rank{SCORE_CRASH_RANK}.jsonl")
+        return os.path.exists(path) and '"score_plan"' in open(path).read()
+
+    try:
+        book(1, [0, 1], "init")
+        start("rank 1", 1, f"scorer_crash@1#{SCORE_CRASH_RANK}")
+        if not _wait_until(lambda: planned()
+                           or procs["rank 1"].poll() is not None,
+                           SCORE_TIMEOUT):
+            raise RuntimeError("rank 1 published no plan")
+        start("rank 0", 0)
+        box["rc"]["rank 1"] = procs["rank 1"].wait(timeout=SCORE_TIMEOUT)
+        box["killed_s"] = time.perf_counter() - t0
+        if box["rc"]["rank 1"] != -signal.SIGKILL:
+            raise RuntimeError(f"rank 1 exited {box['rc']['rank 1']}, not "
+                               "by scorer_crash's SIGKILL")
+        box["orphans_at_kill"] = len(_score_orphans(out))
+        book(2, [0], "degrade", SCORE_CRASH_RANK)
+        if not _wait_until(lambda: not _score_orphans(out)
+                           or procs["rank 0"].poll() is not None,
+                           SCORE_TIMEOUT) or _score_orphans(out):
+            raise RuntimeError(f"the dead rank's shard was not adopted "
+                               f"(rank 0 exit {procs['rank 0'].poll()})")
+        box["adopted_s"] = time.perf_counter() - t0
+        book(3, [0, 1], "rejoin", SCORE_CRASH_RANK)
+        start("rank 1 replacement", 1)
+        for name in ("rank 0", "rank 1 replacement"):
+            box["rc"][name] = procs[name].wait(timeout=SCORE_TIMEOUT)
+        box["wall_s"] = time.perf_counter() - t0
+    except Exception:  # noqa: BLE001 - reported by the main thread
+        import traceback
+        box["error"] = traceback.format_exc()[-2000:]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def _score_run(tag: str, arm: str, data: str, out: str, ckpt_dir: str,
+               dtype: str, n: int) -> dict:
+    """One in-process ``run_score`` life over the corpus (the CLI's
+    defaults but the rung, batch and shard size): every count set to 0
+    just before, read just after.  Fails unless every shard committed,
+    the loop captured no graph, its audit is exact, and K3 ran 53 times a
+    device call and no other kernel ran."""
+    from tpuic_torch.score.driver import run_score
+    from tpuic_torch.telemetry.fleet import load_streams, score_audit
+    reset_counts()
+    s = run_score(data_dir=data, out_dir=out, model_name="resnet50",
+                  num_classes=1000, resize=IMAGE, batch_size=SCORE_BATCH,
+                  shard_size=SCORE_SHARD, dtype=dtype, ckpt_dir=ckpt_dir,
+                  poll_s=0.1, log=lambda *a: log(tag, " ".join(
+                      str(x) for x in a[1:])))
+    counts = read_counts()
+    audit = score_audit(load_streams([out]))
+    per_call = len(resnet50_launches(1))
+    calls = sum(-(-(int(m["scored"])) // SCORE_BATCH) for m in (
+        json.load(open(p)) for p in glob.glob(os.path.join(
+            out, "manifests", "*.json"))))
+    loop = s["kernel_launches"]
+    k3 = loop["fused_conv_bn_relu"]
+    if (s["shards_committed"] != s["shards"] or s["halted"]
+            or s["steady_compiles"] != 0 or not audit["ok"]
+            or s["rows_scored"] + s["rows_quarantined"] != n):
+        fail(tag, f"{arm}: {json.dumps(s)}; audit {audit['errors']}")
+    if (k3 != per_call * calls or not k3
+            or any(v for k, v in loop.items() if k != "fused_conv_bn_relu")
+            or counts["conv_bn_relu"] < k3):
+        fail(tag, f"{arm}: K3 launched {k3} times in the loop for {calls} "
+                  f"device calls ({per_call} a call); loop {loop}; counts "
+                  f"{counts}")
+    row = {"dtype": dtype, "images_per_s": s["rows_scored"] / s["wall_s"],
+           "wall_s": s["wall_s"], "device_calls": calls,
+           "k3_launches": k3, "k3_launches_with_warmup":
+               counts["conv_bn_relu"],
+           **{k: s[k] for k in ("rows_scored", "rows_quarantined",
+                                "steady_compiles", "commits_this_life")}}
+    log(tag, f"{arm}: {json.dumps(row)}")
+    free()
+    return row
+
+
+def phase_score(root: str, seed: int, ckpt_dir: str, smi: str,
+                ladder_int8: float) -> dict:
+    """Bulk scoring on the card: ``python -m tpuic_torch.score`` over a
+    seeded 1,024-row corpus at 224 px, scored with ``[ckpt]``'s ResNet-50
+    (1000 classes; ``--model auto --ckpt-dir``) in shards of SCORE_SHARD
+    rows at batch SCORE_BATCH, K3 on every conv of each rung's
+    graph-replayed forward.  A: the undisturbed int8 run (the CLI's
+    default) in this process, the reference bytes of every shard file;
+    B: the fp32 and bf16 rungs, each rung's top-1 within SCORE_AGREE of
+    fp32's; C: the elastic gang (``_score_gang``), started with A, its
+    audit exact through the fleet CLI (with ``--prom-dump``), a recovered
+    record, every shard file bitwise A's; D: ``shard_corrupt@2#1`` puts
+    exactly one row in the quarantined column, the audit exact; E: a
+    ledger copy with a commit record duplicated, and one with it dropped,
+    fail the audit."""
+    from tpuic_torch.telemetry.fleet import main as fleet_main
+    tag = "score"
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="score_", dir=root)
+    corpus = _score_corpus(root)
+    data, n = corpus["data"], corpus["n"]
+    if n < SCORE_MIN_ROWS:
+        fail(tag, f"corpus of {n} rows")
+    log(tag, f"corpus: {n} rows at {IMAGE} px, packed in "
+             f"{corpus['pack_s']:.3f} s ({corpus['decoded']}), shards of "
+             f"{SCORE_SHARD} at batch {SCORE_BATCH}; every row's CRC "
+             f"checked in {corpus['crc_s']:.3f} s")
+    gang = {"procs": {}, "logs": {}, "rc": {}, "started_s": {},
+            "membership": []}
+    out_el = os.path.join(work, "elastic")
+    thread = threading.Thread(target=_score_gang, daemon=True, args=(
+        gang, data, out_el, ckpt_dir, work))
+    thread.start()
+    row = {"corpus": {k: corpus[k] for k in ("n", "pack_s", "decoded",
+                                             "crc_s")},
+           "shard_size": SCORE_SHARD, "batch": SCORE_BATCH}
+    try:
+        outs = {t: os.path.join(work, t) for t in ("int8", "fp32", "bf16")}
+        rungs = {"int8": _score_run(tag, "A int8", data, outs["int8"],
+                                    ckpt_dir, "int8", n)}
+        for t in ("fp32", "bf16"):
+            rungs[t] = _score_run(tag, f"B {t}", data, outs[t], ckpt_dir, t,
+                                  n)
+        preds = {t: {i: r["pred"] for i, r in _score_records(o).items()}
+                 for t, o in outs.items()}
+        for t in ("int8", "bf16"):
+            agree = sum(preds[t][i] == preds["fp32"][i]
+                        for i in range(n)) / n
+            rungs[t]["top1_agreement_with_fp32"] = agree
+            if agree < SCORE_AGREE:
+                fail(tag, f"rung {t}: top-1 agreement {agree:.4f} with "
+                          f"fp32 < {SCORE_AGREE}")
+        row["rungs"] = rungs
+        row["ladder_int8_images_per_s"] = ladder_int8
+        row["crc_share_of_int8_loop"] = (corpus["crc_s"]
+                                         / rungs["int8"]["wall_s"])
+        reference = _score_bytes(outs["int8"])
+
+        # D: one row of shard 2 quarantined; the accounting stays exact.
+        shard, off = SCORE_CORRUPT
+        out_d = os.path.join(work, "corrupt")
+        from tpuic_torch.runtime import faults
+        faults.arm("shard_corrupt", steps=shard, param=off)
+        try:
+            corrupt = _score_run(tag, "D shard_corrupt", data, out_d,
+                                 ckpt_dir, "int8", n)
+        finally:
+            faults.reset()
+        bad = [r for r in _score_records(out_d).values()
+               if r.get("quarantined")]
+        rc_d = fleet_main([out_d, "--score-ledger"])
+        got_d = _score_bytes(out_d)
+        same = [k for k in reference if k != f"shard-{shard:05d}.jsonl"
+                and got_d.get(k) != reference[k]]
+        if (corrupt["rows_quarantined"] != 1 or len(bad) != 1
+                or bad[0]["index"] != shard * SCORE_SHARD + off
+                or bad[0]["reason"] != "injected" or rc_d != 0 or same):
+            fail(tag, f"shard_corrupt: {corrupt}, quarantined rows {bad}, "
+                      f"audit exit {rc_d}, other shards differing {same}")
+        row["shard_corrupt"] = {"quarantined_index": bad[0]["index"],
+                                "audit_exit": rc_d, **corrupt}
+
+        thread.join(timeout=4 * SCORE_TIMEOUT)
+        if thread.is_alive() or "error" in gang:
+            tails = {k: open(p).read()[-1500:]
+                     for k, p in gang["logs"].items() if os.path.exists(p)}
+            fail(tag, f"gang: {gang.get('error', 'still running')}; "
+                      f"exits {gang['rc']}; logs {json.dumps(tails)}")
+        here = os.path.dirname(os.path.abspath(__file__))
+        rep_path = os.path.join(work, "audit_elastic.json")
+        prom_path = os.path.join(work, "score_elastic.prom")
+        cli = subprocess.run(
+            [sys.executable, "-m", "tpuic_torch.telemetry.fleet", out_el,
+             "--score-ledger", "--json", rep_path, "--prom-dump",
+             prom_path], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+            capture_output=True, text=True, timeout=120)
+        rep = json.load(open(rep_path)) if os.path.exists(rep_path) else {}
+        prom = open(prom_path).read() if os.path.exists(prom_path) else ""
+        got = _score_bytes(out_el)
+        diff = sorted(k for k in reference if got.get(k) != reference[k])
+        dones = {r.get("rank"): r for r in _score_ledger(out_el)
+                 if r.get("event") == "score_done"}
+        if (cli.returncode != 0 or rep.get("n") != n
+                or rep.get("rows_scored", 0) + rep.get("rows_quarantined", 0)
+                != n or rep.get("shards_duplicated") != 0
+                or rep.get("recovered_records", 0) < 1
+                or "tpuic_score_ledger_exact 1" not in prom
+                or diff or len(got) != len(reference)
+                or sorted(dones) != [0, 1]
+                or any(d["steady_compiles"] for d in dones.values())
+                or gang["rc"] != {"rank 1": -signal.SIGKILL, "rank 0": 0,
+                                  "rank 1 replacement": 0}):
+            fail(tag, f"gang: audit exit {cli.returncode} "
+                      f"{cli.stdout[-600:]}{cli.stderr[-600:]}; report "
+                      f"{json.dumps(rep)[:800]}; files differing from A "
+                      f"{diff}; score_done by rank {json.dumps(dones)}; "
+                      f"exits {gang['rc']}")
+        row["gang"] = {
+            "wall_s": gang["wall_s"], "started_s": gang["started_s"],
+            "killed_s": gang["killed_s"], "adopted_s": gang["adopted_s"],
+            "membership": gang["membership"], "exits": gang["rc"],
+            "orphans_at_kill": gang["orphans_at_kill"],
+            "audit": {k: rep.get(k) for k in (
+                "shards_committed", "rows_scored", "rows_quarantined",
+                "shards_duplicated", "recovered_records",
+                "duplicate_score_events")},
+            "by_life": {
+                "rank 1 (SIGKILLed at its first commit)": "lost with it",
+                **{("rank 0" if r == 0 else "rank 1 replacement"): {
+                    "k3_launches": d["kernel_launches"][
+                        "fused_conv_bn_relu"],
+                    **{k: d[k] for k in (
+                        "commits_this_life", "steals_this_life",
+                        "recovered_records", "duplicates_this_life",
+                        "steady_compiles", "wall_s")}}
+                   for r, d in sorted(dones.items())}},
+            "prom_rows": sum(1 for ln in prom.splitlines()
+                             if ln.startswith("tpuic_score_"))}
+        if not dones[0]["steals_this_life"]:
+            fail(tag, f"rank 0 stole no lease: {json.dumps(dones[0])}")
+
+        # E: tampered ledger copies fail the audit.
+        lines = [ln for p in sorted(glob.glob(os.path.join(out_el,
+                                                           "*.jsonl")))
+                 for ln in open(p).read().splitlines(keepends=True)]
+        commit = next(ln for ln in lines if '"score_commit"' in ln)
+        tampered = {}
+        for arm, kept in (("duplicated", lines + [commit]),
+                          ("dropped", [ln for ln in lines
+                                       if ln != commit])):
+            d = os.path.join(work, f"tampered_{arm}")
+            os.makedirs(d)
+            with open(os.path.join(d, "ledger.jsonl"), "w") as f:
+                f.writelines(kept)
+            tampered[arm] = fleet_main([d, "--score-ledger"])
+        if tampered != {"duplicated": 1, "dropped": 1}:
+            fail(tag, f"tampered ledgers audited {tampered}")
+        row["tampered_audit_exits"] = tampered
+    finally:
+        for proc in gang["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+    row["k3_launches_by_path"] = {
+        **{f"score {t} (A)" if t == "int8" else f"score {t}": r[
+            "k3_launches"] for t, r in row["rungs"].items()},
+        "score int8 shard_corrupt": row["shard_corrupt"]["k3_launches"],
+        **{f"score gang {life}": v["k3_launches"]
+           for life, v in row["gang"]["by_life"].items()
+           if isinstance(v, dict)}}
+    row.update(card=smi, phase_s=time.perf_counter() - t0)
+    log(tag, json.dumps(row))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=320)
@@ -7531,6 +7925,8 @@ def main(argv=None) -> int:
                         smi)
         fleet = timed("fleet", phase_fleet, root, args.seed, ckpt_dir, smi,
                       fleet_started)
+        score = timed("score", phase_score, root, args.seed, ckpt_dir, smi,
+                      ladder["resnet50"]["served"]["int8"]["images_per_s"])
     took["total"] = time.perf_counter() - t_start
     log("timing", json.dumps(took))
     # The share of each training cell's train loop spent waiting for the
@@ -7673,6 +8069,10 @@ def main(argv=None) -> int:
                     accum["kernels"]["launches"][name], **res_paths(name)}
         if name.split(" ")[0] in K4:
             kernels[-1]["launches_by_path"] = k4(name.split(" ")[0])
+        if name == "conv_bn_relu (bf16 x)":
+            kernels[-1]["launches_by_path"] = {
+                "ladder bf16": n,
+                "score bf16": score["rungs"]["bf16"]["k3_launches"]}
     # K3 on the ladder's int8 and bf16 ResNet-50 rungs and the ddp val
     # passes beside [serve]'s.
     summary["launches_by_path"] = {
@@ -7685,7 +8085,8 @@ def main(argv=None) -> int:
         "convert --export-torch --verify": convert["export"]["launches"][
             "conv_bn_relu"],
         **{f"fleet {life}": n
-           for life, n in fleet["k3_launches_by_life"].items()}}
+           for life, n in fleet["k3_launches_by_life"].items()},
+        **score["k3_launches_by_path"]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kind": kind, "kernels": kernels,
@@ -7705,7 +8106,7 @@ def main(argv=None) -> int:
                        "moe_train": moe_train, "moe_serve": moe_serve,
                        "telemetry": telemetry, "serve_ops": serve_ops,
                        "resilience": resilience, "convert": convert,
-                       "fleet": fleet,
+                       "fleet": fleet, "score": score,
                        "k1_launches": {"train": counts, "inception_train":
                                        inc_counts, "digits": digits_counts,
                                        "vit_recipe": recipe_counts,

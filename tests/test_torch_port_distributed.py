@@ -123,7 +123,7 @@ def _finish(procs: list, timeout: float = 600.0) -> list:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.communicate(timeout=30)
     if any(p.returncode for p in procs):
         raise AssertionError("a rank failed:\n" + "\n".join(
             f"--- rank {r} (exit {p.returncode}) ---\n{o[-4000:]}"

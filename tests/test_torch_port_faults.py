@@ -88,9 +88,11 @@ def test_registered_points_are_one_set(jf):
         "nan_batch", "sigterm", "decode_error", "ckpt_kill", "slow_step",
         "hard_crash", "hang_step", "rank_crash", "rank_hang",
         "bf16_master_truncate"}
-    # What no path fires: elastic membership's point and bulk scoring's.
+    assert pf.FIRED_BY["score"] == {"scorer_crash", "shard_corrupt",
+                                    "lease_skew"}
+    # What no path fires: elastic membership's point.
     assert pf.REGISTERED_POINTS - set().union(*pf.FIRED_BY.values()) == {
-        "rank_rejoin_flap", "scorer_crash", "shard_corrupt", "lease_skew"}
+        "rank_rejoin_flap"}
     assert all(p <= pf.REGISTERED_POINTS for p in pf.FIRED_BY.values())
 
 
@@ -148,7 +150,14 @@ def test_corruption_helpers_leave_the_same_bytes(jf, tmp_path):
      "\\(the serve path fires 'flood'\\)"),
     ("serve", "nan_batch@3", "'nan_batch' not fired by the port's "
      "serve path \\(the train path fires 'nan_batch'\\)"),
-    ("serve", "scorer_crash@1#1", "item 14"),
+    ("serve", "scorer_crash@1#1", "'scorer_crash' not fired by the "
+     "port's serve path \\(the score path fires 'scorer_crash'\\)"),
+    ("train", "lease_skew#120", "'lease_skew' not fired by the port's "
+     "train path \\(the score path fires 'lease_skew'\\)"),
+    ("score", "flood#10", "'flood' not fired by the port's score path "
+     "\\(the serve path fires 'flood'\\)"),
+    ("score", "rank_rejoin_flap@3", "'rank_rejoin_flap' comes with "
+     "ROADMAP §1 item 13"),
     ("serve", "flood@x", "malformed directive 'flood@x'"),
 ])
 def test_check_fired_refuses_by_name(entry, spec, match):
@@ -165,6 +174,16 @@ def test_check_fired_passes_the_serving_points():
                             "ckpt_kill,slow_step#0.1,hard_crash@9,"
                             "hang_step@3#1,rank_crash@6#1,rank_hang@7,"
                             "bf16_master_truncate")
+
+
+def test_check_fired_passes_the_score_points():
+    """The score CLI fires all three bulk-scoring points
+    (``tests/test_torch_port_score.py`` fires each through it)."""
+    pf.check_fired("score", "")
+    pf.check_fired("score", "scorer_crash@1#1,shard_corrupt@2#1,"
+                            "lease_skew#120")
+    assert pf.FIRED_BY["score"] == {"scorer_crash", "shard_corrupt",
+                                    "lease_skew"}
 
 
 def _cli(module: str, spec: str, *args) -> subprocess.CompletedProcess:
@@ -199,3 +218,17 @@ def test_serve_cli_refuses_unfired_and_malformed_specs(tmp_path):
         out = _cli("tpuic_torch.serve", spec, "--device", "cpu",
                    "--ckpt-dir", str(tmp_path))
         assert out.returncode != 0 and want in out.stderr, out.stderr
+
+
+def test_score_cli_refuses_points_it_does_not_fire(tmp_path):
+    """``python -m tpuic_torch.score`` refuses a serving or training point
+    by name before anything loads, as the serve and train CLIs do."""
+    for spec, want in (("flood#10", "'flood' not fired by the port's score "
+                        "path (the serve path fires 'flood')"),
+                       ("hard_crash@2", "'hard_crash' not fired by the "
+                        "port's score path (the train path fires "
+                        "'hard_crash')")):
+        out = _cli("tpuic_torch.score", spec, "--datadir", str(tmp_path),
+                   "--out", str(tmp_path / "out"), "--device", "cpu")
+        assert out.returncode != 0 and want in out.stderr, out.stderr
+        assert not os.path.exists(tmp_path / "out")

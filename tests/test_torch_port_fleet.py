@@ -193,11 +193,43 @@ def test_cli_output_and_exit_codes_agree(tmp_path, args):
     assert mine.stderr == theirs.stderr
 
 
-def test_cli_score_prom_dump_is_refused_by_name(tmp_path):
-    _write_fleet(tmp_path)
-    out = _fleet_cli("tpuic_torch.telemetry.fleet", str(tmp_path),
-                     "--score-ledger", "--prom-dump", str(tmp_path / "p"))
-    assert out.returncode == 2 and "item 14" in out.stderr
+def test_cli_score_prom_dump_equals_tpuics(tmp_path):
+    """``--score-ledger --prom-dump`` writes ``tpuic``'s exposition byte
+    for byte, with the same stdout, stderr and exit code, over a clean
+    ledger and a tampered one."""
+    _write_fleet(tmp_path / "fleet")
+    clean = tmp_path / "score"
+    clean.mkdir()
+    plan = {"event": "score_plan", "n": 10, "shards": 2, "shard_size": 5,
+            "corpus_token": 1, "dtype": "int8",
+            "shard_table": [[0, 5], [5, 10]]}
+    commits = [{"event": "score_commit", "shard": s, "scored": 5 - s,
+                "quarantined": s, "recovered": bool(s)} for s in (0, 1)]
+    (clean / "ledger.jsonl").write_text("".join(
+        json.dumps(r) + "\n" for r in [plan, commits[0]]))
+    (clean / "ledger.rank1.jsonl").write_text("".join(
+        json.dumps(dict(r, rank=1, ranks=2)) + "\n"
+        for r in [plan, commits[1], {"event": "score_duplicate",
+                                     "shard": 0}]))
+    tampered = tmp_path / "tampered"
+    tampered.mkdir()
+    (tampered / "ledger.jsonl").write_text("".join(
+        json.dumps(r) + "\n" for r in [plan] + commits + commits[:1]))
+    got = {}
+    for d in (clean, tampered, tmp_path / "fleet"):
+        outs = []
+        for mod in ("tpuic_torch.telemetry.fleet", "tpuic.telemetry.fleet"):
+            prom = tmp_path / f"{d.name}-{mod.split('.')[0]}.prom"
+            cli = _fleet_cli(mod, str(d), "--score-ledger", "--prom-dump",
+                             str(prom))
+            outs.append((cli.returncode, cli.stdout.replace(str(prom), "P"),
+                         cli.stderr, prom.read_text()))
+        assert outs[0] == outs[1]
+        got[d.name] = outs[0]
+    assert got["score"][0] == 0 and got["tampered"][0] == 1
+    assert "tpuic_score_ledger_exact 1" in got["score"][3]
+    assert "tpuic_score_recovered_records 1" in got["score"][3]
+    assert "tpuic_score_shards_duplicated 1" in got["tampered"][3]
 
 
 # -- the flight recorder -------------------------------------------------------

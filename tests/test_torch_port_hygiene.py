@@ -25,11 +25,15 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpuic")
 
 # The parents that must outlive a CUDA wedge of their children: the
 # supervisors, the SLO arithmetic they and the rollout controller share, and
-# the front tier (router, rollout, HTTP front end, load generator).
+# the front tier (router, rollout, HTTP front end, load generator); and the
+# bulk scorer's lease and commit layers and the membership file they read,
+# which a launcher imports beside its workers, as ``tpuic``'s do.
 STDLIB_ONLY = ("tpuic_torch.supervise", "tpuic_torch.runtime.gang",
                "tpuic_torch.telemetry.slo", "tpuic_torch.serve.router",
                "tpuic_torch.serve.rollout", "tpuic_torch.serve.http",
-               "tpuic_torch.serve.loadgen")
+               "tpuic_torch.serve.loadgen", "tpuic_torch.runtime.membership",
+               "tpuic_torch.score", "tpuic_torch.score.work",
+               "tpuic_torch.score.commit")
 
 
 def _port_files():
@@ -68,6 +72,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_tpuic():
                  "tpuic_torch.runtime.gang", "tpuic_torch.runtime.supervisor",
                  "tpuic_torch.runtime.preemption", "tpuic_torch.supervise",
                  "tpuic_torch.checkpoint.torch_ref",
+                 "tpuic_torch.score.driver", "tpuic_torch.score.__main__",
                  *STDLIB_ONLY[3:]):
         assert name in got["names"]
     assert {f"tpuic_torch.telemetry.{m}" for m in (

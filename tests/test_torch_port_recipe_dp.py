@@ -117,7 +117,7 @@ def ranks(tmp_path_factory):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.communicate(timeout=30)
     assert not any(p.returncode for p in procs), "\n".join(
         o[-3000:] for o in outs)
     got = []

@@ -730,25 +730,55 @@ def test_rollout_cli_promotes_a_seeded_candidate_over_real_replicas(
              "--prom-port", str(prom_port)],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=ef,
             text=True, env=subprocess_env())
-    n = 0
+    # The answers are read as they come: a stdout pipe left full would
+    # block the rollout's writer, then its reader, then the feed below.
+    out_lines, sent = [], []
+    stop = threading.Event()
+    reader = threading.Thread(target=lambda: out_lines.extend(proc.stdout),
+                              daemon=True)
+
+    def feed():
+        # Live traffic, ~40 requests a second, until the verdict: a stage
+        # without samples never promotes.  At most 16 requests ahead of
+        # the answers (what the stdin pipe held), so a slow host's
+        # replicas are not buried under a backlog.
+        try:
+            while not stop.is_set():
+                n = len(sent)
+                if n - len(out_lines) >= 16:
+                    time.sleep(0.01)
+                    continue
+                proc.stdin.write(
+                    f'{{"id": "q{n}", {pool[n % len(pool)]}}}\n')
+                proc.stdin.flush()
+                sent.append(n)
+                time.sleep(0.025)
+        except (BrokenPipeError, ValueError):
+            pass  # the rollout exited: its failure is asserted below
+
+    writer = threading.Thread(target=feed, daemon=True)
+    reader.start()
+    writer.start()
     try:
-        # Live traffic, ~40 requests a second, until the rollout's verdict:
-        # a stage without samples never promotes.
         deadline = time.monotonic() + 240
         while "[rollout] verdict" not in err.read_text():
             assert time.monotonic() < deadline, err.read_text()[-2000:]
             assert proc.poll() is None, err.read_text()[-2000:]
-            proc.stdin.write(f'{{"id": "q{n}", {pool[n % len(pool)]}}}\n')
-            proc.stdin.flush()
-            n += 1
-            time.sleep(0.025)
+            time.sleep(0.05)
+        stop.set()
+        writer.join(timeout=30)
+        assert not writer.is_alive()
         # The rollout's rows where a user reads them: the CLI's
         # --prom-port exposition, beside the router's.
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{prom_port}/metrics", timeout=30) as r:
             metrics = r.read().decode()
-        out, _ = proc.communicate(timeout=180)
+        proc.stdin.close()
+        proc.wait(timeout=180)
+        reader.join(timeout=30)
+        assert not reader.is_alive()
     finally:
+        stop.set()
         if proc.poll() is None:
             # SIGTERM first: the router drains and stops its replicas (a
             # SIGKILL would leave them running).
@@ -757,15 +787,16 @@ def test_rollout_cli_promotes_a_seeded_candidate_over_real_replicas(
                 proc.wait(timeout=60)
             except subprocess.TimeoutExpired:
                 proc.kill()
-                proc.wait()
-    recs = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+                proc.wait(timeout=30)
+    n = len(sent)
+    recs = [json.loads(ln) for ln in out_lines if ln.strip()]
     verdict = recs[-1]
     assert verdict["op"] == "rollout_verdict", err.read_text()[-2000:]
     assert verdict["verdict"] == "promoted", verdict
     assert proc.returncode == 0
     answered = [r for r in recs[:-1] if "pred" in r]
     assert sorted(r["id"] for r in answered) == sorted(
-        f"q{i}" for i in range(n))
+        f"q{i}" for i in range(n)), [r for r in recs if "pred" not in r][:5]
     assert {r["replica"] for r in answered} == {"r0", "r1"}
     assert "tpuic_router_offered_total" in metrics
     assert "tpuic_router_rollout_phase" in metrics

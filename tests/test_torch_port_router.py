@@ -716,7 +716,8 @@ def test_real_replicas_answer_like_a_direct_forward_and_fail_over(
         futs = [(i, r.submit(x[i:i + 1], timeout=30)) for i in range(8)]
         check([(i, f.result(timeout=60)) for i, f in futs])
         assert {rec["replica"] for _, rec in
-                [(i, f.result()) for i, f in futs]} == {"r0", "r1"}
+                [(i, f.result(timeout=60)) for i, f in futs]} == {"r0",
+                                                                  "r1"}
 
         r.stats.reset()
         futs = [(i, r.submit(x[i:i + 1], timeout=30)) for i in range(8, 24)]
@@ -731,7 +732,7 @@ def test_real_replicas_answer_like_a_direct_forward_and_fail_over(
         assert snap["rejected"] == 0 and snap["failovers"] == 1
         assert snap["failover_requeued"] >= 1 and snap["failover_lost"] == 0
         replayed = [f for _, f in futs if getattr(f, "tpuic_retries", 0)]
-        assert replayed and all(f.result()["replica"] == "r1"
+        assert replayed and all(f.result(timeout=60)["replica"] == "r1"
                                 for f in replayed)
     finally:
         r.close(drain=False)
@@ -787,7 +788,7 @@ def test_router_cli_with_http_front_end_over_a_real_replica(tmp_path):
                 proc.wait(timeout=60)
             except subprocess.TimeoutExpired:
                 proc.kill()
-                proc.wait()
+                proc.wait(timeout=30)
     assert proc.returncode == 0
     recs = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
     assert sorted(r["id"] for r in recs) == [f"q{i}" for i in range(6)]

@@ -284,7 +284,8 @@ def test_launch_tally_is_the_capturing_threads_own():
         counting.count_launch(kernel)
         inside.set()
         assert done.wait(10)
-    t.join()
+    t.join(timeout=10)
+    assert not t.is_alive()
     assert mine == {kernel: 2} and kernel.launches == 5
     counting.count_launch(kernel)
     counting.add_launches(mine.items())

@@ -419,7 +419,7 @@ def test_listen_sigterm_drains_with_typed_stragglers(served, tmp_path):
     try:
         deadline = time.monotonic() + 120.0
         while (ready := wire.read_ready_file(str(ready_file))) is None:
-            assert proc.poll() is None, proc.communicate()[1]
+            assert proc.poll() is None, proc.communicate(timeout=30)[1]
             assert time.monotonic() < deadline, "no ready file"
             time.sleep(0.05)
         img = pserve._load_image(served["images"][0], SIZE)[None]
@@ -449,7 +449,7 @@ def test_listen_sigterm_drains_with_typed_stragglers(served, tmp_path):
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.wait()
+            proc.wait(timeout=30)
     # Every accepted request got a line: an answer or a typed straggler.
     assert sorted(r["id"] for r in recs) == sorted(f"s{i}"
                                                    for i in range(64))

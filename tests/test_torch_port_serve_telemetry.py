@@ -466,7 +466,8 @@ def test_cli_brownout_tightens_under_the_flood(stub_engine, tmp_path,
     finally:
         pf.reset()
         unsub()
-        feeder.join()
+        feeder.join(timeout=30)
+    assert not feeder.is_alive()
     recs = [json.loads(ln) for ln in out.read_text().splitlines()]
     assert [r["id"] for r in recs] == ["hi"] and "pred" in recs[0]
     assert any(e.data["action"] == "tighten" for e in sink.of("admission"))

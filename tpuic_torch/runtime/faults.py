@@ -58,10 +58,22 @@ steps_per_epoch +`` the step in the epoch) unless said otherwise:
                       checked when the step is built: every applied update
                       rounds the float32 master weights through bf16.
 
-``rank_rejoin_flap`` needs elastic membership (ROADMAP §1 item 13) and
-the bulk-scoring points (``scorer_crash``, ``shard_corrupt``,
-``lease_skew``) bulk scoring (item 14): the port fires none of them, and
-the train and serve CLIs refuse a spec that arms one, by name.
+and the bulk-scoring points (``python -m tpuic_torch.score``):
+
+- ``scorer_crash``  — the shard commit (``score/commit.py``): SIGKILL
+                      this process between the result file's link and its
+                      manifest, at the life's ``step``-th commit, only on
+                      the rank ``param`` names (default 0).
+- ``shard_corrupt`` — ``score/driver.py``: quarantine the row at offset
+                      ``param`` (default 0) of shard ``step`` as if its
+                      packed CRC had failed.
+- ``lease_skew``    — the lease layer (``score/work.py``): age every
+                      observed lease by ``param`` seconds (default one
+                      TTL), the clock drift that double-claims a shard.
+
+``rank_rejoin_flap`` needs elastic membership (ROADMAP §1 item 13): the
+port fires it nowhere.  Each CLI refuses a spec that arms a point its
+path does not fire, by name (``check_fired``).
 
 Arming: programmatic (tests) via ``arm()``/``disarm()``/``reset()``, or
 the ``TPUIC_FAULTS`` env var for whole-process CLI runs, a comma list of
@@ -106,20 +118,20 @@ REGISTERED_POINTS = frozenset({
 })
 
 
-# The points each of the port's entry points fires.  The rest are not
-# ported yet: rank_rejoin_flap with elastic membership (ROADMAP §1 item
-# 13), the bulk-scoring points with item 14.
+# The points each of the port's entry points fires.  rank_rejoin_flap
+# is not ported yet: it comes with elastic membership (ROADMAP §1 item
+# 13).
 FIRED_BY = {
     "serve": frozenset({"flood", "replica_crash", "replica_wedge",
                         "hang_device", "canary_degrade", "swap_corrupt"}),
     "train": frozenset({"nan_batch", "sigterm", "decode_error",
                         "ckpt_kill", "slow_step", "hard_crash", "hang_step",
                         "rank_crash", "rank_hang", "bf16_master_truncate"}),
+    "score": frozenset({"scorer_crash", "shard_corrupt", "lease_skew"}),
 }
 # The points no entry point of the port fires yet, with the ROADMAP §1
 # item that brings each.
-_LATER = {"rank_rejoin_flap": 13, "scorer_crash": 14, "shard_corrupt": 14,
-          "lease_skew": 14}
+_LATER = {"rank_rejoin_flap": 13}
 
 
 class InjectedFault(RuntimeError):
@@ -267,7 +279,7 @@ def fired(point: str) -> int:
 
 def check_fired(entry: str, spec: Optional[str] = None) -> None:
     """Raise ValueError naming every armed point that ``entry``'s path
-    ("serve" or "train") does not fire, in the process plan or in
+    ("serve", "train" or "score") does not fire, in the process plan or in
     ``spec`` (a ``TPUIC_FAULTS`` string, parsed here: a malformed one
     raises too): a chaos spec the port would drop without a word must fail
     the run instead."""

@@ -48,8 +48,9 @@ committed desynchronises the group.  ``python -m tpuic_torch.supervise
   per rank.
 
 ``tpuic``'s elastic mode (degrade and rejoin without restarting the
-survivors, ``--elastic``, ``--min-ranks``, ``--max-respawns``,
-``runtime/membership.py``) is ROADMAP §1 item 13.
+survivors, ``--elastic``, ``--min-ranks``, ``--max-respawns``: the writer
+side of ``runtime/membership.py``, whose reader the bulk scorer uses) is
+ROADMAP §1 item 13.
 
 Like the single supervisor, this module imports only the stdlib: the
 parent must never initialise CUDA, and must outlive any wedge a rank

@@ -456,16 +456,10 @@ def main(argv=None) -> int:
                         "record per shard, duplicates and drops loud — "
                         "exit 1 on any violation")
     p.add_argument("--prom-dump", default="", metavar="PATH",
-                   help="with --score-ledger: the tpuic_score_* "
-                        "exposition; not yet ported to tpuic_torch "
-                        "(ROADMAP §1 item 14)")
+                   help="with --score-ledger: write the tpuic_score_* "
+                        "Prometheus exposition of the audit here")
     args = p.parse_args(argv)
 
-    if args.prom_dump:
-        print("[fleet] --prom-dump: the tpuic_score_* exposition is not "
-              "yet ported to tpuic_torch (ROADMAP §1 item 14)",
-              file=sys.stderr)
-        return 2
     if args.score_ledger:
         streams = load_streams(args.paths)
         if not streams:
@@ -478,6 +472,11 @@ def main(argv=None) -> int:
             with open(args.json, "w") as f:
                 json.dump(report, f, indent=2)
             print(f"[fleet] report -> {args.json}")
+        if args.prom_dump:
+            from tpuic_torch.telemetry.prom import (render, score_rows,
+                                                    write_exposition)
+            write_exposition(args.prom_dump, render(score_rows(report)))
+            print(f"[fleet] prom exposition -> {args.prom_dump}")
         return 0 if report["ok"] else 1
 
     if args.require_ranks and args.membership:

@@ -19,7 +19,10 @@ engine's per-bucket CUDA graphs (``compile_cache_rows``).
 router's ``tpuic_router_*`` rows and a canary rollout's
 ``tpuic_rollout_*`` rows (``rollout_rows``).  ``PromServer`` serves
 ``/metrics`` over HTTP from a daemon thread (the serve and router CLIs'
-``--prom-port``).  The score rows are ROADMAP §1 item 14.
+``--prom-port``).  ``score_rows`` renders a bulk-scoring worker's
+``score_done`` summary or the fleet's score-ledger audit as
+``tpuic_score_*`` rows (``python -m tpuic_torch.score --prom-dump``,
+``python -m tpuic_torch.telemetry.fleet --score-ledger --prom-dump``).
 """
 
 from __future__ import annotations
@@ -171,6 +174,51 @@ def compile_cache_rows(counters: Optional[dict]) -> List[Tuple]:
         ("compile_cache_entries", c.get("entries", 0), "gauge",
          "CUDA graphs the engine holds (live slot and standby)", None),
     ]
+
+
+def score_rows(report: Optional[dict]) -> List[Tuple]:
+    """Bulk-scoring exposition rows (``tpuic``'s): works off either a
+    worker's ``score_done`` summary (``score/driver.py``) or the fleet
+    audit report (``telemetry/fleet.py`` ``score_audit``); the two share
+    their key vocabulary, and fields only one side carries render only
+    there.  None renders nothing."""
+    r = report or {}
+    rows: List[Tuple] = []
+    for field, mtype, help_ in (
+            ("n", "gauge", "corpus rows the scoring plan covers"),
+            ("shards", "gauge", "shards in the scoring plan"),
+            ("shards_committed", "gauge",
+             "shards with a verified result manifest"),
+            ("shards_missing", "gauge",
+             "planned shards with no ledger commit record (audit; "
+             "alert nonzero: dropped work)"),
+            ("shards_duplicated", "gauge",
+             "shards with more than one ledger commit record (audit; "
+             "alert nonzero: double-counted corpus)"),
+            ("rows_scored", "counter", "corpus rows scored"),
+            ("rows_quarantined", "counter",
+             "corpus rows quarantined (undecodable at pack time or "
+             "failing their packed row CRC at read time)"),
+            ("recovered_records", "counter",
+             "ledger commit records appended by a survivor for a dead "
+             "winner (crash-window repair, not a violation)"),
+            ("duplicate_score_events", "counter",
+             "double-scored shard attempts deduped at commit (lease "
+             "races cost throughput, not correctness)"),
+            ("steady_compiles", "gauge",
+             "executables compiled AFTER engine warmup during scoring "
+             "(the zero-steady-state-compile contract; alert nonzero)"),
+            ("steals_this_life", "counter",
+             "expired/orphaned shard leases this worker stole"),
+    ):
+        if r.get(field) is not None:
+            rows.append((f"score_{field}", r[field], mtype, help_, None))
+    if r.get("ok") is not None:
+        rows.append(("score_ledger_exact", 1.0 if r["ok"] else 0.0,
+                     "gauge", "1 when the ledger audit held exactly "
+                     "(scored + quarantined == corpus, zero duplicates, "
+                     "zero drops)", None))
+    return rows
 
 
 def _process_rss_row() -> Tuple:
